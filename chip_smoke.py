@@ -1,0 +1,378 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port (``sisua_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from ``sisua_tpu_torch/csrc`` and
+drives the port's main path, SCVI training with the ZINB likelihood in its
+'full' dispersion form at full transcriptome width (33,000 genes), through
+the entry points a user calls: ``SCVI(...).fit`` and ``evaluate``.
+
+Phases, one result line each; any failure raises and exits non-zero
+before the final line:
+  1. device: CUDA present; card name and power limit from nvidia-smi;
+  2. build: nvcc → shared library, seconds and the ptxas report;
+  3. each kernel against its plain PyTorch version on the card, at the main
+     path's shapes and at edge shapes (forward rtol 1e-4; gradients rtol
+     2e-4 / atol 1e-5, plus a sum-order term for per-gene sums), with
+     median µs per call of kernel and plain, timed with CUDA events over
+     back-to-back calls in turns (plain, kernel, kernel, plain);
+  4. SCVI fit on 8,192 × 33,000 device-resident synthetic counts, batch
+     512, 16 epochs in two windows of 8; every loss finite, the last
+     window's mean loss below the first's, both launch counters equal to
+     the step count; then evaluate on 1,024 held-out cells;
+  5. the kernel route against the plain route (distribution math under
+     autograd) on one 512 × 33,000 batch at the same converted weights and
+     noise, for 'full' and 'single' dispersion.
+Before the last line it prints the kernels' JSON summary; the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"
+SEED = 0
+GENES = 33_000
+CELLS = 8192
+HELD_OUT = 1024
+BATCH = 512
+EPOCHS = 16
+WINDOW = 8            # metrics_interval, in epochs
+FWD_RTOL = 1e-4       # row-sum order bound (tests/test_ops.py:79)
+GRAD_TOL = dict(rtol=2e-4, atol=1e-5)  # tests/test_ops.py:130
+# a per-gene (1, D) gradient sums B rows in another order than the plain
+# version: its atol adds ~8 float32 ulps (1e-6) of Σ_rows |term|
+SUM_ULPS = 1e-6
+ROUTE_LOSS_RTOL = 1e-4
+# per parameter: max|Δg| ≤ 1e-3·(max|g| of it + 1e-3·max|g| overall)
+ROUTE_GRAD_BOUND = 1e-3
+
+
+def log(msg):
+  print(msg, flush=True)
+
+
+def check(cond, msg):
+  if not cond:
+    raise RuntimeError(f"check failed: {msg}")
+
+
+def phase_device(torch):
+  check(torch.cuda.is_available(), "torch.cuda.is_available()")
+  try:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+  except (OSError, IndexError, subprocess.SubprocessError) as e:
+    smi = f"unavailable ({e})"
+  log(f"[1 device] {smi}")
+  log(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda} "
+      f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
+  return smi
+
+
+def phase_build():
+  from sisua_tpu_torch.ops import _build
+  fresh = not _build.library_path().is_file()
+  t0 = time.perf_counter()
+  lib = _build.build()
+  _build.load()
+  dt = time.perf_counter() - t0
+  log(f"[2 build] {'built' if fresh else 'reused'} {lib.name} in {dt:.2f} s")
+  report = lib.with_suffix(".log")
+  if report.is_file():  # one line per kernel: registers and spills
+    name, spills = None, ""
+    for line in report.read_text().splitlines():
+      if "Compiling entry function" in line:
+        name = next((k for k in ("zinb_rowsum_fwd_kernel",
+                                 "zinb_rowsum_bwd_kernel",
+                                 "column_sum_kernel") if k in line), line)
+        name += "<constrained>" if "ILb1E" in line else ""
+      elif "spill" in line:
+        spills = line.strip()
+      elif "registers" in line and name:
+        log(f"[2 build] {name}: {line.split(':', 1)[1].strip()}; {spills}")
+
+
+def _time_turns(torch, fns, reps=10, rounds=3):
+  """Median µs per call. A turn is ``reps`` back-to-back calls between two
+  CUDA events (host overhead overlaps the device as in a real step); turns
+  go plain, kernel, kernel, plain, ``rounds`` times, after a warm-up."""
+  for f in fns.values():
+    f()
+  torch.cuda.synchronize()
+  samples = {k: [] for k in fns}
+  for k in ("plain", "kernel", "kernel", "plain") * rounds:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+      fns[k]()
+    end.record()
+    end.synchronize()
+    samples[k].append(start.elapsed_time(end) * 1e3 / reps)
+  return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def _counts(torch, gen, rows, cols):
+  """Poisson(exp(−2.5 + 1.2·N(0,1))) × Bernoulli(0.5) counts on the card
+  (benchmarks/wide_genes.py's synthetic transcriptome)."""
+  lam = torch.exp(-2.5 + 1.2 * torch.randn((rows, cols), generator=gen,
+                                           device=DEVICE))
+  x = torch.poisson(lam, generator=gen)
+  return x * (torch.rand((rows, cols), generator=gen, device=DEVICE) > 0.5)
+
+
+def _case(torch, gen, name, rows, cols, constrained, per_gene):
+  """Operands for one phase-3 case: (x, θ-operand, logits, gate)."""
+  x = _counts(torch, gen, rows, cols)
+  shapes = [(1 if pg else rows, cols) for pg in per_gene]
+  cr = torch.randn(shapes[0], generator=gen, device=DEVICE)
+  if constrained:  # θ itself, log-normal around e^0.5
+    cr = torch.exp(0.5 + 0.7 * cr)
+  lg = torch.randn(shapes[1], generator=gen, device=DEVICE) - 2.0
+  gt = torch.randn(shapes[2], generator=gen, device=DEVICE) - 1.0
+  if name == "nb_gate":
+    gt = torch.full(shapes[2], -1e30, device=DEVICE)
+  return x, cr, lg, gt
+
+
+def _extreme_case(torch):
+  """θ ∈ {1e-8, 1e7}, logits ±30, x ∈ {0, 1e6}, gate ±3: every
+  combination, four rows."""
+  vals = torch.cartesian_prod(torch.tensor([1e-8, 1e7]),
+                              torch.tensor([-30.0, 30.0]),
+                              torch.tensor([0.0, 1e6]),
+                              torch.tensor([-3.0, 3.0])).T.contiguous()
+  th, lg, x, gt = (v.repeat(4, 1).to(DEVICE).contiguous() for v in vals)
+  return x, th, lg, gt
+
+
+def phase_kernels(torch):
+  from sisua_tpu_torch.ops import zinb as tz
+  import numpy as np
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+  cases = [  # name, rows, cols, constrained, per-gene (θ, logits, gate)
+      ("main_full", BATCH, GENES, False, (False, False, False)),
+      ("main_gene_theta", BATCH, GENES, True, (True, False, False)),
+      ("nb_gate", BATCH, GENES, False, (False, False, True)),
+      ("tall", 4096, 2048, False, (False, False, False)),
+      ("ragged", 130, 1001, True, (True, False, False)),
+      ("extreme", 4, 16, True, (False, False, False)),
+  ]
+  results = {}
+  for name, rows, cols, constrained, pg in cases:
+    if name == "extreme":
+      x, cr, lg, gt = _extreme_case(torch)
+    else:
+      x, cr, lg, gt = _case(torch, gen, name, rows, cols, constrained, pg)
+    g = torch.randn((x.shape[0],), generator=gen, device=DEVICE)
+    need = (True, True, name != "nb_gate")  # the NB gate needs no gradient
+    out = tz._fwd_launch(x, cr, lg, gt, constrained)
+    grads = tz._bwd_launch(x, cr, lg, gt, g, constrained, need)
+    torch.cuda.synchronize()
+    ref = tz._rowsum_ref(x, cr, lg, gt, constrained)
+    refs = tz._grads_ref(x, cr, lg, gt, g, constrained, need)
+    o, r = out.cpu().numpy(), ref.cpu().numpy()
+    check(np.isfinite(o).all(), f"{name}: forward not finite")
+    np.testing.assert_allclose(o, r, rtol=FWD_RTOL,
+                               err_msg=f"{name}: forward")
+    fwd_err = float(np.abs(o - r).max())
+    bwd_err = 0.0
+    terms = tz._zinb_grads_elem(x, cr, lg, gt, constrained)
+    for field, a, b, t in zip(("theta", "logits", "gate"), grads, refs,
+                              terms):
+      if b is None:
+        check(a is None, f"{name}: unneeded {field} gradient written")
+        continue
+      check(a.shape == b.shape, f"{name}: {field} shape {tuple(a.shape)}")
+      atol = GRAD_TOL["atol"]
+      if b.shape[0] == 1 < x.shape[0]:  # per-gene: a sum over the rows
+        atol = atol + SUM_ULPS * (g[:, None] * t).abs().sum(0).cpu().numpy()
+      a, b = a.cpu().numpy(), b.cpu().numpy()
+      bad = ~(np.abs(a - b) <= atol + GRAD_TOL["rtol"] * np.abs(b))
+      check(not bad.any(), f"{name}: d{field} {bad.sum()} of {bad.size} "
+            f"off, worst |Δ| {np.abs(a - b)[bad].max() if bad.any() else 0}")
+      bwd_err = max(bwd_err, float(np.abs(a - b).max()))
+    twice = tz._bwd_launch(x, cr, lg, gt, g, constrained, need)
+    check(all(u is None or torch.equal(u, v) for u, v in zip(grads, twice)),
+          f"{name}: backward not bitwise reproducible")
+    t_fwd = _time_turns(torch, {
+        "plain": lambda: tz._rowsum_ref(x, cr, lg, gt, constrained),
+        "kernel": lambda: tz._fwd_launch(x, cr, lg, gt, constrained)})
+    t_bwd = _time_turns(torch, {
+        "plain": lambda: tz._grads_ref(x, cr, lg, gt, g, constrained, need),
+        "kernel": lambda: tz._bwd_launch(x, cr, lg, gt, g, constrained,
+                                         need)})
+    results[name] = dict(fwd_err=fwd_err, bwd_err=bwd_err, t_fwd=t_fwd,
+                         t_bwd=t_bwd)
+    log(f"[3 kernels] {name} {tuple(x.shape)} constrained={constrained} "
+        f"per_gene={pg}: fwd max|Δ| {fwd_err:.3e} kernel "
+        f"{t_fwd['kernel']:.1f} µs plain {t_fwd['plain']:.1f} µs | bwd "
+        f"max|Δ| {bwd_err:.3e} kernel {t_bwd['kernel']:.1f} µs plain "
+        f"{t_bwd['plain']:.1f} µs")
+    del x, cr, lg, gt, out, grads, ref, refs, terms, twice
+  return results
+
+
+def _scvi(torch, dispersion, **kw):
+  from sisua_tpu_torch.models import SCVI, RVmeta
+  return SCVI(RVmeta(GENES, "zinbd", name="rna"),
+              latents=RVmeta(16, "diag", name="latents"),
+              encoder={"units": [128, 128], "batchnorm": True},
+              decoder={"units": [128, 128], "batchnorm": True},
+              dispersion=dispersion, device=DEVICE, seed=SEED, **kw)
+
+
+def phase_fit(torch):
+  import numpy as np
+  from sisua_tpu_torch.data import get_library_size
+  from sisua_tpu_torch.ops import zinb as tz
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+  t0 = time.perf_counter()
+  x = torch.cat([_counts(torch, gen, 1024, GENES)
+                 for _ in range(CELLS // 1024)])
+  held = _counts(torch, gen, HELD_OUT, GENES)
+  mean, var = get_library_size(x)
+  library = torch.cat([mean, var], dim=1)
+  torch.cuda.synchronize()
+  log(f"[4 fit] data {tuple(x.shape)} on the card "
+      f"({x.numel() * 4 / 1e9:.2f} GB f32) in "
+      f"{time.perf_counter() - t0:.1f} s; library mean "
+      f"{float(mean[0]):.4f} var {float(var[0]):.4f}")
+  model = _scvi(torch, "full")
+  torch.cuda.reset_peak_memory_stats()
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  model.fit(x, library=library, epochs=EPOCHS, batch_size=BATCH,
+            learning_rate=1e-3, clipnorm=100.0, metrics_interval=WINDOW)
+  fit_s = time.perf_counter() - t0
+  steps = EPOCHS * (CELLS // BATCH)
+  fit_launches = dict(tz.launches)
+  h = model.history
+  losses = np.asarray(h["loss"])
+  check(len(losses) == EPOCHS and model.step == steps,
+        f"ran {len(losses)} epochs / {model.step} steps")
+  check(np.isfinite(losses).all(), f"non-finite loss {losses}")
+  first, last = losses[:WINDOW].mean(), losses[-WINDOW:].mean()
+  check(last < first, f"last window loss {last} !< first {first}")
+  check(fit_launches == {"zinb_rowsum_fwd": steps,
+                         "zinb_rowsum_bwd": steps},
+        f"launches {fit_launches} != {steps} steps")
+  step_ms = float(np.median(h["epoch_time"][-WINDOW:])) / (
+      CELLS // BATCH) * 1e3
+  cells_s = float(np.median(h["cells_per_sec"][-WINDOW:]))
+  peak = torch.cuda.max_memory_allocated()
+  log(f"[4 fit] {steps} steps in {fit_s:.1f} s; loss first window "
+      f"{first:.2f} last window {last:.2f}; steady step {step_ms:.3f} ms, "
+      f"{cells_s:.0f} cells/s (last window); peak memory "
+      f"{peak / 2**30:.2f} GiB; launches {fit_launches}")
+  hmean, hvar = get_library_size(held)
+  ev = model.evaluate(held, library=torch.cat([hmean, hvar], 1),
+                      batch_size=BATCH)
+  eval_fwd = tz.launches["zinb_rowsum_fwd"] - steps
+  check(all(np.isfinite(v) for v in ev.values()), f"evaluate {ev}")
+  check(eval_fwd == HELD_OUT // BATCH
+        and tz.launches["zinb_rowsum_bwd"] == steps,
+        f"evaluate launches {tz.launches}")
+  log(f"[4 fit] evaluate on {HELD_OUT} held-out cells: loss "
+      f"{ev['loss']:.2f} llk_x {ev['llk_x']:.2f} klqp_z {ev['klqp_z']:.3f}; "
+      f"forward launches +{eval_fwd}")
+  return model, x, library, dict(tz.launches)
+
+
+def _route_grads(torch, model, sd, batch, noise, mode):
+  """Loss and parameter gradients of one train-mode step under one route,
+  from the same state, dropout draws and reparameterization noise."""
+  os.environ["SISUA_TPU_FUSED_LIKELIHOOD"] = mode
+  try:
+    model.module.load_state_dict(sd)
+    model.generator.manual_seed(SEED + 7)
+    model.module.zero_grad(set_to_none=True)
+    loss, _, _ = model._loss(batch, True, 1.0, noise=noise)
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {k: p.grad.detach().clone()
+                         for k, p in model.module.named_parameters()}
+  finally:
+    os.environ.pop("SISUA_TPU_FUSED_LIKELIHOOD", None)
+
+
+def phase_routes(torch, trained, x, library):
+  from sisua_tpu_torch import convert
+  from sisua_tpu_torch.ops import zinb as tz
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+  rows = torch.arange(BATCH, device=DEVICE)
+  batch = {"inputs": [x[rows]], "library": library[rows],
+           "mask": torch.ones(BATCH, device=DEVICE)}
+  noise = [torch.randn((BATCH, 16), generator=gen, device=DEVICE),
+           torch.randn((BATCH, 1), generator=gen, device=DEVICE)]
+  for dispersion in ("full", "single"):
+    src = trained if dispersion == "full" else _scvi(torch, "single")
+    model = _scvi(torch, dispersion)
+    params, stats = convert.torch_to_jax(src.module)
+    sd = convert.jax_to_torch(model.module, params, stats)
+    before = dict(tz.launches)
+    lk, gk = _route_grads(torch, model, sd, batch, noise, "auto")
+    check(tz.launches["zinb_rowsum_fwd"] == before["zinb_rowsum_fwd"] + 1
+          and tz.launches["zinb_rowsum_bwd"]
+          == before["zinb_rowsum_bwd"] + 1, "kernel route missed a kernel")
+    lp, gp = _route_grads(torch, model, sd, batch, noise, "off")
+    check(abs(lk - lp) <= ROUTE_LOSS_RTOL * abs(lp),
+          f"{dispersion}: loss kernel {lk} plain {lp}")
+    scale = max(float(g.abs().max()) for g in gp.values())
+    worst, worst_key = 0.0, None
+    for k, g in gp.items():
+      bound = float(g.abs().max()) + 1e-3 * scale
+      ratio = float((gk[k] - g).abs().max()) / bound
+      if ratio > worst:
+        worst, worst_key = ratio, k
+    check(worst <= ROUTE_GRAD_BOUND,
+          f"{dispersion}: gradient {worst_key} off by {worst:.2e}")
+    log(f"[5 routes] {dispersion}: loss kernel {lk:.4f} plain {lp:.4f} "
+        f"(rel {abs(lk - lp) / abs(lp):.2e}); worst gradient "
+        f"max|Δ|/(max|g|+1e-3·G) {worst:.2e} at {worst_key} "
+        f"(bound {ROUTE_GRAD_BOUND})")
+
+
+def main():
+  import torch
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+          file=sys.stderr)
+    return 2
+  sys.path.insert(0, ROOT)
+  import sisua_tpu_torch  # noqa: F401  (fails outside a checkout)
+  phase_device(torch)
+  phase_build()
+  kern = phase_kernels(torch)
+  model, x, library, launches = phase_fit(torch)
+  phase_routes(torch, model, x, library)
+  main_case = kern["main_full"]
+  kernels = []
+  for name, line, key, err in (
+      ("zinb_rowsum_fwd", 172, "t_fwd", "fwd_err"),
+      ("zinb_rowsum_bwd", 339, "t_bwd", "bwd_err")):
+    kernels.append({
+        "name": name, "route": "cuda",
+        "source": "sisua_tpu_torch/csrc/zinb.cu",
+        "replaces": f"sisua_tpu/ops/zinb_pallas.py:{line}",
+        "launches": launches[name], "max_abs_err": main_case[err],
+        "ms": main_case[key]["kernel"] / 1e3,
+        "plain_ms": main_case[key]["plain"] / 1e3})
+  print(json.dumps({"kernels": kernels}), flush=True)
+  print(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}), flush=True)
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

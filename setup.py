@@ -8,7 +8,8 @@ setup(
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
     packages=find_packages(exclude=("tests",)),
-    package_data={"sisua_tpu": ["native/*.cpp"]},
+    package_data={"sisua_tpu": ["native/*.cpp"],
+                  "sisua_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     include_package_data=True,
     python_requires=">=3.10",
     install_requires=[

@@ -1,0 +1,121 @@
+"""JAX (flax) parameters ⇄ the port's ``state_dict``.
+
+The JAX package keeps ``params`` and ``batch_stats`` as nested dicts keyed
+by flax module names; the port's modules carry the same names, so a path
+maps to a ``state_dict`` key by joining with '.'. Leaf renames:
+
+  flax Dense ``kernel`` (in, out)   ↔  ``weight`` (out, in), transposed
+  flax Dense ``bias``               ↔  ``bias``
+  flax BatchNorm ``scale``/``bias`` ↔  ``weight``/``bias``
+  batch_stats ``mean``/``var``      ↔  ``running_mean``/``running_var``
+  a bare ``self.param`` (e.g. ``px_r_single``) keeps its name.
+
+Both directions raise on any leaf left over on either side, so a topology
+drift between the packages cannot pass silently. Inputs and outputs are
+nested dicts of numpy arrays (``jax.device_get`` of a flax tree, or
+``flax.core.unfreeze``); nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .nn import BatchNorm
+
+__all__ = ["jax_to_torch", "torch_to_jax"]
+
+
+def _flat(tree: Mapping, prefix: Tuple[str, ...] = ()):
+  for k, v in tree.items():
+    path = prefix + (str(k),)
+    if isinstance(v, Mapping):
+      yield from _flat(v, path)
+    else:
+      yield path, v
+
+
+def _owner_is_batchnorm(module: nn.Module, owner: str) -> bool:
+  try:
+    return isinstance(module.get_submodule(owner), BatchNorm)
+  except AttributeError:
+    return False
+
+
+def _torch_key(module: nn.Module, path: Tuple[str, ...], collection: str
+               ) -> Tuple[str, bool]:
+  """(state_dict key, transpose?) for one flax leaf path."""
+  owner, leaf = ".".join(path[:-1]), path[-1]
+  if collection == "batch_stats":
+    name = {"mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
+    transpose = False
+  elif leaf == "kernel":
+    name, transpose = "weight", True
+  elif leaf == "scale" and _owner_is_batchnorm(module, owner):
+    name, transpose = "weight", False
+  else:
+    name, transpose = leaf, False
+  return (f"{owner}.{name}" if owner else name), transpose
+
+
+def jax_to_torch(module: nn.Module, params: Mapping,
+                 batch_stats: Optional[Mapping] = None
+                 ) -> Dict[str, torch.Tensor]:
+  """A ``state_dict`` for ``module`` from flax ``params`` (+
+  ``batch_stats``). Raises on unmatched leaves or shapes, either side."""
+  target = module.state_dict()
+  out: Dict[str, torch.Tensor] = {}
+  for collection, tree in (("params", params),
+                           ("batch_stats", batch_stats or {})):
+    for path, value in _flat(tree):
+      key, transpose = _torch_key(module, path, collection)
+      if key not in target:
+        raise KeyError(f"JAX leaf {collection}/{'/'.join(path)} has no "
+                       f"torch counterpart (looked for '{key}')")
+      if key in out:
+        raise KeyError(f"two JAX leaves map onto '{key}'")
+      arr = np.asarray(value, np.float32)
+      if transpose:
+        arr = arr.T
+      ref = target[key]
+      if tuple(arr.shape) != tuple(ref.shape):
+        raise ValueError(f"'{key}': JAX shape {arr.shape} != torch shape "
+                         f"{tuple(ref.shape)}")
+      out[key] = torch.tensor(np.ascontiguousarray(arr),
+                                 dtype=ref.dtype, device=ref.device)
+  missing = sorted(set(target) - set(out))
+  if missing:
+    raise KeyError(f"torch state entries with no JAX leaf: {missing}")
+  return out
+
+
+def torch_to_jax(module: nn.Module) -> Tuple[Dict, Dict]:
+  """(params, batch_stats) nested dicts of numpy arrays in the flax
+  layout, the inverse of ``jax_to_torch``."""
+  params: Dict = {}
+  batch_stats: Dict = {}
+  buffers = {k for k, _ in module.named_buffers()}
+  for key, value in module.state_dict().items():
+    parts = key.split(".")
+    owner, leaf = parts[:-1], parts[-1]
+    arr = value.detach().cpu().numpy()
+    if key in buffers:
+      names = {"running_mean": "mean", "running_var": "var"}
+      if leaf not in names:
+        raise KeyError(f"buffer '{key}' has no flax batch_stats leaf")
+      tree, leaf = batch_stats, names[leaf]
+    else:
+      tree = params
+      if leaf == "weight":
+        if _owner_is_batchnorm(module, ".".join(owner)):
+          leaf = "scale"
+        else:
+          leaf, arr = "kernel", arr.T
+    node = tree
+    for p in owner:
+      node = node.setdefault(p, {})
+    node[leaf] = np.ascontiguousarray(arr)
+  return params, batch_stats

@@ -1,0 +1,36 @@
+"""Library-size statistics (port of ``sisua_tpu/data/utils.py``
+``get_library_size``), for numpy arrays, scipy sparse matrices and torch
+tensors, with no pandas."""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+__all__ = ["get_library_size"]
+
+
+def get_library_size(X):
+  """Per-cell library statistics in log space (scVI convention).
+
+  Returns ``(local_mean, local_var)``, each (n_cells, 1) float32: the
+  dataset-level mean and (population) variance of log total counts,
+  broadcast per cell. A torch tensor stays on its device."""
+  if X.ndim != 2:
+    raise ValueError("Only support 2-D matrix")
+  n = X.shape[0]
+  if isinstance(X, torch.Tensor):
+    log_counts = torch.log(X.sum(dim=1, dtype=torch.float64) + 1e-8)
+    mean = log_counts.mean().to(torch.float32)
+    var = log_counts.var(correction=0).to(torch.float32)
+    return mean.expand(n, 1).clone(), var.expand(n, 1).clone()
+  total_counts = np.asarray(X.sum(axis=1)).ravel()
+  if not np.all(total_counts >= 0):
+    warnings.warn(f"Some cell in matrix {X.shape} contains negative counts; "
+                  "this yields NaN log counts!")
+  log_counts = np.log(total_counts + 1e-8)
+  local_mean = np.full((n, 1), np.mean(log_counts), dtype=np.float32)
+  local_var = np.full((n, 1), np.var(log_counts), dtype=np.float32)
+  return local_mean, local_var

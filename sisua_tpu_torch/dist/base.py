@@ -1,0 +1,104 @@
+"""Distribution foundation: small tensor-holding distribution objects.
+
+Port of ``sisua_tpu/dist/base.py``. The JAX package makes every
+distribution a pytree so it crosses ``jit``; PyTorch runs eagerly, so here a
+distribution is a plain object holding its parameter tensors, and autograd
+flows through them. Shape semantics follow TFP as in the reference:
+``log_prob(x)`` returns an array of batch shape.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+__all__ = ["Distribution", "Independent", "NoAnalyticKL", "kl_divergence",
+           "register_kl"]
+
+Tensor = torch.Tensor
+
+
+class Distribution:
+  """Base class: batch/event shapes, ``log_prob``, ``mean``, ``rsample``."""
+
+  @property
+  def event_shape(self) -> Tuple[int, ...]:
+    return ()
+
+  @property
+  def batch_shape(self) -> Tuple[int, ...]:
+    raise NotImplementedError
+
+  def log_prob(self, x: Tensor) -> Tensor:
+    raise NotImplementedError
+
+  def mean(self) -> Tensor:
+    raise NotImplementedError
+
+  def rsample(self, sample_shape: Tuple[int, ...] = (),
+              generator: torch.Generator | None = None,
+              eps: Tensor | None = None) -> Tensor:
+    """Reparameterized draw. ``eps`` supplies the standard noise directly
+    (the parity tests feed the JAX side's noise); otherwise it is drawn
+    from ``generator``."""
+    raise NotImplementedError
+
+
+class Independent(Distribution):
+  """Reinterpret the rightmost batch dims of ``base`` as event dims."""
+
+  def __init__(self, base: Distribution, reinterpreted_batch_ndims: int = 1):
+    self.base = base
+    self.reinterpreted_batch_ndims = int(reinterpreted_batch_ndims)
+
+  @property
+  def event_shape(self):
+    n = self.reinterpreted_batch_ndims
+    bs = self.base.batch_shape
+    return tuple(bs[len(bs) - n:]) + tuple(self.base.event_shape)
+
+  @property
+  def batch_shape(self):
+    bs = self.base.batch_shape
+    return tuple(bs[: len(bs) - self.reinterpreted_batch_ndims])
+
+  def log_prob(self, x):
+    lp = self.base.log_prob(x)
+    return lp.sum(dim=tuple(range(-self.reinterpreted_batch_ndims, 0)))
+
+  def mean(self):
+    return self.base.mean()
+
+  def rsample(self, sample_shape=(), generator=None, eps=None):
+    return self.base.rsample(sample_shape, generator=generator, eps=eps)
+
+
+# KL registry: analytic where known, else NoAnalyticKL → the caller uses MC
+_KL_REGISTRY: Dict[Tuple[type, type], Callable] = {}
+
+
+def register_kl(p_cls: type, q_cls: type):
+  def deco(fn):
+    _KL_REGISTRY[(p_cls, q_cls)] = fn
+    return fn
+  return deco
+
+
+class NoAnalyticKL(NotImplementedError):
+  pass
+
+
+def kl_divergence(p: Distribution, q: Distribution) -> Tensor:
+  """Analytic KL(p ‖ q). Raises NoAnalyticKL when no closed form is known."""
+  if isinstance(p, Independent) and isinstance(q, Independent) and (
+      p.reinterpreted_batch_ndims == q.reinterpreted_batch_ndims):
+    kl = kl_divergence(p.base, q.base)
+    return kl.sum(dim=tuple(range(-p.reinterpreted_batch_ndims, 0)))
+  for pc in type(p).__mro__:
+    for qc in type(q).__mro__:
+      fn = _KL_REGISTRY.get((pc, qc))
+      if fn is not None:
+        return fn(p, q)
+  raise NoAnalyticKL(
+      f"No analytic KL for {type(p).__name__} ‖ {type(q).__name__}")

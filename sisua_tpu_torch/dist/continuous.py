@@ -1,0 +1,95 @@
+"""Continuous distributions: Normal and MultivariateNormalDiag.
+
+Port of the part of ``sisua_tpu/dist/continuous.py`` the SCVI slice uses:
+the 'diag' latent posterior and prior, the 'normal' library posterior and
+the Normal library prior, each with log_prob, analytic KL and a
+reparameterized ``rsample`` that also accepts given standard noise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .base import Distribution, Tensor, register_kl
+
+__all__ = ["Normal", "MultivariateNormalDiag"]
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def _standard_noise(shape, like: Tensor, generator, eps):
+  if eps is not None:
+    if tuple(eps.shape) != tuple(shape):
+      raise ValueError(f"noise shape {tuple(eps.shape)} != {tuple(shape)}")
+    return eps.to(device=like.device, dtype=like.dtype)
+  return torch.randn(shape, generator=generator, device=like.device,
+                     dtype=like.dtype)
+
+
+class Normal(Distribution):
+
+  def __init__(self, loc: Tensor, scale: Tensor):
+    self.loc = loc
+    self.scale = scale
+
+  @property
+  def batch_shape(self):
+    return tuple(torch.broadcast_shapes(self.loc.shape, self.scale.shape))
+
+  def log_prob(self, x):
+    z = (x - self.loc) / self.scale
+    return -0.5 * z * z - torch.log(self.scale) - _HALF_LOG_2PI
+
+  def mean(self):
+    return self.loc.expand(self.batch_shape)
+
+  def rsample(self, sample_shape=(), generator=None, eps=None):
+    shape = tuple(sample_shape) + self.batch_shape
+    return self.loc + self.scale * _standard_noise(shape, self.loc,
+                                                   generator, eps)
+
+
+@register_kl(Normal, Normal)
+def _kl_normal_normal(p: Normal, q: Normal):
+  var_ratio = torch.square(p.scale / q.scale)
+  t1 = torch.square((p.loc - q.loc) / q.scale)
+  return 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
+
+
+class MultivariateNormalDiag(Distribution):
+  """MVN with diagonal covariance — the default latent posterior ('diag')."""
+
+  def __init__(self, loc: Tensor, scale_diag: Tensor):
+    self.loc = loc
+    self.scale_diag = scale_diag
+
+  @property
+  def event_shape(self):
+    return (self.loc.shape[-1],)
+
+  @property
+  def batch_shape(self):
+    return tuple(torch.broadcast_shapes(self.loc.shape[:-1],
+                                        self.scale_diag.shape[:-1]))
+
+  def log_prob(self, x):
+    z = (x - self.loc) / self.scale_diag
+    return torch.sum(-0.5 * z * z - torch.log(self.scale_diag)
+                     - _HALF_LOG_2PI, dim=-1)
+
+  def mean(self):
+    return self.loc.expand(self.batch_shape + self.event_shape)
+
+  def rsample(self, sample_shape=(), generator=None, eps=None):
+    shape = tuple(sample_shape) + self.batch_shape + self.event_shape
+    return self.loc + self.scale_diag * _standard_noise(shape, self.loc,
+                                                        generator, eps)
+
+
+@register_kl(MultivariateNormalDiag, MultivariateNormalDiag)
+def _kl_mvndiag_mvndiag(p: MultivariateNormalDiag, q: MultivariateNormalDiag):
+  var_ratio = torch.square(p.scale_diag / q.scale_diag)
+  t1 = torch.square((p.loc - q.loc) / q.scale_diag)
+  return 0.5 * torch.sum(var_ratio + t1 - 1.0 - torch.log(var_ratio), dim=-1)

@@ -1,0 +1,208 @@
+"""Core VAE torch modules (port of ``sisua_tpu/models/module.py``).
+
+    x ──encode──► q(Z|X) ──rsample──► decode ──► p(X|Z)
+
+``forward`` returns a ``VAEOutput`` of distributions, latent samples and
+priors; the ELBO is a function of it (``objective.py``). Train/eval mode is
+the module's own (``module.train()``/``eval()``), as BatchNorm and dropout
+read it. Randomness comes from an explicit ``torch.Generator`` (dropout
+masks and reparameterization noise), or the noise is given directly
+(``noise=``, one standard-normal tensor per latent) so a test can feed the
+JAX side's draws.
+
+Submodule names are the flax names, so ``convert.py`` maps a JAX parameter
+path to a ``state_dict`` key by joining with '.'.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import dist as D
+from ..nn import DistributionDense, NetConf, dense
+from ..rv import RVmeta
+
+__all__ = ["VAEOutput", "VAEModule", "SCVIModule"]
+
+# log 1e-7: floor of SCVI's log-space softmax (the linear path's clip)
+_LOG_SCALE_FLOOR = -16.118095
+
+
+@dataclasses.dataclass
+class VAEOutput:
+  """Forward-pass result: everything the ELBO needs."""
+
+  outputs: Tuple[D.Distribution, ...]        # p(X_i | Z)
+  latents: Tuple[D.Distribution, ...]        # q(Z_j | X)
+  latent_samples: Tuple[torch.Tensor, ...]   # reparameterized draws
+  priors: Tuple[Optional[D.Distribution], ...]
+
+
+class VAEModule(nn.Module):
+  """β-VAE engine over RVmeta/NetConf specs. Encoder i feeds latent head i
+  (extra heads reuse the last encoder); the first input is ``log1p``-ed
+  when ``log_norm``."""
+
+  def __init__(self, outputs: Sequence[RVmeta], latents: Sequence[RVmeta],
+               encoder_confs: Sequence[NetConf],
+               decoder_confs: Sequence[NetConf], log_norm: bool = True,
+               reduce_latent: str = "concat",
+               generator: Optional[torch.Generator] = None):
+    super().__init__()
+    self.outputs = tuple(outputs)
+    self.latents = tuple(latents)
+    self.log_norm = bool(log_norm)
+    self.reduce_latent = reduce_latent
+    in_dim = self.outputs[0].dim
+    self.encoders = []
+    for i, c in enumerate(encoder_confs):
+      self.add_module(f"encoder{i}", c.build(in_dim, generator))
+      self.encoders.append(getattr(self, f"encoder{i}"))
+    self.decoders = []
+    for i, c in enumerate(decoder_confs):
+      self.add_module(f"decoder{i}", c.build(self._decoder_in_dim(),
+                                             generator))
+      self.decoders.append(getattr(self, f"decoder{i}"))
+    n_enc = len(self.encoders)
+    self.latent_heads = []
+    for i, rv in enumerate(self.latents):
+      name = f"latent_head_{rv.name or i}"
+      enc = self.encoders[min(i, n_enc - 1)]
+      self.add_module(name, DistributionDense(enc.out_dim, rv, generator))
+      self.latent_heads.append(getattr(self, name))
+    self.output_heads = []
+    for i, rv in enumerate(self.outputs):
+      name = f"output_head_{rv.name or i}"
+      self.add_module(name, DistributionDense(self.decoders[0].out_dim, rv,
+                                              generator))
+      self.output_heads.append(getattr(self, name))
+
+  def _decoder_in_dim(self) -> int:
+    if self.reduce_latent == "concat":
+      return sum(rv.dim for rv in self.latents)
+    return self.latents[0].dim
+
+  def preprocess(self, x):
+    return torch.log1p(x) if self.log_norm else x
+
+  def encode(self, x, generator=None) -> Tuple[D.Distribution, ...]:
+    h = self.preprocess(x)
+    hs = [enc(h, generator) for enc in self.encoders]
+    return tuple(head(hs[min(i, len(hs) - 1)])
+                 for i, head in enumerate(self.latent_heads))
+
+  def reduce_latents(self, zs: Sequence[torch.Tensor]) -> torch.Tensor:
+    if len(zs) == 1 or self.reduce_latent == "first":
+      return zs[0]
+    if self.reduce_latent == "concat":
+      return torch.cat(tuple(zs), dim=-1)
+    raise ValueError(f"reduce_latent {self.reduce_latent!r} is not ported "
+                     "yet ('concat' or 'first')")
+
+  def decode(self, z, library=None, generator=None):
+    d = self.decoders[0](z, generator)
+    return tuple(head(d) for head in self.output_heads)
+
+  def latent_priors(self, library=None, like: Optional[torch.Tensor] = None):
+    return tuple(rv.create_prior(device=like.device, dtype=like.dtype)
+                 for rv in self.latents)
+
+  def _sample(self, qZ, sample_shape, generator, noise):
+    if noise is not None and len(noise) != len(qZ):
+      raise ValueError(f"{len(noise)} noise tensors for {len(qZ)} latents")
+    return tuple(q.rsample(sample_shape, generator=generator,
+                           eps=None if noise is None else noise[i])
+                 for i, q in enumerate(qZ))
+
+  def forward(self, x, library=None, sample_shape: Tuple[int, ...] = (),
+              generator: Optional[torch.Generator] = None,
+              noise: Optional[Sequence[torch.Tensor]] = None) -> VAEOutput:
+    qZ = self.encode(x, generator)
+    zs = self._sample(qZ, sample_shape, generator, noise)
+    pX = self.decode(self.reduce_latents(zs), library, generator)
+    return VAEOutput(outputs=pX, latents=qZ, latent_samples=zs,
+                     priors=self.latent_priors(library, like=x))
+
+
+class SCVIModule(VAEModule):
+  """scVI topology (reference ``sisua/models/scvi.py:19-175``).
+
+  * two encoders — z and library l; the library prior is
+    ``Normal(local_mean, sqrt(local_var))`` from the per-cell stats;
+  * only z is decoded; l is clipped to [0, clip_library];
+  * the count head decodes in log space: log μ = l + log_softmax(scale)
+    floored at log 1e-7; 'full' dispersion gives log θ = the raw
+    Dispersion output (``NegativeBinomialLog``), 'single' a per-gene
+    θ = exp(px_r_single) row that is never broadcast to (B, D)
+    (``NegativeBinomialDispLog``); gate logits are raw.
+  """
+
+  def __init__(self, outputs, latents, encoder_confs, decoder_confs,
+               log_norm: bool = True, reduce_latent: str = "first",
+               dispersion: str = "full", inflation: str = "full",
+               clip_library: float = 1e3,
+               generator: Optional[torch.Generator] = None):
+    if len(outputs) != 1:
+      raise NotImplementedError("the port's SCVI has one output; label "
+                                "heads are not ported yet")
+    super().__init__(outputs, latents, encoder_confs, decoder_confs,
+                     log_norm=log_norm, reduce_latent="first",
+                     generator=generator)
+    if dispersion not in ("full", "single"):
+      raise ValueError(f"dispersion must be 'full' or 'single', got "
+                       f"{dispersion!r}")
+    self.dispersion = dispersion
+    self.inflation = inflation
+    self.clip_library = float(clip_library)
+    n_dims = self.outputs[0].dim
+    hidden = self.decoders[0].out_dim
+    self.MeanScale = dense(hidden, n_dims, generator)
+    if self.zero_inflated:
+      self.DropoutLogits = dense(hidden, n_dims, generator)
+    if dispersion == "full":
+      self.Dispersion = dense(hidden, n_dims, generator)
+    else:
+      self.px_r_single = nn.Parameter(torch.zeros(n_dims))
+
+  @property
+  def zero_inflated(self) -> bool:
+    return self.outputs[0].is_zero_inflated and self.inflation == "full"
+
+  def latent_priors(self, library=None, like=None):
+    priors = list(super().latent_priors(library, like))
+    if library is not None:
+      mean, var = torch.chunk(library, 2, dim=-1)
+      priors[-1] = D.Independent(D.Normal(loc=mean, scale=torch.sqrt(var)),
+                                 1)
+    return tuple(priors)
+
+  def decode(self, latent_samples, library=None, generator=None):
+    z, l = latent_samples
+    l = torch.clamp(l, 0.0, self.clip_library)
+    d = self.decoders[0](z, generator)
+    log_scale = torch.clamp_min(F.log_softmax(self.MeanScale(d), dim=-1),
+                                _LOG_SCALE_FLOOR)
+    log_rate = l + log_scale
+    if self.dispersion == "full":
+      nb = D.NegativeBinomialLog(log_loc=log_rate,
+                                 log_disp=self.Dispersion(d))
+    else:
+      nb = D.NegativeBinomialDispLog(log_loc=log_rate,
+                                     disp=torch.exp(self.px_r_single)[None])
+    if self.zero_inflated:
+      return (D.Independent(D.ZeroInflated(
+          count_distribution=nb, gate_logits=self.DropoutLogits(d)), 1),)
+    return (D.Independent(nb, 1),)
+
+  def forward(self, x, library=None, sample_shape=(), generator=None,
+              noise=None) -> VAEOutput:
+    qZ = self.encode(x, generator)
+    zs = self._sample(qZ, sample_shape, generator, noise)
+    pX = self.decode(zs, library, generator)
+    return VAEOutput(outputs=pX, latents=qZ, latent_samples=zs,
+                     priors=self.latent_priors(library, like=x))

@@ -1,0 +1,153 @@
+"""ELBO objective (port of ``sisua_tpu/models/objective.py``).
+
+``ELBO = Σ llkᵢ·maskᵢ − β·KL``, with the main count likelihood routed
+through the fused ZINB/NB kernels (``sisua_tpu_torch.ops.zinb``) when
+``route_fused_likelihood`` says so.
+
+Routing (``SISUA_TPU_FUSED_LIKELIHOOD``, the JAX package's variable):
+  * 'on'   — always the fused op: its CUDA kernels on a CUDA tensor, its
+             plain version (same analytic backward) on a CPU tensor;
+  * 'off'  — never: the distribution math under autograd;
+  * 'auto' (default) — the fused op exactly when the tensor is on CUDA, at
+             every shape the kernels take. The JAX package's 4M-element
+             gate (``_PALLAS_MIN_ELEMENTS``) was measured on a TPU and does
+             not carry over; a threshold for the card is future work.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from .. import dist as D
+from ..ops import zinb as zk
+from .module import VAEOutput
+
+__all__ = ["elbo_terms", "compute_loss", "route_fused_likelihood"]
+
+
+def _mode() -> str:
+  return os.environ.get("SISUA_TPU_FUSED_LIKELIHOOD", "auto").lower()
+
+
+def route_fused_likelihood(x: torch.Tensor,
+                           mode: Optional[str] = None) -> bool:
+  """``True`` → the fused op (kernel on CUDA); ``False`` → dist math."""
+  mode = _mode() if mode is None else mode
+  if mode == "on":
+    return True
+  if mode == "off":
+    return False
+  return zk.kernels_available(x)
+
+
+def _fast_log_prob(dist: D.Distribution, x: torch.Tensor) -> torch.Tensor:
+  """Row-summed log-prob, through the fused op for the four NB kinds
+  (logits / disp / displog / loglog, with or without zero-inflation);
+  everything else takes the distribution math."""
+  if not (isinstance(dist, D.Independent)
+          and dist.reinterpreted_batch_ndims == 1
+          and x.ndim == 2
+          and len(dist.batch_shape) == 1  # no MC sample dims in the params
+          and route_fused_likelihood(x)):
+    return dist.log_prob(x)
+  base = dist.base
+  zi = isinstance(base, D.ZeroInflated)
+  count = base.count_distribution if zi else base
+  constrained = True
+  if isinstance(count, D.NegativeBinomial):
+    r, logits = count.total_count, count.logits
+  elif isinstance(count, D.NegativeBinomialDisp):
+    r = count.disp
+    logits = zk._disp_to_logits(count.loc, r)
+  elif isinstance(count, D.NegativeBinomialDispLog):
+    # log μ is native: logits = log μ − log θ, with a per-gene θ kept a row
+    r = count.disp
+    logits = count.log_loc - torch.log(r + 1e-8)
+  elif isinstance(count, D.NegativeBinomialLog):
+    # the kernel reads log θ and exponentiates it (constrained=False). log θ
+    # is clipped HERE, once, so logits and θ derive from the same value
+    # (a raw-vs-clipped mismatch denormalizes the pmf for |log θ| > 15)
+    r = torch.clamp(count.log_disp, -15.0, 15.0)
+    logits = count.log_loc - r
+    constrained = False
+  else:
+    return dist.log_prob(x)
+  if zi:
+    return zk.zinb_log_prob_rowsum(x, r, logits, base.gate_logits,
+                                   constrained=constrained)
+  return zk.nb_log_prob_rowsum(x, r, logits, constrained=constrained)
+
+
+def _kl_term(q: D.Distribution, prior: Optional[D.Distribution],
+             z: torch.Tensor, analytic: bool) -> torch.Tensor:
+  """KL(q ‖ prior) per example; Monte-Carlo from the forward sample when
+  there is no closed form (or ``analytic=False``)."""
+  if prior is None:
+    return torch.zeros(q.batch_shape, dtype=z.dtype, device=z.device)
+  if analytic:
+    try:
+      return D.kl_divergence(q, prior)
+    except D.NoAnalyticKL:
+      pass
+  kl = q.log_prob(z) - prior.log_prob(z)
+  extra = kl.ndim - len(q.batch_shape)
+  if extra > 0:
+    kl = kl.mean(dim=tuple(range(extra)))
+  return kl
+
+
+def elbo_terms(out: VAEOutput,
+               targets: Sequence[torch.Tensor],
+               mask: Optional[torch.Tensor] = None,
+               analytic: bool = True,
+               mask_outputs: bool = False,
+               alpha: float = 1.0,
+               mask_renorm: bool = False,
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+  """Per-example log-likelihoods ``llk_<x…>`` and KLs ``klqp_<z…>``."""
+  llk: Dict[str, torch.Tensor] = {}
+  for i, (pX, x) in enumerate(zip(out.outputs, targets)):
+    name = f"x{i}" if i else "x"
+    lp = _fast_log_prob(pX, x)
+    extra = lp.ndim - 1  # average over leading MC sample dims
+    if extra > 0:
+      lp = lp.mean(dim=tuple(range(extra)))
+    if i > 0:
+      lp = alpha * lp
+      if mask_outputs and mask is not None:
+        m = mask.to(lp.dtype).reshape(lp.shape[0])
+        lp = lp * m
+        if mask_renorm:
+          lp = lp * (m.shape[0] / torch.clamp_min(m.sum(), 1.0))
+    llk[f"llk_{name}"] = lp
+  kl: Dict[str, torch.Tensor] = {}
+  for j, (q, prior, z) in enumerate(
+      zip(out.latents, out.priors, out.latent_samples)):
+    kl[f"klqp_z{j}" if j else "klqp_z"] = _kl_term(q, prior, z, analytic)
+  return llk, kl
+
+
+def compute_loss(out: VAEOutput,
+                 targets: Sequence[torch.Tensor],
+                 mask: Optional[torch.Tensor] = None,
+                 beta: float = 1.0,
+                 alpha: float = 1.0,
+                 analytic: bool = True,
+                 mask_outputs: bool = False,
+                 mask_renorm: bool = False,
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+  """Scalar −ELBO plus scalar metrics (means over the batch), all tensors
+  on the device — nothing here synchronizes with the host."""
+  llk, kl = elbo_terms(out, targets, mask=mask, analytic=analytic,
+                       mask_outputs=mask_outputs, alpha=alpha,
+                       mask_renorm=mask_renorm)
+  elbo = sum(llk.values()) - beta * sum(kl.values())
+  loss = -elbo.mean()
+  metrics = {k: v.mean() for k, v in {**llk, **kl}.items()}
+  metrics["loss"] = loss
+  metrics["elbo"] = elbo.mean()
+  metrics["beta"] = torch.full((), float(beta), device=loss.device)
+  return loss, metrics

@@ -1,0 +1,335 @@
+"""Fused ZINB/NB log-likelihood row reduction: CUDA kernels + plain versions.
+
+Port of ``sisua_tpu/ops/zinb_pallas.py``. Two kernels, written by hand in
+CUDA C++ (``csrc/zinb.cu``), carry SCVI's likelihood:
+
+* ``zinb_rowsum_fwd`` replaces the Pallas forward ``_make_kernel``
+  (``sisua_tpu/ops/zinb_pallas.py:172``): per-row Σ over genes of the
+  ZINB log-pmf. Bound on the card by bytes: 4 f32 reads per element. One
+  block per row reads each operand once, keeps every intermediate in
+  registers and reduces in a fixed order.
+* ``zinb_rowsum_bwd`` replaces the Pallas backward ``_make_bwd_kernel``
+  (``zinb_pallas.py:339``): the three analytic gradient fields times the
+  row cotangent. Bound by bytes: 4 reads + up to 3 writes per element.
+  Per-gene (1, D) operands get their gradient summed over rows in the
+  kernel (chunk sums + an ordered second pass, no float atomics), never a
+  (B, D) field; a field whose input needs no gradient is not written.
+
+Each kernel has its plain PyTorch version beside it (``_rowsum_ref``;
+``_zinb_grads_elem`` + ``_unbroadcast``), ported one to one from the JAX
+module, and a launch counter (``launches``). Dispatch is by the tensor's
+device alone: CPU tensors take the plain version; a CUDA tensor launches
+the kernel or raises — nothing falls back. Gradients are written in f32
+(the TPU's bf16 write default was a TPU measurement), and the wrappers
+raise on non-f32 operands.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["zinb_log_prob_rowsum", "nb_log_prob_rowsum",
+           "zinbd_log_prob_rowsum", "nbd_log_prob_rowsum",
+           "kernels_available", "launches", "reset_launches"]
+
+_EXP_CLIP = 15.0
+
+# Effective −∞ for the no-inflation gate of the NB heads: far below any
+# reachable NB log-prob at zero, and exact in the stable log-sigmoid /
+# logaddexp forms (logaddexp(−1e30, nb0) ≡ nb0).
+_NB_GATE = -1e30
+
+# rows each backward block walks for a per-gene column sum (csrc/zinb.cu)
+_BWD_ROWS_PER_BLOCK = 32
+
+# launch counts of the two kernels, raised only where a kernel is launched
+launches = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+
+
+def reset_launches() -> None:
+  for k in launches:
+    launches[k] = 0
+
+
+def kernels_available(t: torch.Tensor) -> bool:
+  """Whether ``t`` would reach the CUDA kernels (the port's counterpart of
+  ``pallas_available``): true exactly for a CUDA tensor."""
+  return t.is_cuda
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the reference on the card)
+# --------------------------------------------------------------------------
+def _log_sigmoid(x):
+  return torch.clamp_max(x, 0.0) - torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _softplus(x):
+  return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _theta(count_raw, constrained: bool):
+  if constrained:
+    return torch.clamp_min(count_raw, 1e-8)
+  return torch.exp(torch.clamp(count_raw, -_EXP_CLIP, _EXP_CLIP))
+
+
+def _zinb_elem(x, count_raw, logits, gate, constrained: bool):
+  r = _theta(count_raw, constrained)
+  log_p = _log_sigmoid(logits)
+  log_1mp = _log_sigmoid(-logits)
+  # lgamma(x+r) − lgamma(r) is pure cancellation for huge r: asymptotic
+  # x·log r + x(x−1)/2r above 1e6
+  lg_diff = torch.where(r > 1e6,
+                        x * torch.log(r) + x * (x - 1.0) / (2.0 * r),
+                        torch.lgamma(x + r) - torch.lgamma(r))
+  nb = lg_diff - torch.lgamma(x + 1.0) + r * log_1mp + x * log_p
+  nb0 = r * log_1mp  # NB log-prob at x=0 (lgamma terms cancel)
+  log_pi = _log_sigmoid(gate)
+  log_1mpi = _log_sigmoid(-gate)
+  at_zero = torch.logaddexp(log_pi, log_1mpi + nb0)
+  return torch.where(x <= 0.0, at_zero, log_1mpi + nb)
+
+
+def _rowsum_ref(x, count_raw, logits, gate, constrained: bool):
+  return torch.sum(_zinb_elem(x, count_raw, logits, gate, constrained), -1)
+
+
+def _digamma_diff(r, x):
+  """ψ(x+r) − ψ(r) without cancellation, r > 0, x ≥ 0: every term is
+  proportional to x, so x = 0 gives exactly 0."""
+  s = sum(x / ((r + k) * (x + r + k)) for k in range(6))
+  y1 = r + 6.0
+  inv1 = 1.0 / y1
+  inv2 = 1.0 / (x + y1)
+  di = -x * inv1 * inv2
+  si = inv1 + inv2
+  i1s = inv1 * inv1
+  i2s = inv2 * inv2
+  out = (torch.log1p(x * inv1)
+         - 0.5 * di
+         - di * si * (1.0 / 12.0
+                      - (1.0 / 120.0) * (i1s + i2s)
+                      + (1.0 / 252.0) * (i1s * i1s + i1s * i2s + i2s * i2s)))
+  return out + s
+
+
+def _zinb_grads_elem(x, count_raw, logits, gate, constrained: bool):
+  """Analytic per-element gradients of the ZINB log-pmf w.r.t.
+  (count_raw, logits, gate)."""
+  r = _theta(count_raw, constrained)
+  if constrained:
+    dr_dcr = (count_raw >= 1e-8).to(x.dtype)
+  else:
+    dr_dcr = r * ((count_raw > -_EXP_CLIP)
+                  & (count_raw < _EXP_CLIP)).to(x.dtype)
+  sig_l = torch.sigmoid(logits)
+  sig_nl = torch.sigmoid(-logits)
+  log_1mp = -_softplus(logits)
+  # x > 0: d nb / d r mirrors the forward's large-r switch
+  dig = torch.where(r > 1e6, x / r - x * (x - 1.0) / (2.0 * r * r),
+                    _digamma_diff(r, x))
+  dpos_dr = dig + log_1mp
+  dpos_dl = x * sig_nl - r * sig_l
+  sig_g = torch.sigmoid(gate)
+  sig_ng = torch.sigmoid(-gate)
+  dpos_dg = -sig_g
+  # x == 0: lp = logaddexp(logσ(γ), logσ(−γ) + nb0)
+  nb0 = r * log_1mp
+  a = -_softplus(-gate)
+  b = -_softplus(gate) + nb0
+  wb = torch.exp(b - torch.logaddexp(a, b))  # posterior weight of NB arm
+  dzero_dr = wb * log_1mp
+  dzero_dl = -wb * r * sig_l
+  dzero_dg = (1.0 - wb) * sig_ng - wb * sig_g
+  iszero = x <= 0.0
+  return (torch.where(iszero, dzero_dr, dpos_dr) * dr_dcr,
+          torch.where(iszero, dzero_dl, dpos_dl),
+          torch.where(iszero, dzero_dg, dpos_dg))
+
+
+def _unbroadcast(grad, shape):
+  """Reduce a full-shape gradient back to a broadcast input's shape."""
+  shape = tuple(shape)
+  if tuple(grad.shape) == shape:
+    return grad
+  extra = grad.ndim - len(shape)
+  if extra > 0:
+    grad = grad.sum(dim=tuple(range(extra)))
+  axes = tuple(i for i, s in enumerate(shape) if s == 1)
+  if axes:
+    grad = grad.sum(dim=axes, keepdim=True)
+  return grad
+
+
+def _grads_ref(x, count_raw, logits, gate, g, constrained: bool, need):
+  fields = _zinb_grads_elem(x, count_raw, logits, gate, constrained)
+  gb = g.unsqueeze(-1)  # per-row cotangent → per element
+  return tuple(_unbroadcast(gb * d, p.shape).to(p.dtype) if n else None
+               for d, p, n in zip(fields, (count_raw, logits, gate), need))
+
+
+# --------------------------------------------------------------------------
+# CUDA launches
+# --------------------------------------------------------------------------
+def _check_operands(x, params):
+  """Validate what the kernels take; returns (B, D, row strides)."""
+  for t in (x, *params):
+    if not t.is_cuda:
+      raise ValueError(f"the CUDA kernel needs CUDA tensors, got {t.device}")
+    if t.device != x.device:
+      raise ValueError(f"operands on {t.device} and {x.device}")
+    if t.dtype != torch.float32:
+      raise TypeError(f"the CUDA kernel takes float32 operands, got "
+                      f"{t.dtype}")
+    if not t.is_contiguous():
+      raise ValueError("the CUDA kernel takes contiguous operands")
+  if x.ndim != 2 or x.shape[0] == 0 or x.shape[1] == 0:
+    raise ValueError(f"x must be a non-empty (B, D) matrix, got "
+                     f"{tuple(x.shape)}")
+  b, d = x.shape
+  if b >= 2 ** 31 or d >= 2 ** 31:
+    raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's int32 "
+                     "row and column indices")
+  lds = []
+  for p in params:
+    if tuple(p.shape) == (b, d):
+      lds.append(d)
+    elif tuple(p.shape) == (1, d):
+      lds.append(0)  # per-gene row: stride 0
+    else:
+      raise ValueError(f"parameter shape {tuple(p.shape)} is neither "
+                       f"{(b, d)} nor per-gene {(1, d)}")
+  return b, d, lds
+
+
+def _ptr(t):
+  return None if t is None else t.data_ptr()
+
+
+def _raise_on(status: int, name: str):
+  if status != 0:
+    raise RuntimeError(f"{name} launch failed: CUDA error {status}")
+
+
+def _fwd_launch(x, count_raw, logits, gate, constrained: bool):
+  from . import _build
+  b, d, lds = _check_operands(x, (count_raw, logits, gate))
+  lib = _build.load()
+  out = torch.empty((b,), device=x.device, dtype=torch.float32)
+  with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _raise_on(lib.sisua_zinb_rowsum_fwd(
+        _ptr(x), _ptr(count_raw), _ptr(logits), _ptr(gate), _ptr(out),
+        b, d, *lds, int(constrained), stream), "zinb_rowsum_fwd")
+  launches["zinb_rowsum_fwd"] += 1
+  return out
+
+
+def _bwd_launch(x, count_raw, logits, gate, g, constrained: bool, need):
+  from . import _build
+  b, d, lds = _check_operands(x, (count_raw, logits, gate))
+  g = g.contiguous()
+  if g.dtype != torch.float32 or tuple(g.shape) != (b,):
+    raise ValueError(f"cotangent must be float32 ({b},), got {g.dtype} "
+                     f"{tuple(g.shape)}")
+  lib = _build.load()
+  outs = [torch.empty((b if ld else 1, d), device=x.device,
+                      dtype=torch.float32) if n else None
+          for ld, n in zip(lds, need)]
+  n_chunks = -(-b // _BWD_ROWS_PER_BLOCK)
+  if n_chunks >= 65536:
+    raise ValueError(f"{b} rows exceed the backward grid's y dimension")
+  partial = None
+  if any(n and ld == 0 for ld, n in zip(lds, need)):
+    partial = torch.empty((3, n_chunks, d), device=x.device,
+                          dtype=torch.float32)
+  with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _raise_on(lib.sisua_zinb_rowsum_bwd(
+        _ptr(x), _ptr(count_raw), _ptr(logits), _ptr(gate), _ptr(g),
+        *(_ptr(o) for o in outs), _ptr(partial), b, d, *lds,
+        _BWD_ROWS_PER_BLOCK, int(constrained), stream), "zinb_rowsum_bwd")
+  launches["zinb_rowsum_bwd"] += 1
+  return tuple(outs)
+
+
+def _launches_kernel(x: torch.Tensor) -> bool:
+  """The dispatch rule: every tensor that is not on the CPU goes to the
+  kernels, which take CUDA tensors or raise."""
+  return x.device.type != "cpu"
+
+
+class _ZinbRowsum(torch.autograd.Function):
+  """Row-summed ZINB log-pmf with the analytic backward (the JAX
+  ``_zinb_rowsum`` custom VJP). CPU tensors: plain versions; CUDA tensors:
+  the two kernels."""
+
+  @staticmethod
+  def forward(ctx, x, count_raw, logits, gate, constrained):
+    ctx.constrained = bool(constrained)
+    ctx.save_for_backward(x, count_raw, logits, gate)
+    if _launches_kernel(x):
+      return _fwd_launch(x, count_raw, logits, gate, ctx.constrained)
+    return _rowsum_ref(x, count_raw, logits, gate, ctx.constrained)
+
+  @staticmethod
+  def backward(ctx, g):
+    x, count_raw, logits, gate = ctx.saved_tensors
+    need = tuple(ctx.needs_input_grad[1:4])
+    if _launches_kernel(x):
+      grads = _bwd_launch(x, count_raw, logits, gate, g, ctx.constrained,
+                          need)
+    else:
+      grads = _grads_ref(x, count_raw, logits, gate, g, ctx.constrained,
+                         need)
+    return (None, *grads, None)
+
+
+def _norm_param(p, x):
+  """(D,) → (1, D) and scalar → a (1, D) row next to a 2-D ``x``, so the
+  kernels see the per-gene layout; other shapes pass through."""
+  if not isinstance(p, torch.Tensor):
+    p = torch.as_tensor(p, dtype=x.dtype, device=x.device)
+  if x.ndim == 2:
+    if p.ndim == 1 and p.shape[0] == x.shape[1]:
+      return p[None]
+    if p.ndim == 0:
+      return p.reshape(1, 1).expand(1, x.shape[1]).contiguous()
+  return p
+
+
+def zinb_log_prob_rowsum(x, count_raw, logits, gate_logits,
+                         constrained: bool = False):
+  """Per-row Σ_genes ZINB log-pmf. Parameters may be (B, D), per-gene
+  (D,)/(1, D) or scalar; ``constrained=False`` reads ``count_raw`` as
+  log θ (θ = exp(clip(·, ±15))), ``True`` as θ (floored at 1e-8)."""
+  return _ZinbRowsum.apply(x, _norm_param(count_raw, x),
+                           _norm_param(logits, x),
+                           _norm_param(gate_logits, x), constrained)
+
+
+def nb_log_prob_rowsum(x, count_raw, logits, constrained: bool = False):
+  """Gate-free NB: the ZINB kernel with a constant per-gene −1e30 gate row
+  (one (1, D) row, and no gate gradient is ever written)."""
+  gate = (torch.full((1, x.shape[-1]), _NB_GATE, dtype=x.dtype,
+                     device=x.device) if x.ndim == 2
+          else torch.full_like(logits, _NB_GATE))
+  return _ZinbRowsum.apply(x, _norm_param(count_raw, x),
+                           _norm_param(logits, x), gate, constrained)
+
+
+def _disp_to_logits(mu, theta, eps: float = 1e-8):
+  """NB(μ, θ) is exactly NB(total_count=θ, logits=log μ − log θ)."""
+  return torch.log(mu + eps) - torch.log(theta + eps)
+
+
+def zinbd_log_prob_rowsum(x, mu, theta, gate_logits):
+  """ZINB in scVI's mean/dispersion parameterization."""
+  return zinb_log_prob_rowsum(x, theta, _disp_to_logits(mu, theta),
+                              gate_logits, constrained=True)
+
+
+def nbd_log_prob_rowsum(x, mu, theta):
+  """NB mean/dispersion variant ('nbd')."""
+  return nb_log_prob_rowsum(x, theta, _disp_to_logits(mu, theta), True)

@@ -1,0 +1,193 @@
+"""RVmeta — declarative random-variable spec (port of ``sisua_tpu/rv.py``).
+
+The slice carries the posteriors SCVI uses: 'diag' (latent), 'normal'
+(library), and the count heads 'zinbd' and 'nbd'. The activation
+conventions are the JAX package's: positive count parameters use
+``exp(clip(raw, -15, 15))``; Normal scales use ``softplus(raw) + 1e-4``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import dist as D
+
+__all__ = ["RVmeta", "POSTERIORS", "parse_rv"]
+
+_EXP_CLIP = 15.0
+_SCALE_EPS = 1e-4
+
+
+def _positive(raw: torch.Tensor, kw: Optional[dict] = None) -> torch.Tensor:
+  """exp with clipped pre-activation; passes already-positive parameters
+  through when ``kw['constrained']`` (SCVI's projection=False decode)."""
+  if kw and kw.get("constrained"):
+    return raw
+  return torch.exp(torch.clamp(raw, -_EXP_CLIP, _EXP_CLIP))
+
+
+def _soft_scale(raw: torch.Tensor) -> torch.Tensor:
+  return F.softplus(raw) + _SCALE_EPS
+
+
+POSTERIORS: Dict[str, Any] = {}
+
+
+def _register(*names):
+  def deco(cls):
+    for n in names:
+      POSTERIORS[n] = cls
+    return cls
+  return deco
+
+
+class _Spec:
+  zero_inflated = False
+
+  @staticmethod
+  def n_params(dim: int, kw: dict) -> int:
+    raise NotImplementedError
+
+  @staticmethod
+  def build(raw, dim: int, kw: dict) -> D.Distribution:
+    raise NotImplementedError
+
+  @staticmethod
+  def prior(dim: int, kw: dict, device, dtype) -> Optional[D.Distribution]:
+    return None
+
+
+@_register("normal", "gaus", "gaussian")
+class _NormalSpec(_Spec):
+  @staticmethod
+  def n_params(dim, kw):
+    return 2 * dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    loc, scale = torch.chunk(raw, 2, dim=-1)
+    return D.Independent(D.Normal(loc=loc, scale=_soft_scale(scale)), 1)
+
+  @staticmethod
+  def prior(dim, kw, device, dtype):
+    return D.Independent(
+        D.Normal(loc=torch.zeros((dim,), device=device, dtype=dtype),
+                 scale=torch.ones((dim,), device=device, dtype=dtype)), 1)
+
+
+@_register("diag")
+class _DiagSpec(_Spec):
+  @staticmethod
+  def n_params(dim, kw):
+    return 2 * dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    loc, scale = torch.chunk(raw, 2, dim=-1)
+    return D.MultivariateNormalDiag(loc=loc, scale_diag=_soft_scale(scale))
+
+  @staticmethod
+  def prior(dim, kw, device, dtype):
+    return D.MultivariateNormalDiag(
+        loc=torch.zeros((dim,), device=device, dtype=dtype),
+        scale_diag=torch.ones((dim,), device=device, dtype=dtype))
+
+
+@_register("nbd")
+class _NBDSpec(_Spec):
+  @staticmethod
+  def n_params(dim, kw):
+    return 2 * dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    loc, disp = torch.chunk(raw, 2, dim=-1)
+    return D.Independent(D.NegativeBinomialDisp(
+        loc=_positive(loc, kw), disp=_positive(disp, kw)), 1)
+
+
+@_register("zinbd")
+class _ZINBDSpec(_Spec):
+  zero_inflated = True
+
+  @staticmethod
+  def n_params(dim, kw):
+    return 3 * dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    loc, disp, gate = torch.chunk(raw, 3, dim=-1)
+    nb = D.NegativeBinomialDisp(loc=_positive(loc, kw),
+                                disp=_positive(disp, kw))
+    return D.Independent(D.ZeroInflated(count_distribution=nb,
+                                        gate_logits=gate), 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RVmeta:
+  """Random-variable spec: ``RVmeta(dim, posterior, projection, name)``."""
+
+  dim: int
+  posterior: str = "diag"
+  projection: bool = True
+  name: Optional[str] = None
+  kwargs: Tuple[Tuple[str, Any], ...] = ()
+
+  def __post_init__(self):
+    if self.posterior not in POSTERIORS:
+      raise ValueError(
+          f"Unknown posterior '{self.posterior}'. "
+          f"Supported by the port: {sorted(set(POSTERIORS))}")
+    if isinstance(self.kwargs, dict):
+      object.__setattr__(self, "kwargs", tuple(sorted(self.kwargs.items())))
+
+  @property
+  def kw(self) -> dict:
+    return dict(self.kwargs)
+
+  @property
+  def spec(self) -> type:
+    return POSTERIORS[self.posterior]
+
+  @property
+  def is_zero_inflated(self) -> bool:
+    return self.spec.zero_inflated
+
+  @property
+  def n_params(self) -> int:
+    return self.spec.n_params(self.dim, self.kw)
+
+  def create_distribution(self, raw_params: torch.Tensor,
+                          constrained: bool = False) -> D.Distribution:
+    """Constrain flat raw params (last axis = n_params) → Distribution;
+    ``constrained=True`` skips the positivity activations."""
+    kw = dict(self.kw, constrained=True) if constrained else self.kw
+    return self.spec.build(raw_params, self.dim, kw)
+
+  def create_prior(self, device=None, dtype=torch.float32
+                   ) -> Optional[D.Distribution]:
+    return self.spec.prior(self.dim, self.kw, device, dtype)
+
+  def replace(self, **updates) -> "RVmeta":
+    return dataclasses.replace(self, **updates)
+
+
+def parse_rv(x, default_name: str = "rv") -> RVmeta:
+  """RVmeta, (dim, posterior[, name]) tuple or {'dim':…} dict → RVmeta."""
+  if isinstance(x, RVmeta):
+    return x
+  if isinstance(x, dict):
+    kw = dict(x)
+    dim = int(kw.pop("dim"))
+    posterior = kw.pop("posterior", "diag")
+    name = kw.pop("name", default_name)
+    projection = bool(kw.pop("projection", True))
+    return RVmeta(dim, posterior, projection, name, tuple(sorted(kw.items())))
+  if isinstance(x, (tuple, list)):
+    return RVmeta(int(x[0]), x[1] if len(x) > 1 else "diag", True,
+                  x[2] if len(x) > 2 else default_name)
+  raise TypeError(f"Cannot parse RVmeta from {x!r}")

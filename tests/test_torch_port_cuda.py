@@ -1,0 +1,146 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions. Each test needs a CUDA card and skips without one (the kernels
+have no CPU mode). Imports no JAX, so on a machine without it run:
+
+    python -m pytest --noconftest -q tests/test_torch_port_cuda.py
+
+Tolerances: forward rtol 1e-4 (row-sum order); gradients rtol 2e-4 /
+atol 1e-5, as tests/test_ops.py holds the TPU kernels. A per-gene (1, D)
+gradient is a sum over the B rows, summed in another order than the plain
+version's: its atol adds 1e-6 (about 8 float32 ulps) of Σ_rows |term|.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sisua_tpu_torch.ops import _build
+from sisua_tpu_torch.ops import zinb as tz
+
+pytestmark = pytest.mark.cuda
+
+FWD = dict(rtol=1e-4)
+GRAD = dict(rtol=2e-4, atol=1e-5)
+SUM_ULPS = 1e-6
+LAYOUTS = {"BD": (False, False, False), "gene_theta": (True, False, False),
+           "gene_theta_gate": (True, False, True),
+           "all_gene": (True, True, True)}
+
+
+@pytest.fixture
+def dev():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+  return torch.device("cuda")
+
+
+def _operands(dev, seed, B, D, constrained, per_gene):
+  rng = np.random.default_rng(seed)
+  x = rng.poisson(2, (B, D)).astype(np.float32)
+  x[:, :8] = 0.0
+  rows = [1 if pg else B for pg in per_gene]
+  if constrained:
+    cr = rng.gamma(2, 2, (rows[0], D)).astype(np.float32)
+    cr[:, -4:] = [1e-9, 0.5, 2e6, 8e6]
+  else:
+    cr = rng.normal(0, 2, (rows[0], D)).astype(np.float32)
+    cr[:, -2:] = [16.0, -17.0]
+  lg = rng.normal(0, 2, (rows[1], D)).astype(np.float32)
+  gt = rng.normal(0, 2, (rows[2], D)).astype(np.float32)
+  ct = rng.normal(0, 1, (B,)).astype(np.float32)
+  return [torch.tensor(a, device=dev) for a in (x, cr, lg, gt, ct)]
+
+
+def _compare(ops, constrained, need=(True, True, True)):
+  x, cr, lg, gt, ct = ops
+  out = tz._fwd_launch(x, cr, lg, gt, constrained)
+  grads = tz._bwd_launch(x, cr, lg, gt, ct, constrained, need)
+  torch.cuda.synchronize()
+  ref = tz._rowsum_ref(x, cr, lg, gt, constrained)
+  np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **FWD)
+  refs = tz._grads_ref(x, cr, lg, gt, ct, constrained, need)
+  terms = tz._zinb_grads_elem(x, cr, lg, gt, constrained)
+  for a, b, t in zip(grads, refs, terms):
+    if b is None:
+      assert a is None
+      continue
+    assert a.shape == b.shape
+    atol = GRAD["atol"]
+    if b.shape[0] == 1 < x.shape[0]:  # per-gene: a sum over the rows
+      atol = atol + SUM_ULPS * (ct[:, None] * t).abs().sum(0).cpu().numpy()
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    bad = ~(np.abs(a - b) <= atol + GRAD["rtol"] * np.abs(b))
+    assert not bad.any(), (f"{bad.sum()} of {bad.size} gradients off, "
+                           f"worst |Δ| {np.abs(a - b)[bad].max():.3e}")
+  return grads
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("constrained", [False, True],
+                         ids=["logtheta", "theta"])
+def test_kernels_match_plain_ragged(dev, constrained, layout):
+  """130 × 1001: every row and column edge is masked by the kernels."""
+  tz.reset_launches()
+  _compare(_operands(dev, 21, 130, 1001, constrained, LAYOUTS[layout]),
+           constrained)
+  assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
+
+
+def test_extreme_grid(dev):
+  """θ ∈ {1e-8, 1e7}, logits ±30, x ∈ {0, 1e6}, every combination."""
+  grid = torch.cartesian_prod(torch.tensor([1e-8, 1e7]),
+                              torch.tensor([-30.0, 30.0]),
+                              torch.tensor([0.0, 1e6]),
+                              torch.tensor([-3.0, 3.0])).T
+  th, lg, x, gt = (v.repeat(4, 1).to(dev).contiguous() for v in grid)
+  _compare([x, th, lg, gt, torch.linspace(-1, 1, 4, device=dev)], True)
+
+
+def test_nb_gate_row_writes_no_gate_gradient(dev):
+  """The −1e30 per-gene gate of the NB heads: exact values, and a field
+  whose input needs no gradient is not computed into memory."""
+  x, cr, lg, _, ct = _operands(dev, 3, 64, 700, False, (False,) * 3)
+  gate = torch.full((1, 700), tz._NB_GATE, device=dev)
+  grads = _compare([x, cr, lg, gate, ct], False, need=(True, True, False))
+  assert grads[2] is None
+  cr.requires_grad_(True)
+  out = tz.nb_log_prob_rowsum(x, cr, lg)
+  out.sum().backward()
+  assert torch.isfinite(cr.grad).all()
+
+
+def test_backward_is_bitwise_deterministic(dev):
+  ops = _operands(dev, 22, 512, 2048, False, (True, False, False))
+  a = tz._bwd_launch(*ops, False, (True, True, True))
+  b = tz._bwd_launch(*ops, False, (True, True, True))
+  assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_wrappers_raise_instead_of_falling_back(dev):
+  x, cr, lg, gt, _ = _operands(dev, 4, 8, 16, False, (False,) * 3)
+  with pytest.raises(TypeError, match="float32"):
+    tz.zinb_log_prob_rowsum(x.double(), cr.double(), lg.double(),
+                            gt.double())
+  with pytest.raises(ValueError, match="contiguous"):
+    tz._fwd_launch(x, cr.t().contiguous().t(), lg, gt, False)
+  with pytest.raises(ValueError, match="per-gene"):
+    tz._fwd_launch(x, cr[:2], lg, gt, False)
+  with pytest.raises(ValueError, match="CUDA tensors"):
+    tz._fwd_launch(x, cr.cpu(), lg, gt, False)
+  assert _build.library_path().with_suffix(".log").is_file()
+
+
+def test_scvi_fit_goes_through_kernels(dev):
+  """Every train step launches each kernel once; evaluate the forward."""
+  from sisua_tpu_torch.models import SCVI, RVmeta
+  rng = np.random.default_rng(5)
+  x = rng.poisson(1.0, (256, 300)).astype(np.float32)
+  m = SCVI(RVmeta(300, "zinbd", name="rna"), device="cuda",
+           latents=RVmeta(4, "diag", name="latents"))
+  tz.reset_launches()
+  m.fit(x, epochs=2, batch_size=32)
+  assert tz.launches == {"zinb_rowsum_fwd": 16, "zinb_rowsum_bwd": 16}
+  assert np.isfinite(m.history["loss"]).all()
+  ev = m.evaluate(x[:100], batch_size=64)
+  assert np.isfinite(list(ev.values())).all()
+  assert tz.launches == {"zinb_rowsum_fwd": 18, "zinb_rowsum_bwd": 16}

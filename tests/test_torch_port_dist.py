@@ -1,0 +1,218 @@
+"""The port's distributions, RV specs, schedules and library stats against
+the JAX package, on the same numpy inputs (CPU, float32)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sisua_tpu.dist as JD
+import sisua_tpu_torch.dist as TD
+from sisua_tpu import interpolation as jinterp
+from sisua_tpu import rv as jrv
+from sisua_tpu.data.utils import get_library_size as j_library_size
+from sisua_tpu_torch import interpolation as tinterp
+from sisua_tpu_torch import rv as trv
+from sisua_tpu_torch.data import get_library_size as t_library_size
+
+# log-probs are compared elementwise with rtol 1e-5 on top of an atol of
+# 1e-5·max|ref|: XLA's lgamma and libm's lgammaf differ by a few float32
+# ulps, and at x ~ 1e6 one ulp of lgamma(x) ~ 1.3e7 is ~1
+RTOL = 1e-5
+
+
+def _close(t, j, rtol=RTOL, atol_frac=1e-5, err_msg=""):
+  t = t.detach().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+  j = np.asarray(j)
+  assert t.shape == j.shape, (t.shape, j.shape)
+  np.testing.assert_allclose(t, j, rtol=rtol,
+                             atol=atol_frac * max(np.abs(j).max(), 1e-30),
+                             err_msg=err_msg)
+
+
+def _both(*arrays):
+  return ([jnp.asarray(a) for a in arrays],
+          [torch.tensor(np.asarray(a)) for a in arrays])
+
+
+def _counts(seed, shape=(8, 16), extreme=True):
+  rng = np.random.default_rng(seed)
+  x = rng.poisson(3.0, shape).astype(np.float32)
+  x[:, :4] = 0.0
+  if extreme:
+    x[:, -1] = 1e6
+  return rng, x
+
+
+def test_normal_log_prob_and_kl():
+  rng = np.random.default_rng(0)
+  loc, z = rng.normal(0, 1, (2, 8, 4)).astype(np.float32)
+  scale = rng.gamma(2, 0.5, (8, 4)).astype(np.float32)
+  (jl, js, jz), (tl, ts, tz) = _both(loc, scale, z)
+  _close(TD.Normal(tl, ts).log_prob(tz), JD.Normal(jl, js).log_prob(jz))
+  prior = (TD.Normal(tl * 0.5, ts * 2.0), JD.Normal(jl * 0.5, js * 2.0))
+  _close(TD.kl_divergence(TD.Normal(tl, ts), prior[0]),
+         JD.kl_divergence(JD.Normal(jl, js), prior[1]))
+  # Independent sums the event dim; KL of matched Independents too
+  _close(TD.Independent(TD.Normal(tl, ts), 1).log_prob(tz),
+         JD.Independent(JD.Normal(jl, js), 1).log_prob(jz))
+  _close(TD.kl_divergence(TD.Independent(TD.Normal(tl, ts), 1),
+                          TD.Independent(prior[0], 1)),
+         JD.kl_divergence(JD.Independent(JD.Normal(jl, js), 1),
+                          JD.Independent(prior[1], 1)))
+
+
+def test_mvndiag_log_prob_kl_and_given_noise():
+  rng = np.random.default_rng(1)
+  loc, z, eps = rng.normal(0, 1, (3, 8, 5)).astype(np.float32)
+  scale = rng.gamma(2, 0.5, (8, 5)).astype(np.float32)
+  (jl, js, jz), (tl, ts, tz) = _both(loc, scale, z)
+  tq, jq = TD.MultivariateNormalDiag(tl, ts), JD.MultivariateNormalDiag(jl, js)
+  _close(tq.log_prob(tz), jq.log_prob(jz))
+  tp = TD.MultivariateNormalDiag(torch.zeros(5), torch.ones(5))
+  jp = JD.MultivariateNormalDiag(jnp.zeros(5), jnp.ones(5))
+  _close(TD.kl_divergence(tq, tp), JD.kl_divergence(jq, jp))
+  assert tq.batch_shape == jq.batch_shape == (8,)
+  # rsample with given noise is loc + scale·eps exactly
+  s = tq.rsample(eps=torch.tensor(eps))
+  np.testing.assert_array_equal(s.numpy(), loc + scale * eps)
+  # drawn noise follows the generator: same seed, same draw
+  g1, g2 = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+  assert torch.equal(tq.rsample((2,), generator=g1),
+                     tq.rsample((2,), generator=g2))
+  with pytest.raises(TD.NoAnalyticKL):
+    TD.kl_divergence(tq, TD.Normal(torch.zeros(5), torch.ones(5)))
+
+
+def _nb_pairs(kind, seed, per_gene=False, extreme=True):
+  """(port dist, JAX dist, x) for one NB parameterization."""
+  rng, x = _counts(seed, extreme=extreme)
+  shape = (1, 16) if per_gene else (8, 16)
+  mu = rng.gamma(2.0, 2.0, (8, 16)).astype(np.float32)
+  th = rng.gamma(3.0, 1.0, shape).astype(np.float32)
+  if extreme:  # tiny and huge dispersions, both sides of the 1e6 switch
+    th[..., 4] = 1e-8
+    th[..., 5] = 2e6
+    th[..., 6] = 1e8
+  logits = rng.normal(0, 2, (8, 16)).astype(np.float32)
+  if kind == "logits":
+    (a, b), (c, d) = _both(th, logits)
+    return (TD.NegativeBinomial(c, d), JD.NegativeBinomial(a, b), x)
+  if kind == "disp":
+    (a, b), (c, d) = _both(mu, th)
+    return (TD.NegativeBinomialDisp(c, d), JD.NegativeBinomialDisp(a, b), x)
+  if kind == "displog":
+    (a, b), (c, d) = _both(np.log(mu), th)
+    return (TD.NegativeBinomialDispLog(c, d),
+            JD.NegativeBinomialDispLog(a, b), x)
+  log_th = np.log(th)
+  log_th[..., 7] = 20.0  # beyond the ±15 clip: θ and logits share it
+  (a, b), (c, d) = _both(np.log(mu), log_th)
+  return TD.NegativeBinomialLog(c, d), JD.NegativeBinomialLog(a, b), x
+
+
+NB_KINDS = ["logits", "disp", "displog", "loglog"]
+
+
+@pytest.mark.parametrize("per_gene", [False, True], ids=["BD", "per_gene"])
+@pytest.mark.parametrize("kind", NB_KINDS)
+def test_nb_log_prob(kind, per_gene):
+  tnb, jnb, x = _nb_pairs(kind, seed=NB_KINDS.index(kind), per_gene=per_gene)
+  lp = tnb.log_prob(torch.tensor(x))
+  assert torch.isfinite(lp).all()
+  _close(lp, jnb.log_prob(jnp.asarray(x)), err_msg=kind)
+  _close(tnb.mean(), jnb.mean(), err_msg=kind)
+
+
+@pytest.mark.parametrize("kind", NB_KINDS)
+def test_zero_inflated_log_prob_and_gradients(kind):
+  """ZeroInflated over each NB kind, including the −1e30 no-inflation gate
+  on one column, and the gradient wrt the gate logits."""
+  tnb, jnb, x = _nb_pairs(kind, seed=10 + NB_KINDS.index(kind),
+                          extreme=False)
+  gate = np.random.default_rng(5).normal(0, 1, (8, 16)).astype(np.float32)
+  gate[:, 3] = -1e30
+  tg = torch.tensor(gate, requires_grad=True)
+  tzi = TD.ZeroInflated(tnb, tg)
+  jzi = JD.ZeroInflated(jnb, jnp.asarray(gate))
+  assert tzi.count_distribution is tnb
+  tlp = TD.Independent(tzi, 1).log_prob(torch.tensor(x))
+  jlp = JD.Independent(jzi, 1).log_prob(jnp.asarray(x))
+  _close(tlp, jlp, err_msg=kind)
+  tlp.sum().backward()
+  jg = jax.grad(lambda g: JD.Independent(JD.ZeroInflated(jnb, g), 1)
+                .log_prob(jnp.asarray(x)).sum())(jnp.asarray(gate))
+  # gradient tolerance 1e-4: sigmoid/softplus forms differ by ulps
+  _close(tg.grad, jg, rtol=1e-4, err_msg=kind)
+  _close(tzi.mean(), jzi.mean(), err_msg=kind)
+
+
+@pytest.mark.parametrize("posterior,dim", [("diag", 6), ("normal", 1),
+                                           ("zinbd", 12), ("nbd", 12)])
+def test_rv_specs_and_priors(posterior, dim):
+  """RVmeta builds the same distribution from the same raw head output,
+  with exp(clip ±15) positives and softplus + 1e-4 scales."""
+  t_meta = trv.RVmeta(dim, posterior, name="v")
+  j_meta = jrv.RVmeta(dim, posterior, name="v")
+  assert t_meta.n_params == j_meta.n_params
+  assert t_meta.is_zero_inflated == j_meta.is_zero_inflated
+  rng = np.random.default_rng(dim)
+  raw = rng.normal(0, 3, (8, t_meta.n_params)).astype(np.float32)
+  raw[0, :2] = [-40.0, 40.0]  # through both clip edges
+  x = (rng.poisson(2.0, (8, dim)).astype(np.float32)
+       if posterior in ("zinbd", "nbd") else
+       rng.normal(0, 1, (8, dim)).astype(np.float32))
+  td = t_meta.create_distribution(torch.tensor(raw))
+  jd = j_meta.create_distribution(jnp.asarray(raw))
+  _close(td.log_prob(torch.tensor(x)), jd.log_prob(jnp.asarray(x)),
+         err_msg=posterior)
+  t_prior, j_prior = t_meta.create_prior(), j_meta.create_prior()
+  if j_prior is None:
+    assert t_prior is None
+  else:
+    _close(t_prior.log_prob(torch.tensor(x)),
+           j_prior.log_prob(jnp.asarray(x)))
+  # constrained=True passes final parameters through untouched
+  if posterior in ("zinbd", "nbd"):
+    pos = np.abs(raw) + 0.5
+    _close(t_meta.create_distribution(torch.tensor(pos), True)
+           .log_prob(torch.tensor(x)),
+           j_meta.create_distribution(jnp.asarray(pos), True)
+           .log_prob(jnp.asarray(x)))
+
+
+def test_parse_rv_and_unknown_posterior():
+  assert trv.parse_rv((7, "zinbd", "rna")) == trv.RVmeta(7, "zinbd", True,
+                                                         "rna")
+  meta = trv.parse_rv({"dim": 5, "posterior": "nbd", "dispersion": "single"})
+  assert meta.kw == {"dispersion": "single"} and meta.name == "rv"
+  with pytest.raises(ValueError, match="Unknown posterior"):
+    trv.RVmeta(3, "mixtril")
+
+
+@pytest.mark.parametrize("spec", [
+    1.5, "linear", dict(kind="linear", vmin=0.1, vmax=2.0, norm=7),
+    dict(kind="cosine", norm=10, delay_in=3),
+    dict(kind="exp", norm=5, cyclical=True, delay_in=2),
+    dict(kind="sigmoid", norm=9), dict(kind="expIn", norm=4)])
+def test_interpolation_matches_jax(spec):
+  t, j = tinterp.get_interpolation(spec), jinterp.get_interpolation(spec)
+  for step in (0, 1, 2, 3, 5, 8, 13, 21):
+    # float32 (JAX) vs float64 (math) evaluation of the same formula
+    np.testing.assert_allclose(t(step), float(j(step)), rtol=1e-6,
+                               atol=1e-7, err_msg=f"step {step}")
+
+
+def test_library_size_numpy_and_torch():
+  rng = np.random.default_rng(4)
+  x = rng.poisson(2.0, (40, 30)).astype(np.float32)
+  jm, jv = j_library_size(x)
+  tm, tv = t_library_size(x)
+  np.testing.assert_array_equal(tm, jm)
+  np.testing.assert_array_equal(tv, jv)
+  # the torch form stays a tensor (float64 accumulation: rtol 1e-6)
+  tm2, tv2 = t_library_size(torch.tensor(x))
+  assert isinstance(tm2, torch.Tensor) and tm2.shape == (40, 1)
+  np.testing.assert_allclose(tm2.numpy(), jm, rtol=1e-6)
+  np.testing.assert_allclose(tv2.numpy(), jv, rtol=1e-5)
