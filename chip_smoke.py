@@ -4,16 +4,17 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``sisua_tpu_torch/csrc`` and
-drives the port's main path, SCVI training with the ZINB likelihood in its
-'full' dispersion form at full transcriptome width (33,000 genes), through
-the entry points a user calls: ``SCVI(...).fit`` and ``evaluate``.
+drives the port's two paths at full transcriptome width (33,000 genes)
+through the entry points a user calls, ``fit`` and ``evaluate``: SCVI
+training with the ZINB likelihood in its 'full' dispersion form, and SISUA
+training (a 'zinb' RNA head and a masked 'nb' head over 10 proteins).
 
 Phases, one result line each; any failure raises and exits non-zero
 before the final line:
   1. device: CUDA present; card name and power limit from nvidia-smi;
   2. build: nvcc → shared library, seconds and the ptxas report;
-  3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes and at edge shapes (forward rtol 1e-4; gradients rtol
+  3. each kernel against its plain PyTorch version on the card, at both
+     paths' shapes and at edge shapes (forward rtol 1e-4; gradients rtol
      2e-4 / atol 1e-5, plus a sum-order term for per-gene sums), with
      median µs per call of kernel and plain, timed with CUDA events over
      back-to-back calls in turns (plain, kernel, kernel, plain);
@@ -23,9 +24,20 @@ before the final line:
      the step count; then evaluate on 1,024 held-out cells;
   5. the kernel route against the plain route (distribution math under
      autograd) on one 512 × 33,000 batch at the same converted weights and
-     noise, for 'full' and 'single' dispersion.
-Before the last line it prints the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+     noise, for 'full' and 'single' dispersion;
+  6. SISUA fit on the same counts plus 10 protein columns, the JAX
+     package's default nets, α = 10, labels_percent 0.1, batch 512, 16
+     epochs in two windows of 8, validated on the 1,024 held-out cells;
+     every loss finite and falling, ``llk_x1`` and ``val_loss`` in the
+     history, each kernel launched twice per step (RNA and protein heads)
+     and the forward twice per validation and evaluate batch;
+  7. the kernel route against the plain route on one 512-row train step at
+     the same converted weights and noise for SISUA (mixed mask; the mask
+     must change the loss), DCA ('zinb') and MISA ('zinb' + 'nbd' →
+     'mixnb', whose mixture head never reaches the kernels).
+Before the last line it prints the kernels' JSON summary (launches of the
+phase 4 and phase 6 fits); the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 import json
@@ -39,11 +51,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 SEED = 0
 GENES = 33_000
+PROTEINS = 10
 CELLS = 8192
 HELD_OUT = 1024
 BATCH = 512
 EPOCHS = 16
 WINDOW = 8            # metrics_interval, in epochs
+ALPHA = 10.0          # configs/base.yaml:10
+LABELS_PERCENT = 0.1  # configs/base.yaml:26
 FWD_RTOL = 1e-4       # row-sum order bound (tests/test_ops.py:79)
 GRAD_TOL = dict(rtol=2e-4, atol=1e-5)  # tests/test_ops.py:130
 # a per-gene (1, D) gradient sums B rows in another order than the plain
@@ -130,16 +145,29 @@ def _counts(torch, gen, rows, cols):
   return x * (torch.rand((rows, cols), generator=gen, device=DEVICE) > 0.5)
 
 
+def _proteins(torch, gen, rows):
+  """Poisson(exp(2 + N(0,1))) protein counts on the card."""
+  return torch.poisson(torch.exp(2.0 + torch.randn(
+      (rows, PROTEINS), generator=gen, device=DEVICE)), generator=gen)
+
+
+# phase-3 cases whose gate is the NB heads' −1e30 per-gene row
+NB_GATE_CASES = ("nb_gate", "adt_nb")
+
+
 def _case(torch, gen, name, rows, cols, constrained, per_gene):
   """Operands for one phase-3 case: (x, θ-operand, logits, gate)."""
-  x = _counts(torch, gen, rows, cols)
+  x = (_proteins(torch, gen, rows) if name == "adt_nb"
+       else _counts(torch, gen, rows, cols))
   shapes = [(1 if pg else rows, cols) for pg in per_gene]
   cr = torch.randn(shapes[0], generator=gen, device=DEVICE)
-  if constrained:  # θ itself, log-normal around e^0.5
+  if name == "zinb_logits":  # the 'zinb' head's exp(clip(raw, ±15)), wide
+    cr = torch.exp(torch.clamp(6.0 * cr, -15.0, 15.0))  # enough for θ > 1e6
+  elif constrained:  # θ itself, log-normal around e^0.5
     cr = torch.exp(0.5 + 0.7 * cr)
   lg = torch.randn(shapes[1], generator=gen, device=DEVICE) - 2.0
   gt = torch.randn(shapes[2], generator=gen, device=DEVICE) - 1.0
-  if name == "nb_gate":
+  if name in NB_GATE_CASES:
     gt = torch.full(shapes[2], -1e30, device=DEVICE)
   return x, cr, lg, gt
 
@@ -163,6 +191,8 @@ def phase_kernels(torch):
       ("main_full", BATCH, GENES, False, (False, False, False)),
       ("main_gene_theta", BATCH, GENES, True, (True, False, False)),
       ("nb_gate", BATCH, GENES, False, (False, False, True)),
+      ("zinb_logits", BATCH, GENES, True, (False, False, False)),
+      ("adt_nb", BATCH, PROTEINS, True, (False, False, True)),
       ("tall", 4096, 2048, False, (False, False, False)),
       ("ragged", 130, 1001, True, (True, False, False)),
       ("extreme", 4, 16, True, (False, False, False)),
@@ -174,7 +204,7 @@ def phase_kernels(torch):
     else:
       x, cr, lg, gt = _case(torch, gen, name, rows, cols, constrained, pg)
     g = torch.randn((x.shape[0],), generator=gen, device=DEVICE)
-    need = (True, True, name != "nb_gate")  # the NB gate needs no gradient
+    need = (True, True, name not in NB_GATE_CASES)  # no NB gate gradient
     out = tz._fwd_launch(x, cr, lg, gt, constrained)
     grads = tz._bwd_launch(x, cr, lg, gt, g, constrained, need)
     torch.cuda.synchronize()
@@ -213,8 +243,9 @@ def phase_kernels(torch):
                                          need)})
     results[name] = dict(fwd_err=fwd_err, bwd_err=bwd_err, t_fwd=t_fwd,
                          t_bwd=t_bwd)
+    big = float((cr > 1e6).float().mean()) if constrained else 0.0
     log(f"[3 kernels] {name} {tuple(x.shape)} constrained={constrained} "
-        f"per_gene={pg}: fwd max|Δ| {fwd_err:.3e} kernel "
+        f"per_gene={pg} θ>1e6 {big:.4f}: fwd max|Δ| {fwd_err:.3e} kernel "
         f"{t_fwd['kernel']:.1f} µs plain {t_fwd['plain']:.1f} µs | bwd "
         f"max|Δ| {bwd_err:.3e} kernel {t_bwd['kernel']:.1f} µs plain "
         f"{t_bwd['plain']:.1f} µs")
@@ -231,28 +262,44 @@ def _scvi(torch, dispersion, **kw):
               dispersion=dispersion, device=DEVICE, seed=SEED, **kw)
 
 
-def phase_fit(torch):
-  import numpy as np
-  from sisua_tpu_torch.data import get_library_size
-  from sisua_tpu_torch.ops import zinb as tz
+def phase_data(torch):
+  """The synthetic transcriptome, training and held-out, on the card."""
   gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
   t0 = time.perf_counter()
   x = torch.cat([_counts(torch, gen, 1024, GENES)
                  for _ in range(CELLS // 1024)])
   held = _counts(torch, gen, HELD_OUT, GENES)
-  mean, var = get_library_size(x)
-  library = torch.cat([mean, var], dim=1)
   torch.cuda.synchronize()
   log(f"[4 fit] data {tuple(x.shape)} on the card "
       f"({x.numel() * 4 / 1e9:.2f} GB f32) in "
-      f"{time.perf_counter() - t0:.1f} s; library mean "
-      f"{float(mean[0]):.4f} var {float(var[0]):.4f}")
+      f"{time.perf_counter() - t0:.1f} s")
+  return x, held
+
+
+def _steady(h, torch):
+  """Steady step ms and cells/s (median of the last window) and peak
+  device memory in GiB."""
+  import numpy as np
+  step_ms = float(np.median(h["epoch_time"][-WINDOW:])) / (
+      CELLS // BATCH) * 1e3
+  return (step_ms, float(np.median(h["cells_per_sec"][-WINDOW:])),
+          torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_fit(torch, x, held):
+  import numpy as np
+  from sisua_tpu_torch.data import get_library_size
+  from sisua_tpu_torch.ops import zinb as tz
+  mean, var = get_library_size(x)
+  library = torch.cat([mean, var], dim=1)
+  log(f"[4 fit] library mean {float(mean[0]):.4f} var {float(var[0]):.4f}")
   model = _scvi(torch, "full")
   torch.cuda.reset_peak_memory_stats()
+  resident = torch.cuda.memory_allocated() / 2**30
   tz.reset_launches()
   t0 = time.perf_counter()
-  model.fit(x, library=library, epochs=EPOCHS, batch_size=BATCH,
-            learning_rate=1e-3, clipnorm=100.0, metrics_interval=WINDOW)
+  model.fit(x, epochs=EPOCHS, batch_size=BATCH, learning_rate=1e-3,
+            clipnorm=100.0, metrics_interval=WINDOW)
   fit_s = time.perf_counter() - t0
   steps = EPOCHS * (CELLS // BATCH)
   fit_launches = dict(tz.launches)
@@ -266,17 +313,13 @@ def phase_fit(torch):
   check(fit_launches == {"zinb_rowsum_fwd": steps,
                          "zinb_rowsum_bwd": steps},
         f"launches {fit_launches} != {steps} steps")
-  step_ms = float(np.median(h["epoch_time"][-WINDOW:])) / (
-      CELLS // BATCH) * 1e3
-  cells_s = float(np.median(h["cells_per_sec"][-WINDOW:]))
-  peak = torch.cuda.max_memory_allocated()
+  step_ms, cells_s, peak = _steady(h, torch)
   log(f"[4 fit] {steps} steps in {fit_s:.1f} s; loss first window "
       f"{first:.2f} last window {last:.2f}; steady step {step_ms:.3f} ms, "
       f"{cells_s:.0f} cells/s (last window); peak memory "
-      f"{peak / 2**30:.2f} GiB; launches {fit_launches}")
-  hmean, hvar = get_library_size(held)
-  ev = model.evaluate(held, library=torch.cat([hmean, hvar], 1),
-                      batch_size=BATCH)
+      f"{peak:.2f} GiB ({resident:.2f} GiB resident before the fit); "
+      f"launches {fit_launches}")
+  ev = model.evaluate(held, batch_size=BATCH)
   eval_fwd = tz.launches["zinb_rowsum_fwd"] - steps
   check(all(np.isfinite(v) for v in ev.values()), f"evaluate {ev}")
   check(eval_fwd == HELD_OUT // BATCH
@@ -285,12 +328,14 @@ def phase_fit(torch):
   log(f"[4 fit] evaluate on {HELD_OUT} held-out cells: loss "
       f"{ev['loss']:.2f} llk_x {ev['llk_x']:.2f} klqp_z {ev['klqp_z']:.3f}; "
       f"forward launches +{eval_fwd}")
-  return model, x, library, dict(tz.launches)
+  return model, library, dict(tz.launches)
 
 
 def _route_grads(torch, model, sd, batch, noise, mode):
   """Loss and parameter gradients of one train-mode step under one route,
-  from the same state, dropout draws and reparameterization noise."""
+  from the same state, dropout draws and reparameterization noise
+  (``SISUA_TPU_FUSED_LIKELIHOOD``: 'auto' takes the kernels on the card,
+  'off' the distribution math)."""
   os.environ["SISUA_TPU_FUSED_LIKELIHOOD"] = mode
   try:
     model.module.load_state_dict(sd)
@@ -305,9 +350,47 @@ def _route_grads(torch, model, sd, batch, noise, mode):
     os.environ.pop("SISUA_TPU_FUSED_LIKELIHOOD", None)
 
 
-def phase_routes(torch, trained, x, library):
-  from sisua_tpu_torch import convert
+def _compare_routes(torch, phase, label, model, sd, batch, noise, expect):
+  """Kernel route vs plain route of one step: each kernel launched
+  ``expect`` times on the kernel route and never on the plain one; loss
+  within ROUTE_LOSS_RTOL; every parameter gradient within the bound.
+  Returns the kernel route's loss."""
   from sisua_tpu_torch.ops import zinb as tz
+  before = dict(tz.launches)
+  lk, gk = _route_grads(torch, model, sd, batch, noise, "auto")
+  mid = dict(tz.launches)
+  check(all(mid[k] - before[k] == expect for k in mid),
+        f"{label}: kernel route launches {before} → {mid}, expected "
+        f"+{expect} each")
+  lp, gp = _route_grads(torch, model, sd, batch, noise, "off")
+  check(tz.launches == mid, f"{label}: plain route launched a kernel")
+  check(abs(lk - lp) <= ROUTE_LOSS_RTOL * abs(lp),
+        f"{label}: loss kernel {lk} plain {lp}")
+  scale = max(float(g.abs().max()) for g in gp.values())
+  worst, worst_key = 0.0, None
+  for k, g in gp.items():
+    bound = float(g.abs().max()) + 1e-3 * scale
+    ratio = float((gk[k] - g).abs().max()) / bound
+    if ratio > worst:
+      worst, worst_key = ratio, k
+  check(worst <= ROUTE_GRAD_BOUND,
+        f"{label}: gradient {worst_key} off by {worst:.2e}")
+  log(f"[{phase}] {label}: loss kernel {lk:.4f} plain {lp:.4f} "
+      f"(rel {abs(lk - lp) / abs(lp):.2e}); worst gradient "
+      f"max|Δ|/(max|g|+1e-3·G) {worst:.2e} at {worst_key} "
+      f"(bound {ROUTE_GRAD_BOUND}); kernel launches +{expect} each")
+  return lk
+
+
+def _converted(model, src):
+  """``model``'s state_dict from ``src``'s weights, through the JAX layout
+  and back (every leaf must map)."""
+  from sisua_tpu_torch import convert
+  params, stats = convert.torch_to_jax(src.module)
+  return convert.jax_to_torch(model.module, params, stats)
+
+
+def phase_routes(torch, trained, x, library):
   gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
   rows = torch.arange(BATCH, device=DEVICE)
   batch = {"inputs": [x[rows]], "library": library[rows],
@@ -317,29 +400,100 @@ def phase_routes(torch, trained, x, library):
   for dispersion in ("full", "single"):
     src = trained if dispersion == "full" else _scvi(torch, "single")
     model = _scvi(torch, dispersion)
-    params, stats = convert.torch_to_jax(src.module)
-    sd = convert.jax_to_torch(model.module, params, stats)
-    before = dict(tz.launches)
-    lk, gk = _route_grads(torch, model, sd, batch, noise, "auto")
-    check(tz.launches["zinb_rowsum_fwd"] == before["zinb_rowsum_fwd"] + 1
-          and tz.launches["zinb_rowsum_bwd"]
-          == before["zinb_rowsum_bwd"] + 1, "kernel route missed a kernel")
-    lp, gp = _route_grads(torch, model, sd, batch, noise, "off")
-    check(abs(lk - lp) <= ROUTE_LOSS_RTOL * abs(lp),
-          f"{dispersion}: loss kernel {lk} plain {lp}")
-    scale = max(float(g.abs().max()) for g in gp.values())
-    worst, worst_key = 0.0, None
-    for k, g in gp.items():
-      bound = float(g.abs().max()) + 1e-3 * scale
-      ratio = float((gk[k] - g).abs().max()) / bound
-      if ratio > worst:
-        worst, worst_key = ratio, k
-    check(worst <= ROUTE_GRAD_BOUND,
-          f"{dispersion}: gradient {worst_key} off by {worst:.2e}")
-    log(f"[5 routes] {dispersion}: loss kernel {lk:.4f} plain {lp:.4f} "
-        f"(rel {abs(lk - lp) / abs(lp):.2e}); worst gradient "
-        f"max|Δ|/(max|g|+1e-3·G) {worst:.2e} at {worst_key} "
-        f"(bound {ROUTE_GRAD_BOUND})")
+    _compare_routes(torch, "5 routes", dispersion, model,
+                    _converted(model, src), batch, noise, 1)
+
+
+def _sisua_outputs():
+  from sisua_tpu_torch.models import RVmeta
+  return [RVmeta(GENES, "zinb", name="rna"),
+          RVmeta(PROTEINS, "nb", name="adt")]
+
+
+def phase_sisua(torch, x, held):
+  """SISUA at the JAX package's defaults: encoder (64, 64) with batchnorm
+  and input dropout 0.3, decoder (64, 64) with batchnorm, latent 10
+  'diag'."""
+  import numpy as np
+  from sisua_tpu_torch.models import SISUA
+  from sisua_tpu_torch.ops import zinb as tz
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+  y, held_y = _proteins(torch, gen, CELLS), _proteins(torch, gen, HELD_OUT)
+  model = SISUA(_sisua_outputs(), alpha=ALPHA, device=DEVICE, seed=SEED)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  resident = torch.cuda.memory_allocated() / 2**30
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  model.fit([x, y], valid=[held, held_y], epochs=EPOCHS, batch_size=BATCH,
+            learning_rate=1e-3, labels_percent=LABELS_PERCENT,
+            metrics_interval=WINDOW)
+  fit_s = time.perf_counter() - t0
+  fit_launches = dict(tz.launches)
+  steps = EPOCHS * (CELLS // BATCH)
+  val_batches = (EPOCHS // WINDOW) * -(-HELD_OUT // BATCH)
+  h = model.history
+  losses = np.asarray(h["loss"])
+  check(len(losses) == EPOCHS and model.step == steps,
+        f"ran {len(losses)} epochs / {model.step} steps")
+  check(np.isfinite(losses).all(), f"non-finite loss {losses}")
+  first, last = losses[:WINDOW].mean(), losses[-WINDOW:].mean()
+  check(last < first, f"last window loss {last} !< first {first}")
+  check("llk_x1" in h and len(h.get("val_loss", ())) == EPOCHS // WINDOW
+        and np.isfinite(h["val_loss"]).all(),
+        f"history keys {sorted(h)}, val_loss {h.get('val_loss')}")
+  check(fit_launches == {"zinb_rowsum_fwd": 2 * (steps + val_batches),
+                         "zinb_rowsum_bwd": 2 * steps},
+        f"launches {fit_launches}: expected 2 × ({steps} steps + "
+        f"{val_batches} validation batches) forward, 2 × {steps} backward")
+  step_ms, cells_s, peak = _steady(h, torch)
+  log(f"[6 sisua] {steps} steps in {fit_s:.1f} s; loss first window "
+      f"{first:.2f} last window {last:.2f}; llk_x1 {h['llk_x1'][-1]:.2f}; "
+      f"val_loss {h['val_loss'][0]:.2f} → {h['val_loss'][-1]:.2f}; steady "
+      f"step {step_ms:.3f} ms, {cells_s:.0f} cells/s (last window); peak "
+      f"memory {peak:.2f} GiB ({resident:.2f} GiB resident before the "
+      f"fit); launches {fit_launches}")
+  ev = model.evaluate([held, held_y], batch_size=BATCH)
+  eval_fwd = tz.launches["zinb_rowsum_fwd"] - fit_launches["zinb_rowsum_fwd"]
+  check(all(np.isfinite(v) for v in ev.values()), f"evaluate {ev}")
+  check(eval_fwd == 2 * -(-HELD_OUT // BATCH)
+        and tz.launches["zinb_rowsum_bwd"] == 2 * steps,
+        f"evaluate launches {tz.launches}")
+  log(f"[6 sisua] evaluate on {HELD_OUT} held-out cells: loss "
+      f"{ev['loss']:.2f} llk_x {ev['llk_x']:.2f} llk_x1 {ev['llk_x1']:.2f} "
+      f"klqp_z {ev['klqp_z']:.3f}; forward launches +{eval_fwd}")
+  return model, y, fit_launches
+
+
+def phase_model_routes(torch, trained, x, y):
+  from sisua_tpu_torch.models import MISA, SISUA, DeepCountAutoencoder
+  from sisua_tpu_torch.models import RVmeta
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+  rows = torch.arange(BATCH, device=DEVICE)
+  mask = (torch.rand((BATCH,), generator=gen, device=DEVICE)
+          < 0.5).to(torch.float32)
+  batch = {"inputs": [x[rows], y[rows]], "mask": mask}
+  z = [torch.randn((BATCH, 10), generator=gen, device=DEVICE)]
+  cases = (
+      ("SISUA", trained, SISUA(_sisua_outputs(), alpha=ALPHA,
+                               device=DEVICE, seed=SEED), z, 2),
+      ("DCA", None, DeepCountAutoencoder(RVmeta(GENES, "zinb", name="rna"),
+                                         device=DEVICE, seed=SEED),
+       [None], 1),
+      ("MISA", None, MISA([RVmeta(GENES, "zinb", name="rna"),
+                           RVmeta(PROTEINS, "nbd", name="adt")],
+                          alpha=ALPHA, device=DEVICE, seed=SEED), z, 1))
+  for name, src, model, noise, expect in cases:
+    sd = _converted(model, src or model)
+    lk = _compare_routes(torch, "7 routes", name, model, sd, batch, noise,
+                         expect)
+    if name == "SISUA":
+      ones = dict(batch, mask=torch.ones_like(mask))
+      l1, _ = _route_grads(torch, model, sd, ones, noise, "auto")
+      check(abs(lk - l1) > 1e-4 * abs(l1),
+            f"SISUA: the mask does not gate the loss ({lk} vs {l1})")
+      log(f"[7 routes] SISUA: mixed mask ({int(mask.sum())} of {BATCH} "
+          f"labeled) loss {lk:.4f}, all-ones mask loss {l1:.4f}")
 
 
 def main():
@@ -353,8 +507,13 @@ def main():
   phase_device(torch)
   phase_build()
   kern = phase_kernels(torch)
-  model, x, library, launches = phase_fit(torch)
+  x, held = phase_data(torch)
+  model, library, launches = phase_fit(torch, x, held)
   phase_routes(torch, model, x, library)
+  del model
+  sisua, y, sisua_launches = phase_sisua(torch, x, held)
+  phase_model_routes(torch, sisua, x, y)
+  launches = {k: v + sisua_launches[k] for k, v in launches.items()}
   main_case = kern["main_full"]
   kernels = []
   for name, line, key, err in (

@@ -11,7 +11,9 @@ C++ in ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use and bound
 with ``ctypes`` (``ops/_build.py``). On CPU tensors every kernel wrapper
 runs its plain PyTorch version instead.
 
-Port state: SCVI training (``models.SCVI(...).fit``) and ``evaluate``.
+Port state: training (``fit`` with validation and early stopping) and
+``evaluate`` of SCVI and of the paper's VAE, SISUA, MISA and
+DeepCountAutoencoder (``models``).
 """
 
 __version__ = "0.1.0"

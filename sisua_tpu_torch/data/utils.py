@@ -11,6 +11,10 @@ import torch
 
 __all__ = ["get_library_size"]
 
+# rows per float64 row-sum pass over a tensor: at most 2^25 elements, so the
+# float64 copy a pass makes stays ≤ 256 MiB whatever the matrix's size
+_SUM_ELEMENTS = 1 << 25
+
 
 def get_library_size(X):
   """Per-cell library statistics in log space (scVI convention).
@@ -22,7 +26,10 @@ def get_library_size(X):
     raise ValueError("Only support 2-D matrix")
   n = X.shape[0]
   if isinstance(X, torch.Tensor):
-    log_counts = torch.log(X.sum(dim=1, dtype=torch.float64) + 1e-8)
+    step = max(1, _SUM_ELEMENTS // max(1, X.shape[1]))
+    totals = torch.cat([X[i:i + step].sum(dim=1, dtype=torch.float64)
+                        for i in range(0, n, step)])
+    log_counts = torch.log(totals + 1e-8)
     mean = log_counts.mean().to(torch.float32)
     var = log_counts.var(correction=0).to(torch.float32)
     return mean.expand(n, 1).clone(), var.expand(n, 1).clone()

@@ -1,16 +1,19 @@
-"""sisua_tpu_torch.dist — distributions of the SCVI slice (port of
+"""sisua_tpu_torch.dist — the port's distributions (counterpart of
 ``sisua_tpu.dist``)."""
 
 from .base import (Distribution, Independent, NoAnalyticKL, kl_divergence,
                    register_kl)
-from .continuous import MultivariateNormalDiag, Normal
-from .count import (NegativeBinomial, NegativeBinomialDisp,
-                    NegativeBinomialDispLog, NegativeBinomialLog,
+from .continuous import MultivariateNormalDiag, Normal, VectorDeterministic
+from .count import (Bernoulli, NegativeBinomial, NegativeBinomialDisp,
+                    NegativeBinomialDispLog, NegativeBinomialLog, Poisson,
                     ZeroInflated)
+from .discrete import Categorical, OneHotCategorical
+from .mixture import MixtureSameFamily
 
 __all__ = [
     "Distribution", "Independent", "NoAnalyticKL", "kl_divergence",
-    "register_kl", "MultivariateNormalDiag", "Normal", "NegativeBinomial",
-    "NegativeBinomialDisp", "NegativeBinomialDispLog", "NegativeBinomialLog",
-    "ZeroInflated",
+    "register_kl", "MultivariateNormalDiag", "Normal", "VectorDeterministic",
+    "Poisson", "Bernoulli", "NegativeBinomial", "NegativeBinomialDisp",
+    "NegativeBinomialDispLog", "NegativeBinomialLog", "ZeroInflated",
+    "Categorical", "OneHotCategorical", "MixtureSameFamily",
 ]

@@ -36,6 +36,12 @@ class Distribution:
   def mean(self) -> Tensor:
     raise NotImplementedError
 
+  def variance(self) -> Tensor:
+    raise NotImplementedError
+
+  def mode(self) -> Tensor:
+    raise NotImplementedError
+
   def rsample(self, sample_shape: Tuple[int, ...] = (),
               generator: torch.Generator | None = None,
               eps: Tensor | None = None) -> Tensor:
@@ -43,6 +49,13 @@ class Distribution:
     (the parity tests feed the JAX side's noise); otherwise it is drawn
     from ``generator``."""
     raise NotImplementedError
+
+  def sample(self, sample_shape: Tuple[int, ...] = (),
+             generator: torch.Generator | None = None) -> Tensor:
+    """Draw from ``generator``, outside autograd; families without a
+    reparameterization override this."""
+    with torch.no_grad():
+      return self.rsample(sample_shape, generator=generator)
 
 
 class Independent(Distribution):
@@ -70,8 +83,17 @@ class Independent(Distribution):
   def mean(self):
     return self.base.mean()
 
+  def variance(self):
+    return self.base.variance()
+
+  def mode(self):
+    return self.base.mode()
+
   def rsample(self, sample_shape=(), generator=None, eps=None):
     return self.base.rsample(sample_shape, generator=generator, eps=eps)
+
+  def sample(self, sample_shape=(), generator=None):
+    return self.base.sample(sample_shape, generator=generator)
 
 
 # KL registry: analytic where known, else NoAnalyticKL → the caller uses MC

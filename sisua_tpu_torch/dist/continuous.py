@@ -1,9 +1,11 @@
-"""Continuous distributions: Normal and MultivariateNormalDiag.
+"""Continuous distributions: Normal, MultivariateNormalDiag and
+VectorDeterministic.
 
-Port of the part of ``sisua_tpu/dist/continuous.py`` the SCVI slice uses:
-the 'diag' latent posterior and prior, the 'normal' library posterior and
-the Normal library prior, each with log_prob, analytic KL and a
-reparameterized ``rsample`` that also accepts given standard noise.
+Port of part of ``sisua_tpu/dist/continuous.py``: the 'diag' latent
+posterior and prior, the 'normal' library posterior and prior and the
+components of the 'mixgaus' head, each with log_prob, analytic KL and a
+reparameterized ``rsample`` that also accepts given standard noise; and the
+deterministic 'mse'/'linear'/'relu' head, whose KL to anything is 0.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from .base import Distribution, Tensor, register_kl
 
-__all__ = ["Normal", "MultivariateNormalDiag"]
+__all__ = ["Normal", "MultivariateNormalDiag", "VectorDeterministic"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -44,6 +46,12 @@ class Normal(Distribution):
 
   def mean(self):
     return self.loc.expand(self.batch_shape)
+
+  def variance(self):
+    return (self.scale * self.scale).expand(self.batch_shape)
+
+  def mode(self):
+    return self.mean()
 
   def rsample(self, sample_shape=(), generator=None, eps=None):
     shape = tuple(sample_shape) + self.batch_shape
@@ -93,3 +101,35 @@ def _kl_mvndiag_mvndiag(p: MultivariateNormalDiag, q: MultivariateNormalDiag):
   var_ratio = torch.square(p.scale_diag / q.scale_diag)
   t1 = torch.square((p.loc - q.loc) / q.scale_diag)
   return 0.5 * torch.sum(var_ratio + t1 - 1.0 - torch.log(var_ratio), dim=-1)
+
+
+class VectorDeterministic(Distribution):
+  """Point mass at ``loc`` for the 'mse'/'linear'/'relu' heads:
+  ``log_prob`` is minus the MEAN squared error over the event axis, and
+  ``rsample`` returns ``loc`` whatever noise it is given (DCA's latent)."""
+
+  def __init__(self, loc: Tensor):
+    self.loc = loc
+
+  @property
+  def event_shape(self):
+    return (self.loc.shape[-1],)
+
+  @property
+  def batch_shape(self):
+    return tuple(self.loc.shape[:-1])
+
+  def log_prob(self, x):
+    return -torch.mean(torch.square(x - self.loc), dim=-1)
+
+  def mean(self):
+    return self.loc
+
+  def rsample(self, sample_shape=(), generator=None, eps=None):
+    return self.loc.expand(tuple(sample_shape) + tuple(self.loc.shape))
+
+
+@register_kl(VectorDeterministic, Distribution)
+def _kl_deterministic_any(p: VectorDeterministic, q: Distribution):
+  # the JAX package's convention: a deterministic latent adds no KL (DCA)
+  return torch.zeros(p.batch_shape, dtype=p.loc.dtype, device=p.loc.device)

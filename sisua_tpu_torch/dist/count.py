@@ -1,11 +1,13 @@
-"""Count likelihoods: NB in four parameterizations and zero-inflation.
+"""Count likelihoods: Poisson, Bernoulli, NB in four parameterizations and
+zero-inflation.
 
-Port of ``sisua_tpu/dist/count.py`` for the SCVI slice. The four NB
-classes are the four kinds the objective maps onto the fused kernel
-(``models/objective.py``): ``NegativeBinomial`` ('logits'),
-``NegativeBinomialDisp`` ('disp'), ``NegativeBinomialDispLog`` ('displog')
-and ``NegativeBinomialLog`` ('loglog'). All log-probs are elementwise;
-``Independent`` sums them per cell.
+Port of ``sisua_tpu/dist/count.py``. The four NB classes are the four
+kinds the objective maps onto the fused kernel (``models/objective.py``):
+``NegativeBinomial`` ('logits'), ``NegativeBinomialDisp`` ('disp'),
+``NegativeBinomialDispLog`` ('displog') and ``NegativeBinomialLog``
+('loglog'). All log-probs are elementwise; ``Independent`` sums them per
+cell. NB(μ, θ) draws (MISA's mixture components) take an explicit
+``torch.Generator``, as a Gamma–Poisson mixture.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch.nn.functional as F
 
 from .base import Distribution, Tensor
 
-__all__ = ["NegativeBinomial", "NegativeBinomialDisp",
+__all__ = ["Poisson", "Bernoulli", "NegativeBinomial", "NegativeBinomialDisp",
            "NegativeBinomialDispLog", "NegativeBinomialLog", "ZeroInflated"]
 
 _EXP_CLIP = 15.0  # rv._EXP_CLIP and ops.zinb._EXP_CLIP
@@ -34,6 +36,48 @@ def _lgamma_diff(r, x):
 def _shape(*ts):
   return tuple(torch.broadcast_shapes(*(torch.as_tensor(t).shape
                                          for t in ts)))
+
+
+class Poisson(Distribution):
+
+  def __init__(self, rate: Tensor):
+    self.rate = rate
+
+  @property
+  def batch_shape(self):
+    return tuple(self.rate.shape)
+
+  def log_prob(self, x):
+    # rate 0 at an observed zero is log 1 = 0 with finite gradients (the
+    # safe-where form); rate 0 at x > 0 is impossible
+    safe_rate = torch.where(self.rate > 0, self.rate,
+                            torch.ones_like(self.rate))
+    ll = x * torch.log(safe_rate) - self.rate - torch.lgamma(x + 1.0)
+    return torch.where((x > 0) & (self.rate == 0),
+                       torch.full_like(ll, -float("inf")), ll)
+
+  def mean(self):
+    return self.rate
+
+
+class Bernoulli(Distribution):
+
+  def __init__(self, logits: Tensor):
+    self.logits = logits
+
+  @property
+  def batch_shape(self):
+    return tuple(self.logits.shape)
+
+  def probs(self):
+    return torch.sigmoid(self.logits)
+
+  def log_prob(self, x):
+    return x * F.logsigmoid(self.logits) + (1.0 - x) * F.logsigmoid(
+        -self.logits)
+
+  def mean(self):
+    return self.probs()
 
 
 class NegativeBinomial(Distribution):
@@ -80,6 +124,26 @@ class NegativeBinomialDisp(Distribution):
 
   def mean(self):
     return self.loc.expand(self.batch_shape)
+
+  def variance(self):
+    return self.loc + torch.square(self.loc) / self.disp
+
+  def mode(self):
+    return torch.where(self.disp > 1.0,
+                       torch.floor(self.loc * (self.disp - 1.0) / self.disp),
+                       torch.zeros(()))
+
+  def sample(self, sample_shape=(), generator=None):
+    return self.draw(tuple(sample_shape) + self.batch_shape, generator)
+
+  def draw(self, shape, generator=None):
+    """A draw at ``shape``, to which the parameters broadcast:
+    λ ~ Gamma(θ)·μ/θ, x ~ Poisson(λ)."""
+    with torch.no_grad():
+      lam = torch._standard_gamma(self.disp.expand(shape).contiguous(),
+                                  generator=generator) * (self.loc / self.disp)
+      return torch.poisson(lam.expand(shape).contiguous(),
+                           generator=generator)
 
 
 class NegativeBinomialDispLog(Distribution):
@@ -164,3 +228,24 @@ class ZeroInflated(Distribution):
 
   def mean(self):
     return torch.sigmoid(-self.gate_logits) * self.count_distribution.mean()
+
+  def variance(self):
+    pi = torch.sigmoid(self.gate_logits)
+    m = self.count_distribution.mean()
+    v = self.count_distribution.variance()
+    return (1.0 - pi) * (v + pi * torch.square(m))
+
+  def mode(self):
+    return torch.where(torch.sigmoid(self.gate_logits) > 0.5,
+                       torch.zeros(()), self.count_distribution.mode())
+
+  def sample(self, sample_shape=(), generator=None):
+    # counts are drawn at the wrapper's batch shape, so a per-cell gate over
+    # per-gene counts still gets one count draw per cell
+    shape = tuple(sample_shape) + self.batch_shape
+    with torch.no_grad():
+      counts = self.count_distribution.draw(shape, generator)
+      u = torch.rand(shape, generator=generator, device=counts.device,
+                     dtype=counts.dtype)
+      return torch.where(u < torch.sigmoid(self.gate_logits),
+                         torch.zeros_like(counts), counts)

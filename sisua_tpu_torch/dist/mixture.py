@@ -1,0 +1,82 @@
+"""MixtureSameFamily (port of ``sisua_tpu/dist/mixture.py``): the
+'mixgaus'/'mdn' and 'mixnb' heads of MISA.
+
+Component parameters carry the component axis K at position −2, between
+batch and event: K Gaussians over a D-dim event have ``loc`` (..., K, D)
+and ``mixture_logits`` (..., K). The mixture is not ``Independent``, so the
+objective never routes it to the fused likelihood kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .base import Distribution, Tensor
+from .discrete import Categorical
+
+__all__ = ["MixtureSameFamily"]
+
+
+class MixtureSameFamily(Distribution):
+  """Finite mixture whose ``components`` have batch shape (..., K) and
+  reduce their own event dims in ``log_prob``."""
+
+  def __init__(self, mixture_logits: Tensor, components: Distribution):
+    self.mixture_logits = mixture_logits
+    self.components = components
+
+  @property
+  def event_shape(self):
+    return self.components.event_shape
+
+  @property
+  def batch_shape(self):
+    return tuple(self.mixture_logits.shape[:-1])
+
+  @property
+  def n_components(self) -> int:
+    return self.mixture_logits.shape[-1]
+
+  def _ed(self) -> int:
+    return len(self.components.event_shape)
+
+  def _weights(self):
+    w = torch.softmax(self.mixture_logits, dim=-1)
+    return w.reshape(w.shape + (1,) * self._ed())
+
+  def log_prob(self, x):
+    comp_lp = self.components.log_prob(x.unsqueeze(-1 - self._ed()))
+    mix_lp = F.log_softmax(self.mixture_logits, dim=-1)
+    return torch.logsumexp(mix_lp + comp_lp, dim=-1)
+
+  def mean(self):
+    return torch.sum(self._weights() * self.components.mean(),
+                     dim=-1 - self._ed())
+
+  def variance(self):
+    w, ax = self._weights(), -1 - self._ed()
+    m = self.components.mean()
+    mix_mean = torch.sum(w * m, dim=ax, keepdim=True)
+    return torch.sum(w * (self.components.variance()
+                          + torch.square(m - mix_mean)), dim=ax)
+
+  def _pick(self, values, k):
+    """``values`` (..., K, *event) at component index ``k`` (...)."""
+    ed = self._ed()
+    idx = k.reshape(k.shape + (1,) * (1 + ed))
+    idx = idx.expand(values.shape[:values.ndim - 1 - ed] + (1,)
+                     + values.shape[values.ndim - ed:])
+    return torch.take_along_dim(values, idx, dim=-1 - ed).squeeze(-1 - ed)
+
+  def mode(self):
+    """The mode of the most probable component."""
+    return self._pick(self.components.mode(),
+                      torch.argmax(self.mixture_logits, dim=-1))
+
+  def sample(self, sample_shape=(), generator=None):
+    """A component index from the mixture weights, then that component's
+    draw, both from ``generator``."""
+    k = Categorical(self.mixture_logits).sample(sample_shape, generator)
+    return self._pick(self.components.sample(sample_shape,
+                                             generator=generator), k)

@@ -1,12 +1,39 @@
 """sisua_tpu_torch.models — the port's models (counterpart of
-``sisua_tpu.models``; SCVI so far)."""
+``sisua_tpu.models``): SCVI and the paper's own VAE, SISUA, MISA and
+DeepCountAutoencoder, with ``get_model`` over them."""
+
+from __future__ import annotations
+
+import inspect
+from typing import Type
 
 from ..nn import NetConf
 from ..rv import RVmeta
 from .base import SingleCellModel
+from .dca import DeepCountAutoencoder
 from .module import SCVIModule, VAEModule, VAEOutput
 from .objective import compute_loss, elbo_terms
 from .scvi import SCVI
+from .vae import MISA, SISUA, VAE
 
-__all__ = ["SingleCellModel", "SCVI", "SCVIModule", "VAEModule",
+__all__ = ["SingleCellModel", "VAE", "SISUA", "MISA", "DeepCountAutoencoder",
+           "SCVI", "get_model", "SCVIModule", "VAEModule",
            "VAEOutput", "compute_loss", "elbo_terms", "NetConf", "RVmeta"]
+
+
+_PORTED = (VAE, SISUA, MISA, DeepCountAutoencoder, SCVI)
+
+
+def get_model(name) -> Type[SingleCellModel]:
+  """Resolve a model class by class name or id ('dca', 'sisua', …): the
+  lower-cased capital letters of the class name, as the JAX package."""
+  if inspect.isclass(name) and issubclass(name, SingleCellModel):
+    return name
+  key = str(name).strip().lower()
+  for cls in _PORTED:
+    cls_id = "".join(c for c in cls.__name__ if c.isupper()).lower()
+    if key in (cls.__name__.lower(), cls_id):
+      return cls
+  raise ValueError(
+      f"Cannot find model '{name}' among the ported models: "
+      f"{sorted(c.__name__ for c in _PORTED)}")

@@ -1,15 +1,19 @@
 """SingleCellModel — keras-feel wrapper over the torch VAE modules (port of
 the fit half of ``sisua_tpu/models/base.py``: ``__init__``, ``_loss``, the
-train and eval steps, ``fit`` and ``evaluate``).
+train and eval steps, ``fit`` with validation and early stopping, and
+``evaluate``).
 
 The model owns an ``nn.Module`` on an explicit ``device`` (default
 ``"cuda"``, which raises when there is no card), a ``torch.Generator`` on
-that device for the reparameterization noise, dropout masks and the epoch
-permutation, its Adam state and a step counter. Parameters are
-initialized on the CPU from the seed and then moved, so the initial weights
-do not depend on the device. ``predict`` and the rest of the inference
-half, checkpoints, validation/early stopping, mixed precision and
-label heads are not ported yet.
+that device for the reparameterization noise, dropout masks, the epoch
+permutation and the semi-supervised mask, its Adam state and a step
+counter. Parameters are initialized on the CPU from the seed and then
+moved, so the initial weights do not depend on the device. Data is one
+matrix or a list ``[rna, adt, …]`` (one per output; numpy, scipy or
+tensor), made device-resident once; the first feeds the encoder and the
+rest are label targets. ``predict`` and the rest of the inference half,
+checkpoints, ``n_batch`` conditioning and mixed precision are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -132,17 +136,21 @@ class SingleCellModel:
     return self.trainer.history if self.trainer is not None else {}
 
   # -------------------------------------------------------------- loss/step
+  def _module_input(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The encoder's input: the first (main) omic; the rest are labels."""
+    return inputs[0]
+
   def _loss(self, batch, training: bool, beta: float,
-            noise: Optional[Sequence[torch.Tensor]] = None
+            noise: Optional[Sequence[Optional[torch.Tensor]]] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], VAEOutput]:
     """−ELBO of one batch {inputs: [x, …], library?, mask?}. The module is
     put in train or eval mode (BatchNorm batch vs running stats, dropout);
-    in train mode BatchNorm updates its running stats."""
+    in train mode BatchNorm updates its running stats. The mask gates the
+    label heads only in training."""
     self.module.train(training)
-    x = batch["inputs"][0]
     library = batch.get("library") if self.uses_library else None
-    out = self.module(x, library=library, generator=self.generator,
-                      noise=noise)
+    out = self.module(self._module_input(batch["inputs"]), library=library,
+                      generator=self.generator, noise=noise)
     loss, metrics = compute_loss(
         out, batch["inputs"], mask=batch.get("mask"), beta=beta,
         alpha=self.alpha, analytic=self.analytic,
@@ -177,47 +185,86 @@ class SingleCellModel:
     self.step = snap["step"]
 
   # -------------------------------------------------------------------- fit
-  def _device_data(self, data, library):
-    """(n, D) counts and (n, 2) library stats as float32 on the device;
-    the stats come from the counts where not given (numpy on the host for
-    arrays, as the JAX package computes them; on the device for tensors)."""
-    if not self.uses_library:
-      return _as_device_matrix(data, self.device), None
-    if library is None:
-      mean, var = get_library_size(data)
+  def _device_data(self, data) -> Tuple[List[torch.Tensor],
+                                        Optional[torch.Tensor]]:
+    """One matrix or a list of them, one per output, as float32 on the
+    device, and the (n, 2) library stats of the first when the model uses
+    them (numpy on the host for arrays, as the JAX package computes them;
+    on the device for tensors)."""
+    mats = list(_flatten(data))
+    if len(mats) < len(self.outputs):
+      raise ValueError(f"{len(mats)} data matrices for {len(self.outputs)} "
+                       "outputs: give one per output, [rna, adt, …]")
+    if len({int(m.shape[0]) for m in mats}) != 1:
+      raise ValueError("data matrices differ in their number of rows: "
+                       f"{[tuple(m.shape) for m in mats]}")
+    library = None
+    if self.uses_library:
+      mean, var = get_library_size(mats[0])
       cat = torch.cat if isinstance(mean, torch.Tensor) else np.concatenate
-      library = cat([mean, var], 1)
-    return (_as_device_matrix(data, self.device),
-            _as_device_matrix(library, self.device))
+      library = _as_device_matrix(cat([mean, var], 1), self.device)
+    return [_as_device_matrix(m, self.device) for m in mats], library
+
+  def _evaluate(self, xs: Sequence[torch.Tensor],
+                library: Optional[torch.Tensor],
+                batch_size: int) -> Dict[str, float]:
+    """Average metrics over device-resident data in sequential batches (the
+    last one ragged), eval mode, mask = 1. Metrics stay on the device until
+    one fetch at the end."""
+    n = int(xs[0].shape[0])
+    acc, keys = None, None
+    for s in range(0, n, batch_size):
+      b = min(batch_size, n - s)
+      batch = {"inputs": [x[s:s + b] for x in xs],
+               "mask": torch.ones((b,), device=self.device)}
+      if library is not None:
+        batch["library"] = library[s:s + b]
+      metrics = self._eval_step(batch)
+      if keys is None:
+        keys = sorted(metrics)
+      vec = torch.stack([metrics[k].float() for k in keys]) * b
+      acc = vec if acc is None else acc + vec
+    return {k: float(v) / n for k, v in zip(keys, acc.cpu().numpy())}
 
   def fit(self,
           train,
-          library=None,
+          valid=None,
           epochs: int = 100,
           batch_size: int = 64,
           learning_rate: float = 1e-3,
           optimizer: str = "adam",
           clipnorm: float = 100.0,
           labels_percent: float = 0.8,
+          valid_freq: int = 500,
+          patience: int = 20,
+          min_delta: float = 1e-4,
           terminate_on_nan: bool = True,
           allow_rollback: bool = True,
           max_iter: Optional[int] = None,
           metrics_interval: int = 1,
           verbose: bool = False) -> "SingleCellModel":
-    """Train on ``train`` (n, D): a numpy array, scipy matrix or tensor,
-    made device-resident once. ``library`` (n, 2) holds the per-cell
-    (mean, var) of log library size; computed from ``train`` when None."""
+    """Train on ``train`` and validate on ``valid`` (each one matrix or a
+    list ``[rna, adt, …]``). The device-resident loop validates once per
+    window of ``metrics_interval`` epochs, as the JAX package's
+    device-resident fit does; ``valid_freq`` (steps) belongs to its
+    streaming loop and is accepted for the same signature. Early stopping
+    monitors ``val_loss`` (else ``loss``) with ``min_delta`` and
+    ``patience`` epochs (``Trainer``)."""
     if not self.is_semi_supervised:
       labels_percent = 0.0
-    x, lib = self._device_data(train, library)
+    xs, lib = self._device_data(train)
+    val = self._device_data(valid) if valid is not None else None
     trainer = Trainer(optimizer=optimizer, learning_rate=learning_rate,
-                      clipnorm=clipnorm, terminate_on_nan=terminate_on_nan,
+                      clipnorm=clipnorm, patience=patience,
+                      min_delta=min_delta,
+                      terminate_on_nan=terminate_on_nan,
                       allow_rollback=allow_rollback, max_iter=max_iter,
                       metrics_interval=metrics_interval, verbose=verbose)
     if self.optimizer is None:
       self.optimizer = trainer.make_optimizer(self.module.parameters())
-    trainer.fit(self, x, lib, epochs=epochs, batch_size=batch_size,
-                labels_percent=labels_percent, generator=self.generator)
+    trainer.fit(self, xs, lib, epochs=epochs, batch_size=batch_size,
+                labels_percent=labels_percent, generator=self.generator,
+                valid=val)
     # one history across successive fit calls
     if self.trainer is None:
       self.trainer = trainer
@@ -227,25 +274,8 @@ class SingleCellModel:
     return self
 
   # ---------------------------------------------------------------- evaluate
-  def evaluate(self, data, library=None, batch_size: int = 256
-               ) -> Dict[str, float]:
-    """Average loss/LLK/KL metrics over a dataset in sequential batches
-    (the last one ragged), eval mode, mask = 1 as in validation. Metrics
-    stay on the device until one fetch at the end."""
-    x, lib = self._device_data(data, library)
-    n = int(x.shape[0])
-    acc, keys = None, None
-    for s in range(0, n, batch_size):
-      batch = {"inputs": [x[s:s + batch_size]],
-               "mask": torch.ones((min(batch_size, n - s),),
-                                  device=self.device)}
-      if lib is not None:
-        batch["library"] = lib[s:s + batch_size]
-      metrics = self._eval_step(batch)
-      if keys is None:
-        keys = sorted(metrics)
-      vec = torch.stack([metrics[k].float() for k in keys]) \
-          * batch["mask"].shape[0]
-      acc = vec if acc is None else acc + vec
-    return {k: float(v) / n for k, v in zip(keys, acc.cpu().numpy())}
-
+  def evaluate(self, data, batch_size: int = 256) -> Dict[str, float]:
+    """Average loss/LLK/KL metrics over ``data`` (one matrix or a list, as
+    in ``fit``), eval mode, mask = 1 as in validation."""
+    xs, lib = self._device_data(data)
+    return self._evaluate(xs, lib, batch_size)

@@ -101,8 +101,11 @@ class VAEModule(nn.Module):
       return zs[0]
     if self.reduce_latent == "concat":
       return torch.cat(tuple(zs), dim=-1)
-    raise ValueError(f"reduce_latent {self.reduce_latent!r} is not ported "
-                     "yet ('concat' or 'first')")
+    if self.reduce_latent == "sum":
+      return sum(zs)
+    if self.reduce_latent == "mean":
+      return sum(zs) / len(zs)
+    raise ValueError(f"unknown reduce_latent: {self.reduce_latent}")
 
   def decode(self, z, library=None, generator=None):
     d = self.decoders[0](z, generator)
@@ -113,6 +116,9 @@ class VAEModule(nn.Module):
                  for rv in self.latents)
 
   def _sample(self, qZ, sample_shape, generator, noise):
+    """One reparameterized draw per latent; a deterministic latent (DCA)
+    returns its ``loc`` and takes no noise (its ``noise`` entry may be
+    None)."""
     if noise is not None and len(noise) != len(qZ):
       raise ValueError(f"{len(noise)} noise tensors for {len(qZ)} latents")
     return tuple(q.rsample(sample_shape, generator=generator,

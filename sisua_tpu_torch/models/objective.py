@@ -45,8 +45,10 @@ def route_fused_likelihood(x: torch.Tensor,
 
 def _fast_log_prob(dist: D.Distribution, x: torch.Tensor) -> torch.Tensor:
   """Row-summed log-prob, through the fused op for the four NB kinds
-  (logits / disp / displog / loglog, with or without zero-inflation);
-  everything else takes the distribution math."""
+  (logits / disp / displog / loglog, with or without zero-inflation: the
+  'zinb'/'nb' heads are 'logits'); everything else takes the distribution
+  math, a ``MixtureSameFamily`` head ('mixnb') too, since it is not
+  ``Independent``."""
   if not (isinstance(dist, D.Independent)
           and dist.reinterpreted_batch_ndims == 1
           and x.ndim == 2

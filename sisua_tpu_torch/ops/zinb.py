@@ -1,7 +1,8 @@
 """Fused ZINB/NB log-likelihood row reduction: CUDA kernels + plain versions.
 
 Port of ``sisua_tpu/ops/zinb_pallas.py``. Two kernels, written by hand in
-CUDA C++ (``csrc/zinb.cu``), carry SCVI's likelihood:
+CUDA C++ (``csrc/zinb.cu``), carry the NB/ZINB likelihoods of SCVI and of
+the SISUA family's 'zinb' and 'nb' heads:
 
 * ``zinb_rowsum_fwd`` replaces the Pallas forward ``_make_kernel``
   (``sisua_tpu/ops/zinb_pallas.py:172``): per-row Σ over genes of the
@@ -182,8 +183,19 @@ def _check_operands(x, params):
     if t.dtype != torch.float32:
       raise TypeError(f"the CUDA kernel takes float32 operands, got "
                       f"{t.dtype}")
-    if not t.is_contiguous():
-      raise ValueError("the CUDA kernel takes contiguous operands")
+  return _row_strides(x, params)
+
+
+def _row_strides(x, params):
+  """(B, D, row strides) of the operand layouts the kernels read.
+
+  ``x`` is contiguous. A (B, D) parameter needs contiguous rows (unit
+  column stride) and is read through its own row stride, so a column
+  slice of a wider head output (the 'zinb'/'nb' heads chunk one (B, k·D)
+  matrix) is read in place, without a copy; a (1, D) per-gene row gets
+  stride 0. Gradients are written contiguous."""
+  if not x.is_contiguous():
+    raise ValueError("the CUDA kernel takes a contiguous x")
   if x.ndim != 2 or x.shape[0] == 0 or x.shape[1] == 0:
     raise ValueError(f"x must be a non-empty (B, D) matrix, got "
                      f"{tuple(x.shape)}")
@@ -193,13 +205,19 @@ def _check_operands(x, params):
                      "row and column indices")
   lds = []
   for p in params:
-    if tuple(p.shape) == (b, d):
-      lds.append(d)
-    elif tuple(p.shape) == (1, d):
-      lds.append(0)  # per-gene row: stride 0
-    else:
+    if tuple(p.shape) not in ((b, d), (1, d)):
       raise ValueError(f"parameter shape {tuple(p.shape)} is neither "
                        f"{(b, d)} nor per-gene {(1, d)}")
+    if d > 1 and p.stride(1) != 1:
+      raise ValueError("the CUDA kernel takes parameters with contiguous "
+                       "rows (unit column stride)")
+    if p.shape[0] == 1:
+      lds.append(0 if b > 1 else d)  # per-gene row: stride 0
+    elif p.stride(0) < d:
+      raise ValueError(f"parameter rows overlap (row stride {p.stride(0)} "
+                       f"< {d}); the kernel reads them in place")
+    else:
+      lds.append(p.stride(0))
   return b, d, lds
 
 

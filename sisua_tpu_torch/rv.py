@@ -1,9 +1,13 @@
 """RVmeta — declarative random-variable spec (port of ``sisua_tpu/rv.py``).
 
-The slice carries the posteriors SCVI uses: 'diag' (latent), 'normal'
-(library), and the count heads 'zinbd' and 'nbd'. The activation
-conventions are the JAX package's: positive count parameters use
+The vocabulary of SCVI and of the paper's models (VAE, SISUA, MISA, DCA):
+'diag', 'normal', the count heads 'zinbd', 'nbd', 'zinb', 'nb', 'poisson',
+'zip', the label heads 'onehot' and 'bernoulli', the deterministic
+'mse'/'linear'/'relu', and the mixtures 'mixgaus'/'mdn' and 'mixnb'. The
+activation conventions are the JAX package's: positive count parameters use
 ``exp(clip(raw, -15, 15))``; Normal scales use ``softplus(raw) + 1e-4``.
+'tril', 'mixtril' and 'nzmse' are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,8 +49,14 @@ def _register(*names):
   return deco
 
 
+# posteriors of the JAX package that the port does not carry yet
+_NOT_PORTED = ("tril", "mvntril", "mixtril", "nzmse")
+
+
 class _Spec:
+  deterministic = False
   zero_inflated = False
+  binary = False
 
   @staticmethod
   def n_params(dim: int, kw: dict) -> int:
@@ -127,6 +137,149 @@ class _ZINBDSpec(_Spec):
                                         gate_logits=gate), 1)
 
 
+@_register("nb")
+class _NBSpec(_Spec):
+  @staticmethod
+  def n_params(dim, kw):
+    return 2 * dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    count, logits = torch.chunk(raw, 2, dim=-1)
+    return D.Independent(D.NegativeBinomial(
+        total_count=_positive(count, kw), logits=logits), 1)
+
+
+@_register("zinb")
+class _ZINBSpec(_Spec):
+  zero_inflated = True
+
+  @staticmethod
+  def n_params(dim, kw):
+    return 3 * dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    count, logits, gate = torch.chunk(raw, 3, dim=-1)
+    nb = D.NegativeBinomial(total_count=_positive(count, kw), logits=logits)
+    return D.Independent(D.ZeroInflated(count_distribution=nb,
+                                        gate_logits=gate), 1)
+
+
+@_register("poisson", "pois")
+class _PoissonSpec(_Spec):
+  @staticmethod
+  def n_params(dim, kw):
+    return dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    return D.Independent(D.Poisson(rate=_positive(raw, kw)), 1)
+
+
+@_register("zip")
+class _ZIPSpec(_Spec):
+  zero_inflated = True
+
+  @staticmethod
+  def n_params(dim, kw):
+    return 2 * dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    rate, gate = torch.chunk(raw, 2, dim=-1)
+    return D.Independent(D.ZeroInflated(
+        count_distribution=D.Poisson(rate=_positive(rate, kw)),
+        gate_logits=gate), 1)
+
+
+@_register("onehot")
+class _OneHotSpec(_Spec):
+  binary = True
+
+  @staticmethod
+  def n_params(dim, kw):
+    return dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    return D.OneHotCategorical(logits=raw)
+
+
+@_register("bernoulli", "bern")
+class _BernoulliSpec(_Spec):
+  binary = True
+
+  @staticmethod
+  def n_params(dim, kw):
+    return dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    return D.Independent(D.Bernoulli(logits=raw), 1)
+
+
+@_register("mse", "linear", "relu")
+class _DeterministicSpec(_Spec):
+  deterministic = True
+
+  @staticmethod
+  def n_params(dim, kw):
+    return dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    loc = F.relu(raw) if kw.get("activation", "linear") == "relu" else raw
+    return D.VectorDeterministic(loc=loc)
+
+
+def _n_components(kw) -> int:
+  return int(kw.get("n_components", 2))
+
+
+@_register("mixgaus", "mixgaussian", "mdn")
+class _MixGausSpec(_Spec):
+  @staticmethod
+  def n_params(dim, kw):
+    return _n_components(kw) * (2 * dim + 1)
+
+  @staticmethod
+  def build(raw, dim, kw):
+    k = _n_components(kw)
+    lead = tuple(raw.shape[:-1])
+    loc = raw[..., :k * dim].reshape(lead + (k, dim))
+    scale = raw[..., k * dim:2 * k * dim].reshape(lead + (k, dim))
+    comp = D.Independent(D.Normal(loc=loc, scale=_soft_scale(scale)), 1)
+    return D.MixtureSameFamily(mixture_logits=raw[..., 2 * k * dim:],
+                               components=comp)
+
+  @staticmethod
+  def prior(dim, kw, device, dtype):
+    return _DiagSpec.prior(dim, kw, device, dtype)
+
+
+@_register("mixnb")
+class _MixNBSpec(_Spec):
+  @staticmethod
+  def n_params(dim, kw):
+    zi = bool(kw.get("zero_inflated", False))
+    return _n_components(kw) * ((3 if zi else 2) * dim + 1)
+
+  @staticmethod
+  def build(raw, dim, kw):
+    k = _n_components(kw)
+    zi = bool(kw.get("zero_inflated", False))
+    per = (3 if zi else 2) * dim
+    body = raw[..., :k * per].reshape(tuple(raw.shape[:-1]) + (k, per))
+    nb = D.NegativeBinomialDisp(loc=_positive(body[..., :dim], kw),
+                                disp=_positive(body[..., dim:2 * dim], kw))
+    if zi:
+      nb = D.ZeroInflated(count_distribution=nb,
+                          gate_logits=body[..., 2 * dim:])
+    return D.MixtureSameFamily(mixture_logits=raw[..., k * per:],
+                               components=D.Independent(nb, 1))
+
+
 @dataclasses.dataclass(frozen=True)
 class RVmeta:
   """Random-variable spec: ``RVmeta(dim, posterior, projection, name)``."""
@@ -138,12 +291,20 @@ class RVmeta:
   kwargs: Tuple[Tuple[str, Any], ...] = ()
 
   def __post_init__(self):
+    if self.posterior in _NOT_PORTED:
+      raise NotImplementedError(
+          f"posterior '{self.posterior}' is not ported yet "
+          f"({', '.join(repr(p) for p in _NOT_PORTED)} are not)")
     if self.posterior not in POSTERIORS:
       raise ValueError(
           f"Unknown posterior '{self.posterior}'. "
           f"Supported by the port: {sorted(set(POSTERIORS))}")
     if isinstance(self.kwargs, dict):
       object.__setattr__(self, "kwargs", tuple(sorted(self.kwargs.items())))
+    # 'relu' picks its head activation from the posterior name
+    if self.posterior == "relu" and "activation" not in dict(self.kwargs):
+      object.__setattr__(
+          self, "kwargs", self.kwargs + (("activation", "relu"),))
 
   @property
   def kw(self) -> dict:
@@ -156,6 +317,14 @@ class RVmeta:
   @property
   def is_zero_inflated(self) -> bool:
     return self.spec.zero_inflated
+
+  @property
+  def is_deterministic(self) -> bool:
+    return self.spec.deterministic
+
+  @property
+  def is_binary(self) -> bool:
+    return self.spec.binary
 
   @property
   def n_params(self) -> int:

@@ -5,22 +5,30 @@
 The JAX trainer compiles a whole epoch into one executable because its TPU
 sat behind a slow link. PyTorch runs eagerly; what carries over is the
 contract:
-  * the training matrix and library stats live on the device for the run;
+  * the training matrices and library stats live on the device for the
+    run; every matrix of a batch is gathered with the same rows;
   * one random permutation per epoch, ``n // batch_size`` full batches;
   * the semi-supervised mask is Bernoulli(``labels_percent``), drawn ONCE
     per run (a fixed labeled subset, as the reference caches it);
   * per-step metrics are summed on the device and fetched to the host once
     per window of ``metrics_interval`` epochs, one history entry per epoch;
+  * ``valid`` is evaluated once per window (eval mode, mask = 1) and its
+    metrics land as ``val_<metric>`` on the window's last epoch;
+  * only the window's last epoch, and only when the whole window is
+    finite, may set the best state; the monitored value is ``val_loss``,
+    else ``loss``, and must beat the best by ``min_delta``;
+  * ``patience`` counts epochs: a window that does not improve charges all
+    of its epochs; on reaching it the run stops and, with
+    ``allow_rollback``, restores the best state;
   * ``max_iter`` is checked at window boundaries;
   * a non-finite epoch loss stops the run and, with ``allow_rollback``,
-    restores the best finite state seen at a window boundary.
-Validation, early stopping and ``patience`` are not ported yet.
+    restores the best state.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,12 +77,14 @@ class ClippedAdam:
 
 
 class Trainer:
-  """Drives a model's train step over a device-resident matrix."""
+  """Drives a model's train step over device-resident matrices."""
 
   def __init__(self,
                optimizer: str = "adam",
                learning_rate: float = 1e-3,
                clipnorm: float = 100.0,
+               patience: int = 20,
+               min_delta: float = 1e-4,
                terminate_on_nan: bool = True,
                allow_rollback: bool = True,
                max_iter: Optional[int] = None,
@@ -85,6 +95,8 @@ class Trainer:
                                 "yet (only 'adam')")
     self.learning_rate = float(learning_rate)
     self.clipnorm = float(clipnorm or 0.0)
+    self.patience = int(patience)
+    self.min_delta = float(min_delta)
     self.terminate_on_nan = bool(terminate_on_nan)
     self.allow_rollback = bool(allow_rollback)
     self.max_iter = max_iter
@@ -95,19 +107,24 @@ class Trainer:
   def make_optimizer(self, params) -> ClippedAdam:
     return ClippedAdam(params, self.learning_rate, self.clipnorm)
 
-  def fit(self, model, x: torch.Tensor, library: Optional[torch.Tensor],
-          epochs: int, batch_size: int, labels_percent: float,
-          generator: torch.Generator) -> None:
+  def fit(self, model, xs: Sequence[torch.Tensor],
+          library: Optional[torch.Tensor], epochs: int, batch_size: int,
+          labels_percent: float, generator: torch.Generator,
+          valid: Optional[Tuple[Sequence[torch.Tensor],
+                                Optional[torch.Tensor]]] = None) -> None:
     """Train ``model`` (its ``_train_step(batch) -> metrics``) on the
-    device-resident ``x`` (n, D) and ``library`` (n, 2)."""
-    n = int(x.shape[0])
+    device-resident matrices ``xs`` (each (n, D_i)) and ``library``
+    (n, 2); ``valid`` is ``(matrices, library)``, evaluated by
+    ``model._evaluate``."""
+    n = int(xs[0].shape[0])
     B = min(int(batch_size), n)
     steps = n // B
-    dev = x.device
+    dev = xs[0].device
     mask_all = (torch.rand((n,), generator=generator, device=dev)
                 < float(labels_percent)).to(torch.float32)
     best_loss = np.inf
     best = model._snapshot()
+    wait = 0
     if self.max_iter and model.step >= self.max_iter:
       epochs = 0  # warm-started past the step budget: train nothing
     interval = self.metrics_interval
@@ -123,7 +140,7 @@ class Trainer:
         acc = None
         for i in range(steps):
           rows = perm[i * B:(i + 1) * B]
-          batch = {"inputs": [x.index_select(0, rows)],
+          batch = {"inputs": [x.index_select(0, rows) for x in xs],
                    "mask": mask_all.index_select(0, rows)}
           if library is not None:
             batch["library"] = library.index_select(0, rows)
@@ -135,16 +152,23 @@ class Trainer:
         sums.append(acc)
       per_epoch = torch.stack(sums).cpu().numpy()  # the window's one fetch
       dt = (time.perf_counter() - t_window) / window
-      window_finite = bool(np.isfinite(per_epoch).all())
+      val = model._evaluate(*valid, batch_size=B) if valid is not None \
+          else {}
+      window_finite = bool(np.isfinite(per_epoch[:, keys.index("loss")])
+                           .all())
       for w in range(window):
         epoch += 1
         logs = {k: float(v) / steps for k, v in zip(keys, per_epoch[w])}
         logs["epoch_time"] = dt
         logs["cells_per_sec"] = steps * B / max(dt, 1e-9)
+        if w == window - 1:
+          logs.update({f"val_{k}": v for k, v in val.items()})
         for k, v in logs.items():
           self.history.setdefault(k, []).append(v)
         if self.verbose:
-          print(f"[epoch {epoch:03d}] loss={logs['loss']:.4f} ({dt:.3f}s)")
+          msg = " ".join(f"{k}={logs[k]:.4f}" for k in ("loss", "val_loss")
+                         if k in logs)
+          print(f"[epoch {epoch:03d}] {msg} ({dt:.3f}s)")
         if self.terminate_on_nan and not np.isfinite(logs["loss"]):
           if self.allow_rollback:
             model._restore(best)
@@ -152,9 +176,19 @@ class Trainer:
           break
         # only the window's last epoch may set the best: the snapshot is the
         # post-window state
-        if w == window - 1 and window_finite and logs["loss"] < best_loss:
-          best_loss = logs["loss"]
+        if w != window - 1:
+          continue
+        monitored = logs.get("val_loss", logs["loss"])
+        if window_finite and monitored < best_loss - self.min_delta:
+          best_loss = monitored
           best = model._snapshot()
+          wait = 0
+        else:
+          wait += window  # patience is in epochs, charged per window
+          if self.patience > 0 and wait >= self.patience:
+            if self.allow_rollback:
+              model._restore(best)
+            stop = True
+            break
       if self.max_iter and model.step >= self.max_iter:
         stop = True
-

@@ -144,3 +144,115 @@ def test_scvi_fit_goes_through_kernels(dev):
   ev = m.evaluate(x[:100], batch_size=64)
   assert np.isfinite(list(ev.values())).all()
   assert tz.launches == {"zinb_rowsum_fwd": 18, "zinb_rowsum_bwd": 16}
+
+
+def _zinb_head_operands(dev, seed, B, D, nb_gate):
+  """The 'zinb'/'nb' heads' operands: θ = exp(clip(raw, ±15)) decoded in
+  torch (constrained=True), here from raw ~ N(0, 6) so that θ lies on both
+  sides of the kernel's θ > 1e6 switch, and (B, D) logits; the 'zinb' gate
+  is (B, D), the 'nb' gate the −1e30 per-gene row."""
+  rng = np.random.default_rng(seed)
+  x = rng.poisson(np.exp(2.0 + rng.normal(0, 1, (B, D)))).astype(np.float32)
+  x[:, 0] = 0.0
+  th = np.exp(np.clip(rng.normal(0, 6, (B, D)), -15, 15)).astype(np.float32)
+  lg = rng.normal(0, 2, (B, D)).astype(np.float32)
+  gt = (np.full((1, D), tz._NB_GATE, np.float32) if nb_gate
+        else rng.normal(0, 2, (B, D)).astype(np.float32))
+  ct = rng.normal(0, 1, (B,)).astype(np.float32)
+  return [torch.tensor(a, device=dev) for a in (x, th, lg, gt, ct)]
+
+
+@pytest.mark.parametrize("shape", [(512, 3000), (130, 1001)],
+                         ids=["512x3000", "ragged"])
+def test_zinb_logits_layout(dev, shape):
+  """SISUA's 'zinb' RNA head: three (B, D) operands, constrained=True,
+  with θ past 1e6 in about one element in a hundred."""
+  ops = _zinb_head_operands(dev, 31, *shape, nb_gate=False)
+  assert float((ops[1] > 1e6).float().mean()) > 0.005
+  _compare(ops, True)
+
+
+@pytest.mark.parametrize("rows", [512, 37])
+def test_adt_nb_layout(dev, rows):
+  """SISUA's 'nb' protein head: 10 columns, (B, D) θ and logits, the
+  −1e30 gate row, no gate gradient."""
+  grads = _compare(_zinb_head_operands(dev, 32, rows, 10, nb_gate=True),
+                   True, need=(True, True, False))
+  assert grads[2] is None
+
+
+def test_sisua_fit_goes_through_kernels(dev):
+  """Each train step launches each kernel twice (RNA and protein heads);
+  validation and evaluate run the forward twice per batch."""
+  from sisua_tpu_torch.models import SISUA, RVmeta
+  rng = np.random.default_rng(6)
+  x = rng.poisson(1.0, (320, 300)).astype(np.float32)
+  y = rng.poisson(5.0, (320, 10)).astype(np.float32)
+  m = SISUA([RVmeta(300, "zinb", name="rna"), RVmeta(10, "nb", name="adt")],
+            device="cuda", alpha=10.0, latents=RVmeta(4, "diag", name="z"))
+  tz.reset_launches()
+  m.fit([x[:256], y[:256]], valid=[x[256:], y[256:]], epochs=2,
+        batch_size=32, labels_percent=0.1)
+  # 2 epochs × 8 steps; 2 validations × 2 batches of the 64 held-out cells
+  assert tz.launches == {"zinb_rowsum_fwd": 2 * (16 + 4),
+                         "zinb_rowsum_bwd": 2 * 16}
+  assert np.isfinite(m.history["loss"]).all()
+  assert len(m.history["val_loss"]) == 2
+  ev = m.evaluate([x[256:], y[256:]], batch_size=64)
+  assert np.isfinite(list(ev.values())).all()
+  assert tz.launches["zinb_rowsum_fwd"] == 2 * (16 + 4 + 1)
+
+
+@pytest.mark.parametrize("model", ["VAE", "MISA", "DeepCountAutoencoder"])
+def test_models_fit_with_valid_on_card(dev, model):
+  """VAE, MISA ('zinb' + 'nbd' → 'mixnb': only the RNA head reaches the
+  kernels) and DCA train through ``fit(train, valid=…)`` on the card."""
+  from sisua_tpu_torch import models as T
+  rng = np.random.default_rng(7)
+  x = rng.poisson(1.0, (160, 300)).astype(np.float32)
+  y = rng.poisson(5.0, (160, 10)).astype(np.float32)
+  outs = [T.RVmeta(300, "zinb", name="rna")]
+  if model == "MISA":
+    outs.append(T.RVmeta(10, "nbd", name="adt"))
+  data = [x, y][:len(outs)]
+  m = getattr(T, model)(outs if len(outs) > 1 else outs[0], device="cuda")
+  tz.reset_launches()
+  m.fit([a[:128] for a in data], valid=[a[128:] for a in data], epochs=2,
+        batch_size=32)
+  # 2 epochs × 4 steps; 2 validations of one 32-row batch
+  assert tz.launches == {"zinb_rowsum_fwd": 8 + 2, "zinb_rowsum_bwd": 8}
+  assert np.isfinite(m.history["loss"]).all()
+  assert np.isfinite(m.history["val_loss"]).all()
+
+
+@pytest.mark.parametrize("posterior", ["zinb", "nb"])
+def test_head_slices_read_in_place(dev, posterior):
+  """The heads' chunks of one (B, k·D) output go to the kernels without a
+  copy; values and the gradient of the head output match the same fused op
+  on CPU copies (its plain version)."""
+  from sisua_tpu_torch.rv import RVmeta
+  rng = np.random.default_rng(33)
+  B, D = 96, 333
+  rv = RVmeta(D, posterior)
+  raw = rng.normal(0, 3, (B, rv.n_params)).astype(np.float32)
+  counts = rng.poisson(2.0, (B, D)).astype(np.float32)
+  out = {}
+  tz.reset_launches()
+  for where in (dev, torch.device("cpu")):
+    r = torch.tensor(raw, device=where, requires_grad=True)
+    x = torch.tensor(counts, device=where)
+    base = rv.create_distribution(r).base
+    if posterior == "zinb":
+      nb = base.count_distribution
+      assert not nb.logits.is_contiguous()
+      lp = tz.zinb_log_prob_rowsum(x, nb.total_count, nb.logits,
+                                   base.gate_logits, constrained=True)
+    else:
+      assert not base.logits.is_contiguous()
+      lp = tz.nb_log_prob_rowsum(x, base.total_count, base.logits,
+                                 constrained=True)
+    lp.sum().backward()
+    out[where.type] = (lp.detach().cpu().numpy(), r.grad.cpu().numpy())
+  assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
+  np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], **FWD)
+  np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], **GRAD)

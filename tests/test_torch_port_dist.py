@@ -148,25 +148,47 @@ def test_zero_inflated_log_prob_and_gradients(kind):
   _close(tzi.mean(), jzi.mean(), err_msg=kind)
 
 
-@pytest.mark.parametrize("posterior,dim", [("diag", 6), ("normal", 1),
-                                           ("zinbd", 12), ("nbd", 12)])
+_COUNT_POSTERIORS = ("zinbd", "nbd", "zinb", "nb", "poisson", "zip", "mixnb")
+# RV kwargs of the cases that carry some, by (posterior, dim)
+_RV_KWARGS = {("mdn", 5): {"n_components": 3},
+              ("mixnb", 13): {"zero_inflated": True, "n_components": 3}}
+
+
+def _rv_target(posterior, rng, dim):
+  if posterior in _COUNT_POSTERIORS:
+    return rng.poisson(2.0, (8, dim)).astype(np.float32)
+  if posterior == "onehot":
+    return np.eye(dim, dtype=np.float32)[rng.integers(0, dim, 8)]
+  if posterior == "bernoulli":
+    return (rng.uniform(size=(8, dim)) < 0.3).astype(np.float32)
+  return rng.normal(0, 1, (8, dim)).astype(np.float32)
+
+
+@pytest.mark.parametrize("posterior,dim", [
+    ("diag", 6), ("normal", 1), ("zinbd", 12), ("nbd", 12), ("zinb", 12),
+    ("nb", 12), ("poisson", 12), ("zip", 12), ("onehot", 5),
+    ("bernoulli", 5), ("mse", 6), ("relu", 6), ("mixgaus", 4), ("mdn", 5),
+    ("mixnb", 12), ("mixnb", 13)])
 def test_rv_specs_and_priors(posterior, dim):
   """RVmeta builds the same distribution from the same raw head output,
   with exp(clip ±15) positives and softplus + 1e-4 scales."""
-  t_meta = trv.RVmeta(dim, posterior, name="v")
-  j_meta = jrv.RVmeta(dim, posterior, name="v")
+  kwargs = _RV_KWARGS.get((posterior, dim), {})
+  t_meta = trv.RVmeta(dim, posterior, name="v", kwargs=kwargs)
+  j_meta = jrv.RVmeta(dim, posterior, name="v", kwargs=kwargs)
   assert t_meta.n_params == j_meta.n_params
-  assert t_meta.is_zero_inflated == j_meta.is_zero_inflated
+  assert t_meta.kwargs == j_meta.kwargs
+  for prop in ("is_zero_inflated", "is_deterministic", "is_binary"):
+    assert getattr(t_meta, prop) == getattr(j_meta, prop), prop
   rng = np.random.default_rng(dim)
   raw = rng.normal(0, 3, (8, t_meta.n_params)).astype(np.float32)
   raw[0, :2] = [-40.0, 40.0]  # through both clip edges
-  x = (rng.poisson(2.0, (8, dim)).astype(np.float32)
-       if posterior in ("zinbd", "nbd") else
-       rng.normal(0, 1, (8, dim)).astype(np.float32))
+  x = _rv_target(posterior, rng, dim)
   td = t_meta.create_distribution(torch.tensor(raw))
   jd = j_meta.create_distribution(jnp.asarray(raw))
+  assert type(td).__name__ == type(jd).__name__
   _close(td.log_prob(torch.tensor(x)), jd.log_prob(jnp.asarray(x)),
          err_msg=posterior)
+  _close(td.mean(), jd.mean(), err_msg=posterior)
   t_prior, j_prior = t_meta.create_prior(), j_meta.create_prior()
   if j_prior is None:
     assert t_prior is None
@@ -174,7 +196,7 @@ def test_rv_specs_and_priors(posterior, dim):
     _close(t_prior.log_prob(torch.tensor(x)),
            j_prior.log_prob(jnp.asarray(x)))
   # constrained=True passes final parameters through untouched
-  if posterior in ("zinbd", "nbd"):
+  if posterior in _COUNT_POSTERIORS:
     pos = np.abs(raw) + 0.5
     _close(t_meta.create_distribution(torch.tensor(pos), True)
            .log_prob(torch.tensor(x)),
@@ -188,7 +210,120 @@ def test_parse_rv_and_unknown_posterior():
   meta = trv.parse_rv({"dim": 5, "posterior": "nbd", "dispersion": "single"})
   assert meta.kw == {"dispersion": "single"} and meta.name == "rv"
   with pytest.raises(ValueError, match="Unknown posterior"):
-    trv.RVmeta(3, "mixtril")
+    trv.RVmeta(3, "gamma")
+  for name in ("tril", "mixtril", "nzmse"):
+    assert name in jrv.POSTERIORS
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+      trv.RVmeta(3, name)
+  assert trv.RVmeta(3, "relu").kw == jrv.RVmeta(3, "relu").kw \
+      == {"activation": "relu"}
+
+
+def _label_pairs(kind, rng):
+  """(port dist, JAX dist, x) at random parameters."""
+  shape = (8, 6)
+  a = rng.normal(0, 2, shape).astype(np.float32)
+  if kind == "poisson":
+    rate = np.exp(a)
+    rate[0, :2] = 0.0  # rate 0 at x = 0 (log 1) and at x > 0 (−inf)
+    x = rng.poisson(3.0, shape).astype(np.float32)
+    x[0, :2] = [0.0, 2.0]
+    (j,), (t,) = _both(rate)
+    return TD.Poisson(t), JD.Poisson(j), x
+  if kind == "zip":
+    g = rng.normal(0, 1, shape).astype(np.float32)
+    x = rng.poisson(2.0, shape).astype(np.float32)
+    (j, jg), (t, tg) = _both(np.exp(a), g)
+    return (TD.ZeroInflated(TD.Poisson(t), tg),
+            JD.ZeroInflated(JD.Poisson(j), jg), x)
+  if kind == "bernoulli":
+    x = (rng.uniform(size=shape) < 0.4).astype(np.float32)
+    (j,), (t,) = _both(a)
+    return TD.Bernoulli(t), JD.Bernoulli(j), x
+  if kind == "categorical":
+    x = rng.integers(0, 6, 8).astype(np.float32)
+    (j,), (t,) = _both(a)
+    return TD.Categorical(t), JD.Categorical(j), x
+  if kind == "onehot":
+    x = np.eye(6, dtype=np.float32)[rng.integers(0, 6, 8)]
+    x[1] = [0.2, 0.8, 0, 0, 0, 0]  # a soft label
+    (j,), (t,) = _both(a)
+    return TD.OneHotCategorical(t), JD.OneHotCategorical(j), x
+  (j,), (t,) = _both(a)
+  x = rng.normal(0, 1, shape).astype(np.float32)
+  return TD.VectorDeterministic(t), JD.VectorDeterministic(j), x
+
+
+@pytest.mark.parametrize("kind", ["poisson", "zip", "bernoulli", "onehot",
+                                  "categorical", "deterministic"])
+def test_label_and_count_distributions_match_jax(kind):
+  td, jd, x = _label_pairs(kind, np.random.default_rng(20))
+  tlp = td.log_prob(torch.tensor(x)).numpy()
+  jlp = np.asarray(jd.log_prob(jnp.asarray(x)))
+  fin = np.isfinite(jlp)
+  np.testing.assert_array_equal(np.isfinite(tlp), fin)
+  _close(tlp[fin], jlp[fin], err_msg=kind)
+  _close(td.mean(), jd.mean(), err_msg=kind)
+  if kind == "poisson":
+    assert tlp[0, 0] == 0.0 and tlp[0, 1] == -np.inf
+
+
+def _mixtures(comp, rng, k=3, d=5):
+  """(port, JAX) MixtureSameFamily over K components of one family."""
+  logits = rng.normal(0, 1, (8, k)).astype(np.float32)
+  a = rng.normal(0, 1, (8, k, d)).astype(np.float32)
+  b = np.exp(rng.normal(0, 1, (8, k, d))).astype(np.float32)
+  g = rng.normal(0, 1, (8, k, d)).astype(np.float32)
+
+  def build(M, t):
+    if comp == "gaus":
+      base = M.Normal(t(a), t(b))
+    else:
+      base = M.NegativeBinomialDisp(t(np.exp(a) * 3), t(b))
+      if comp == "zinb":
+        base = M.ZeroInflated(base, t(g))
+    return M.MixtureSameFamily(t(logits), M.Independent(base, 1))
+  return build(TD, torch.tensor), build(JD, jnp.asarray)
+
+
+@pytest.mark.parametrize("comp", ["gaus", "nb", "zinb"])
+def test_mixture_same_family_matches_jax(comp):
+  rng = np.random.default_rng(30)
+  tm, jm = _mixtures(comp, rng)
+  x = (rng.normal(0, 1, (8, 5)) if comp == "gaus"
+       else rng.poisson(3.0, (8, 5))).astype(np.float32)
+  assert tm.batch_shape == tuple(jm.batch_shape) == (8,)
+  assert tm.n_components == 3
+  _close(tm.log_prob(torch.tensor(x)), jm.log_prob(jnp.asarray(x)),
+         err_msg=comp)
+  for fn in ("mean", "variance", "mode"):
+    _close(getattr(tm, fn)(), getattr(jm, fn)(), err_msg=f"{comp} {fn}")
+
+
+@pytest.mark.parametrize("comp", ["gaus", "nb", "zinb"])
+def test_mixture_sample_from_generator(comp):
+  """Draws follow the generator (same seed, same draws) and average to
+  the mixture's mean: 4,000 draws, within 5 standard errors."""
+  tm, _ = _mixtures(comp, np.random.default_rng(31), d=2)
+  s1 = tm.sample((4000,), generator=torch.Generator().manual_seed(1))
+  s2 = tm.sample((4000,), generator=torch.Generator().manual_seed(1))
+  assert s1.shape == (4000, 8, 2) and torch.equal(s1, s2)
+  if comp != "gaus":
+    assert torch.equal(s1, torch.round(s1)) and (s1 >= 0).all()
+  se = torch.sqrt(tm.variance() / 4000)
+  assert ((s1.mean(0) - tm.mean()).abs() <= 5 * se).all()
+
+
+def test_deterministic_latent_has_zero_kl_and_takes_no_noise():
+  from sisua_tpu_torch.models.objective import _kl_term
+  loc = torch.tensor(np.random.default_rng(2).normal(0, 1, (8, 4)),
+                     dtype=torch.float32)
+  q = TD.VectorDeterministic(loc)
+  prior = TD.MultivariateNormalDiag(torch.zeros(4), torch.ones(4))
+  assert torch.equal(TD.kl_divergence(q, prior), torch.zeros(8))
+  assert torch.equal(_kl_term(q, None, loc, True), torch.zeros(8))
+  assert torch.equal(q.rsample(eps=torch.ones(8, 4)), loc)
+  assert tuple(q.rsample((3,)).shape) == (3, 8, 4)
 
 
 @pytest.mark.parametrize("spec", [
@@ -211,8 +346,15 @@ def test_library_size_numpy_and_torch():
   tm, tv = t_library_size(x)
   np.testing.assert_array_equal(tm, jm)
   np.testing.assert_array_equal(tv, jv)
-  # the torch form stays a tensor (float64 accumulation: rtol 1e-6)
-  tm2, tv2 = t_library_size(torch.tensor(x))
-  assert isinstance(tm2, torch.Tensor) and tm2.shape == (40, 1)
-  np.testing.assert_allclose(tm2.numpy(), jm, rtol=1e-6)
-  np.testing.assert_allclose(tv2.numpy(), jv, rtol=1e-5)
+  # the torch form stays a tensor (float64 accumulation: rtol 1e-6), in
+  # one row-sum pass or in passes of a few rows
+  from sisua_tpu_torch.data import utils as tutils
+  for elements in (tutils._SUM_ELEMENTS, 7 * 30):
+    tutils._SUM_ELEMENTS, saved = elements, tutils._SUM_ELEMENTS
+    try:
+      tm2, tv2 = t_library_size(torch.tensor(x))
+    finally:
+      tutils._SUM_ELEMENTS = saved
+    assert isinstance(tm2, torch.Tensor) and tm2.shape == (40, 1)
+    np.testing.assert_allclose(tm2.numpy(), jm, rtol=1e-6)
+    np.testing.assert_allclose(tv2.numpy(), jv, rtol=1e-5)

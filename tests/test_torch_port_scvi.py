@@ -311,6 +311,8 @@ def test_default_device_is_cuda():
 
 def test_port_imports_no_jax():
   code = ("import sisua_tpu_torch, sisua_tpu_torch.models, "
+          "sisua_tpu_torch.models.vae, sisua_tpu_torch.models.dca, "
+          "sisua_tpu_torch.dist.discrete, sisua_tpu_torch.dist.mixture, "
           "sisua_tpu_torch.train, sisua_tpu_torch.convert, sys; "
           "bad = [m for m in ('jax', 'flax', 'optax', 'pandas', 'sisua_tpu')"
           " if m in sys.modules]; assert not bad, bad")

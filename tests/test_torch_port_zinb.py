@@ -330,3 +330,24 @@ def test_routing_modes(monkeypatch):
       TD.NegativeBinomial(r, torch.zeros(3, 16, 30)),
       torch.zeros(3, 16, 30)), 1)
   assert tuple(tobj._fast_log_prob(d, x).shape) == (3, 16)
+
+
+def test_row_strides_read_head_slices_in_place():
+  """The 'zinb'/'nb' heads chunk one (B, k·D) output: each (B, D) slice is
+  read through its row stride k·D, a (1, D) row with stride 0; column-
+  strided or overlapping layouts and a non-contiguous x are refused."""
+  x = torch.zeros(4, 5)
+  head = torch.zeros(4, 15)
+  theta, logits, gate = torch.chunk(head, 3, dim=-1)
+  assert tz._row_strides(x, (theta, logits, gate)) == (4, 5, [15, 15, 15])
+  assert tz._row_strides(x, (theta, logits, torch.zeros(1, 5))) \
+      == (4, 5, [15, 15, 0])
+  assert tz._row_strides(x[:1], (theta[:1],) * 3) == (1, 5, [5, 5, 5])
+  with pytest.raises(ValueError, match="contiguous rows"):
+    tz._row_strides(x, (torch.zeros(5, 4).t(), logits, gate))
+  with pytest.raises(ValueError, match="overlap"):
+    tz._row_strides(x, (torch.zeros(1, 5).expand(4, 5), logits, gate))
+  with pytest.raises(ValueError, match="contiguous x"):
+    tz._row_strides(head[:, :5], (theta, logits, gate))
+  with pytest.raises(ValueError, match="per-gene"):
+    tz._row_strides(x, (torch.zeros(2, 5), logits, gate))
