@@ -34,17 +34,29 @@ before the final line:
   7. the kernel route against the plain route on one 512-row train step at
      the same converted weights and noise for SISUA (mixed mask; the mask
      must change the loss), DCA ('zinb') and MISA ('zinb' + 'nbd' →
-     'mixnb', whose mixture head never reaches the kernels).
+     'mixnb', whose mixture head never reaches the kernels);
+  8. serving: the phase 4 SCVI and phase 6 SISUA models, saved with
+     ``save_weights`` right after their fits, come back from disk with
+     ``load_model``: weights bitwise equal, history restored, ``evaluate``
+     equal to the trained model's at the same noise (the forward kernel
+     once per batch per ZINB/NB head); ``predict`` streaming against
+     ``device_cache=True``; ``predict_mean`` cells/s at sample_shape ()
+     and (10,), bf16 fetch, forced chunking; ``get_normalized_expression``,
+     ``compute_llk`` (Jensen: ≥ evaluate's llk_x) and
+     ``marginal_log_prob`` (≥ the ELBO); save and load seconds and bytes.
+     Serving math never launches a kernel (distribution math).
 Before the last line it prints the kernels' JSON summary (launches of the
-phase 4 and phase 6 fits); the last line is ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+phase 4 and phase 6 fits and of phase 8); the last line is ``{"ok": true,
+"device": {...}}``. Imports nothing of JAX.
 """
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -67,6 +79,12 @@ SUM_ULPS = 1e-6
 ROUTE_LOSS_RTOL = 1e-4
 # per parameter: max|Δg| ≤ 1e-3·(max|g| of it + 1e-3·max|g| overall)
 ROUTE_GRAD_BOUND = 1e-3
+SERVE_RTOL = 1e-5     # streaming vs device-cached predict, chunked means
+EVAL_RTOL = 1e-6      # evaluate of the reloaded model vs the trained one
+BOUND_SLACK = 5e-3    # Jensen / importance-weighted bounds, relative
+BF16_RTOL = 1e-2      # bf16-fetched means vs float32
+MC = 10               # MC draws of the serving phase
+IW_SAMPLES, IW_BATCH, IW_CELLS = 100, 32, 256
 
 
 def log(msg):
@@ -462,7 +480,7 @@ def phase_sisua(torch, x, held):
   log(f"[6 sisua] evaluate on {HELD_OUT} held-out cells: loss "
       f"{ev['loss']:.2f} llk_x {ev['llk_x']:.2f} llk_x1 {ev['llk_x1']:.2f} "
       f"klqp_z {ev['klqp_z']:.3f}; forward launches +{eval_fwd}")
-  return model, y, fit_launches
+  return model, y, held_y, fit_launches
 
 
 def phase_model_routes(torch, trained, x, y):
@@ -496,6 +514,233 @@ def phase_model_routes(torch, trained, x, y):
           f"labeled) loss {lk:.4f}, all-ones mask loss {l1:.4f}")
 
 
+def _save_trained(torch, model, held_data, root):
+  """Before a trained model goes: its evaluate on the held-out cells at a
+  fixed noise seed, its weights and history, then ``save_weights``."""
+  model.generator.manual_seed(SEED + 8)
+  ev = model.evaluate(held_data, batch_size=BATCH)
+  path = os.path.join(root, type(model).__name__)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  model.save_weights(path)
+  save_s = time.perf_counter() - t0
+  size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+  n_params = sum(p.numel() for p in model.module.parameters())
+  return dict(path=path, ev=ev, save_s=save_s, bytes=size,
+              n_params=n_params,
+              history={k: list(v) for k, v in model.history.items()},
+              state={k: v.detach().cpu().clone()
+                     for k, v in model.module.state_dict().items()})
+
+
+def _dist_rel_err(torch, a, b):
+  """Max relative difference over every parameter tensor of two
+  distributions (or tuples of them) of the same structure."""
+  from sisua_tpu_torch import dist as D
+  worst = [0.0]
+
+  def leaf(u, v):
+    check(u.shape == v.shape, f"leaf shapes {tuple(u.shape)} {tuple(v.shape)}")
+    den = v.abs().clamp_min(1e-6)
+    worst[0] = max(worst[0], float(((u - v).abs() / den).max()))
+    return u
+  for u, v in zip(a if isinstance(a, tuple) else (a,),
+                  b if isinstance(b, tuple) else (b,)):
+    D.tree_map(leaf, u, v)
+  return worst[0]
+
+
+def _elbo_rna(ev):
+  """ELBO of the RNA head from evaluate's metrics: llk_x less every KL."""
+  return ev["llk_x"] - sum(v for k, v in ev.items() if k.startswith("klqp"))
+
+
+def _serve_model(torch, tag, saved, x, held_data, smi):
+  """Phase 8 for one saved model; returns the forward launches of its
+  reloaded evaluate."""
+  import numpy as np
+  from sisua_tpu_torch.models import load_model
+  from sisua_tpu_torch.ops import zinb as tz
+  heads = 2 if tag == "SISUA" else 1
+  held = held_data[0]
+  t0 = time.perf_counter()
+  m = load_model(saved["path"], device=DEVICE)
+  torch.cuda.synchronize()
+  load_s = time.perf_counter() - t0
+  sd = m.module.state_dict()
+  check(sd.keys() == saved["state"].keys()
+        and all(torch.equal(sd[k].cpu(), v) for k, v in saved["state"].items()),
+        f"{tag}: reloaded weights differ from the saved ones")
+  check(m.history == saved["history"], f"{tag}: history not restored")
+  log(f"[8 serve] {tag}: {saved['n_params']:,} parameters, checkpoint "
+      f"{saved['bytes']:,} bytes; save {saved['save_s']:.3f} s, load_model "
+      f"onto the card {load_s:.3f} s; weights bitwise equal, history of "
+      f"{len(m.history['loss'])} epochs restored | {smi}")
+
+  # evaluate: the reloaded model at the trained model's noise
+  before = tz.launches["zinb_rowsum_fwd"]
+  m.generator.manual_seed(SEED + 8)
+  ev = m.evaluate(held_data, batch_size=BATCH)
+  fwd = tz.launches["zinb_rowsum_fwd"] - before
+  check(fwd == heads * -(-HELD_OUT // BATCH),
+        f"{tag}: evaluate launched the forward {fwd} times")
+  for k, v in saved["ev"].items():
+    check(abs(ev[k] - v) <= EVAL_RTOL * abs(v),
+          f"{tag}: evaluate {k} {ev[k]} vs trained {v}")
+  log(f"[8 serve] {tag}: evaluate of the reloaded model = the trained "
+      f"model's (loss {ev['loss']:.4f}, rtol {EVAL_RTOL}); forward "
+      f"launches +{fwd}")
+  serving_start = dict(tz.launches)
+
+  # predict: streaming vs device-cached on the RNA matrix alone
+  outs = {}
+  for dc in (False, True):
+    m.generator.manual_seed(SEED + 9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs[dc] = m.predict(held, batch_size=BATCH, device_cache=dc)
+    outs[dc] += (time.perf_counter() - t0,)
+  (pX, qZ, t_s), (pX2, qZ2, t_d) = outs[False], outs[True]
+  err = max(_dist_rel_err(torch, pX2, pX), _dist_rel_err(torch, qZ2, qZ))
+  check(err <= SERVE_RTOL, f"{tag}: predict paths differ by {err:.3e}")
+  px0 = pX[0] if isinstance(pX, tuple) else pX
+  z0 = qZ[0] if isinstance(qZ, tuple) else qZ
+  check(tuple(px0.mean().shape) == (HELD_OUT, GENES)
+        and tuple(z0.mean().shape)[0] == HELD_OUT
+        and px0.mean().device.type == "cpu",
+        f"{tag}: predict shapes {tuple(px0.mean().shape)} "
+        f"{tuple(z0.mean().shape)}")
+  log(f"[8 serve] {tag}: predict({HELD_OUT} cells, RNA matrix alone) "
+      f"streaming {t_s:.3f} s, device_cache {t_d:.3f} s, max rel Δ "
+      f"{err:.2e}; leaves full-batch, on the host | {smi}")
+  del outs, pX, pX2, qZ2, px0
+
+  # predict_mean on the training cells: cells/s to the host fetch
+  rates = {}
+  torch.cuda.reset_peak_memory_stats()
+  m.predict_mean(x[:BATCH], batch_size=BATCH)  # warm-up
+  for shape in ((), (MC,)):
+    m.generator.manual_seed(SEED + 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xm, zm = m.predict_mean(x, sample_shape=shape, batch_size=BATCH)
+    rates[shape] = CELLS / (time.perf_counter() - t0)
+    check(all(np.isfinite(a).all() for a in xm + zm)
+          and xm[0].shape == (CELLS, GENES) and zm[0].shape[0] == CELLS,
+          f"{tag}: predict_mean{shape} not finite or misshapen")
+    if shape == ():
+      ref_x, ref_z = xm, zm
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  m.generator.manual_seed(SEED + 10)
+  t0 = time.perf_counter()
+  bx, bz = m.predict_mean(x, batch_size=BATCH, fetch_dtype="bfloat16")
+  bf16_rate = CELLS / (time.perf_counter() - t0)
+  for a, b in zip(bx + bz, ref_x + ref_z):
+    np.testing.assert_allclose(a, b, rtol=BF16_RTOL, atol=1e-30,
+                               err_msg=f"{tag}: bf16 fetch")
+  host = x.cpu().numpy()
+  m.generator.manual_seed(SEED + 10)
+  t0 = time.perf_counter()
+  hx, _ = m.predict_mean(host, batch_size=BATCH)
+  host_rate = CELLS / (time.perf_counter() - t0)
+  np.testing.assert_allclose(hx[0], ref_x[0], rtol=SERVE_RTOL,
+                             err_msg=f"{tag}: int16 host upload")
+  del host, hx, bx, bz
+  _, qz_all = m.predict(x, batch_size=BATCH, device_cache=True)
+  for z, q in zip(ref_z, qz_all if isinstance(qz_all, tuple) else (qz_all,)):
+    np.testing.assert_allclose(z, q.mean().numpy(), rtol=1e-6, atol=1e-7,
+                               err_msg=f"{tag}: latent means vs predict")
+  del qz_all
+  log(f"[8 serve] {tag}: predict_mean on {CELLS} card-resident cells "
+      f"({CELLS * GENES * 4 / 1e9:.2f} GB f32 means): sample_shape () "
+      f"{rates[()]:.0f} cells/s, ({MC},) {rates[(MC,)]:.0f} cells/s, bf16 "
+      f"fetch {bf16_rate:.0f} cells/s (within {BF16_RTOL:.0%}); from host "
+      f"numpy (int16 upload) {host_rate:.0f} cells/s; peak memory "
+      f"{peak:.2f} GiB; latent means = predict's | {smi}")
+
+  # forced chunking: three or more chunks give the same means
+  bpr = 4 * GENES
+  os.environ["SISUA_TPU_SERVING_BUDGET"] = str(2 * bpr * (CELLS // 4))
+  try:
+    n_chunks = len(m._serving_chunks([x], BATCH))
+    m.generator.manual_seed(SEED + 10)
+    cx, cz = m.predict_mean(x, batch_size=BATCH)
+  finally:
+    os.environ.pop("SISUA_TPU_SERVING_BUDGET")
+  check(n_chunks >= 3, f"{tag}: {n_chunks} chunks")
+  for a, b in zip(cx + cz, ref_x + ref_z):
+    np.testing.assert_allclose(a, b, rtol=SERVE_RTOL,
+                               err_msg=f"{tag}: chunked predict_mean")
+  del cx, cz, ref_x, ref_z, xm, zm
+  log(f"[8 serve] {tag}: forced budget → {n_chunks} chunks, predict_mean "
+      f"equal within rtol {SERVE_RTOL}")
+
+  if tag == "SCVI":
+    scale = m.get_normalized_expression(held, sample_shape=(MC,),
+                                        batch_size=BATCH)
+    rows = scale.astype(np.float64).sum(1)
+    check(scale.shape == (HELD_OUT, GENES)
+          and np.abs(rows - 1).max() <= 1e-5,
+          f"{tag}: normalized rows sum to {rows.min()}..{rows.max()}")
+    log(f"[8 serve] {tag}: get_normalized_expression ({MC},) rows sum to 1 "
+        f"within {np.abs(rows - 1).max():.2e}")
+
+  llk = m.compute_llk(held, {"dataorg": list(held_data)},
+                      sample_shape=(MC,), batch_size=BATCH)
+  check(all(np.isfinite(v) for v in llk.values()), f"{tag}: llk {llk}")
+  bound = ev["llk_x"] - BOUND_SLACK * abs(ev["llk_x"])
+  check(llk["dataorg_output0"] >= bound,
+        f"{tag}: compute_llk {llk['dataorg_output0']} < llk_x {ev['llk_x']}")
+
+  sub = [a[:IW_CELLS] for a in held_data]
+  m.generator.manual_seed(SEED + 11)
+  elbo = _elbo_rna(m.evaluate(sub, batch_size=BATCH))
+  t0 = time.perf_counter()
+  iw = m.marginal_log_prob(held[:IW_CELLS], sample_shape=IW_SAMPLES,
+                           batch_size=IW_BATCH)
+  iw_s = time.perf_counter() - t0
+  check(iw.shape == (IW_CELLS,) and np.isfinite(iw).all()
+        and iw.mean() >= elbo - BOUND_SLACK * abs(elbo),
+        f"{tag}: marginal_log_prob mean {iw.mean()} vs ELBO {elbo}")
+  served = {k: tz.launches[k] - serving_start[k] for k in tz.launches}
+  check(served == {"zinb_rowsum_fwd": heads * -(-IW_CELLS // BATCH),
+                   "zinb_rowsum_bwd": 0},
+        f"{tag}: serving launched kernels {served}")
+  log(f"[8 serve] {tag}: compute_llk ({MC},) "
+      + " ".join(f"{k} {v:.2f}" for k, v in sorted(llk.items()))
+      + f" ≥ evaluate llk_x {ev['llk_x']:.2f}; marginal_log_prob "
+      f"(S={IW_SAMPLES}, batch {IW_BATCH}, {IW_CELLS} cells) mean "
+      f"{iw.mean():.2f} ≥ ELBO {elbo:.2f}, {iw_s:.2f} s | {smi}")
+  return fwd + heads * -(-IW_CELLS // BATCH)
+
+
+def phase_per_gene_leaf(torch, held):
+  """SCVI 'single' dispersion: both predict paths keep the (1, D) leaf."""
+  m = _scvi(torch, "single")
+  for dc in (False, True):
+    pX, _ = m.predict(held, batch_size=BATCH, device_cache=dc)
+    disp = pX.base.count_distribution.disp
+    check(tuple(disp.shape) == (1, GENES)
+          and tuple(pX.mean().shape) == (HELD_OUT, GENES),
+          f"per-gene leaf {tuple(disp.shape)} (device_cache={dc})")
+  log(f"[8 serve] SCVI 'single': per-gene dispersion kept as one (1, "
+      f"{GENES}) row by both predict paths over {HELD_OUT // BATCH} batches")
+
+
+def phase_serving(torch, saved, x, held, held_y, smi):
+  """Reload both models from disk and serve them; returns the forward
+  launches of this phase (counted from 0)."""
+  from sisua_tpu_torch.ops import zinb as tz
+  tz.reset_launches()
+  fwd = _serve_model(torch, "SCVI", saved["SCVI"], x, [held], smi)
+  fwd += _serve_model(torch, "SISUA", saved["SISUA"], x, [held, held_y],
+                      smi)
+  check(tz.launches == {"zinb_rowsum_fwd": fwd, "zinb_rowsum_bwd": 0},
+        f"serving launches {tz.launches}")
+  phase_per_gene_leaf(torch, held)
+  return dict(tz.launches)
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -504,16 +749,25 @@ def main():
     return 2
   sys.path.insert(0, ROOT)
   import sisua_tpu_torch  # noqa: F401  (fails outside a checkout)
-  phase_device(torch)
+  smi = phase_device(torch)
   phase_build()
   kern = phase_kernels(torch)
   x, held = phase_data(torch)
-  model, library, launches = phase_fit(torch, x, held)
-  phase_routes(torch, model, x, library)
-  del model
-  sisua, y, sisua_launches = phase_sisua(torch, x, held)
-  phase_model_routes(torch, sisua, x, y)
-  launches = {k: v + sisua_launches[k] for k, v in launches.items()}
+  ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+  try:
+    model, library, launches = phase_fit(torch, x, held)
+    saved = {"SCVI": _save_trained(torch, model, [held], ckpt_root)}
+    phase_routes(torch, model, x, library)
+    del model
+    sisua, y, held_y, sisua_launches = phase_sisua(torch, x, held)
+    saved["SISUA"] = _save_trained(torch, sisua, [held, held_y], ckpt_root)
+    phase_model_routes(torch, sisua, x, y)
+    del sisua
+    serve_launches = phase_serving(torch, saved, x, held, held_y, smi)
+  finally:
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+  launches = {k: v + sisua_launches[k] + serve_launches[k]
+              for k, v in launches.items()}
   main_case = kern["main_full"]
   kernels = []
   for name, line, key, err in (

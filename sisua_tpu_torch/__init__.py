@@ -11,9 +11,12 @@ C++ in ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use and bound
 with ``ctypes`` (``ops/_build.py``). On CPU tensors every kernel wrapper
 runs its plain PyTorch version instead.
 
-Port state: training (``fit`` with validation and early stopping) and
-``evaluate`` of SCVI and of the paper's VAE, SISUA, MISA and
-DeepCountAutoencoder (``models``).
+Port state: training (``fit`` with validation and early stopping),
+``evaluate`` and serving (``predict``, ``predict_mean``,
+``get_normalized_expression``, ``compute_llk``, ``marginal_log_prob``) of
+SCVI and of the paper's VAE, SISUA, MISA and DeepCountAutoencoder
+(``models``), with checkpoints the JAX package reads and writes
+(``train/checkpoint.py``, ``models.load_model``).
 """
 
 __version__ = "0.1.0"

@@ -9,7 +9,7 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["get_library_size"]
+__all__ = ["get_library_size", "int16_exact"]
 
 # rows per float64 row-sum pass over a tensor: at most 2^25 elements, so the
 # float64 copy a pass makes stays ≤ 256 MiB whatever the matrix's size
@@ -41,3 +41,17 @@ def get_library_size(X):
   local_mean = np.full((n, 1), np.mean(log_counts), dtype=np.float32)
   local_var = np.full((n, 1), np.var(log_counts), dtype=np.float32)
   return local_mean, local_var
+
+
+def int16_exact(values) -> bool:
+  """True when every value is an integer with |v| < 32767, the condition
+  for an exact int16 upload (port of ``sisua_tpu/ops/sparse.py``
+  ``int16_exact``): a full scan in chunks, never a sampled prefix."""
+  flat = np.asarray(values).reshape(-1)
+  for lo in range(0, flat.size, 1 << 24):
+    chunk = flat[lo:lo + (1 << 24)]
+    # two-sided compare: abs() of the most negative integer overflows
+    if (chunk.max() >= 32767 or chunk.min() <= -32767
+        or np.any(chunk != np.round(chunk))):
+      return False
+  return True

@@ -2,7 +2,7 @@
 ``sisua_tpu.dist``)."""
 
 from .base import (Distribution, Independent, NoAnalyticKL, kl_divergence,
-                   register_kl)
+                   register_kl, tree_map)
 from .continuous import MultivariateNormalDiag, Normal, VectorDeterministic
 from .count import (Bernoulli, NegativeBinomial, NegativeBinomialDisp,
                     NegativeBinomialDispLog, NegativeBinomialLog, Poisson,
@@ -12,7 +12,8 @@ from .mixture import MixtureSameFamily
 
 __all__ = [
     "Distribution", "Independent", "NoAnalyticKL", "kl_divergence",
-    "register_kl", "MultivariateNormalDiag", "Normal", "VectorDeterministic",
+    "register_kl", "tree_map", "MultivariateNormalDiag", "Normal",
+    "VectorDeterministic",
     "Poisson", "Bernoulli", "NegativeBinomial", "NegativeBinomialDisp",
     "NegativeBinomialDispLog", "NegativeBinomialLog", "ZeroInflated",
     "Categorical", "OneHotCategorical", "MixtureSameFamily",

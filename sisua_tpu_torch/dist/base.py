@@ -14,7 +14,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 __all__ = ["Distribution", "Independent", "NoAnalyticKL", "kl_divergence",
-           "register_kl"]
+           "register_kl", "tree_map"]
 
 Tensor = torch.Tensor
 
@@ -94,6 +94,24 @@ class Independent(Distribution):
 
   def sample(self, sample_shape=(), generator=None):
     return self.base.sample(sample_shape, generator=generator)
+
+
+def tree_map(fn: Callable[..., Tensor], *dists: Distribution) -> Distribution:
+  """A distribution of the first one's type whose parameter tensors are
+  ``fn`` of the matching tensors of every argument: the JAX package gets
+  this from its distributions being pytrees (``jax.tree_util.tree_map``).
+  Nested distributions (``Independent.base``,
+  ``ZeroInflated.count_distribution``, a mixture's components) are
+  recursed into; every other field is the first argument's."""
+  first = dists[0]
+  out = object.__new__(type(first))
+  for k, v in vars(first).items():
+    if isinstance(v, Tensor):
+      v = fn(*(vars(d)[k] for d in dists))
+    elif isinstance(v, Distribution):
+      v = tree_map(fn, *(vars(d)[k] for d in dists))
+    setattr(out, k, v)
+  return out
 
 
 # KL registry: analytic where known, else NoAnalyticKL → the caller uses MC

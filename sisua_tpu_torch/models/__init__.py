@@ -1,14 +1,19 @@
 """sisua_tpu_torch.models — the port's models (counterpart of
 ``sisua_tpu.models``): SCVI and the paper's own VAE, SISUA, MISA and
-DeepCountAutoencoder, with ``get_model`` over them."""
+DeepCountAutoencoder, with ``get_model``, ``get_all_models`` and
+``load_model`` over them. ``load_model`` reads a checkpoint written by
+either package."""
 
 from __future__ import annotations
 
 import inspect
-from typing import Type
+from typing import List, Type, Union
+
+import torch
 
 from ..nn import NetConf
 from ..rv import RVmeta
+from ..train.checkpoint import load_metamodel
 from .base import SingleCellModel
 from .dca import DeepCountAutoencoder
 from .module import SCVIModule, VAEModule, VAEOutput
@@ -17,11 +22,17 @@ from .scvi import SCVI
 from .vae import MISA, SISUA, VAE
 
 __all__ = ["SingleCellModel", "VAE", "SISUA", "MISA", "DeepCountAutoencoder",
-           "SCVI", "get_model", "SCVIModule", "VAEModule",
-           "VAEOutput", "compute_loss", "elbo_terms", "NetConf", "RVmeta"]
+           "SCVI", "get_model", "get_all_models", "load_model",
+           "SCVIModule", "VAEModule", "VAEOutput", "compute_loss",
+           "elbo_terms", "NetConf", "RVmeta"]
 
 
 _PORTED = (VAE, SISUA, MISA, DeepCountAutoencoder, SCVI)
+
+
+def get_all_models() -> List[Type[SingleCellModel]]:
+  """The ported concrete models."""
+  return list(_PORTED)
 
 
 def get_model(name) -> Type[SingleCellModel]:
@@ -37,3 +48,15 @@ def get_model(name) -> Type[SingleCellModel]:
   raise ValueError(
       f"Cannot find model '{name}' among the ported models: "
       f"{sorted(c.__name__ for c in _PORTED)}")
+
+
+def load_model(path: str, device: Union[str, torch.device] = "cuda"
+               ) -> SingleCellModel:
+  """Rebuild a model from <path>/metamodel.json on ``device`` and load its
+  weights (``history.json`` too, when present)."""
+  class_name, dataset, metadata, init_kwargs = load_metamodel(path)
+  kwargs = dict(init_kwargs)
+  outputs = kwargs.pop("outputs")
+  model = get_model(class_name)(outputs, dataset=dataset, metadata=metadata,
+                                device=device, **kwargs)
+  return model.load_weights(path, raise_notfound=True)

@@ -1,7 +1,14 @@
 """SingleCellModel — keras-feel wrapper over the torch VAE modules (port of
-the fit half of ``sisua_tpu/models/base.py``: ``__init__``, ``_loss``, the
-train and eval steps, ``fit`` with validation and early stopping, and
-``evaluate``).
+``sisua_tpu/models/base.py``).
+
+The fit half: ``__init__``, ``_loss``, the train and eval steps, ``fit``
+with validation and early stopping, and ``evaluate``. The serving half:
+``apply``/``encode``/``decode``, ``predict`` (streaming, or
+``device_cache=True``), ``predict_mean``, ``get_normalized_expression``,
+``compute_llk`` and ``marginal_log_prob``, over serving chunks sized to
+the card's memory. Checkpoints: ``save_weights``/``load_weights`` write
+and read the JAX package's files (``train/checkpoint.py``), so a model
+saved by either package loads in the other (``models.load_model``).
 
 The model owns an ``nn.Module`` on an explicit ``device`` (default
 ``"cuda"``, which raises when there is no card), a ``torch.Generator`` on
@@ -10,24 +17,34 @@ permutation and the semi-supervised mask, its Adam state and a step
 counter. Parameters are initialized on the CPU from the seed and then
 moved, so the initial weights do not depend on the device. Data is one
 matrix or a list ``[rna, adt, …]`` (one per output; numpy, scipy or
-tensor), made device-resident once; the first feeds the encoder and the
-rest are label targets. ``predict`` and the rest of the inference half,
-checkpoints, ``n_batch`` conditioning and mixed precision are not ported
-yet.
+tensor); training makes it device-resident once, the first feeds the
+encoder and the rest are label targets. Serving reads only the encoder's
+matrix. Not ported yet: ``n_batch`` conditioning, mixed precision,
+``differential_expression``, ``create_posterior`` and the mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import dataclasses
+import json
+import math
+import os
+import re
+from typing import (Dict, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
-from ..data.utils import get_library_size
+from .. import convert
+from .. import dist as D
+from ..data.utils import get_library_size, int16_exact
 from ..interpolation import Interpolation, get_interpolation
 from ..nn import NetConf, parse_netconf
 from ..rv import RVmeta, parse_rv
+from ..train import checkpoint as ckpt
 from ..train.trainer import Trainer
 from .module import VAEModule, VAEOutput
 from .objective import compute_loss
@@ -35,6 +52,9 @@ from .objective import compute_loss
 __all__ = ["SingleCellModel", "resolve_device"]
 
 UNIVERSAL_RANDOM_SEED = 5218  # sisua_tpu.data.const
+#: the serving budget, a share of the card's memory (the JAX package's)
+SERVING_BUDGET_FRACTION = 0.35
+_NUMPY_DTYPES = {torch.float32: np.float32, torch.int16: np.int16}
 
 
 def _flatten(x) -> Tuple:
@@ -45,15 +65,30 @@ def _flatten(x) -> Tuple:
   return (x,)
 
 
+def _to_snake_case(name: str) -> str:
+  """keras' auto-name (the JAX package's default model name)."""
+  s = re.sub(r"(.)([A-Z][a-z0-9]+)", r"\1_\2", name)
+  return re.sub(r"([a-z])([A-Z])", r"\1_\2", s).lower()
+
+
+def _as_shape(sample_shape) -> Tuple[int, ...]:
+  return ((int(sample_shape),) if isinstance(sample_shape, int)
+          else tuple(int(s) for s in sample_shape))
+
+
 def resolve_device(device) -> torch.device:
-  """``torch.device``; a CUDA device must exist (no silent CPU fallback).
-  On CUDA, TF32 is switched off for matmuls and cuDNN: the port is held to
-  the JAX package in float32, and TF32 keeps about three digits."""
+  """``torch.device``; a CUDA device must exist (no silent CPU fallback)
+  and gets its index ('cuda' → 'cuda:0'), so it compares equal to a
+  tensor's device. On CUDA, TF32 is switched off for matmuls and cuDNN: the
+  port is held to the JAX package in float32, and TF32 keeps about three
+  digits."""
   device = torch.device(device)
   if device.type == "cuda":
     if not torch.cuda.is_available():
       raise RuntimeError("device='cuda' but torch.cuda.is_available() is "
                          "False; pass device='cpu' explicitly")
+    if device.index is None:
+      device = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
   return device
@@ -65,6 +100,46 @@ def _as_device_matrix(a, device) -> torch.Tensor:
   if hasattr(a, "toarray"):  # scipy sparse
     a = a.toarray()
   return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def _merge_batch_leaves(axis: int, n: Optional[int] = None,
+                        batch: Optional[int] = None):
+  """``tree_map`` reducer that concatenates per-batch distribution leaves
+  along ``axis`` (then keeps the first ``n`` rows: padded batches), EXCEPT
+  batch-invariant parameter rows such as SCVI's 'single' per-gene (1, D)
+  dispersion, which every batch returns identically: stacking k copies
+  makes a phantom (k, D) leaf whose broadcast against the (N, D) mean
+  fails. Constants have a singleton leading dim (they never gain MC sample
+  dims) and are equal across batches. On the device-cached path
+  (``batch``, the padded batch size) a (1, D) leaf is a constant whenever
+  ``batch`` > 1, a single batch included, as the JAX package's stacked
+  (k, 1, D) rule; the streaming rule needs two equal batches."""
+  def merge(*xs):
+    x0 = xs[0]
+    if batch is None:
+      const = len(xs) > 1 and x0.ndim >= 1 and x0.shape[0] == 1
+    else:
+      const = x0.ndim == 2 and x0.shape[0] == 1 and batch != 1
+    if const and all(x.shape == x0.shape and torch.equal(x0, x)
+                     for x in xs[1:]):
+      return x0
+    out = torch.cat(xs, dim=axis)
+    return out if n is None else out.narrow(axis, 0, n)
+  return merge
+
+
+def _merge_dists(dists_per_batch, axis: int, **kw) -> Tuple:
+  """Merge every batch's tuple of distributions, position by position."""
+  return tuple(D.tree_map(_merge_batch_leaves(axis, **kw), *ds)
+               for ds in zip(*dists_per_batch))
+
+
+def _to_host(dists) -> Tuple:
+  return tuple(D.tree_map(lambda t: t.cpu(), d) for d in dists)
+
+
+def _one_or_tuple(xs):
+  return xs if len(xs) > 1 else xs[0]
 
 
 class SingleCellModel:
@@ -82,34 +157,66 @@ class SingleCellModel:
                log_norm: bool = True,
                beta: Union[float, Interpolation] = 1.0,
                alpha: float = 1.0,
+               gamma: float = 1.0,
                analytic: bool = True,
                mask_renorm: bool = False,
                reduce_latent: str = "concat",
+               compute_dtype: Optional[str] = None,
                seed: int = UNIVERSAL_RANDOM_SEED,
+               dataset: Optional[str] = None,
+               metadata: Optional[Dict] = None,
+               name: Optional[str] = None,
+               batch_key: str = "batch",
+               prng: str = "rbg",
                device: Union[str, torch.device] = "cuda",
                **module_kwargs):
-    self.outputs = tuple(parse_rv(o, f"output{i}")
-                         for i, o in enumerate(_flatten(outputs)))
+    """The JAX package's constructor (every kwarg its ``metamodel.json``
+    records), plus ``device``. ``prng`` names the JAX generator and is
+    only recorded: the port draws from a ``torch.Generator``. ``gamma``
+    (FactorVAE's TC weight) and ``batch_key`` are recorded for the
+    checkpoint. ``compute_dtype`` other than float32 raises (mixed
+    precision is not ported)."""
+    if compute_dtype not in (None, "float32"):
+      raise NotImplementedError(
+          f"compute_dtype={compute_dtype!r} is not ported yet (mixed "
+          "precision)")
+    if module_kwargs.get("n_batch"):
+      raise NotImplementedError("n_batch conditioning is not ported yet")
+    module_kwargs.pop("n_batch", None)
+    outputs = tuple(parse_rv(o, f"output{i}")
+                    for i, o in enumerate(_flatten(outputs)))
     if latents is None:
       latents = RVmeta(10, "diag", True, "latents")
-    self.latents = tuple(parse_rv(z, f"latent{i}")
-                         for i, z in enumerate(_flatten(latents)))
+    latents = tuple(parse_rv(z, f"latent{i}")
+                    for i, z in enumerate(_flatten(latents)))
     if encoder is None:
       encoder = NetConf((64, 64), batchnorm=True, input_dropout=0.3,
                         name="encoder")
-    self.encoder = tuple(parse_netconf(e, f"encoder{i}")
-                         for i, e in enumerate(_flatten(encoder)))
+    encoder = tuple(parse_netconf(e, f"encoder{i}")
+                    for i, e in enumerate(_flatten(encoder)))
     if decoder is None:
       decoder = NetConf((64, 64), batchnorm=True, name="decoder")
-    self.decoder = tuple(parse_netconf(d, f"decoder{i}")
-                         for i, d in enumerate(_flatten(decoder)))
+    decoder = tuple(parse_netconf(d, f"decoder{i}")
+                    for i, d in enumerate(_flatten(decoder)))
+    if compute_dtype:
+      encoder = tuple(e.replace(compute_dtype=compute_dtype) for e in encoder)
+      decoder = tuple(d.replace(compute_dtype=compute_dtype) for d in decoder)
+    self.compute_dtype = compute_dtype
+    self.outputs, self.latents = outputs, latents
+    self.encoder, self.decoder = encoder, decoder
     self.log_norm = bool(log_norm)
     self.beta = get_interpolation(beta)
     self.alpha = float(alpha)
+    self.gamma = float(gamma)
     self.analytic = bool(analytic)
     self.mask_renorm = bool(mask_renorm)
     self.reduce_latent = reduce_latent
     self.seed = int(seed)
+    self.prng = str(prng)
+    self.dataset = dataset
+    self.metadata = metadata or {}
+    self.batch_key = str(batch_key)
+    self._name = name or _to_snake_case(type(self).__name__)
     self.device = resolve_device(device)
     init_gen = torch.Generator().manual_seed(self.seed)
     self.module = self.module_cls(
@@ -121,6 +228,38 @@ class SingleCellModel:
     self.step = 0
     self.optimizer = None
     self.trainer: Optional[Trainer] = None
+    self._loaded_history: Dict[str, List[float]] = {}
+    # a constant β round-trips as its value, a warm-up schedule whole
+    beta_spec = (self.beta.vmax if self.beta.kind == "const"
+                 and not self.beta.cyclical else
+                 dataclasses.asdict(self.beta))
+    self._init_kwargs_for_save = dict(
+        outputs=outputs, latents=latents, encoder=encoder, decoder=decoder,
+        log_norm=log_norm, beta=beta_spec, alpha=alpha, gamma=gamma,
+        analytic=analytic, mask_renorm=mask_renorm,
+        reduce_latent=reduce_latent, compute_dtype=compute_dtype,
+        seed=seed, name=self._name, batch_key=batch_key, prng=self.prng,
+        **module_kwargs)
+
+  def set_metadata(self, sco) -> "SingleCellModel":
+    """Record the dataset name and per-omic var_names (duck-typed on
+    ``.name``, ``.omics`` and ``.get_var_names``); ``save_weights``
+    writes them into ``metamodel.json``."""
+    self.dataset = sco.name
+    for om in sco.omics:
+      self.metadata[str(om)] = list(np.asarray(sco.get_var_names(om),
+                                               dtype=str))
+    return self
+
+  # ---------------------------------------------------------------- naming
+  @property
+  def name(self) -> str:
+    return self._name
+
+  @property
+  def id(self) -> str:
+    """Lower-cased capital letters of the class name ('dca', 'scvi')."""
+    return "".join(c for c in type(self).__name__ if c.isupper()).lower()
 
   @property
   def uses_library(self) -> bool:
@@ -132,13 +271,36 @@ class SingleCellModel:
     return self.mask_outputs and len(self.outputs) > 1
 
   @property
+  def is_zero_inflated(self) -> bool:
+    return self.outputs[0].is_zero_inflated
+
+  @property
+  def posteriors(self) -> Tuple[RVmeta, ...]:
+    return self.outputs
+
+  @property
+  def n_outputs(self) -> int:
+    return len(self.outputs)
+
+  @property
+  def n_latents(self) -> int:
+    return len(self.latents)
+
+  @property
   def history(self) -> Dict[str, List[float]]:
-    return self.trainer.history if self.trainer is not None else {}
+    if self.trainer is not None:
+      return self.trainer.history
+    return self._loaded_history
 
   # -------------------------------------------------------------- loss/step
   def _module_input(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
     """The encoder's input: the first (main) omic; the rest are labels."""
     return inputs[0]
+
+  def _serving_source_indices(self, n_sources: int) -> List[int]:
+    """The matrices ``_module_input`` consumes: serving uploads only
+    these (a SISUA model serves from the RNA matrix alone)."""
+    return [0]
 
   def _loss(self, batch, training: bool, beta: float,
             noise: Optional[Sequence[Optional[torch.Tensor]]] = None
@@ -184,6 +346,73 @@ class SingleCellModel:
     self.optimizer.load_state_dict(snap["optimizer"])
     self.step = snap["step"]
 
+  # --------------------------------------------------------------- forward
+  @contextlib.contextmanager
+  def _batch_stats_kept(self, training: bool):
+    """flax's non-mutable apply in train mode: BatchNorm normalizes with
+    the batch statistics, and its running stats are put back afterwards
+    (the port's ``BatchNorm`` updates them whenever it trains)."""
+    saved = ({k: b.clone() for k, b in self.module.named_buffers()}
+             if training else None)
+    try:
+      yield
+    finally:
+      if saved:
+        with torch.no_grad():
+          for k, b in self.module.named_buffers():
+            b.copy_(saved[k])
+
+  def apply(self, x, library=None, training: bool = False,
+            sample_shape: Tuple[int, ...] = (),
+            noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+            mutable: bool = False):
+    """Raw module application → ``VAEOutput``. ``training=True`` uses the
+    batch statistics and dropout but leaves the running stats as they
+    were, unless ``mutable``: then they are updated, and ``(out,
+    batch_stats)`` comes back with the running buffers by name. ``noise``
+    feeds the reparameterization draws (one standard-normal tensor per
+    latent), else they come from the model's generator."""
+    x = _as_device_matrix(x, self.device)
+    if library is not None:
+      library = _as_device_matrix(library, self.device)
+    self.module.train(training)
+    with self._batch_stats_kept(training and not mutable):
+      out = self.module(x, library=library if self.uses_library else None,
+                        sample_shape=_as_shape(sample_shape),
+                        generator=self.generator, noise=noise)
+    if mutable:
+      return out, dict(self.module.named_buffers())
+    return out
+
+  def __call__(self, x, library=None, training=False, sample_shape=()):
+    return self.apply(x, library=library, training=training,
+                      sample_shape=sample_shape)
+
+  def encode(self, x, library=None, training: bool = False,
+             sample_shape: Tuple[int, ...] = ()):
+    """q(Z|X) distributions (log1p applied inside per ``log_norm``)."""
+    out = self.apply(x, library=library, training=training,
+                     sample_shape=sample_shape)
+    return _one_or_tuple(out.latents)
+
+  def decode(self, z, library=None, training: bool = False):
+    """p(X|Z) distributions from latent samples or means. SCVI needs both
+    latents (z, library), as ``encode`` returns them."""
+    zs = [_as_device_matrix(zi, self.device) for zi in _flatten(z)]
+    self.module.train(training)
+    with self._batch_stats_kept(training):
+      if self.uses_library:
+        if len(zs) < 2:
+          raise ValueError(
+              f"{type(self).__name__}.decode needs BOTH latent samples "
+              "(z, library): pass encode()'s full tuple output, or use "
+              "get_normalized_expression for the library-free scale")
+        pX = self.module.decode(tuple(zs), generator=self.generator)
+      else:
+        zcat = self.module.reduce_latents(zs) if len(zs) > 1 else zs[0]
+        pX = self.module.decode(zcat, generator=self.generator)
+    return _one_or_tuple(pX)
+
   # -------------------------------------------------------------------- fit
   def _device_data(self, data) -> Tuple[List[torch.Tensor],
                                         Optional[torch.Tensor]]:
@@ -191,10 +420,18 @@ class SingleCellModel:
     device, and the (n, 2) library stats of the first when the model uses
     them (numpy on the host for arrays, as the JAX package computes them;
     on the device for tensors)."""
-    mats = list(_flatten(data))
+    mats, library = self._sources(data)
     if len(mats) < len(self.outputs):
       raise ValueError(f"{len(mats)} data matrices for {len(self.outputs)} "
                        "outputs: give one per output, [rna, adt, …]")
+    if library is not None:
+      library = _as_device_matrix(library, self.device)
+    return [_as_device_matrix(m, self.device) for m in mats], library
+
+  def _sources(self, data) -> Tuple[List, Optional[object]]:
+    """The matrices of ``data`` as given, and the (n, 2) library stats of
+    the first when the model uses them."""
+    mats = list(_flatten(data))
     if len({int(m.shape[0]) for m in mats}) != 1:
       raise ValueError("data matrices differ in their number of rows: "
                        f"{[tuple(m.shape) for m in mats]}")
@@ -202,8 +439,8 @@ class SingleCellModel:
     if self.uses_library:
       mean, var = get_library_size(mats[0])
       cat = torch.cat if isinstance(mean, torch.Tensor) else np.concatenate
-      library = _as_device_matrix(cat([mean, var], 1), self.device)
-    return [_as_device_matrix(m, self.device) for m in mats], library
+      library = cat([mean, var], 1)
+    return mats, library
 
   def _evaluate(self, xs: Sequence[torch.Tensor],
                 library: Optional[torch.Tensor],
@@ -279,3 +516,373 @@ class SingleCellModel:
     in ``fit``), eval mode, mask = 1 as in validation."""
     xs, lib = self._device_data(data)
     return self._evaluate(xs, lib, batch_size)
+
+  # ------------------------------------------------------- serving batches
+  def _serving_inputs(self, inputs, mesh=None):
+    """(encoder matrices, library stats) of a serving call: only the
+    sources ``_module_input`` consumes are kept."""
+    if mesh is not None:
+      raise NotImplementedError("mesh serving is not ported yet")
+    mats, library = self._sources(inputs)
+    return [mats[i] for i in self._serving_source_indices(len(mats))], \
+        library
+
+  def _serve(self, x: torch.Tensor, library: Optional[torch.Tensor],
+             sample_shape: Tuple[int, ...]) -> VAEOutput:
+    """Eval-mode forward of one device batch (callers hold ``no_grad``)."""
+    self.module.eval()
+    return self.module(x.to(torch.float32),
+                       library=library if self.uses_library else None,
+                       sample_shape=sample_shape, generator=self.generator)
+
+  def _serving_budget(self) -> Optional[int]:
+    """Bytes a serving call may upload at once: 0.35 of the card's memory,
+    ``SISUA_TPU_SERVING_BUDGET`` when set; on the CPU only the variable
+    sets one (else nothing is chunked)."""
+    env = os.environ.get("SISUA_TPU_SERVING_BUDGET")
+    if env:
+      return int(env)
+    if self.device.type == "cuda":
+      total = torch.cuda.mem_get_info(self.device)[1]
+      return int(SERVING_BUDGET_FRACTION * total)
+    return None
+
+  def _serving_chunks(self, mats, batch_size: int,
+                      extra_bytes_per_row: int = 0
+                      ) -> Optional[List[np.ndarray]]:
+    """Row chunks for out-of-core serving: None when the dense upload fits
+    the budget, else equal-size row-index arrays (the last padded by
+    wrapping; consumers trim with each chunk's real count).
+    ``extra_bytes_per_row`` budgets side uploads (``compute_llk``'s
+    targets)."""
+    n, B = int(mats[0].shape[0]), int(batch_size)
+    bytes_per_row = 4 * sum(int(m.shape[1]) for m in mats) \
+        + int(extra_bytes_per_row)
+    budget = self._serving_budget()
+    if budget is None or n * bytes_per_row <= budget:
+      return None
+    rows_per = max(B, (budget // 2 // bytes_per_row) // B * B)
+    if rows_per >= n:
+      return None  # cannot chunk below one batch: a single upload
+    idx = np.arange(n, dtype=np.int64)
+    return [np.resize(idx[lo:lo + rows_per], rows_per)
+            for lo in range(0, n, rows_per)]
+
+  def _iter_serving_chunks(self, mats, batch_size: int,
+                           extra_bytes_per_row: int = 0):
+    """Yield (rows, n_valid) per chunk; one (None, None) when everything
+    fits."""
+    chunks = self._serving_chunks(mats, batch_size, extra_bytes_per_row)
+    if chunks is None:
+      yield None, None
+      return
+    rows_per, n = len(chunks[0]), int(mats[0].shape[0])
+    for ci, rows in enumerate(chunks):
+      yield rows, min(rows_per, n - ci * rows_per)
+
+  def _pad_to_batches(self, mat, k: int, B: int, n: int,
+                      dtype: torch.dtype = torch.float32,
+                      rows: Optional[np.ndarray] = None) -> torch.Tensor:
+    """An (n, d) matrix (numpy, scipy sparse or tensor) as zero-padded
+    (k, B, d) device batches; ``rows`` restricts to a chunk's rows (``n``
+    is then its real count). A tensor is gathered where it lies and cast
+    before it moves, so an int16 upload crosses the link as int16."""
+    d = int(mat.shape[1])
+    if isinstance(mat, torch.Tensor):
+      src = mat if rows is None else mat.index_select(
+          0, torch.as_tensor(rows[:n], device=mat.device))
+      src = src[:n].to(dtype=dtype)
+      if n == k * B and src.device == self.device:
+        return src.reshape(k, B, d)
+      buf = torch.zeros((k * B, d), dtype=dtype, device=self.device)
+      buf[:n] = src.to(self.device)
+      return buf.view(k, B, d)
+    if rows is not None:
+      mat = mat[np.ascontiguousarray(rows[:n], np.int64)]
+    a = mat.toarray() if hasattr(mat, "toarray") else np.asarray(mat)
+    buf = np.zeros((k * B, d), _NUMPY_DTYPES[dtype])
+    buf[:n] = a[:n]
+    return torch.from_numpy(buf).to(self.device).view(k, B, d)
+
+  def _upload_dtype(self, mats, input_dtype: Optional[str]) -> torch.dtype:
+    """int16 for ``input_dtype='auto'`` when every value of every encoder
+    matrix is an integer below 32,767 in magnitude (exact, half the bytes
+    of the upload; widened on the device), else float32; 'int16' demands
+    it. A tensor already on the serving device has nothing to upload and
+    stays float32."""
+    if input_dtype not in ("auto", "int16"):
+      return torch.float32
+    if any(isinstance(m, torch.Tensor) and m.device == self.device
+           for m in mats):
+      return torch.float32
+    values = (m.data if hasattr(m, "toarray") else
+              m.cpu() if isinstance(m, torch.Tensor) else m for m in mats)
+    if all(int16_exact(v) for v in values):
+      return torch.int16
+    if input_dtype == "int16":
+      raise ValueError("input_dtype='int16' requires integral counts "
+                       "< 32767 in every consumed source")
+    return torch.float32
+
+  def _device_batches(self, mats, library, batch_size: int,
+                      dtype: torch.dtype = torch.float32,
+                      rows: Optional[np.ndarray] = None,
+                      n_valid: Optional[int] = None):
+    """The encoder matrix (and library stats) as full (k, B, d) device
+    batches: ``(xb, lib_b, k, B, n)``, the last batch zero-padded, so every
+    chunk shares one shape; trim to ``n`` rows after the fetch."""
+    n = int(mats[0].shape[0]) if n_valid is None else int(n_valid)
+    B = int(batch_size)
+    k = -(-n // B) if rows is None else len(rows) // B
+    xs = [self._pad_to_batches(m, k, B, n, dtype, rows) for m in mats]
+    xb = self._module_input([x.reshape(k * B, -1) for x in xs])
+    lib_b = (self._pad_to_batches(library, k, B, n, rows=rows)
+             if library is not None else None)
+    return xb.reshape(k, B, -1), lib_b, k, B, n
+
+  def _chunk_batches(self, mats, library, batch_size: int,
+                     input_dtype: Optional[str] = None,
+                     extra_bytes_per_row: int = 0) -> Iterator:
+    """Per serving chunk: ``(xb, lib_b, k, B, n, rows)``."""
+    dtype = self._upload_dtype(mats, input_dtype)
+    for rows, nv in self._iter_serving_chunks(mats, batch_size,
+                                              extra_bytes_per_row):
+      yield self._device_batches(mats, library, batch_size, dtype, rows,
+                                 nv) + (rows,)
+
+  # ----------------------------------------------------------------- predict
+  def predict(self,
+              inputs,
+              sample_shape: Tuple[int, ...] = (),
+              batch_size: int = 256,
+              device_cache: bool = False,
+              mesh=None,
+              verbose: bool = False):
+    """Minibatch inference → (pX, qZ), each merged across batches, with
+    every tensor on the CPU. Output leaves concatenate on the axis after
+    the MC sample dims, latents on axis 0; batch-invariant (1, D) rows stay
+    one row (``_merge_batch_leaves``). Priors are not returned.
+
+    Streaming fetches each batch's distributions to the host;
+    ``device_cache=True`` uploads each serving chunk once, runs its padded
+    batches on the device and fetches the chunk's merged result once."""
+    mats, library = self._serving_inputs(inputs, mesh)
+    sample_shape = _as_shape(sample_shape)
+    if device_cache:
+      return self._predict_device_cached(mats, library, batch_size,
+                                         sample_shape)
+    n, ax = int(mats[0].shape[0]), len(sample_shape)
+    outs, lats = [], []
+    with torch.no_grad():
+      for s in range(0, n, batch_size):
+        x = _as_device_matrix(mats[0][s:s + batch_size], self.device)
+        lib = (None if library is None else
+               _as_device_matrix(library[s:s + batch_size], self.device))
+        out = self._serve(x, lib, sample_shape)
+        outs.append(_to_host(out.outputs))
+        lats.append(_to_host(out.latents))
+      pX = _merge_dists(outs, ax)
+      qZ = _merge_dists(lats, 0)
+    return _one_or_tuple(pX), _one_or_tuple(qZ)
+
+  def _predict_device_cached(self, mats, library, batch_size: int,
+                             sample_shape: Tuple[int, ...]):
+    ax = len(sample_shape)
+    parts = []
+    with torch.no_grad():
+      for xb, lib_b, k, B, n, _ in self._chunk_batches(mats, library,
+                                                       batch_size):
+        outs = [self._serve(xb[i], None if lib_b is None else lib_b[i],
+                            sample_shape) for i in range(k)]
+        keep = dict(n=n, batch=B)
+        parts.append((
+            _to_host(_merge_dists([o.outputs for o in outs], ax, **keep)),
+            _to_host(_merge_dists([o.latents for o in outs], 0, **keep))))
+        del outs
+      if len(parts) == 1:
+        pX, qZ = parts[0]
+      else:
+        pX = _merge_dists([p[0] for p in parts], ax)
+        qZ = _merge_dists([p[1] for p in parts], 0)
+    return _one_or_tuple(pX), _one_or_tuple(qZ)
+
+  def predict_mean(self, inputs, sample_shape: Tuple[int, ...] = (),
+                   batch_size: int = 256,
+                   input_dtype: Optional[str] = "auto",
+                   fetch_dtype: str = "float32",
+                   mesh=None):
+    """Posterior means only, computed on the device and fetched as (n, d)
+    float32 numpy arrays: ``(output_means, latent_means)``, MC sample dims
+    averaged on the device. ``input_dtype='auto'`` uploads integral counts
+    as int16; ``fetch_dtype='bfloat16'`` halves the fetched bytes at ~0.4%
+    relative error."""
+    mats, library = self._serving_inputs(inputs, mesh)
+    sample_shape = _as_shape(sample_shape)
+    mc_axes = tuple(range(len(sample_shape)))
+    out_dt = {"float32": torch.float32,
+              "bfloat16": torch.bfloat16}[str(fetch_dtype)]
+    parts_x, parts_z = [], []
+    with torch.no_grad():
+      for xb, lib_b, k, _, n, _ in self._chunk_batches(
+          mats, library, batch_size, input_dtype=input_dtype):
+        xm, zm = [], []
+        for i in range(k):
+          out = self._serve(xb[i], None if lib_b is None else lib_b[i],
+                            sample_shape)
+          xm.append([(p.mean().mean(dim=mc_axes) if mc_axes
+                      else p.mean()).to(out_dt) for p in out.outputs])
+          zm.append([q.mean().to(out_dt) for q in out.latents])
+
+        def fetch(per_batch):
+          return [torch.cat(leaves)[:n].cpu().float().numpy()
+                  for leaves in zip(*per_batch)]
+        parts_x.append(fetch(xm))
+        parts_z.append(fetch(zm))
+        del xm, zm
+    if len(parts_x) == 1:
+      return parts_x[0], parts_z[0]
+    cat = lambda parts: [np.concatenate([p[i] for p in parts], axis=0)
+                         for i in range(len(parts[0]))]
+    return cat(parts_x), cat(parts_z)
+
+  def get_normalized_expression(self, inputs,
+                                sample_shape: Tuple[int, ...] = (),
+                                batch_size: int = 256,
+                                output_index: int = 0,
+                                reduce_mc: bool = True,
+                                mesh=None) -> np.ndarray:
+    """Library-size-free denoised expression: each posterior draw's output
+    mean as row proportions, MC-averaged on the device → (n, d). For SCVI
+    this is ``px_scale``. ``reduce_mc=False`` returns the per-draw scales
+    (S, n, d), S = prod(sample_shape)."""
+    mats, library = self._serving_inputs(inputs, mesh)
+    sample_shape = _as_shape(sample_shape)
+    mc_axes = tuple(range(len(sample_shape)))
+    idx = int(output_index)
+    reduce_mc = bool(reduce_mc) or not mc_axes
+    S = math.prod(sample_shape)
+    parts = []
+    with torch.no_grad():
+      for xb, lib_b, k, _, n, _ in self._chunk_batches(mats, library,
+                                                       batch_size):
+        scales = []
+        for i in range(k):
+          out = self._serve(xb[i], None if lib_b is None else lib_b[i],
+                            sample_shape)
+          m = out.outputs[idx].mean()
+          scale = m / torch.sum(m, dim=-1, keepdim=True)
+          if reduce_mc:
+            scales.append(scale.mean(dim=mc_axes) if mc_axes else scale)
+          else:  # MC dims flattened → (S, B, d)
+            scales.append(scale.reshape((S,) + scale.shape[len(mc_axes):]))
+        ax = 0 if reduce_mc else 1
+        parts.append(torch.cat(scales, ax).narrow(ax, 0, n).cpu().numpy())
+    if len(parts) == 1:
+      return parts[0]
+    return np.concatenate(parts, 0 if reduce_mc else 1)
+
+  def compute_llk(self, inputs, targets: Dict[str, Sequence],
+                  sample_shape: Tuple[int, ...] = (),
+                  batch_size: int = 256, mesh=None) -> Dict[str, float]:
+    """Mean per-cell log-likelihood of each tagged target set under the
+    posterior predictive, ``{f"{tag}_output{i}": mean_llk}``, summed on the
+    device. ``targets``: tag → per-output (n, d_i) matrices. MC sample dims
+    collapse as logsumexp − log S; padded rows are masked out. The targets
+    count in the chunk budget."""
+    mats, library = self._serving_inputs(inputs, mesh)
+    sample_shape = _as_shape(sample_shape)
+    log_s = math.log(float(math.prod(sample_shape)))
+    tgt_bytes = 4 * sum(int(m.shape[1]) for ms in targets.values()
+                        for m in ms)
+    totals: Dict[str, float] = {}
+    with torch.no_grad():
+      for xb, lib_b, k, B, n, rows in self._chunk_batches(
+          mats, library, batch_size, extra_bytes_per_row=tgt_bytes):
+        tgt_b = {t: [self._pad_to_batches(m, k, B, n, rows=rows)
+                     for m in ms] for t, ms in targets.items()}
+        mask = (torch.arange(k * B, device=self.device) < n).to(
+            torch.float32).view(k, B)
+        sums: Dict[str, torch.Tensor] = {}
+        for i in range(k):
+          out = self._serve(xb[i], None if lib_b is None else lib_b[i],
+                            sample_shape)
+          for t, ms in tgt_b.items():
+            for j, (pX, m) in enumerate(zip(out.outputs, ms)):
+              lp = pX.log_prob(m[i])                       # (S…, B)
+              if lp.ndim > 1:
+                lp = torch.logsumexp(lp.reshape(-1, lp.shape[-1]), 0) \
+                    - log_s
+              key = f"{t}_output{j}"
+              sums[key] = sums.get(key, 0.0) + torch.sum(lp * mask[i])
+        for key, v in sums.items():
+          totals[key] = totals.get(key, 0.0) + float(v)
+    n_obs = int(mats[0].shape[0])
+    return {key: v / n_obs for key, v in totals.items()}
+
+  def marginal_log_prob(self, inputs, sample_shape: int = 100,
+                        batch_size: int = 32) -> np.ndarray:
+    """Importance-weighted marginal log-likelihood per cell,
+    log p(x) ≈ logsumexp_s[log p(x|z_s) + log p(z_s) − log q(z_s|x)]
+    − log S; a latent without a prior contributes zeros."""
+    mats, library = self._serving_inputs(inputs)
+    S = int(sample_shape)
+    n = int(mats[0].shape[0])
+    chunks = []
+    with torch.no_grad():
+      for s in range(0, n, batch_size):
+        x = _as_device_matrix(mats[0][s:s + batch_size], self.device)
+        lib = (None if library is None else
+               _as_device_matrix(library[s:s + batch_size], self.device))
+        out = self._serve(x, lib, (S,))
+        llk = out.outputs[0].log_prob(x)                     # (S, B)
+        lq = sum(q.log_prob(z) for q, z in zip(out.latents,
+                                               out.latent_samples))
+        lp = sum(prior.log_prob(z) if prior is not None
+                 else torch.zeros(z.shape[:-1], device=z.device)
+                 for prior, z in zip(out.priors, out.latent_samples))
+        lw = llk + lp - lq
+        chunks.append((torch.logsumexp(lw, 0) - math.log(S)).cpu().numpy())
+    return np.concatenate(chunks, 0)
+
+  # -------------------------------------------------------------------- io
+  def save_weights(self, path: str, backend: str = "msgpack") -> str:
+    """The JAX package's checkpoint: ``params.msgpack`` (+
+    ``batch_stats.msgpack``) in the flax layout, ``metamodel.json``, and
+    ``history.json`` when there is a history. The optimizer state and the
+    step are not saved (nor are they by the JAX package)."""
+    params, batch_stats = convert.torch_to_jax(self.module)
+    ckpt.save_weights(path, params, batch_stats or None, backend=backend)
+    ckpt.save_metamodel(path, type(self).__name__, self.dataset,
+                        self.metadata, self._init_kwargs_for_save)
+    hist = self.history
+    if hist:
+      with open(os.path.join(path, "history.json"), "w") as f:
+        json.dump({k: [float(x) for x in v] for k, v in hist.items()}, f)
+    return path
+
+  def load_weights(self, path: str, raise_notfound: bool = False
+                   ) -> "SingleCellModel":
+    """Read a checkpoint of either package into this model (every leaf
+    checked against the module); ``self`` unchanged when there is none,
+    unless ``raise_notfound``. ``history.json`` becomes ``history`` when
+    the model has not been fitted."""
+    if (not os.path.isfile(os.path.join(path, "params.msgpack"))
+        and not os.path.isdir(os.path.join(path, "orbax"))):
+      if raise_notfound:
+        raise FileNotFoundError(f"No checkpoint at {path}")
+      return self
+    params_t, stats_t = convert.torch_to_jax(self.module)
+    params, stats = ckpt.load_weights(path, params_t, stats_t or None)
+    self.module.load_state_dict(convert.jax_to_torch(self.module, params,
+                                                     stats))
+    hist_path = os.path.join(path, "history.json")
+    if os.path.isfile(hist_path) and self.trainer is None:
+      with open(hist_path) as f:
+        self._loaded_history = json.load(f)
+    return self
+
+  save = save_weights
+
+  def __repr__(self):
+    return (f"{type(self).__name__}(id='{self.id}', outputs={self.outputs}, "
+            f"latents={self.latents}, semi={self.is_semi_supervised})")

@@ -40,6 +40,14 @@ class SCVI(SingleCellModel):
     self.inflation = kwargs.pop(
         "inflation", outputs[0].kw.get("inflation", "full"))
     kwargs.pop("reduce_latent", None)  # always 'first' for SCVI
+    # a metamodel rebuild passes the assembled (z, library) and
+    # (encoder, encoder_l) pairs back in
+    if isinstance(latents, (tuple, list)) and len(latents) == 2 \
+        and library is None:
+      latents, library = latents
+    if isinstance(encoder, (tuple, list)) and len(encoder) == 2 \
+        and encoder_l is None:
+      encoder, encoder_l = encoder
     outputs[0] = outputs[0].replace(projection=False)
     if latents is None:
       latents = RVmeta(10, "diag", True, "latents")

@@ -54,9 +54,20 @@ class NetConf:
   dropout: float = 0.0
   input_dropout: float = 0.0
   pyramid: bool = False
+  use_conv: bool = False
+  kernel_size: int = 5
+  compute_dtype: Optional[str] = None
   name: Optional[str] = None
 
   def __post_init__(self):
+    # the JAX fields, so a JAX metamodel.json rebuilds this config; the
+    # convolutional trunk and mixed precision are not ported yet
+    if self.use_conv:
+      raise NotImplementedError("NetConf.use_conv is not ported yet")
+    if self.compute_dtype not in (None, "float32"):
+      raise NotImplementedError(
+          f"NetConf.compute_dtype={self.compute_dtype!r} is not ported yet "
+          "(mixed precision)")
     u = self.units
     if isinstance(u, int):
       u = (u,) * max(1, int(self.nlayers))
@@ -76,8 +87,7 @@ class NetConf:
 
 
 def parse_netconf(x, default_name: str = "net") -> NetConf:
-  """YAML/ctor shorthand → NetConf. Keys the port does not implement
-  (``use_conv``, ``compute_dtype``) raise instead of being dropped."""
+  """YAML/ctor shorthand → NetConf."""
   if isinstance(x, NetConf):
     return x
   if isinstance(x, dict):
@@ -85,10 +95,6 @@ def parse_netconf(x, default_name: str = "net") -> NetConf:
     if "hidden_dim" in kw:  # reference alias
       kw["units"] = kw.pop("hidden_dim")
     kw.setdefault("name", default_name)
-    for key in ("use_conv", "compute_dtype"):
-      if kw.pop(key, None):
-        raise NotImplementedError(f"NetConf.{key} is not ported yet")
-    kw.pop("kernel_size", None)
     if isinstance(kw.get("units"), list):
       kw["units"] = tuple(kw["units"])
     return NetConf(**kw)

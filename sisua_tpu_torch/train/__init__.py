@@ -1,6 +1,10 @@
-"""sisua_tpu_torch.train — the training loop (counterpart of
-``sisua_tpu.train``; checkpoint I/O is not ported yet)."""
+"""sisua_tpu_torch.train — the training loop and checkpoint I/O
+(counterpart of ``sisua_tpu.train``)."""
 
+from .checkpoint import (decode_spec, encode_spec, load_metamodel,
+                         load_weights, save_metamodel, save_weights)
 from .trainer import ClippedAdam, Trainer, clip_by_global_norm_
 
-__all__ = ["Trainer", "ClippedAdam", "clip_by_global_norm_"]
+__all__ = ["Trainer", "ClippedAdam", "clip_by_global_norm_", "save_weights",
+           "load_weights", "save_metamodel", "load_metamodel", "encode_spec",
+           "decode_spec"]

@@ -1,0 +1,145 @@
+"""Checkpoints the JAX package reads and writes (port of
+``sisua_tpu/train/checkpoint.py``).
+
+The files are the JAX package's: ``params.msgpack`` and
+``batch_stats.msgpack`` hold the flax pytrees (``convert.torch_to_jax``
+layout) in flax's msgpack encoding (``train/msgpack.py``), and
+``metamodel.json`` the class name, dataset, metadata and constructor
+kwargs (``format_version`` 1). A checkpoint written by either package
+loads in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+
+from ..convert import _flat
+from ..nn import NetConf
+from ..rv import RVmeta
+from . import msgpack
+
+__all__ = ["save_weights", "load_weights", "save_metamodel", "load_metamodel",
+           "encode_spec", "decode_spec"]
+
+
+def encode_spec(obj):
+  """JSON-encode RVmeta / NetConf / plain values, as the JAX package."""
+  if isinstance(obj, RVmeta):
+    return {"__rvmeta__": {"dim": obj.dim, "posterior": obj.posterior,
+                           "projection": obj.projection, "name": obj.name,
+                           "kwargs": list(map(list, obj.kwargs))}}
+  if isinstance(obj, NetConf):
+    d = dataclasses.asdict(obj)
+    d["units"] = list(d["units"])
+    return {"__netconf__": d}
+  if isinstance(obj, (tuple, list)):
+    return [encode_spec(o) for o in obj]
+  if isinstance(obj, dict):
+    return {k: encode_spec(v) for k, v in obj.items()}
+  if isinstance(obj, (np.floating, np.integer)):
+    return obj.item()
+  return obj
+
+
+def decode_spec(obj):
+  if isinstance(obj, dict):
+    if "__rvmeta__" in obj:
+      d = obj["__rvmeta__"]
+      return RVmeta(d["dim"], d["posterior"], d["projection"], d["name"],
+                    tuple(tuple(kv) for kv in d.get("kwargs", [])))
+    if "__netconf__" in obj:
+      d = dict(obj["__netconf__"])
+      d["units"] = tuple(d["units"])
+      return NetConf(**d)
+    return {k: decode_spec(v) for k, v in obj.items()}
+  if isinstance(obj, list):
+    return [decode_spec(o) for o in obj]
+  return obj
+
+
+def _refuse(backend: str = "msgpack", aux_params=None) -> None:
+  if backend == "orbax":
+    raise NotImplementedError("backend='orbax' is not ported (msgpack only)")
+  if backend != "msgpack":
+    raise ValueError(f"unknown checkpoint backend {backend!r}")
+  if aux_params is not None:
+    raise NotImplementedError("aux_params (FactorVAE) are not ported yet")
+
+
+def save_weights(path: str, params: Mapping, batch_stats: Optional[Mapping]
+                 = None, aux_params=None, backend: str = "msgpack") -> str:
+  """Write <path>/params.msgpack (+ batch_stats.msgpack): nested dicts of
+  numpy arrays in the flax layout."""
+  _refuse(backend, aux_params)
+  os.makedirs(path, exist_ok=True)
+  with open(os.path.join(path, "params.msgpack"), "wb") as f:
+    f.write(msgpack.packb(dict(params)))
+  if batch_stats is not None:
+    with open(os.path.join(path, "batch_stats.msgpack"), "wb") as f:
+      f.write(msgpack.packb(dict(batch_stats)))
+  return path
+
+
+def _check_leaves(name: str, template: Mapping, loaded: Mapping) -> None:
+  """Every leaf's path and shape as the template's; names the first (in
+  path order) that differs."""
+  want = {p: tuple(np.shape(v)) for p, v in _flat(template)}
+  got = {p: tuple(np.shape(v)) for p, v in _flat(loaded)}
+  for p in sorted(set(want) | set(got)):
+    if want.get(p) != got.get(p):
+      where = f"{name}/{'/'.join(p)}"
+      if p not in got:
+        raise KeyError(f"checkpoint lacks leaf {where} {want[p]}")
+      if p not in want:
+        raise KeyError(f"checkpoint leaf {where} {got[p]} has no place in "
+                       "the model")
+      raise ValueError(f"checkpoint leaf {where} has shape {got[p]}, the "
+                       f"model {want[p]}")
+
+
+def load_weights(path: str, params_template: Mapping,
+                 batch_stats_template: Optional[Mapping] = None
+                 ) -> Tuple[Dict[str, Any], Optional[Dict[str, Any]]]:
+  """(params, batch_stats) read from <path>, checked leaf by leaf against
+  the templates; the batch-stats template comes back when the file is
+  absent, as in the JAX package."""
+  if (not os.path.isfile(os.path.join(path, "params.msgpack"))
+      and os.path.isdir(os.path.join(path, "orbax"))):
+    _refuse("orbax")
+  with open(os.path.join(path, "params.msgpack"), "rb") as f:
+    params = msgpack.unpackb(f.read())
+  _check_leaves("params", params_template, params)
+  batch_stats = batch_stats_template
+  bs_path = os.path.join(path, "batch_stats.msgpack")
+  if batch_stats_template is not None and os.path.isfile(bs_path):
+    with open(bs_path, "rb") as f:
+      batch_stats = msgpack.unpackb(f.read())
+    _check_leaves("batch_stats", batch_stats_template, batch_stats)
+  return params, batch_stats
+
+
+def save_metamodel(path: str, class_name: str, dataset: Optional[str],
+                   metadata: Dict, init_kwargs: Dict) -> str:
+  os.makedirs(path, exist_ok=True)
+  manifest = {
+      "class_name": class_name,
+      "dataset": dataset,
+      "metadata": encode_spec(metadata),
+      "init_kwargs": encode_spec(init_kwargs),
+      "format_version": 1,
+  }
+  with open(os.path.join(path, "metamodel.json"), "w") as f:
+    json.dump(manifest, f, indent=2)
+  return path
+
+
+def load_metamodel(path: str):
+  with open(os.path.join(path, "metamodel.json")) as f:
+    m = json.load(f)
+  return (m["class_name"], m.get("dataset"), decode_spec(m.get("metadata")),
+          decode_spec(m.get("init_kwargs")))

@@ -1,0 +1,440 @@
+"""Checkpoints shared by the JAX package and the port: the msgpack codec
+against flax, ``save_weights``/``load_model`` in both directions for SCVI
+('single' and 'full'), VAE, SISUA, MISA and DCA, what ``metamodel.json``
+carries (β schedules, ``NetConf``'s JAX-only fields, dataset, metadata,
+history), the refusals, and that the port imports none of JAX, flax,
+msgpack, pandas or ``sisua_tpu``.
+
+Weights are random (perturbed off their init, batch stats too), so every
+leaf is worth comparing. The eval-mode forward of the loaded model is held
+to the model it came from at fed noise: the JAX draw is recovered as
+eps = (z − loc)/scale and handed to the port (rtol 1e-4, atol 1e-5, as
+tests/test_torch_port_models.py).
+"""
+
+import functools
+import json
+import os
+import subprocess
+import sys
+
+import flax.serialization as fser
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import msgpack as upstream_msgpack
+import numpy as np
+import pytest
+import torch
+
+import sisua_tpu.models as J
+from sisua_tpu.nn import NetConf as JNetConf
+from sisua_tpu.rv import RVmeta as JRV
+from sisua_tpu_torch import convert
+from sisua_tpu_torch import models as T
+from sisua_tpu_torch.nn import NetConf as TNetConf
+from sisua_tpu_torch.rv import RVmeta as TRV
+from sisua_tpu_torch.train import checkpoint as tckpt
+from sisua_tpu_torch.train import msgpack as tmp
+
+G, P, N = 60, 6, 40
+CLOSE = dict(rtol=1e-4, atol=1e-5)
+NETS = dict(encoder={"units": [32, 32], "batchnorm": True},
+            decoder={"units": [32, 32], "batchnorm": True})
+
+
+# ------------------------------------------------------------------ codec
+def _tree(seed):
+  rng = np.random.default_rng(seed)
+  return {
+      "dense": {"kernel": rng.normal(size=(7, 5)).astype(np.float32),
+                "bias": rng.normal(size=(5,)).astype(np.float32)},
+      "counts": {"i32": rng.integers(-9, 9, (3, 4)).astype(np.int32),
+                 "i64": np.arange(20, dtype=np.int64)},
+      "bf16": np.asarray(rng.normal(size=(2, 9)), ml_dtypes.bfloat16),
+      "scalars": {"f": np.float32(2.5), "i": np.int32(-7),
+                  "step": np.int64(123456789)},
+      "empty": np.zeros((0, 3), np.float32),
+      "wide": rng.normal(size=(70, 300)).astype(np.float32),
+  }
+
+
+def _leaves_equal(a, b):
+  if isinstance(a, dict):
+    assert sorted(a) == sorted(b)
+    for k in a:
+      _leaves_equal(a[k], b[k])
+    return
+  if isinstance(b, torch.Tensor):  # a bf16 leaf reads as a torch tensor
+    assert str(np.asarray(a).dtype) == "bfloat16"
+    b = b.float().numpy()
+    a = np.asarray(a, np.float32)
+  assert np.shape(a) == np.shape(b) and np.asarray(a).dtype == np.asarray(
+      b).dtype or np.asarray(a).dtype == ml_dtypes.bfloat16
+  np.testing.assert_array_equal(np.asarray(a, np.asarray(b).dtype), b)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_codec_writes_flax_bytes(seed):
+  tree = _tree(seed)
+  assert tmp.packb(tree) == fser.msgpack_serialize(tree)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_codec_reads_flax_bytes(seed):
+  tree = _tree(seed)
+  back = tmp.unpackb(fser.msgpack_serialize(tree))
+  _leaves_equal(tree, back)
+  assert isinstance(back["scalars"]["f"], np.float32)
+  assert back["bf16"].dtype == torch.bfloat16
+  _leaves_equal(fser.msgpack_restore(tmp.packb(tree)), tmp.unpackb(
+      tmp.packb(tree)))
+
+
+def test_codec_torch_leaves_pack_as_numpy():
+  t = torch.randn(3, 4)
+  assert tmp.packb({"a": t}) == fser.msgpack_serialize({"a": t.numpy()})
+  b = torch.randn(3, 4).to(torch.bfloat16)
+  ref = np.asarray(b.float().numpy(), ml_dtypes.bfloat16)
+  assert tmp.packb({"b": b}) == fser.msgpack_serialize({"b": ref})
+
+
+@pytest.mark.parametrize("obj", [
+    None, True, False, 0, 127, 128, 255, 256, 65535, 65536, 2**32, 2**63,
+    -1, -32, -33, -128, -129, -32768, -32769, -2**31 - 1, -2**63, 1.5,
+    -0.0, "", "x" * 31, "y" * 32, "z" * 255, "w" * 256, "é" * 70000,
+    b"", b"\x00" * 300, b"\x01" * 70000, list(range(15)), list(range(16)),
+    list(range(70000)), {f"{i:02d}": i for i in range(15)},
+    {f"{i:02d}": [i, None] for i in range(16)}],
+    ids=lambda o: type(o).__name__ + str(len(o) if hasattr(o, "__len__")
+                                         else o)[:12])
+def test_codec_plain_values_match_msgpack(obj):
+  """Maps are written with sorted keys, as flax's tree copy orders
+  them; these are given in that order."""
+  ref = upstream_msgpack.packb(obj, use_bin_type=True)
+  assert tmp.packb(obj) == ref
+  back = tmp.unpackb(ref)
+  assert back == obj
+
+
+def test_codec_refuses_what_it_cannot_read_right(monkeypatch):
+  chunked = fser.msgpack_serialize(
+      {"w": {"__msgpack_chunked_array__": True, "shape": {"0": 2},
+             "chunks": {"0": np.zeros(2, np.float32)}}})
+  with pytest.raises(ValueError, match="chunked"):
+    tmp.unpackb(chunked)
+  monkeypatch.setattr(tmp, "MAX_LEAF_BYTES", 64)
+  with pytest.raises(ValueError, match="chunked"):
+    tmp.packb({"w": np.zeros(17, np.float32)})
+  data = fser.msgpack_serialize({"a": np.ones(3, np.float32)})
+  with pytest.raises(ValueError, match="truncated"):
+    tmp.unpackb(data[:-1])
+  with pytest.raises(ValueError, match="trailing"):
+    tmp.unpackb(data + b"\xc0")
+  with pytest.raises(TypeError):
+    tmp.packb({"a": object()})
+
+
+# --------------------------------------------------------- model round trips
+def _specs(RV, name):
+  """(class name, outputs, kwargs) of one zoo configuration."""
+  lat = dict(latents=dict(dim=4, posterior="diag", name="latents"))
+  if name.startswith("scvi"):
+    return "SCVI", RV(G, "zinbd", name="rna"), dict(
+        lat, dispersion=name.split("_")[1], **NETS)
+  if name == "dca":
+    return "DeepCountAutoencoder", RV(G, "zinb", name="rna"), dict(NETS)
+  outs = [RV(G, "zinb", name="rna"), RV(P, "nb" if name == "sisua" else
+                                        "nbd", name="adt")]
+  if name == "vae":
+    return "VAE", outs[0], dict(lat, **NETS)
+  return {"sisua": "SISUA", "misa": "MISA"}[name], outs, dict(
+      lat, alpha=10.0, **NETS)
+
+
+MODELS = ["scvi_single", "scvi_full", "vae", "sisua", "misa", "dca"]
+EXTRA = dict(
+    beta={"kind": "linear", "vmin": 0.0, "vmax": 2.0, "norm": 50.0,
+          "delay_in": 5.0, "cyclical": True},
+    dataset="toy_citeseq",
+    metadata={"rna": [f"g{i}" for i in range(G)], "note": ["a", "b"]})
+
+
+def _perturbed(tree, seed):
+  rng = np.random.default_rng(seed)
+  return jax.tree_util.tree_map(
+      lambda a: (np.asarray(a) + rng.normal(0, 0.2, a.shape)).astype(
+          np.float32), jax.device_get(tree))
+
+
+def _jax_model(name, **extra):
+  cls, outs, kw = _specs(JRV, name)
+  jm = getattr(J, cls)(outs, seed=3, **kw, **extra)
+  jm._ensure_initialized()
+  rng = np.random.default_rng(2)
+
+  def stat(path, a):  # running variances stay positive
+    if path[-1].key == "var":
+      return (rng.uniform(0.5, 1.5, a.shape)).astype(np.float32)
+    return (np.asarray(a) + rng.normal(0, 0.2, a.shape)).astype(np.float32)
+  bs = jm.batch_stats
+  jm._state = jm._state.replace(
+      params=_perturbed(jm.params, 1),
+      batch_stats=None if bs is None else jax.tree_util.tree_map_with_path(
+          stat, jax.device_get(bs)))
+  return jm
+
+
+def _port_model(name, **extra):
+  cls, outs, kw = _specs(TRV, name)
+  tm = getattr(T, cls)(outs, device="cpu", seed=3, **kw, **extra)
+  gen = torch.Generator().manual_seed(4)
+  with torch.no_grad():
+    for key, v in tm.module.state_dict().items():
+      if key.endswith("running_var"):
+        v.copy_(torch.rand(v.shape, generator=gen) + 0.5)
+      else:
+        v.add_(0.2 * torch.randn(v.shape, generator=gen))
+  return tm
+
+
+def _x(n=N, seed=0):
+  rng = np.random.default_rng(seed)
+  return (rng.poisson(np.exp(rng.normal(-0.5, 1, (n, G))))
+          * (rng.uniform(size=(n, G)) > 0.3)).astype(np.float32)
+
+
+def _library(x):
+  logc = np.log(x.sum(1) + 1e-8)
+  return np.stack([np.full(len(x), logc.mean()),
+                   np.full(len(x), logc.var())], 1).astype(np.float32)
+
+
+def _jax_eval_forward(jm, x):
+  """JAX eval-mode forward and the noise it drew, as port tensors."""
+  lib = jnp.asarray(_library(x))
+  out = jm.apply(jnp.asarray(x), library=lib, training=False,
+                 key=jax.random.key(7, impl="rbg"))
+  noise = []
+  for q, z in zip(out.latents, out.latent_samples):
+    q = getattr(q, "base", q)
+    scale = getattr(q, "scale_diag", getattr(q, "scale", None))
+    noise.append(None if scale is None
+                 else torch.tensor(np.asarray((z - q.loc) / scale)))
+  return out, noise
+
+
+def _assert_same_forward(jm, tm, x):
+  jout, noise = _jax_eval_forward(jm, x)
+  tout = tm.apply(x, library=_library(x), noise=noise)
+  for jp, tp in zip(jout.outputs, tout.outputs):
+    assert type(tp).__name__ == type(jp).__name__
+    np.testing.assert_allclose(tp.mean().detach().numpy(),
+                               np.asarray(jp.mean()), **CLOSE)
+  for jq, tq in zip(jout.latents, tout.latents):
+    np.testing.assert_allclose(tq.mean().detach().numpy(),
+                               np.asarray(jq.mean()), **CLOSE)
+
+
+def _assert_same_leaves(jm, tm):
+  params, stats = convert.torch_to_jax(tm.module)
+  for jt, tt in ((jm.params, params), (jm.batch_stats, stats or None)):
+    if jt is None:
+      assert tt is None
+      continue
+    jl = jax.tree_util.tree_leaves_with_path(jax.device_get(jt))
+    tl = jax.tree_util.tree_leaves_with_path(tt)
+    assert [p for p, _ in jl] == [p for p, _ in tl]
+    for (_, a), (_, b) in zip(jl, tl):
+      np.testing.assert_array_equal(np.asarray(a), b)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_jax_checkpoint_loads_in_the_port(name, tmp_path):
+  jm = _jax_model(name, **EXTRA)
+  jm.save_weights(str(tmp_path))
+  tm = T.load_model(str(tmp_path), device="cpu")
+  assert type(tm).__name__ == type(jm).__name__
+  _assert_same_leaves(jm, tm)
+  _assert_same_forward(jm, tm, _x())
+  assert tm.name == jm.name and tm.dataset == EXTRA["dataset"]
+  assert tm.metadata == EXTRA["metadata"]
+  assert tm.beta == T.base.get_interpolation(EXTRA["beta"])
+  assert tm.outputs == tuple(TRV(**vars(rv)) for rv in jm.outputs)
+  assert tm.latents == tuple(TRV(**vars(rv)) for rv in jm.latents)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_port_checkpoint_loads_in_jax(name, tmp_path):
+  tm = _port_model(name, **EXTRA)
+  tm.save_weights(str(tmp_path))
+  jm = J.load_model(str(tmp_path))
+  assert type(jm).__name__ == type(tm).__name__
+  _assert_same_leaves(jm, tm)
+  _assert_same_forward(jm, tm, _x(seed=1))
+  assert jm.name == tm.name and jm.dataset == EXTRA["dataset"]
+  assert jm.metadata == EXTRA["metadata"]
+  assert jm.beta.kind == "linear" and jm.beta.cyclical
+  assert [vars(r) for r in jm.encoder] == [vars(r) for r in tm.encoder]
+
+
+@pytest.mark.parametrize("name", ["scvi_single", "sisua"])
+def test_both_packages_write_the_same_files(name, tmp_path):
+  """JAX save → port load → port save: byte-identical weights and the
+  same metamodel.json."""
+  jm = _jax_model(name, **EXTRA)
+  jm.save_weights(str(tmp_path / "jax"))
+  T.load_model(str(tmp_path / "jax"), device="cpu").save_weights(
+      str(tmp_path / "port"))
+  for f in ("params.msgpack", "batch_stats.msgpack"):
+    assert ((tmp_path / "jax" / f).read_bytes()
+            == (tmp_path / "port" / f).read_bytes())
+  meta = [json.loads((tmp_path / d / "metamodel.json").read_text())
+          for d in ("jax", "port")]
+  assert meta[0] == meta[1] and meta[0]["format_version"] == 1
+
+
+def test_netconf_jax_only_fields_round_trip(tmp_path):
+  enc = dict(units=[16, 8], batchnorm=True, kernel_size=3,
+             compute_dtype="float32", name="enc")
+  jm = J.VAE(JRV(G, "zinb", name="rna"), encoder=JNetConf(
+      **dict(enc, units=(16, 8))), decoder=NETS["decoder"])
+  jm.save_weights(str(tmp_path / "a"))
+  tm = T.load_model(str(tmp_path / "a"), device="cpu")
+  assert tm.encoder[0] == TNetConf(**dict(enc, units=(16, 8)))
+  tm.save_weights(str(tmp_path / "b"))
+  assert (J.load_model(str(tmp_path / "b")).encoder[0]
+          == JNetConf(**dict(enc, units=(16, 8))))
+  d = tckpt.encode_spec(tm.encoder[0])["__netconf__"]
+  assert {"use_conv", "kernel_size", "compute_dtype"} <= set(d)
+  assert tckpt.decode_spec(json.loads(json.dumps(
+      tckpt.encode_spec(tm.encoder[0])))) == tm.encoder[0]
+
+
+def test_unported_precision_and_conv_raise(tmp_path):
+  with pytest.raises(NotImplementedError, match="mixed precision"):
+    T.VAE(TRV(G, "zinb", name="rna"), compute_dtype="bfloat16",
+          device="cpu")
+  with pytest.raises(NotImplementedError, match="use_conv"):
+    TNetConf(use_conv=True)
+  with pytest.raises(NotImplementedError, match="compute_dtype"):
+    TNetConf(compute_dtype="bfloat16")
+  jm = J.VAE(JRV(G, "zinb", name="rna"), compute_dtype="bfloat16",
+             **NETS)
+  jm.save_weights(str(tmp_path))
+  with pytest.raises(NotImplementedError):
+    T.load_model(str(tmp_path), device="cpu")
+
+
+def test_history_json_read_back(tmp_path):
+  jm = _jax_model("vae")
+  jm._loaded_history = {"loss": [3.5, 2.25], "val_loss": [4.0]}
+  jm.save_weights(str(tmp_path / "jax"))
+  tm = T.load_model(str(tmp_path / "jax"), device="cpu")
+  assert tm.history == {"loss": [3.5, 2.25], "val_loss": [4.0]}
+  x = _x(64)
+  tm.fit(x, epochs=2, batch_size=32)  # a fitted model keeps its own
+  assert len(tm.history["loss"]) == 2
+  tm.save_weights(str(tmp_path / "port"))
+  fitted = tm.history
+  assert T.load_model(str(tmp_path / "port"), device="cpu").history \
+      == fitted
+  assert J.load_model(str(tmp_path / "port")).history == fitted
+  # a fitted model loading weights keeps its own history
+  assert tm.load_weights(str(tmp_path / "jax")).history["loss"] \
+      == fitted["loss"]
+
+
+def test_mismatched_checkpoint_names_the_first_leaf(tmp_path):
+  tm = _port_model("vae")
+  tm.save_weights(str(tmp_path))
+  wider = T.VAE(TRV(G, "zinb", name="rna"), device="cpu",
+                latents=dict(dim=4, posterior="diag", name="latents"),
+                encoder={"units": [32, 32], "batchnorm": True},
+                decoder={"units": [32, 48], "batchnorm": True})
+  with pytest.raises(ValueError, match=r"params/decoder0/bn1/bias"):
+    wider.load_weights(str(tmp_path))
+  other = T.VAE(TRV(G, "zinb", name="rna"), device="cpu",
+                latents=dict(dim=4, posterior="diag", name="z"), **NETS)
+  with pytest.raises(KeyError, match=r"params/latent_head_latents"):
+    other.load_weights(str(tmp_path))
+  before = {k: v.clone() for k, v in other.module.state_dict().items()}
+  assert other.load_weights(str(tmp_path / "nothing")) is other
+  assert all(torch.equal(v, before[k])
+             for k, v in other.module.state_dict().items())
+  with pytest.raises(FileNotFoundError):
+    other.load_weights(str(tmp_path / "nothing"), raise_notfound=True)
+
+
+def test_unported_backends_raise(tmp_path):
+  tm = _port_model("dca")
+  with pytest.raises(NotImplementedError, match="orbax"):
+    tm.save_weights(str(tmp_path / "o"), backend="orbax")
+  assert not (tmp_path / "o").exists()
+  (tmp_path / "ob" / "orbax").mkdir(parents=True)
+  with pytest.raises(NotImplementedError, match="orbax"):
+    tm.load_weights(str(tmp_path / "ob"))
+  with pytest.raises(NotImplementedError, match="aux_params"):
+    tckpt.save_weights(str(tmp_path / "a"), {}, aux_params={"d": 1})
+  with pytest.raises(ValueError, match="among the ported"):
+    T.get_model("SCALE")
+  assert set(T.get_all_models()) == {T.VAE, T.SISUA, T.MISA, T.SCVI,
+                                     T.DeepCountAutoencoder}
+
+
+def test_constructor_takes_the_jax_kwargs():
+  tm = T.SISUA([TRV(G, "zinb", name="rna"), TRV(P, "nb", name="adt")],
+               device="cpu", gamma=6.0, name="mine", batch_key="donor",
+               prng="threefry2x32", compute_dtype="float32",
+               dataset="d", metadata={"adt": ["p"]})
+  assert (tm.name, tm.id, tm.gamma, tm.batch_key, tm.prng) == (
+      "mine", "sisua", 6.0, "donor", "threefry2x32")
+  assert (tm.n_outputs, tm.n_latents, tm.is_zero_inflated) == (2, 1, True)
+  assert tm.posteriors == tm.outputs
+  assert T.DeepCountAutoencoder(TRV(G, "zinb"), device="cpu").name \
+      == "deep_count_autoencoder"
+
+  class SCO:
+    name = "pbmc"
+    omics = ("rna", "adt")
+
+    def get_var_names(self, om):
+      return np.array([f"{om}{i}" for i in range(2)])
+  tm.set_metadata(SCO())
+  assert tm.dataset == "pbmc"
+  assert tm.metadata == {"adt": ["adt0", "adt1"], "rna": ["rna0", "rna1"]}
+
+
+_BLOCKER = r"""
+import importlib.abc, sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas",
+           "sisua_tpu")
+class Block(importlib.abc.MetaPathFinder):
+  def find_spec(self, name, path, target=None):
+    if name.split(".")[0] in BLOCKED:
+      raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+import pkgutil, sisua_tpu_torch
+for m in pkgutil.walk_packages(sisua_tpu_torch.__path__, "sisua_tpu_torch."):
+  __import__(m.name)
+from sisua_tpu_torch.models import SISUA, RVmeta, load_model
+import numpy as np, tempfile
+m = SISUA([RVmeta(20, "zinb", name="rna"), RVmeta(3, "nb", name="adt")],
+          device="cpu")
+d = tempfile.mkdtemp()
+m.save_weights(d)
+x = np.random.default_rng(0).poisson(1.0, (10, 20)).astype(np.float32)
+print(load_model(d, device="cpu").predict_mean(x)[0][0].shape)
+print(sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED))
+"""
+
+
+def test_port_imports_no_jax_flax_msgpack_pandas():
+  env = dict(os.environ)
+  env["PYTHONPATH"] = os.pathsep.join(
+      [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
+      + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+  r = subprocess.run([sys.executable, "-c", _BLOCKER], env=env,
+                     capture_output=True, text=True, timeout=300)
+  assert r.returncode == 0, r.stderr[-3000:]
+  assert r.stdout.split("\n")[:2] == ["(10, 20)", "[]"], r.stdout

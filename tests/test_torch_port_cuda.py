@@ -256,3 +256,53 @@ def test_head_slices_read_in_place(dev, posterior):
   assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
   np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], **FWD)
   np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], **GRAD)
+
+
+def test_checkpoint_round_trip_serves_on_card(dev, tmp_path):
+  """save_weights → load_model on the card: weights and history come back,
+  evaluate equals the trained model's at the same noise with the forward
+  kernel twice per batch (SISUA's two heads), and the serving half runs on
+  the card through the distribution math (no kernel launch)."""
+  from sisua_tpu_torch.models import SISUA, RVmeta, load_model
+  rng = np.random.default_rng(8)
+  x = rng.poisson(1.0, (192, 300)).astype(np.float32)
+  y = rng.poisson(5.0, (192, 10)).astype(np.float32)
+  m = SISUA([RVmeta(300, "zinb", name="rna"), RVmeta(10, "nb", name="adt")],
+            device="cuda", latents=RVmeta(4, "diag", name="latents"))
+  m.fit([x[:128], y[:128]], epochs=2, batch_size=32)
+  m.save_weights(str(tmp_path))
+  m2 = load_model(str(tmp_path), device="cuda")
+  assert m2.device == torch.device("cuda", torch.cuda.current_device())
+  sd = m.module.state_dict()
+  assert all(torch.equal(v, sd[k]) for k, v in m2.module.state_dict().items())
+  assert m2.history == m.history
+  held = [x[128:], y[128:]]
+  evs = []
+  tz.reset_launches()
+  for model in (m, m2):
+    model.generator.manual_seed(3)
+    evs.append(model.evaluate(held, batch_size=32))
+  assert tz.launches == {"zinb_rowsum_fwd": 2 * 2 * 2, "zinb_rowsum_bwd": 0}
+  for k, v in evs[0].items():
+    np.testing.assert_allclose(evs[1][k], v, rtol=1e-6, err_msg=k)
+  tz.reset_launches()
+  means = []
+  for data, kw in ((x, {}), (torch.tensor(x, device=dev), {}),
+                   (x, {"fetch_dtype": "bfloat16"})):
+    m2.generator.manual_seed(4)
+    means.append(m2.predict_mean(data, sample_shape=(3,), batch_size=32,
+                                 **kw))
+  (xm, zm), (rx, rz), (bx, _) = means
+  assert [a.shape for a in xm + zm] == [(192, 300), (192, 10), (192, 4)]
+  for a, b in zip(xm + zm, rx + rz):  # int16 host upload = resident data
+    np.testing.assert_array_equal(a, b)
+  for a, b in zip(bx, xm):
+    np.testing.assert_allclose(a, b, rtol=1e-2, atol=1e-30)
+  pX, qZ = m2.predict(x, batch_size=32, device_cache=True)
+  assert pX[0].mean().device.type == "cpu"
+  np.testing.assert_allclose(qZ.mean().numpy(), zm[0], rtol=1e-6,
+                             atol=1e-7)
+  llk = m2.compute_llk(x, {"t": [x, y]}, sample_shape=(2,), batch_size=32)
+  assert np.isfinite(list(llk.values())).all()
+  assert np.isfinite(m2.marginal_log_prob(x[:40], 8, batch_size=16)).all()
+  assert tz.launches == {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
