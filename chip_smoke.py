@@ -12,12 +12,16 @@ training (a 'zinb' RNA head and a masked 'nb' head over 10 proteins).
 Phases, one result line each; any failure raises and exits non-zero
 before the final line:
   1. device: CUDA present; card name and power limit from nvidia-smi;
-  2. build: nvcc → shared library, seconds and the ptxas report;
+  2. build: nvcc → shared library, seconds and the ptxas report
+     (registers, shared memory, spills) of every kernel in the library;
   3. each kernel against its plain PyTorch version on the card, at both
      paths' shapes and at edge shapes (forward rtol 1e-4; gradients rtol
-     2e-4 / atol 1e-5, plus a sum-order term for per-gene sums), with
-     median µs per call of kernel and plain, timed with CUDA events over
-     back-to-back calls in turns (plain, kernel, kernel, plain);
+     2e-4 / atol 1e-5, plus a sum-order term for per-gene sums), run
+     twice for the same bits, with median µs per call of kernel and
+     plain, timed with CUDA events over back-to-back calls in turns
+     (plain, kernel, kernel, plain), beside the case's bound (bytes at
+     3.35 TB/s, or this data's operations at 67 TFLOP/s if larger) and the
+     share of it reached;
   4. SCVI fit on 8,192 × 33,000 device-resident synthetic counts, batch
      512, 16 epochs in two windows of 8; every loss finite, the last
      window's mean loss below the first's, both launch counters equal to
@@ -46,12 +50,14 @@ before the final line:
      ``marginal_log_prob`` (≥ the ELBO); save and load seconds and bytes.
      Serving math never launches a kernel (distribution math).
 Before the last line it prints the kernels' JSON summary (launches of the
-phase 4 and phase 6 fits and of phase 8); the last line is ``{"ok": true,
-"device": {...}}``. Imports nothing of JAX.
+phase 4 and phase 6 fits and of phase 8; time, plain time and bound at
+512 × 33,000 'main_full'); the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -84,6 +90,16 @@ EVAL_RTOL = 1e-6      # evaluate of the reloaded model vs the trained one
 BOUND_SLACK = 5e-3    # Jensen / importance-weighted bounds, relative
 BF16_RTOL = 1e-2      # bf16-fetched means vs float32
 MC = 10               # MC draws of the serving phase
+# the kernels of csrc/zinb.cu, as the ptxas report names them
+KERNEL_NAMES = ("zinb_rowsum_fwd_kernel", "row_chunk_sum_kernel",
+                "zinb_rowsum_bwd_kernel", "column_sum_kernel")
+# the card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+# f32 operations per element of each path, counted from the element
+# formulas (ops/zinb.py _zinb_elem, _zinb_grads_elem): each arithmetic op,
+# comparison, exp, log and log1p as one, an lgammaf as 20
+OPS = {"fwd": (30, 95), "bwd": (55, 110)}  # (zero count, nonzero count)
 IW_SAMPLES, IW_BATCH, IW_CELLS = 100, 32, 256
 
 
@@ -124,10 +140,10 @@ def phase_build():
     name, spills = None, ""
     for line in report.read_text().splitlines():
       if "Compiling entry function" in line:
-        name = next((k for k in ("zinb_rowsum_fwd_kernel",
-                                 "zinb_rowsum_bwd_kernel",
-                                 "column_sum_kernel") if k in line), line)
-        name += "<constrained>" if "ILb1E" in line else ""
+        name = next((k for k in KERNEL_NAMES if k in line), line)
+        flags = re.search(r"ILb([01])ELb([01])E", line)
+        if flags:
+          name += f"<constrained={flags[1]},vec={flags[2]}>"
       elif "spill" in line:
         spills = line.strip()
       elif "registers" in line and name:
@@ -169,6 +185,17 @@ def _proteins(torch, gen, rows):
       (rows, PROTEINS), generator=gen, device=DEVICE)), generator=gen)
 
 
+# phase-3 cases: name, rows, cols, constrained, per-gene (θ, logits, gate)
+CASES = (
+    ("main_full", BATCH, GENES, False, (False, False, False)),
+    ("main_gene_theta", BATCH, GENES, True, (True, False, False)),
+    ("nb_gate", BATCH, GENES, False, (False, False, True)),
+    ("zinb_logits", BATCH, GENES, True, (False, False, False)),
+    ("adt_nb", BATCH, PROTEINS, True, (False, False, True)),
+    ("tall", 4096, 2048, False, (False, False, False)),
+    ("ragged", 130, 1001, True, (True, False, False)),
+    ("extreme", 4, 16, True, (False, False, False)),
+)
 # phase-3 cases whose gate is the NB heads' −1e30 per-gene row
 NB_GATE_CASES = ("nb_gate", "adt_nb")
 
@@ -201,57 +228,79 @@ def _extreme_case(torch):
   return x, th, lg, gt
 
 
+def check_kernels(torch, tz, name, x, cr, lg, gt, g, constrained, need):
+  """One case of ``tz``'s two kernels against their plain versions
+  (forward rtol FWD_RTOL; gradients GRAD_TOL plus the per-gene sum-order
+  term; no unneeded gradient written), run twice for the same bits.
+  Returns (forward max|Δ|, gradient max|Δ|)."""
+  import numpy as np
+  out = tz._fwd_launch(x, cr, lg, gt, constrained)
+  grads = tz._bwd_launch(x, cr, lg, gt, g, constrained, need)
+  torch.cuda.synchronize()
+  ref = tz._rowsum_ref(x, cr, lg, gt, constrained)
+  refs = tz._grads_ref(x, cr, lg, gt, g, constrained, need)
+  o, r = out.cpu().numpy(), ref.cpu().numpy()
+  check(np.isfinite(o).all(), f"{name}: forward not finite")
+  np.testing.assert_allclose(o, r, rtol=FWD_RTOL, err_msg=f"{name}: forward")
+  fwd_err = float(np.abs(o - r).max())
+  bwd_err = 0.0
+  terms = tz._zinb_grads_elem(x, cr, lg, gt, constrained)
+  for field, a, b, t in zip(("theta", "logits", "gate"), grads, refs, terms):
+    if b is None:
+      check(a is None, f"{name}: unneeded {field} gradient written")
+      continue
+    check(a.shape == b.shape, f"{name}: {field} shape {tuple(a.shape)}")
+    atol = GRAD_TOL["atol"]
+    if b.shape[0] == 1 < x.shape[0]:  # per-gene: a sum over the rows
+      atol = atol + SUM_ULPS * (g[:, None] * t).abs().sum(0).cpu().numpy()
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    bad = ~(np.abs(a - b) <= atol + GRAD_TOL["rtol"] * np.abs(b))
+    check(not bad.any(), f"{name}: d{field} {bad.sum()} of {bad.size} "
+          f"off, worst |Δ| {np.abs(a - b)[bad].max() if bad.any() else 0}")
+    bwd_err = max(bwd_err, float(np.abs(a - b).max()))
+  check(torch.equal(out, tz._fwd_launch(x, cr, lg, gt, constrained)),
+        f"{name}: forward not bitwise reproducible")
+  twice = tz._bwd_launch(x, cr, lg, gt, g, constrained, need)
+  check(all(u is None or torch.equal(u, v) for u, v in zip(grads, twice)),
+        f"{name}: backward not bitwise reproducible")
+  return fwd_err, bwd_err
+
+
+def kernel_bounds(x, cr, lg, gt, need):
+  """Least µs the card could take for each kernel's work on these inputs:
+  the larger of bytes (each input read once, each output written once)
+  over HBM_BYTES_PER_S and this data's operations (OPS, by the nonzero
+  share) over F32_OPS_PER_S. Returns {"fwd"|"bwd": (µs, "bytes"|
+  "operations")}."""
+  b = x.shape[0]
+  reads = 4 * (x.numel() + cr.numel() + lg.numel() + gt.numel())
+  written = {"fwd": 4 * b, "bwd": 4 * sum(
+      p.numel() for p, n in zip((cr, lg, gt), need) if n)}
+  read = {"fwd": reads, "bwd": reads + 4 * b}  # + the row cotangent
+  nz = int((x > 0).sum())
+  out = {}
+  for k, (ops_zero, ops_count) in OPS.items():
+    t_bytes = (read[k] + written[k]) / HBM_BYTES_PER_S * 1e6
+    t_ops = ((x.numel() - nz) * ops_zero + nz * ops_count) \
+        / F32_OPS_PER_S * 1e6
+    out[k] = ((t_bytes, "bytes") if t_bytes >= t_ops
+              else (t_ops, "operations"))
+  return out
+
+
 def phase_kernels(torch):
   from sisua_tpu_torch.ops import zinb as tz
-  import numpy as np
   gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-  cases = [  # name, rows, cols, constrained, per-gene (θ, logits, gate)
-      ("main_full", BATCH, GENES, False, (False, False, False)),
-      ("main_gene_theta", BATCH, GENES, True, (True, False, False)),
-      ("nb_gate", BATCH, GENES, False, (False, False, True)),
-      ("zinb_logits", BATCH, GENES, True, (False, False, False)),
-      ("adt_nb", BATCH, PROTEINS, True, (False, False, True)),
-      ("tall", 4096, 2048, False, (False, False, False)),
-      ("ragged", 130, 1001, True, (True, False, False)),
-      ("extreme", 4, 16, True, (False, False, False)),
-  ]
   results = {}
-  for name, rows, cols, constrained, pg in cases:
+  for name, rows, cols, constrained, pg in CASES:
     if name == "extreme":
       x, cr, lg, gt = _extreme_case(torch)
     else:
       x, cr, lg, gt = _case(torch, gen, name, rows, cols, constrained, pg)
     g = torch.randn((x.shape[0],), generator=gen, device=DEVICE)
     need = (True, True, name not in NB_GATE_CASES)  # no NB gate gradient
-    out = tz._fwd_launch(x, cr, lg, gt, constrained)
-    grads = tz._bwd_launch(x, cr, lg, gt, g, constrained, need)
-    torch.cuda.synchronize()
-    ref = tz._rowsum_ref(x, cr, lg, gt, constrained)
-    refs = tz._grads_ref(x, cr, lg, gt, g, constrained, need)
-    o, r = out.cpu().numpy(), ref.cpu().numpy()
-    check(np.isfinite(o).all(), f"{name}: forward not finite")
-    np.testing.assert_allclose(o, r, rtol=FWD_RTOL,
-                               err_msg=f"{name}: forward")
-    fwd_err = float(np.abs(o - r).max())
-    bwd_err = 0.0
-    terms = tz._zinb_grads_elem(x, cr, lg, gt, constrained)
-    for field, a, b, t in zip(("theta", "logits", "gate"), grads, refs,
-                              terms):
-      if b is None:
-        check(a is None, f"{name}: unneeded {field} gradient written")
-        continue
-      check(a.shape == b.shape, f"{name}: {field} shape {tuple(a.shape)}")
-      atol = GRAD_TOL["atol"]
-      if b.shape[0] == 1 < x.shape[0]:  # per-gene: a sum over the rows
-        atol = atol + SUM_ULPS * (g[:, None] * t).abs().sum(0).cpu().numpy()
-      a, b = a.cpu().numpy(), b.cpu().numpy()
-      bad = ~(np.abs(a - b) <= atol + GRAD_TOL["rtol"] * np.abs(b))
-      check(not bad.any(), f"{name}: d{field} {bad.sum()} of {bad.size} "
-            f"off, worst |Δ| {np.abs(a - b)[bad].max() if bad.any() else 0}")
-      bwd_err = max(bwd_err, float(np.abs(a - b).max()))
-    twice = tz._bwd_launch(x, cr, lg, gt, g, constrained, need)
-    check(all(u is None or torch.equal(u, v) for u, v in zip(grads, twice)),
-          f"{name}: backward not bitwise reproducible")
+    fwd_err, bwd_err = check_kernels(torch, tz, name, x, cr, lg, gt, g,
+                                     constrained, need)
     t_fwd = _time_turns(torch, {
         "plain": lambda: tz._rowsum_ref(x, cr, lg, gt, constrained),
         "kernel": lambda: tz._fwd_launch(x, cr, lg, gt, constrained)})
@@ -259,15 +308,23 @@ def phase_kernels(torch):
         "plain": lambda: tz._grads_ref(x, cr, lg, gt, g, constrained, need),
         "kernel": lambda: tz._bwd_launch(x, cr, lg, gt, g, constrained,
                                          need)})
+    bounds = kernel_bounds(x, cr, lg, gt, need)
     results[name] = dict(fwd_err=fwd_err, bwd_err=bwd_err, t_fwd=t_fwd,
-                         t_bwd=t_bwd)
+                         t_bwd=t_bwd, bounds=bounds)
     big = float((cr > 1e6).float().mean()) if constrained else 0.0
+    nz = float((x > 0).float().mean())
+    shares = {k: bounds[k][0] / t["kernel"] for k, t in
+              (("fwd", t_fwd), ("bwd", t_bwd))}
     log(f"[3 kernels] {name} {tuple(x.shape)} constrained={constrained} "
-        f"per_gene={pg} θ>1e6 {big:.4f}: fwd max|Δ| {fwd_err:.3e} kernel "
-        f"{t_fwd['kernel']:.1f} µs plain {t_fwd['plain']:.1f} µs | bwd "
-        f"max|Δ| {bwd_err:.3e} kernel {t_bwd['kernel']:.1f} µs plain "
-        f"{t_bwd['plain']:.1f} µs")
-    del x, cr, lg, gt, out, grads, ref, refs, terms, twice
+        f"per_gene={pg} θ>1e6 {big:.4f} nonzero {nz:.4f}: fwd max|Δ| "
+        f"{fwd_err:.3e} kernel {t_fwd['kernel']:.1f} µs plain "
+        f"{t_fwd['plain']:.1f} µs bound {bounds['fwd'][0]:.1f} µs "
+        f"({bounds['fwd'][1]}) share {shares['fwd']:.1%} | bwd max|Δ| "
+        f"{bwd_err:.3e} kernel {t_bwd['kernel']:.1f} µs plain "
+        f"{t_bwd['plain']:.1f} µs bound {bounds['bwd'][0]:.1f} µs "
+        f"({bounds['bwd'][1]}) share {shares['bwd']:.1%}; both bitwise "
+        f"reproducible")
+    del x, cr, lg, gt
   return results
 
 
@@ -770,16 +827,19 @@ def main():
               for k, v in launches.items()}
   main_case = kern["main_full"]
   kernels = []
-  for name, line, key, err in (
-      ("zinb_rowsum_fwd", 172, "t_fwd", "fwd_err"),
-      ("zinb_rowsum_bwd", 339, "t_bwd", "bwd_err")):
+  for name, line, key, err, kind in (
+      ("zinb_rowsum_fwd", 172, "t_fwd", "fwd_err", "fwd"),
+      ("zinb_rowsum_bwd", 339, "t_bwd", "bwd_err", "bwd")):
     kernels.append({
         "name": name, "route": "cuda",
         "source": "sisua_tpu_torch/csrc/zinb.cu",
         "replaces": f"sisua_tpu/ops/zinb_pallas.py:{line}",
         "launches": launches[name], "max_abs_err": main_case[err],
         "ms": main_case[key]["kernel"] / 1e3,
-        "plain_ms": main_case[key]["plain"] / 1e3})
+        "plain_ms": main_case[key]["plain"] / 1e3,
+        "bound_ms": main_case["bounds"][kind][0] / 1e3,
+        "bound_by": main_case["bounds"][kind][1],
+        "library_ms": None})  # no single PyTorch call computes it
   print(json.dumps({"kernels": kernels}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

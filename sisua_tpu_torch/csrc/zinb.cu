@@ -2,38 +2,68 @@
 // written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of sisua_tpu/ops/zinb_pallas.py:
-//   zinb_rowsum_fwd  <- _make_kernel (inner `kernel`)
-//   zinb_rowsum_bwd  <- _make_bwd_kernel (inner `kernel`)
+//   zinb_rowsum_fwd  <- _make_kernel (inner `kernel`, zinb_pallas.py:172)
+//   zinb_rowsum_bwd  <- _make_bwd_kernel (inner `kernel`, zinb_pallas.py:339)
 // Each computes what the TPU kernel computes, element for element
 // (_zinb_elem and _zinb_grads_elem there, and the plain PyTorch versions
-// in sisua_tpu_torch/ops/zinb.py), not the TPU's grid:
-//   * forward: one block per row walks all D columns (coalesced loads,
-//     neighbouring threads on neighbouring columns) and reduces the row with
-//     warp shuffles and one shared-memory step, in a fixed order;
-//   * backward: a block owns a tile of 128 columns and a chunk of rows. Full
-//     (B, D) gradient fields are written directly; a per-gene (1, D) field is
-//     summed over the block's rows in registers, the chunk sums land in a
-//     scratch buffer, and a second pass sums the chunks in order. No float
-//     atomics, so two runs give the same bits.
+// in sisua_tpu_torch/ops/zinb.py), not the TPU's grid.
+//
+// What bounds them on the card (NVIDIA H100 80GB HBM3 at 700 W, 512 x
+// 33,000, ~7% nonzero counts; tools/zinb_kernel_ab.py). The bytes bound is
+// 81 us forward (4 f32 reads per element) and 141 us backward (4 reads and
+// up to 3 writes). A kernel with one element per thread and a branch on
+// x <= 0 is bound by instruction issue instead: ~90% of warps of 32 genes
+// hold a nonzero and run both paths, and CUDA's general-range log1pf
+// (FFMA polynomial code, no MUFU) was most of the zero path. The design:
+//   * Count path compacted per warp. Every lane does the zero path's work
+//     for its 4 elements; the nonzero elements are queued in lane order
+//     (__ballot_sync/__popc) and the lgammaf / digamma work runs on full
+//     warps of queued elements only. The forward carries the queue across
+//     tiles (up to 31 elements wait in registers), so its count path costs
+//     what the nonzero share needs: 7% nonzero runs as fast as none. The
+//     backward runs each tile's queue and returns the results to their
+//     elements through shared memory, so its stores stay coalesced.
+//     The queue order is fixed by the data: results are reproducible.
+//   * Fewer, cheaper transcendentals: one exp(-|v|) and one log1p per logit
+//     and per gate give log-sigmoid and softplus of both signs; one
+//     reciprocal gives sigmoid of both signs; log1p on [0, 1] is a short
+//     atanh series (log1p_unit); exp is __expf; the backward's posterior
+//     weight exp(b - logaddexp(a, b)) is the sigmoid it equals.
+//   * Tiles streamed with cp.async into a two-stage ring in shared memory,
+//     one ring per warp: 16-byte copies where every row pointer and row
+//     stride is 16-byte aligned (the launch plan in ops/zinb.py decides),
+//     4-byte copies otherwise (the SISUA protein head: D = 10, column
+//     offsets of 40 and 80 bytes; ragged widths). A lane copies and first
+//     reads its own 4 columns, so the ring needs only warp barriers.
+//   * Work spread over the card: the forward splits each row into column
+//     chunks (grid rows x chunks) while the batch alone leaves SMs idle and
+//     sums the chunk partials per row in a second pass, in order; the
+//     backward tiles (rows x 1024 columns) and keeps per-gene (1, D)
+//     gradients as ordered chunk sums. No float atomics anywhere: two runs
+//     give the same bits.
+// Measured after the redesign: ~115 us forward and ~190 us backward
+// (70-75% of the bytes bounds, at 0%, 0.5% and 7% nonzero alike), where the
+// one-element-per-thread kernels took ~240 and ~295 us. The SASS holds ~97
+// (forward) and ~127 (backward) instructions per element from a tile's
+// arrival to its first ballot: ~49 and ~65 us at the card's full issue
+// rate, under the bytes bounds. Both kernels are now bound by bytes, at
+// ~2.5 TB/s of HBM's 3.35.
+//
 // A per-gene (1, D) operand is a row stride of 0. Ragged edges are masked
 // here, so any B and D are taken (the TPU path needed B % 8 == 0).
 //
-// What bounds them on the card: bytes. Forward reads 4 f32 per element and
-// writes 4 bytes per row; backward reads 4 f32 and writes up to 3 f32 per
-// element. The element math (lgammaf, log1pf, expf) is a few dozen flops per
-// 16-28 bytes, under the H100's flop:byte balance, so the design keeps every
-// intermediate in registers and touches each operand once per pass.
-//
 // Numerics kept from the TPU kernel: the large-theta asymptotic branch above
 // theta = 1e6, the cancellation-free digamma difference, the constrained
-// theta handling, and stable log-sigmoid/softplus/logaddexp forms, so the
-// -1e30 "no inflation" gate of the NB heads stays exact. lgammaf comes from
-// CUDA's device math library (Mosaic had none, hence Stirling on the TPU).
-// Clamps are written so a NaN operand stays NaN (fmaxf/fminf would drop it
-// and hide a diverged step from the trainer's NaN check).
+// theta handling, and stable log-sigmoid/softplus/logaddexp forms where exp
+// never sees a positive argument, so the -1e30 "no inflation" gate of the
+// NB heads stays exact. lgammaf comes from CUDA's device math library
+// (Mosaic had none, hence Stirling on the TPU). Clamps are written so a NaN
+// operand stays NaN (fmaxf/fminf would drop it and hide a diverged step
+// from the trainer's NaN check). FMA contraction is on: with it and without
+// it every case passes the same tolerances (see ops/_build.py).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        --fmad=false -shared -Xcompiler -fPIC (see ops/_build.py).
+//        -shared -Xcompiler -fPIC (see ops/_build.py).
 // Each entry point launches on the given stream, does not synchronize and
 // returns cudaGetLastError().
 
@@ -45,54 +75,152 @@ namespace {
 constexpr float kExpClip = 15.0f;
 constexpr float kThetaFloor = 1e-8f;
 constexpr float kAsymTheta = 1e6f;
-constexpr int kFwdThreads = 256;
-constexpr int kBwdThreads = 128;
+constexpr int kWarps = 8;                // warps per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kVec = 4;                  // consecutive columns per lane
+constexpr int kTile = 32 * kVec;         // columns per warp tile
+constexpr int kStages = 2;               // cp.async ring depth per warp
 constexpr int kSumThreads = 256;
 
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
+// A warp's count-path queue. Backward: the tile's nonzero elements (their
+// index in the tile) and the results by element. Forward: the (x, theta)
+// of nonzero elements waiting for a full warp.
+union CountQueue {
+  struct {
+    float res[kTile];
+    unsigned char elem[kTile];
+  } bwd;
+  struct {
+    float x[kTile];
+    float r[kTile];
+  } fwd;
+};
+
+// One warp's shared memory: the ring of operand tiles (x, theta operand,
+// logits, gate) and the count-path queue.
+struct alignas(16) WarpSmem {
+  float stage[kStages][4][kTile];
+  CountQueue q;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ float sigmoid(float x) {
-  const float e = expf(-fabsf(x));  // exp never sees a positive argument
-  return x >= 0.0f ? 1.0f / (1.0f + e) : e / (1.0f + e);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
+// all but the newest kStages - 1 groups have landed (this thread's copies)
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1) : "memory");
+}
+
+// Copy one lane's kVec columns [c, c + kVec) of the four operand rows into
+// the stage; columns at or past D are not copied (and are masked later).
+template <bool VEC>
+__device__ __forceinline__ void issue_tile(float (*dst)[kTile],
+                                           const float* const src[4],
+                                           int64_t c, int64_t D, int lane) {
+#pragma unroll
+  for (int op = 0; op < 4; ++op) {
+    float* d = &dst[op][lane * kVec];
+    if (VEC) {
+      if (c < D) cp_async16(d, src[op] + c);  // D % 4 == 0 on this path
+    } else {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        if (c + k < D) cp_async4(d + k, src[op] + c + k);
+      }
+    }
+  }
+  cp_async_commit();  // an empty group is fine: the ring counts groups
 }
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);  // NaN passes through
 }
 
+// exp is __expf (ex2.approx): relative error ~1e-6 over the arguments met
+// here (theta's clip at +-15, exp(-|v|) <= 1), far inside the kernels'
+// tolerances: a multiply and one MUFU.EX2, without expf's range reduction.
 template <bool CONSTRAINED>
 __device__ __forceinline__ float theta_of(float cr) {
   return CONSTRAINED ? (cr < kThetaFloor ? kThetaFloor : cr)
-                     : expf(clip(cr, -kExpClip, kExpClip));
+                     : __expf(clip(cr, -kExpClip, kExpClip));
 }
 
-// ZINB log-pmf of one element (sisua_tpu/ops/zinb_pallas.py _zinb_elem).
-template <bool CONSTRAINED>
-__device__ __forceinline__ float zinb_elem(float x, float cr, float l,
-                                           float g) {
-  const float r = theta_of<CONSTRAINED>(cr);
-  const float log_1mp = log_sigmoid(-l);
-  const float log_1mpi = log_sigmoid(-g);
-  if (x <= 0.0f) {
-    return logaddexp(log_sigmoid(g), log_1mpi + r * log_1mp);
+// log1p(e) for e in [0, 1], the range of exp(-|v|): 2 atanh(s) with
+// s = e / (2 + e) in [0, 1/3], summed to s^15 (the rest is below 2e-9
+// relative). A dozen instructions and within a few ulp of log1pf, whose
+// general-range polynomial code was most of the zero path's issue slots
+// in the SASS. NaN stays NaN.
+__device__ __forceinline__ float log1p_unit(float e) {
+  const float s = __fdividef(e, 2.0f + e);  // 2 + e in [2, 3]
+  const float t = s * s;
+  float p = 1.0f / 15.0f;
+  p = fmaf(p, t, 1.0f / 13.0f);
+  p = fmaf(p, t, 1.0f / 11.0f);
+  p = fmaf(p, t, 1.0f / 9.0f);
+  p = fmaf(p, t, 1.0f / 7.0f);
+  p = fmaf(p, t, 1.0f / 5.0f);
+  p = fmaf(p, t, 1.0f / 3.0f);
+  const float s2 = s + s;
+  return fmaf(s2 * t, p, s2);
+}
+
+// The terms every function of a logit v needs: e = exp(-|v|) (exp never
+// sees a positive argument) and L = log1p(e). Then
+//   log sigmoid(+-v) = min(+-v, 0) - L,  softplus(v) = max(v, 0) + L.
+struct LogitTerms {
+  float v, e, L;
+  __device__ __forceinline__ float log_sig() const {
+    return fminf(v, 0.0f) - L;
   }
+  __device__ __forceinline__ float log_sig_neg() const {
+    return fminf(-v, 0.0f) - L;
+  }
+  __device__ __forceinline__ float softplus() const {
+    return fmaxf(v, 0.0f) + L;
+  }
+};
+
+__device__ __forceinline__ LogitTerms logit_terms(float v) {
+  const float e = __expf(-fabsf(v));
+  return {v, e, log1p_unit(e)};
+}
+
+// sigmoid(v) and sigmoid(-v) from e = exp(-|v|) and one reciprocal
+struct Sigmoids {
+  float pos, neg;
+};
+
+__device__ __forceinline__ Sigmoids sigmoids(float v, float e) {
+  const float inv = 1.0f / (1.0f + e);
+  return {v >= 0.0f ? inv : e * inv, v <= 0.0f ? inv : e * inv};
+}
+
+__device__ __forceinline__ float logaddexp(float a, float b) {
+  const float m = fmaxf(a, b);
+  return m + log1p_unit(__expf(-fabsf(a - b)));
+}
+
+// The count path of the forward: log-pmf terms that need lgamma,
+// lgamma(x + r) - lgamma(r) - lgamma(x + 1), with the TPU kernel's
+// asymptotic form above theta = 1e6 (pure cancellation there otherwise).
+__device__ __forceinline__ float count_term_fwd(float x, float r) {
   const float lg_diff = r > kAsymTheta
       ? x * logf(r) + x * (x - 1.0f) / (2.0f * r)
       : lgammaf(x + r) - lgammaf(r);
-  const float nb = lg_diff - lgammaf(x + 1.0f) + r * log_1mp
-      + x * log_sigmoid(l);
-  return log_1mpi + nb;
+  return lg_diff - lgammaf(x + 1.0f);
 }
 
 // psi(x + r) - psi(r) without cancellation, r > 0, x >= 0
@@ -117,84 +245,206 @@ __device__ __forceinline__ float digamma_diff(float r, float x) {
   return out + s;
 }
 
-// d log-pmf / d(count_raw, logits, gate) of one element
-// (zinb_pallas.py _zinb_grads_elem).
-template <bool CONSTRAINED>
-__device__ __forceinline__ void zinb_grads_elem(float x, float cr, float l,
-                                                float g, float* d_cr,
-                                                float* d_l, float* d_g) {
-  float r, dr_dcr;
-  if (CONSTRAINED) {
-    r = theta_of<true>(cr);
-    dr_dcr = cr >= kThetaFloor ? 1.0f : 0.0f;
-  } else {
-    r = theta_of<false>(cr);
-    dr_dcr = r * ((cr > -kExpClip && cr < kExpClip) ? 1.0f : 0.0f);
-  }
-  const float sig_l = sigmoid(l);
-  const float log_1mp = -softplus(l);
-  const float sig_g = sigmoid(g);
-  float dr, dl, dg;
-  if (x <= 0.0f) {
-    // lp = logaddexp(log sig(g), log sig(-g) + nb0): weight by the
-    // posterior of the NB arm
-    const float a = -softplus(-g);
-    const float b = -softplus(g) + r * log_1mp;
-    const float wb = expf(b - logaddexp(a, b));
-    dr = wb * log_1mp;
-    dl = -wb * r * sig_l;
-    dg = (1.0f - wb) * sigmoid(-g) - wb * sig_g;
-  } else {
-    const float dig = r > kAsymTheta
-        ? x / r - x * (x - 1.0f) / (2.0f * r * r)
-        : digamma_diff(r, x);
-    dr = dig + log_1mp;
-    dl = x * sigmoid(-l) - r * sig_l;
-    dg = -sig_g;
-  }
-  *d_cr = dr * dr_dcr;
-  *d_l = dl;
-  *d_g = dg;
+// The count path of the backward: d lgamma(x + r) / dr - d lgamma(r) / dr,
+// with the forward's large-theta switch mirrored.
+__device__ __forceinline__ float count_term_bwd(float x, float r) {
+  return r > kAsymTheta ? x / r - x * (x - 1.0f) / (2.0f * r * r)
+                        : digamma_diff(r, x);
 }
 
+// Queue the warp's nonzero elements of this tile in lane order (for each
+// k, lanes 0..31): put(j, k) stores this lane's element k at queue
+// position j. Returns their count, the same in every lane.
+template <class Put>
+__device__ __forceinline__ int enqueue(const bool (&nz)[kVec], int lane,
+                                       Put put) {
+  const unsigned below = (1u << lane) - 1u;
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const unsigned m = __ballot_sync(0xffffffffu, nz[k]);
+    if (nz[k]) put(n + __popc(m & below), k);
+    n += __popc(m);
+  }
+  __syncwarp();
+  return n;
+}
+
+// Backward count path on full warps of the tile's queued elements: the
+// element at queue position j goes to lane j % 32; its (x, theta) come from
+// the stage and its result lands in res[element].
 template <bool CONSTRAINED>
-__global__ void __launch_bounds__(kFwdThreads)
+__device__ __forceinline__ void run_count_path_bwd(const float (*st)[kTile],
+                                                   WarpSmem& w, int n,
+                                                   int lane) {
+  for (int j = lane; j - lane < n; j += 32) {  // warp-uniform trip count
+    if (j < n) {
+      const int e = w.q.bwd.elem[j];
+      w.q.bwd.res[e] = count_term_bwd(st[0][e],
+                                      theta_of<CONSTRAINED>(st[1][e]));
+    }
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// Forward. Block (row, chunk): its 8 warps take the chunk's 128-column
+// tiles in turn (warp w: tiles w, w + 8, ...), each through its own ring.
+// The block's sum goes to out[row] when a row is one chunk, else to
+// partial[row, chunk] for row_chunk_sum_kernel.
+template <bool CONSTRAINED, bool VEC>
+__global__ void __launch_bounds__(kThreads)
 zinb_rowsum_fwd_kernel(const float* __restrict__ x,
                        const float* __restrict__ cr,
                        const float* __restrict__ lg,
                        const float* __restrict__ gt,
-                       float* __restrict__ out, int D, int64_t ld_cr,
-                       int64_t ld_lg, int64_t ld_gt) {
-  const int64_t row = blockIdx.x;
-  const float* xr = x + row * D;
-  const float* crr = cr + row * ld_cr;
-  const float* lgr = lg + row * ld_lg;
-  const float* gtr = gt + row * ld_gt;
-  float acc = 0.0f;
-  for (int j = threadIdx.x; j < D; j += kFwdThreads) {
-    acc += zinb_elem<CONSTRAINED>(xr[j], crr[j], lgr[j], gtr[j]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  }
-  __shared__ float warp_sums[kFwdThreads / 32];
+                       float* __restrict__ out, float* __restrict__ partial,
+                       int D, int64_t ld_cr, int64_t ld_lg, int64_t ld_gt,
+                       int tiles_per_chunk) {
+  __shared__ WarpSmem smem[kWarps];
+  __shared__ float warp_sums[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  WarpSmem& w = smem[warp];
+  const int64_t row = blockIdx.x;
+  const float* const src[4] = {x + row * D, cr + row * ld_cr,
+                               lg + row * ld_lg, gt + row * ld_gt};
+  const int tiles = static_cast<int>((D + int64_t{kTile} - 1) / kTile);
+  const int t0 = blockIdx.y * tiles_per_chunk + warp;
+  const int t1 = min(tiles, static_cast<int>(blockIdx.y + 1) * tiles_per_chunk);
+  float acc = 0.0f;
+  int pending = 0;        // the warp's queued elements not yet run, < 32
+  float px = 0.0f, pr = 0.0f;  // lane j < pending holds pending element j
+  // the ring: tile i of this warp (t0 + i * kWarps) goes to stage
+  // i % kStages, kStages - 1 tiles ahead of the one computed
+  auto issue = [&](int stage, int t) {
+    if (t < t1) {
+      issue_tile<VEC>(w.stage[stage], src,
+                      static_cast<int64_t>(t) * kTile + lane * kVec, D, lane);
+    } else {
+      cp_async_commit();  // an empty group keeps the count
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i, t0 + i * kWarps);
+  int s = 0;
+  for (int t = t0; t < t1; t += kWarps, s = s + 1 == kStages ? 0 : s + 1) {
+    issue(s == 0 ? kStages - 1 : s - 1, t + (kStages - 1) * kWarps);
+    cp_async_wait_ring();
+    __syncwarp();
+    const float (*st)[kTile] = w.stage[s];
+    const int64_t c = static_cast<int64_t>(t) * kTile + lane * kVec;
+    const float4 xv = ld4(&st[0][lane * kVec]);
+    const float4 cv = ld4(&st[1][lane * kVec]);
+    const float4 lv = ld4(&st[2][lane * kVec]);
+    const float4 gv = ld4(&st[3][lane * kVec]);
+    const float xs[kVec] = {xv.x, xv.y, xv.z, xv.w};
+    const float cs[kVec] = {cv.x, cv.y, cv.z, cv.w};
+    const float ls[kVec] = {lv.x, lv.y, lv.z, lv.w};
+    const float gs[kVec] = {gv.x, gv.y, gv.z, gv.w};
+    bool nz[kVec];
+    float rs[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const bool valid = c + k < D;
+      rs[k] = theta_of<CONSTRAINED>(cs[k]);
+      const LogitTerms tl = logit_terms(ls[k]), tg = logit_terms(gs[k]);
+      const float nb0 = rs[k] * tl.log_sig_neg();
+      const float log_1mpi = tg.log_sig_neg();
+      nz[k] = valid && !(xs[k] <= 0.0f);  // a NaN count takes the count path
+      if (nz[k]) {  // all but the lgamma terms, which the queue adds
+        acc += log_1mpi + (nb0 + xs[k] * tl.log_sig());
+      } else if (valid) {
+        acc += logaddexp(tg.log_sig(), log_1mpi + nb0);
+      }
+    }
+    // queue this tile's nonzero elements after the pending ones, run every
+    // full warp of them, keep the rest (< 32) pending in registers
+    const int total = pending + enqueue(nz, lane, [&](int j, int k) {
+      w.q.fwd.x[j] = xs[k];
+      w.q.fwd.r[j] = rs[k];
+    });
+    for (int v = lane; v - lane + 32 <= total; v += 32) {
+      const bool mine = v < pending;  // round 0 only: pending < 32
+      acc += count_term_fwd(mine ? px : w.q.fwd.x[v - pending],
+                            mine ? pr : w.q.fwd.r[v - pending]);
+    }
+    const int v = (total & ~31) + lane;
+    if (lane < (total & 31) && v >= pending) {
+      px = w.q.fwd.x[v - pending];
+      pr = w.q.fwd.r[v - pending];
+    }
+    pending = total & 31;
+    __syncwarp();  // every lane is done with stage s and the queue
+  }
+  if (lane < pending) acc += count_term_fwd(px, pr);
+  acc = warp_sum(acc);
   if (lane == 0) warp_sums[warp] = acc;
   __syncthreads();
   if (warp == 0) {
-    acc = lane < kFwdThreads / 32 ? warp_sums[lane] : 0.0f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    acc = warp_sum(lane < kWarps ? warp_sums[lane] : 0.0f);
+    if (lane == 0) {
+      if (gridDim.y == 1) {
+        out[row] = acc;
+      } else {
+        partial[row * gridDim.y + blockIdx.y] = acc;
+      }
     }
-    if (lane == 0) out[row] = acc;
   }
 }
 
-template <bool CONSTRAINED>
-__global__ void __launch_bounds__(kBwdThreads)
+// out[b] = sum over chunks c, in order, of partial[b, c]
+__global__ void __launch_bounds__(kSumThreads)
+row_chunk_sum_kernel(const float* __restrict__ partial,
+                     float* __restrict__ out, int B, int n_chunks) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kSumThreads
+      + threadIdx.x;
+  if (row >= B) return;
+  const float* p = partial + row * n_chunks;
+  float s = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) s += p[c];
+  out[row] = s;
+}
+
+// Store a lane's kVec gradients of one field at row offset `base`, with
+// streaming (evict-first) stores: a (B, D) field is written once and is
+// larger than L2.
+template <bool VEC>
+__device__ __forceinline__ void store_field(float* __restrict__ f,
+                                            int64_t base, int64_t c,
+                                            int64_t D,
+                                            const float (&v)[kVec]) {
+  if (VEC) {
+    if (c < D) {
+      __stcs(reinterpret_cast<float4*>(f + base + c),
+             make_float4(v[0], v[1], v[2], v[3]));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      if (c + k < D) __stcs(f + base + c + k, v[k]);
+    }
+  }
+}
+
+// Backward. Block (column block, row chunk): warp w owns the 128-column
+// tile 8 * blockIdx.x + w and walks the chunk's rows in order through its
+// ring. Full (B, D) fields are written per row; a per-gene (1, D) field is
+// summed over the chunk's rows in registers and written to
+// partial[field, chunk, column] for column_sum_kernel.
+template <bool CONSTRAINED, bool VEC>
+__global__ void __launch_bounds__(kThreads)
 zinb_rowsum_bwd_kernel(const float* __restrict__ x,
                        const float* __restrict__ cr,
                        const float* __restrict__ lg,
@@ -204,38 +454,129 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
                        float* __restrict__ d_gt,
                        float* __restrict__ partial, int B, int D,
                        int64_t ld_cr, int64_t ld_lg, int64_t ld_gt,
-                       int rows_per_block) {
-  const int col = blockIdx.x * kBwdThreads + threadIdx.x;
-  if (col >= D) return;
-  const int row0 = blockIdx.y * rows_per_block;
-  const int row1 = min(B, row0 + rows_per_block);
-  float acc_cr = 0.0f, acc_lg = 0.0f, acc_gt = 0.0f;
-  for (int row = row0; row < row1; ++row) {
-    const int64_t i = static_cast<int64_t>(row) * D + col;
-    float a, b, c;
-    zinb_grads_elem<CONSTRAINED>(x[i], cr[row * ld_cr + col],
-                                 lg[row * ld_lg + col],
-                                 gt[row * ld_gt + col], &a, &b, &c);
+                       int rows_per_chunk) {
+  __shared__ WarpSmem smem[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  WarpSmem& w = smem[warp];
+  const int64_t c = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kTile
+      + lane * kVec;
+  if (c - lane * kVec >= D) return;  // the whole warp is past the last tile
+  const int row0 = blockIdx.y * rows_per_chunk;
+  const int row1 = min(B, row0 + rows_per_chunk);
+  const int64_t lds[4] = {D, ld_cr, ld_lg, ld_gt};
+  const float* const base[4] = {x, cr, lg, gt};
+  // the ring: row row0 + i goes to stage i % kStages, kStages - 1 rows
+  // ahead of the one computed
+  auto issue_row = [&](int stage, int row) {
+    if (row >= row1) {
+      cp_async_commit();  // an empty group keeps the count
+      return;
+    }
+    const float* src[4];
+#pragma unroll
+    for (int op = 0; op < 4; ++op) src[op] = base[op] + row * lds[op];
+    issue_tile<VEC>(w.stage[stage], src, c, D, lane);
+  };
+  float acc_cr[kVec] = {}, acc_lg[kVec] = {}, acc_gt[kVec] = {};
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue_row(i, row0 + i);
+  int s = 0;
+  for (int row = row0; row < row1; ++row, s = s + 1 == kStages ? 0 : s + 1) {
+    issue_row(s == 0 ? kStages - 1 : s - 1, row + kStages - 1);
+    cp_async_wait_ring();
+    __syncwarp();
+    const float (*st)[kTile] = w.stage[s];
+    const float4 xv = ld4(&st[0][lane * kVec]);
+    const float4 cv = ld4(&st[1][lane * kVec]);
+    const float4 lv = ld4(&st[2][lane * kVec]);
+    const float4 gv = ld4(&st[3][lane * kVec]);
+    const float xs[kVec] = {xv.x, xv.y, xv.z, xv.w};
+    const float cs[kVec] = {cv.x, cv.y, cv.z, cv.w};
+    const float ls[kVec] = {lv.x, lv.y, lv.z, lv.w};
+    const float gs[kVec] = {gv.x, gv.y, gv.z, gv.w};
+    bool nz[kVec];
+    float dr[kVec], dl[kVec], dg[kVec], dr_dcr[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float cr_k = cs[k];
+      const float r = theta_of<CONSTRAINED>(cr_k);
+      dr_dcr[k] = CONSTRAINED
+          ? (cr_k >= kThetaFloor ? 1.0f : 0.0f)
+          : r * ((cr_k > -kExpClip && cr_k < kExpClip) ? 1.0f : 0.0f);
+      const LogitTerms tl = logit_terms(ls[k]);
+      const Sigmoids sl = sigmoids(ls[k], tl.e);
+      const Sigmoids sg = sigmoids(gs[k], __expf(-fabsf(gs[k])));
+      const float log_1mp = -tl.softplus();
+      nz[k] = c + k < D && !(xs[k] <= 0.0f);  // a NaN count: count path
+      if (nz[k]) {  // dr is finished once the count path is back
+        dr[k] = log_1mp;
+        dl[k] = xs[k] * sl.neg - r * sl.pos;
+        dg[k] = -sg.pos;
+      } else {
+        // lp = logaddexp(a, b), a = log sig(g), b = log sig(-g) + nb0:
+        // weight by the posterior of the NB arm, exp(b - logaddexp(a, b))
+        // = sigmoid(b - a) = sigmoid(nb0 - g), and of the gate,
+        // sigmoid(g - nb0); -1e30 (no gate) gives exactly 1 and 0
+        const float t = r * log_1mp - gs[k];
+        const Sigmoids w = sigmoids(t, __expf(-fabsf(t)));
+        dr[k] = w.pos * log_1mp;
+        dl[k] = -w.pos * r * sl.pos;
+        dg[k] = w.neg * sg.neg - w.pos * sg.pos;
+      }
+    }
+    const int n = enqueue(nz, lane, [&](int j, int k) {
+      w.q.bwd.elem[j] = lane * kVec + k;
+    });
+    run_count_path_bwd<CONSTRAINED>(st, w, n, lane);
+    const float4 rv = ld4(&w.q.bwd.res[lane * kVec]);
+    const float rs[kVec] = {rv.x, rv.y, rv.z, rv.w};
     const float gr = gcot[row];
-    a *= gr;
-    b *= gr;
-    c *= gr;
+    float a[kVec], b[kVec], g[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float drk = nz[k] ? rs[k] + dr[k] : dr[k];
+      a[k] = drk * dr_dcr[k] * gr;
+      b[k] = dl[k] * gr;
+      g[k] = dg[k] * gr;
+    }
+    __syncwarp();  // every lane is done with stage s before it is refilled
+    const int64_t off = static_cast<int64_t>(row) * D;
     if (d_cr != nullptr) {
-      if (ld_cr) d_cr[i] = a; else acc_cr += a;
+      if (ld_cr) {
+        store_field<VEC>(d_cr, off, c, D, a);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) acc_cr[k] += a[k];
+      }
     }
     if (d_lg != nullptr) {
-      if (ld_lg) d_lg[i] = b; else acc_lg += b;
+      if (ld_lg) {
+        store_field<VEC>(d_lg, off, c, D, b);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) acc_lg[k] += b[k];
+      }
     }
     if (d_gt != nullptr) {
-      if (ld_gt) d_gt[i] = c; else acc_gt += c;
+      if (ld_gt) {
+        store_field<VEC>(d_gt, off, c, D, g);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) acc_gt[k] += g[k];
+      }
     }
   }
-  // per-gene fields: this chunk's sums, one row of the scratch per field
-  const int64_t p = static_cast<int64_t>(blockIdx.y) * D + col;
+  // per-gene fields: this chunk's sums, one (chunks, D) slab per field
+  const int64_t p = static_cast<int64_t>(blockIdx.y) * D;
   const int64_t field = static_cast<int64_t>(gridDim.y) * D;
-  if (d_cr != nullptr && !ld_cr) partial[p] = acc_cr;
-  if (d_lg != nullptr && !ld_lg) partial[field + p] = acc_lg;
-  if (d_gt != nullptr && !ld_gt) partial[2 * field + p] = acc_gt;
+  if (d_cr != nullptr && !ld_cr) store_field<false>(partial, p, c, D, acc_cr);
+  if (d_lg != nullptr && !ld_lg) {
+    store_field<false>(partial, field + p, c, D, acc_lg);
+  }
+  if (d_gt != nullptr && !ld_gt) {
+    store_field<false>(partial, 2 * field + p, c, D, acc_gt);
+  }
 }
 
 // out[j] = sum over chunks c, in order, of partial[c, j]
@@ -256,45 +597,53 @@ column_sum_kernel(const float* __restrict__ partial, float* __restrict__ out,
 extern "C" {
 
 // out[b] = sum_j zinb_elem(x[b, j], cr[b, j], lg[b, j], gt[b, j]).
-// x is (B, D) row-major; each parameter has row stride D or 0 (per gene).
+// x is (B, D) row-major; each parameter has its own row stride (0: per
+// gene). The launch plan (ops/zinb.py::_launch_plan) gives `vec` (16-byte
+// copies), the 128-column tiles per chunk and the chunk count; with more
+// than one chunk, `partial` holds B * n_chunks floats.
 int sisua_zinb_rowsum_fwd(const float* x, const float* cr, const float* lg,
-                          const float* gt, float* out, int B, int D,
-                          long long ld_cr, long long ld_lg, long long ld_gt,
-                          int constrained, void* stream) {
+                          const float* gt, float* out, float* partial, int B,
+                          int D, long long ld_cr, long long ld_lg,
+                          long long ld_gt, int vec, int tiles_per_chunk,
+                          int n_chunks, int constrained, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(B));
-  if (constrained) {
-    zinb_rowsum_fwd_kernel<true><<<grid, kFwdThreads, 0, s>>>(
-        x, cr, lg, gt, out, D, ld_cr, ld_lg, ld_gt);
-  } else {
-    zinb_rowsum_fwd_kernel<false><<<grid, kFwdThreads, 0, s>>>(
-        x, cr, lg, gt, out, D, ld_cr, ld_lg, ld_gt);
-  }
+  const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(n_chunks));
+  auto kernel = constrained
+      ? (vec ? zinb_rowsum_fwd_kernel<true, true>
+             : zinb_rowsum_fwd_kernel<true, false>)
+      : (vec ? zinb_rowsum_fwd_kernel<false, true>
+             : zinb_rowsum_fwd_kernel<false, false>);
+  kernel<<<grid, kThreads, 0, s>>>(x, cr, lg, gt, out, partial, D, ld_cr,
+                                   ld_lg, ld_gt, tiles_per_chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
+  row_chunk_sum_kernel<<<(B + kSumThreads - 1) / kSumThreads, kSumThreads, 0,
+                         s>>>(partial, out, B, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Gradient fields times the row cotangent gcot (B,). A null d_* skips that
 // field. A field whose operand has row stride 0 is the (1, D) sum over rows;
-// then `partial` must hold 3 * ceil(B / rows_per_block) * D floats.
+// then `partial` must hold 3 * n_chunks * D floats, n_chunks =
+// ceil(B / rows_per_chunk) (the launch plan gives both).
 int sisua_zinb_rowsum_bwd(const float* x, const float* cr, const float* lg,
                           const float* gt, const float* gcot, float* d_cr,
                           float* d_lg, float* d_gt, float* partial, int B,
                           int D, long long ld_cr, long long ld_lg,
-                          long long ld_gt, int rows_per_block,
-                          int constrained, void* stream) {
+                          long long ld_gt, int vec, int rows_per_chunk,
+                          int n_chunks, int constrained, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (B + rows_per_block - 1) / rows_per_block;
-  const dim3 grid(static_cast<unsigned>((D + kBwdThreads - 1) / kBwdThreads),
+  const int col_blocks = (D + kWarps * kTile - 1) / (kWarps * kTile);
+  const dim3 grid(static_cast<unsigned>(col_blocks),
                   static_cast<unsigned>(n_chunks));
-  if (constrained) {
-    zinb_rowsum_bwd_kernel<true><<<grid, kBwdThreads, 0, s>>>(
-        x, cr, lg, gt, gcot, d_cr, d_lg, d_gt, partial, B, D, ld_cr, ld_lg,
-        ld_gt, rows_per_block);
-  } else {
-    zinb_rowsum_bwd_kernel<false><<<grid, kBwdThreads, 0, s>>>(
-        x, cr, lg, gt, gcot, d_cr, d_lg, d_gt, partial, B, D, ld_cr, ld_lg,
-        ld_gt, rows_per_block);
-  }
+  auto kernel = constrained
+      ? (vec ? zinb_rowsum_bwd_kernel<true, true>
+             : zinb_rowsum_bwd_kernel<true, false>)
+      : (vec ? zinb_rowsum_bwd_kernel<false, true>
+             : zinb_rowsum_bwd_kernel<false, false>);
+  kernel<<<grid, kThreads, 0, s>>>(x, cr, lg, gt, gcot, d_cr, d_lg, d_gt,
+                                   partial, B, D, ld_cr, ld_lg, ld_gt,
+                                   rows_per_chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t field = static_cast<int64_t>(n_chunks) * D;

@@ -26,12 +26,12 @@ __all__ = ["build", "load", "library_path", "nvcc_command"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _SOURCES = ("zinb.cu",)
-# --fmad=false: no fused multiply-add contraction, so each element's
-# arithmetic rounds op by op exactly like the plain PyTorch version it is
-# checked against (the kernel is bound by bytes, not flops)
+# FMA contraction stays on (nvcc's default): the kernels pass every card
+# case at the same tolerances with and without --fmad=false, and its
+# fused multiply-adds save instructions where the kernels are short of
+# issue slots (tools/zinb_kernel_ab.py)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-          "-Xptxas", "-v")
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _build_dir() -> Path:
@@ -95,10 +95,10 @@ _L = ctypes.c_longlong
 
 # C signatures of csrc/zinb.cu's entry points
 _SIGNATURES: Dict[str, tuple] = {
-    "sisua_zinb_rowsum_fwd": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _I,
-                              _P),
+    "sisua_zinb_rowsum_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L,
+                              _I, _I, _I, _I, _P),
     "sisua_zinb_rowsum_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _L, _L, _L, _I, _I, _P),
+                              _L, _L, _L, _I, _I, _I, _I, _P),
 }
 
 

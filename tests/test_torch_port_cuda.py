@@ -8,6 +8,8 @@ Tolerances: forward rtol 1e-4 (row-sum order); gradients rtol 2e-4 /
 atol 1e-5, as tests/test_ops.py holds the TPU kernels. A per-gene (1, D)
 gradient is a sum over the B rows, summed in another order than the plain
 version's: its atol adds 1e-6 (about 8 float32 ulps) of Σ_rows |term|.
+The sparse-count cases, whose rows may hold one or a few elements, add
+the same 1e-6 per element to the forward (``_compare``'s ``elem_ulps``).
 """
 
 import numpy as np
@@ -39,25 +41,37 @@ def _operands(dev, seed, B, D, constrained, per_gene):
   x = rng.poisson(2, (B, D)).astype(np.float32)
   x[:, :8] = 0.0
   rows = [1 if pg else B for pg in per_gene]
-  if constrained:
+  if constrained:  # the θ floor and both sides of the 1e6 switch
     cr = rng.gamma(2, 2, (rows[0], D)).astype(np.float32)
-    cr[:, -4:] = [1e-9, 0.5, 2e6, 8e6]
-  else:
+    cr[:, -4:] = [1e-9, 0.5, 2e6, 8e6][-D:]
+  else:  # outside the ±15 clip
     cr = rng.normal(0, 2, (rows[0], D)).astype(np.float32)
-    cr[:, -2:] = [16.0, -17.0]
+    cr[:, -2:] = [16.0, -17.0][-D:]
   lg = rng.normal(0, 2, (rows[1], D)).astype(np.float32)
   gt = rng.normal(0, 2, (rows[2], D)).astype(np.float32)
   ct = rng.normal(0, 1, (B,)).astype(np.float32)
   return [torch.tensor(a, device=dev) for a in (x, cr, lg, gt, ct)]
 
 
-def _compare(ops, constrained, need=(True, True, True)):
+def _compare(ops, constrained, need=(True, True, True), elem_ulps=False):
+  """Kernels against plain versions. ``elem_ulps`` adds to the forward an
+  atol of SUM_ULPS per element of each row's Σ (|element| + 1): a zero
+  count's log-prob is a difference of O(1) terms, so a row of a few such
+  elements (D = 1, 10) is near 0 and carries ~1e-7 absolute rounding in
+  any float32 implementation, the plain version's included."""
   x, cr, lg, gt, ct = ops
   out = tz._fwd_launch(x, cr, lg, gt, constrained)
   grads = tz._bwd_launch(x, cr, lg, gt, ct, constrained, need)
   torch.cuda.synchronize()
   ref = tz._rowsum_ref(x, cr, lg, gt, constrained)
-  np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **FWD)
+  o, r = out.cpu().numpy(), ref.cpu().numpy()
+  atol = 0.0
+  if elem_ulps:
+    elem = tz._zinb_elem(x, cr, lg, gt, constrained)
+    atol = SUM_ULPS * (elem.abs() + 1.0).sum(-1).cpu().numpy()
+  bad = ~(np.abs(o - r) <= atol + FWD["rtol"] * np.abs(r))
+  assert not bad.any(), (f"{bad.sum()} of {bad.size} row sums off, worst "
+                         f"|Δ| {np.abs(o - r)[bad].max():.3e}")
   refs = tz._grads_ref(x, cr, lg, gt, ct, constrained, need)
   terms = tz._zinb_grads_elem(x, cr, lg, gt, constrained)
   for a, b, t in zip(grads, refs, terms):
@@ -114,6 +128,103 @@ def test_backward_is_bitwise_deterministic(dev):
   a = tz._bwd_launch(*ops, False, (True, True, True))
   b = tz._bwd_launch(*ops, False, (True, True, True))
   assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_forward_is_bitwise_deterministic(dev):
+  """Rows split into column chunks are summed in a fixed order."""
+  ops = _sparse_operands(dev, 23, 512, 33_000, "7pct", False,
+                         (False,) * 3)
+  plan = _plan(ops)
+  assert plan.fwd_chunks > 1 and plan.vec
+  a = tz._fwd_launch(*ops[:4], False)
+  assert all(torch.equal(a, tz._fwd_launch(*ops[:4], False))
+             for _ in range(3))
+
+
+# count patterns of the sparse cases: share of nonzero elements, or a rule
+PATTERNS = ("7pct", "0.5pct", "zero_rows", "full_rows", "one_per_32")
+
+
+def _sparse_counts(rng, B, D, pattern):
+  """Counts of single-cell sparsity: ~7% or ~0.5% nonzero; every third row
+  all zero (the rest 7%); every third row all nonzero; exactly one nonzero
+  in each run of 32 columns, at a random place."""
+  x = rng.poisson(3.0, (B, D)).astype(np.float32) + 1.0
+  if pattern in ("7pct", "0.5pct", "zero_rows", "full_rows"):
+    share = 0.005 if pattern == "0.5pct" else 0.07
+    x *= rng.random((B, D)) < share
+    if pattern == "zero_rows":
+      x[::3] = 0.0
+    elif pattern == "full_rows":
+      x[::3] = rng.poisson(3.0, x[::3].shape) + 1.0
+  else:
+    keep = np.zeros((B, -(-D // 32) * 32), bool)
+    pos = rng.integers(0, 32, (B, keep.shape[1] // 32))
+    keep.reshape(B, -1, 32)[np.arange(B)[:, None],
+                            np.arange(pos.shape[1]), pos] = True
+    x *= keep[:, :D]
+  return x
+
+
+def _sparse_operands(dev, seed, B, D, pattern, constrained, per_gene):
+  ops = _operands(dev, seed, B, D, constrained, per_gene)
+  x = _sparse_counts(np.random.default_rng(seed + 1000), B, D, pattern)
+  return [torch.tensor(x, device=dev)] + ops[1:]
+
+
+def _plan(ops):
+  b, d, lds = tz._row_strides(ops[0], ops[1:4])
+  return tz._launch_plan(b, d, lds, [t.data_ptr() for t in ops[:4]],
+                         tz._sm_count(ops[0].device))
+
+
+@pytest.mark.parametrize("width", [1, 10, 1001, 33_001, 33_000])
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_sparse_counts_match_plain(dev, pattern, width):
+  """Single-cell sparsity through the compacted count path, at widths
+  that are and are not a multiple of 4 or of a 128-column tile: the
+  16-byte copy path (D = 33,000) and the 4-byte one (the rest)."""
+  rows = 64 if width > 10_000 else 130
+  ops = _sparse_operands(dev, 40 + width, rows, width, pattern, False,
+                         (False,) * 3)
+  assert _plan(ops).vec == (width % 4 == 0)
+  _compare(ops, False, elem_ulps=True)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("width", [1001, 4096])
+def test_sparse_per_gene_layouts_match_plain(dev, layout, width):
+  """Per-gene (1, D) operands with sparse counts: per-gene gradients are
+  chunk sums over rows; 512 rows make several chunks."""
+  _compare(_sparse_operands(dev, 50, 512, width, "7pct", True,
+                            LAYOUTS[layout]), True, elem_ulps=True)
+
+
+@pytest.mark.parametrize("width,vec", [(10, False), (1001, False),
+                                       (33_000, True)])
+@pytest.mark.parametrize("posterior", ["zinb", "nb"])
+def test_head_views_match_plain(dev, posterior, width, vec):
+  """The heads' column chunks of one (B, k·D) output, read in place:
+  SISUA's (B, 3·10) protein output and a (B, 3·1001) one have rows that
+  are not 16-byte aligned and take 4-byte copies; the RNA head's
+  (B, 3·33,000) takes 16-byte copies."""
+  rng = np.random.default_rng(60 + width)
+  rows = 96
+  x = torch.tensor(_sparse_counts(rng, rows, width, "7pct"), device=dev)
+  head = torch.tensor(rng.normal(0, 2, (rows, 3 * width)).astype(np.float32),
+                      device=dev)
+  th, lg, gt = torch.chunk(head, 3, dim=-1)
+  th = torch.exp(torch.clamp(th, -15.0, 15.0))
+  th = torch.chunk(torch.cat([th, lg, gt], -1), 3, -1)[0]  # a view again
+  need = (True, True, True)
+  if posterior == "nb":
+    gt = torch.full((1, width), tz._NB_GATE, device=dev)
+    need = (True, True, False)
+  ct = torch.tensor(rng.normal(0, 1, rows).astype(np.float32), device=dev)
+  ops = [x, th, lg, gt, ct]
+  assert not lg.is_contiguous() and _plan(ops).vec == vec
+  grads = _compare(ops, True, need, elem_ulps=True)
+  assert (grads[2] is None) == (posterior == "nb")
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

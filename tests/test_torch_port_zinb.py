@@ -12,6 +12,8 @@ Tolerances: forward rtol 1e-4 (the row-sum order bound of test_ops.py);
 gradients rtol 2e-4 / atol 1e-5 (test_ops.py's exhaustive-branch bound).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -240,9 +242,11 @@ def test_cpu_uses_plain_version_and_cuda_path_raises():
 
 def test_build_command_targets_hopper(tmp_path):
   """The kernels build with nvcc for sm_90a into the git-ignored build/
-  directory, under a name keyed by the sources."""
+  directory, under a name keyed by the sources, with FMA contraction on
+  (the kernels pass the card's tolerances with it) and the ptxas report."""
   cmd = _build.nvcc_command(tmp_path / "lib.so")
   assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+  assert "--fmad=false" not in cmd and "-v" in cmd
   assert cmd[-1].endswith("csrc/zinb.cu")
   path = _build.library_path()
   assert path.parent.parent.name == "build"
@@ -351,3 +355,111 @@ def test_row_strides_read_head_slices_in_place():
     tz._row_strides(head[:, :5], (theta, logits, gate))
   with pytest.raises(ValueError, match="per-gene"):
     tz._row_strides(x, (torch.zeros(2, 5), logits, gate))
+
+
+def _head_views(b, d, k=3):
+  """x and the k column chunks of one (b, k·d) head output, as the 'zinb'
+  (k = 3) and 'nb' (k = 2) heads pass them to the kernels."""
+  return torch.zeros(b, d), torch.chunk(torch.zeros(b, k * d), k, dim=-1)
+
+
+def _plan_for(x, params, n_sm=132):
+  b, d, lds = tz._row_strides(x, params)
+  return tz._launch_plan(b, d, lds, [t.data_ptr() for t in (x, *params)],
+                         n_sm)
+
+
+def test_launch_plan_copy_width_follows_alignment():
+  """SISUA's RNA head views at D = 33,000 (column offsets of 132,000 bytes)
+  get 16-byte copies; the protein head's at D = 10 (offsets of 40 and 80
+  bytes, row stride 30 floats), a ragged width, an odd row stride and an
+  address off 16 bytes get 4-byte copies. A (1, D) row (stride 0) keeps
+  the vector path."""
+  x, views = _head_views(2, 33_000)
+  assert _plan_for(x, views).vec
+  assert _plan_for(x, (views[0], torch.zeros(1, 33_000), views[2])).vec
+  x, views = _head_views(2, 10)
+  assert views[1].data_ptr() % 16 == 8
+  assert not _plan_for(x, views).vec
+  x, nb = _head_views(4, 10, k=2)
+  assert not _plan_for(x, (nb[0], nb[1], torch.zeros(1, 10))).vec
+  x, views = _head_views(3, 1001)
+  assert not _plan_for(x, views).vec
+  wide = torch.zeros(3, 1001)[:, :1000]  # row stride 1001: rows misaligned
+  x = torch.zeros(3, 1000)
+  assert not _plan_for(x, (wide, x, x)).vec
+  flat = torch.zeros(3 * 1000 + 1)
+  off = flat[1:].view(3, 1000)  # 4 bytes past an aligned start
+  assert not _plan_for(x, (x, off, x)).vec
+
+
+@pytest.mark.parametrize("b,d", [(4096, 33_000), (65_536, 33_000),
+                                 (512, 33_000), (512, 10), (130, 1001),
+                                 (4096, 2048), (1, 1), (65_536, 10),
+                                 (3, 3_000_000)])
+def test_launch_plan_within_cuda_limits(b, d):
+  """Grids within CUDA's limits (x < 2^31, y ≤ 65,535), every row and
+  128-column tile covered exactly once, forward chunks whole multiples of
+  the block's 8 warp tiles, and the backward's per-gene scratch bounded
+  (3 · chunks · D floats ≤ 64 MiB at the batch sizes users train with)."""
+  for n_sm in (132, 114):
+    p = tz._launch_plan(b, d, [d, 0, d], [0, 0, 0, 0], n_sm)
+    tiles = -(-d // tz._TILE)
+    assert p.fwd_tiles % tz._WARPS == 0
+    assert p.fwd_chunks * p.fwd_tiles >= tiles
+    assert (p.fwd_chunks - 1) * p.fwd_tiles < tiles
+    assert 1 <= p.fwd_chunks <= tz._MAX_GRID_Y and b < 2 ** 31
+    assert p.bwd_chunks * p.bwd_rows >= b > (p.bwd_chunks - 1) * p.bwd_rows
+    assert 1 <= p.bwd_chunks <= tz._MAX_GRID_Y
+    assert p.bwd_rows >= tz._BWD_MIN_ROWS or p.bwd_chunks == 1
+    assert 3 * p.bwd_chunks * d * 4 <= 64 * 2 ** 20
+    # the forward splits a row only while the batch leaves the card short
+    assert p.fwd_chunks == 1 or b * (p.fwd_chunks - 1) < \
+        tz._BLOCKS_PER_SM * n_sm
+
+
+@pytest.mark.parametrize("per_gene", [(False,) * 3, (True, False, False),
+                                      (True, True, True)],
+                         ids=["BD", "gene_theta", "all_gene"])
+def test_launches_pass_the_plan_and_its_scratch(per_gene, monkeypatch):
+  """Both wrappers hand the C entry points the plan's copy width, chunks
+  and rows, and allocate exactly the scratch those chunks index: (B,
+  chunks) forward partials when a row is split, (3, chunks, D) backward
+  partials when a per-gene gradient is needed. Run on CPU tensors with the
+  card's calls replaced by recorders."""
+  b, d = 512, 33_000
+  x, cr, lg, gt, ct = _operands(12, B=b, D=d, per_gene=per_gene)
+  tt = [torch.tensor(a) for a in (x, cr, lg, gt, ct)]
+  made, calls = {}, []
+
+  def scratch(shape, dev):
+    t = torch.empty(shape, device=dev, dtype=torch.float32)
+    made[t.data_ptr()] = tuple(shape)
+    return t
+
+  monkeypatch.setattr(tz, "_check_operands", tz._row_strides)
+  monkeypatch.setattr(tz, "_sm_count", lambda dev: 132)
+  monkeypatch.setattr(tz, "_scratch", scratch)
+  monkeypatch.setattr(tz, "_launch",
+                      lambda dev, name, fn, *args: calls.append(args))
+  monkeypatch.setattr(_build, "load", lambda: types.SimpleNamespace(
+      sisua_zinb_rowsum_fwd=None, sisua_zinb_rowsum_bwd=None))
+  tz.reset_launches()
+  tz._fwd_launch(*tt[:4], False)
+  tz._bwd_launch(*tt, False, (True, True, True))
+  assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
+  _, _, lds = tz._row_strides(tt[0], tt[1:4])
+  plan = _plan_for(tt[0], tt[1:4])
+  fwd, bwd = calls
+  assert fwd[6:] == (b, d, *lds, int(plan.vec), plan.fwd_tiles,
+                     plan.fwd_chunks, 0)
+  assert plan.fwd_chunks == 5 and plan.vec
+  assert made[fwd[5]] == (b, plan.fwd_chunks)
+  assert bwd[9:] == (b, d, *lds, int(plan.vec), plan.bwd_rows,
+                     plan.bwd_chunks, 0)
+  if any(per_gene):
+    assert made[bwd[8]] == (3, plan.bwd_chunks, d)
+  else:
+    assert bwd[8] is None
+  assert [made[p] for p in bwd[5:8]] == [(1 if pg else b, d)
+                                         for pg in per_gene]
