@@ -49,10 +49,23 @@ before the final line:
      ``compute_llk`` (Jensen: ≥ evaluate's llk_x) and
      ``marginal_log_prob`` (≥ the ELBO); save and load seconds and bytes.
      Serving math never launches a kernel (distribution math).
+  9. the rest of the zoo at the same width, each fit from launch counts
+     set to 0, batch 512, 16 epochs in two windows of 8, the JAX
+     package's default nets: FVAE ('zinb', γ = 6, its TC discriminator
+     trained in the same step), SCALAR ('zinb' + the 10 proteins 'nb',
+     α = 10, labels_percent 0.1, a 10-component mixture latent), SCALE
+     ('zinb', 10 components) and LDVAE ('nbd', per-gene θ through
+     ``column_sum_kernel``). Each: every loss finite and falling (FVAE:
+     ``tc`` and ``disc_loss`` in the history), each kernel launched once
+     per head per step, steady step ms, cells/s and peak memory; a
+     ``save_weights`` → ``load_model`` round trip with weights (and the
+     discriminator) bitwise equal and ``evaluate`` equal within
+     EVAL_RTOL; the kernel route against the plain route on one batch at
+     the same converted weights and noise, with phase 7's bounds.
 Before the last line it prints the kernels' JSON summary (launches of the
-phase 4 and phase 6 fits and of phase 8; time, plain time and bound at
-512 × 33,000 'main_full'); the last line is ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+phase 4 and phase 6 fits, of phase 8 and of phase 9's fits and round
+trips; time, plain time and bound at 512 × 33,000 'main_full'); the last
+line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 import json
@@ -798,6 +811,144 @@ def phase_serving(torch, saved, x, held, held_y, smi):
   return dict(tz.launches)
 
 
+# phase 9: the zoo's fits, in order, and each one's ZINB/NB heads
+ZOO = {"FVAE": 1, "SCALAR": 2, "SCALE": 1, "LDVAE": 1}
+GAMMA = 6.0           # FVAE's TC weight (sisua_tpu/models/fvae.py default)
+N_COMPONENTS = 10     # SCALE's mixture latent (sisua_tpu/models/scale.py)
+
+
+def _zoo_model(name):
+  """The JAX package's default nets and latent for each model."""
+  from sisua_tpu_torch import models as T
+  rna = T.RVmeta(GENES, "nbd" if name == "LDVAE" else "zinb", name="rna")
+  kw = dict(device=DEVICE, seed=SEED)
+  if name == "FVAE":
+    return T.FVAE(rna, gamma=GAMMA, **kw)
+  if name == "SCALAR":
+    return T.SCALAR(_sisua_outputs(), alpha=ALPHA, n_components=N_COMPONENTS,
+                    **kw)
+  if name == "SCALE":
+    return T.SCALE(rna, n_components=N_COMPONENTS, **kw)
+  return T.LDVAE(rna, dispersion="single", **kw)
+
+
+def _latent_noise(torch, model, gen, rows):
+  """Reparameterization noise for each latent: a standard-normal draw, or
+  (component indices, component noise) for a 'mixgaus' latent."""
+  noise = []
+  for rv in model.latents:
+    k = rv.kw.get("n_components")
+    if rv.posterior == "mixgaus":
+      noise.append((torch.randint(0, k, (rows,), generator=gen,
+                                  device=DEVICE),
+                    torch.randn((rows, k, rv.dim), generator=gen,
+                                device=DEVICE)))
+    else:
+      noise.append(torch.randn((rows, rv.dim), generator=gen, device=DEVICE))
+  return noise
+
+
+def _zoo_fit(torch, name, data, smi):
+  """One phase 9 fit from launch counts set to 0; returns the model and
+  the counts read right after it."""
+  import numpy as np
+  from sisua_tpu_torch.ops import zinb as tz
+  model = _zoo_model(name)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  model.fit(data, epochs=EPOCHS, batch_size=BATCH, learning_rate=1e-3,
+            labels_percent=LABELS_PERCENT, metrics_interval=WINDOW)
+  fit_s = time.perf_counter() - t0
+  launches = dict(tz.launches)
+  steps = EPOCHS * (CELLS // BATCH)
+  h = model.history
+  losses = np.asarray(h["loss"])
+  check(len(losses) == EPOCHS and model.step == steps,
+        f"{name}: ran {len(losses)} epochs / {model.step} steps")
+  check(np.isfinite(losses).all(), f"{name}: non-finite loss {losses}")
+  first, last = losses[:WINDOW].mean(), losses[-WINDOW:].mean()
+  check(last < first, f"{name}: last window loss {last} !< first {first}")
+  extra = ""
+  if name == "FVAE":
+    check(all(k in h and np.isfinite(h[k]).all() for k in ("tc",
+                                                           "disc_loss")),
+          f"FVAE: history keys {sorted(h)}")
+    extra = (f"; tc {h['tc'][0]:.3f} → {h['tc'][-1]:.3f}, disc_loss "
+             f"{h['disc_loss'][0]:.4f} → {h['disc_loss'][-1]:.4f}")
+  heads = ZOO[name]
+  check(launches == {"zinb_rowsum_fwd": heads * steps,
+                     "zinb_rowsum_bwd": heads * steps},
+        f"{name}: launches {launches}, expected {heads} × {steps} steps")
+  step_ms, cells_s, peak = _steady(h, torch)
+  log(f"[9 zoo] {name}: {steps} steps in {fit_s:.1f} s; loss first window "
+      f"{first:.2f} last window {last:.2f}{extra}; launches {launches}")
+  log(f"[9 zoo] {name}: steady step {step_ms:.3f} ms, {cells_s:.0f} "
+      f"cells/s (last window), peak memory {peak:.2f} GiB | {smi}")
+  return model, launches
+
+
+def _zoo_round_trip(torch, name, model, held_data, root):
+  """save_weights → load_model: weights (and FVAE's discriminator)
+  bitwise equal, evaluate equal within EVAL_RTOL at the same noise.
+  Returns the forward launches of the two evaluates."""
+  from sisua_tpu_torch.models import load_model
+  from sisua_tpu_torch.ops import zinb as tz
+  before = tz.launches["zinb_rowsum_fwd"]
+  saved = _save_trained(torch, model, held_data, root)
+  aux = (None if model.aux is None else
+         {k: v.detach().cpu().clone() for k, v in model.aux.state_dict().items()})
+  m = load_model(saved["path"], device=DEVICE)
+  sd = m.module.state_dict()
+  check(sd.keys() == saved["state"].keys()
+        and all(torch.equal(sd[k].cpu(), v) for k, v in saved["state"].items()),
+        f"{name}: reloaded weights differ from the saved ones")
+  if aux is not None:
+    got = m.aux.state_dict()
+    check(got.keys() == aux.keys()
+          and all(torch.equal(got[k].cpu(), v) for k, v in aux.items()),
+          f"{name}: reloaded discriminator differs from the saved one")
+  m.generator.manual_seed(SEED + 8)
+  ev = m.evaluate(held_data, batch_size=BATCH)
+  for k, v in saved["ev"].items():
+    check(abs(ev[k] - v) <= EVAL_RTOL * abs(v),
+          f"{name}: evaluate {k} {ev[k]} vs trained {v}")
+  fwd = tz.launches["zinb_rowsum_fwd"] - before
+  check(fwd == 2 * ZOO[name] * -(-HELD_OUT // BATCH),
+        f"{name}: the two evaluates launched the forward {fwd} times")
+  log(f"[9 zoo] {name}: save_weights → load_model ({saved['bytes']:,} "
+      f"bytes{', aux_params.msgpack' if aux is not None else ''}): weights"
+      f"{' and discriminator' if aux is not None else ''} bitwise equal, "
+      f"evaluate loss {ev['loss']:.4f} = trained (rtol {EVAL_RTOL})")
+  return fwd
+
+
+def phase_zoo(torch, x, held, y, held_y, library, root, smi):
+  """Phase 9; returns the launches of its fits and round trips."""
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+  rows = torch.arange(BATCH, device=DEVICE)
+  mask = (torch.rand((BATCH,), generator=gen, device=DEVICE)
+          < 0.5).to(torch.float32)
+  total = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+  for name in ZOO:
+    two = name == "SCALAR"
+    model, launches = _zoo_fit(torch, name, [x, y] if two else x, smi)
+    fwd = _zoo_round_trip(torch, name, model, [held, held_y] if two
+                          else [held], root)
+    total = {k: v + launches[k] for k, v in total.items()}
+    total["zinb_rowsum_fwd"] += fwd
+    batch = {"inputs": [x[rows], y[rows]] if two else [x[rows]],
+             "mask": mask}
+    if model.uses_library:
+      batch["library"] = library[rows]
+    fresh = _zoo_model(name)
+    _compare_routes(torch, "9 zoo", name, fresh, _converted(fresh, model),
+                    batch, _latent_noise(torch, fresh, gen, BATCH), ZOO[name])
+    del model, fresh
+  return total
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -821,9 +972,12 @@ def main():
     phase_model_routes(torch, sisua, x, y)
     del sisua
     serve_launches = phase_serving(torch, saved, x, held, held_y, smi)
+    del saved
+    zoo_launches = phase_zoo(torch, x, held, y, held_y, library, ckpt_root,
+                             smi)
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
-  launches = {k: v + sisua_launches[k] + serve_launches[k]
+  launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]
               for k, v in launches.items()}
   main_case = kern["main_full"]
   kernels = []

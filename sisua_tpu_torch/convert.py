@@ -10,6 +10,11 @@ maps to a ``state_dict`` key by joining with '.'. Leaf renames:
   batch_stats ``mean``/``var``      ↔  ``running_mean``/``running_var``
   a bare ``self.param`` (e.g. ``px_r_single``) keeps its name.
 
+Any module whose submodules carry the flax names converts: the VAE
+modules, and FactorVAE's discriminator (``dense{i}`` and ``logits``
+Dense layers, ``aux_params`` in the JAX ``TrainState``), whose tree is
+params only.
+
 Both directions raise on any leaf left over on either side, so a topology
 drift between the packages cannot pass silently. Inputs and outputs are
 nested dicts of numpy arrays (``jax.device_get`` of a flax tree, or

@@ -3,7 +3,8 @@
 
 from .base import (Distribution, Independent, NoAnalyticKL, kl_divergence,
                    register_kl, tree_map)
-from .continuous import MultivariateNormalDiag, Normal, VectorDeterministic
+from .continuous import (MultivariateNormalDiag, MultivariateNormalTriL,
+                         Normal, VectorDeterministic)
 from .count import (Bernoulli, NegativeBinomial, NegativeBinomialDisp,
                     NegativeBinomialDispLog, NegativeBinomialLog, Poisson,
                     ZeroInflated)
@@ -12,7 +13,8 @@ from .mixture import MixtureSameFamily
 
 __all__ = [
     "Distribution", "Independent", "NoAnalyticKL", "kl_divergence",
-    "register_kl", "tree_map", "MultivariateNormalDiag", "Normal",
+    "register_kl", "tree_map", "MultivariateNormalDiag",
+    "MultivariateNormalTriL", "Normal",
     "VectorDeterministic",
     "Poisson", "Bernoulli", "NegativeBinomial", "NegativeBinomialDisp",
     "NegativeBinomialDispLog", "NegativeBinomialLog", "ZeroInflated",

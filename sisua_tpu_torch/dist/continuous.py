@@ -1,11 +1,13 @@
-"""Continuous distributions: Normal, MultivariateNormalDiag and
-VectorDeterministic.
+"""Continuous distributions: Normal, MultivariateNormalDiag,
+MultivariateNormalTriL and VectorDeterministic.
 
 Port of part of ``sisua_tpu/dist/continuous.py``: the 'diag' latent
 posterior and prior, the 'normal' library posterior and prior and the
 components of the 'mixgaus' head, each with log_prob, analytic KL and a
-reparameterized ``rsample`` that also accepts given standard noise; and the
-deterministic 'mse'/'linear'/'relu' head, whose KL to anything is 0.
+reparameterized ``rsample`` that also accepts given standard noise; the
+'tril' posterior and the components of 'mixtril' (no closed-form KL: the
+objective takes the Monte-Carlo estimate); and the deterministic
+'mse'/'linear'/'relu' head, whose KL to anything is 0.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 
 from .base import Distribution, Tensor, register_kl
 
-__all__ = ["Normal", "MultivariateNormalDiag", "VectorDeterministic"]
+__all__ = ["Normal", "MultivariateNormalDiag", "MultivariateNormalTriL",
+           "VectorDeterministic"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -101,6 +104,52 @@ def _kl_mvndiag_mvndiag(p: MultivariateNormalDiag, q: MultivariateNormalDiag):
   var_ratio = torch.square(p.scale_diag / q.scale_diag)
   t1 = torch.square((p.loc - q.loc) / q.scale_diag)
   return 0.5 * torch.sum(var_ratio + t1 - 1.0 - torch.log(var_ratio), dim=-1)
+
+
+class MultivariateNormalTriL(Distribution):
+  """MVN with a lower-triangular scale ``scale_tril`` (..., D, D): the
+  'tril' posterior and the components of 'mixtril'."""
+
+  def __init__(self, loc: Tensor, scale_tril: Tensor):
+    self.loc = loc
+    self.scale_tril = scale_tril
+
+  @property
+  def event_shape(self):
+    return (self.loc.shape[-1],)
+
+  @property
+  def batch_shape(self):
+    return tuple(torch.broadcast_shapes(self.loc.shape[:-1],
+                                        self.scale_tril.shape[:-2]))
+
+  def log_prob(self, x):
+    """Solve L y = x − loc; log|Σ|^½ = Σ log|diag L|."""
+    diff = x - self.loc
+    lead = torch.broadcast_shapes(diff.shape[:-1], self.scale_tril.shape[:-2])
+    d = self.loc.shape[-1]
+    tril = self.scale_tril.expand(lead + (d, d))
+    y = torch.linalg.solve_triangular(
+        tril, diff.expand(lead + (d,)).unsqueeze(-1), upper=False)[..., 0]
+    log_det = torch.sum(torch.log(torch.abs(torch.diagonal(
+        self.scale_tril, dim1=-2, dim2=-1))), dim=-1)
+    return -0.5 * torch.sum(y * y, dim=-1) - log_det - d * _HALF_LOG_2PI
+
+  def mean(self):
+    return self.loc.expand(self.batch_shape + self.event_shape)
+
+  def variance(self):
+    return torch.sum(self.scale_tril * self.scale_tril, dim=-1)
+
+  def mode(self):
+    return self.mean()
+
+  def rsample(self, sample_shape=(), generator=None, eps=None):
+    """loc + L @ eps."""
+    shape = tuple(sample_shape) + self.batch_shape + self.event_shape
+    eps = _standard_noise(shape, self.loc, generator, eps)
+    return self.loc + torch.matmul(self.scale_tril,
+                                   eps.unsqueeze(-1))[..., 0]
 
 
 class VectorDeterministic(Distribution):

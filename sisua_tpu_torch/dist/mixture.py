@@ -1,5 +1,6 @@
 """MixtureSameFamily (port of ``sisua_tpu/dist/mixture.py``): the
-'mixgaus'/'mdn' and 'mixnb' heads of MISA.
+'mixgaus'/'mdn' and 'mixnb' heads of MISA and the 'mixgaus'/'mixtril'
+latents of SCALE.
 
 Component parameters carry the component axis K at position −2, between
 batch and event: K Gaussians over a D-dim event have ``loc`` (..., K, D)
@@ -74,9 +75,32 @@ class MixtureSameFamily(Distribution):
     return self._pick(self.components.mode(),
                       torch.argmax(self.mixture_logits, dim=-1))
 
+  def rsample(self, sample_shape=(), generator=None, eps=None):
+    """One component index per row from the mixture weights, a
+    reparameterized draw from every component, and the picked one's
+    (``take_along_dim``). The gradient reaches the picked component's
+    parameters, not the mixture logits: those get theirs through
+    ``log_prob`` (the Monte-Carlo KL), as in the JAX package. ``eps`` is
+    the pair (component indices (…,), component noise (…, K, *event)),
+    else both come from ``generator``."""
+    if eps is None:
+      k = Categorical(self.mixture_logits).sample(sample_shape, generator)
+      noise = None
+    else:
+      k, noise = eps
+      shape = tuple(sample_shape) + self.batch_shape
+      if tuple(k.shape) != shape:
+        raise ValueError(f"component indices of shape {tuple(k.shape)}, "
+                         f"expected {shape}")
+      k = k.to(device=self.mixture_logits.device, dtype=torch.int64)
+    draws = self.components.rsample(sample_shape, generator=generator,
+                                    eps=noise)
+    return self._pick(draws, k)
+
   def sample(self, sample_shape=(), generator=None):
-    """A component index from the mixture weights, then that component's
-    draw, both from ``generator``."""
-    k = Categorical(self.mixture_logits).sample(sample_shape, generator)
-    return self._pick(self.components.sample(sample_shape,
-                                             generator=generator), k)
+    """``rsample``'s draw without a gradient, in the same order from
+    ``generator``; count components ('mixnb') take their own ``sample``."""
+    with torch.no_grad():
+      k = Categorical(self.mixture_logits).sample(sample_shape, generator)
+      return self._pick(self.components.sample(sample_shape,
+                                               generator=generator), k)

@@ -1,8 +1,8 @@
 """sisua_tpu_torch.models — the port's models (counterpart of
-``sisua_tpu.models``): SCVI and the paper's own VAE, SISUA, MISA and
-DeepCountAutoencoder, with ``get_model``, ``get_all_models`` and
-``load_model`` over them. ``load_model`` reads a checkpoint written by
-either package."""
+``sisua_tpu.models``): SCVI and LDVAE, the paper's own VAE, SISUA, MISA and
+DeepCountAutoencoder, SCALE/SCALAR and FVAE/SemiFVAE, with ``get_model``,
+``get_all_models`` and ``load_model`` over them. ``load_model`` reads a
+checkpoint written by either package."""
 
 from __future__ import annotations
 
@@ -16,18 +16,23 @@ from ..rv import RVmeta
 from ..train.checkpoint import load_metamodel
 from .base import SingleCellModel
 from .dca import DeepCountAutoencoder
+from .fvae import FVAE, SemiFVAE
+from .ldvae import LDVAE
 from .module import SCVIModule, VAEModule, VAEOutput
 from .objective import compute_loss, elbo_terms
+from .scale import SCALAR, SCALE
 from .scvi import SCVI
 from .vae import MISA, SISUA, VAE
 
 __all__ = ["SingleCellModel", "VAE", "SISUA", "MISA", "DeepCountAutoencoder",
-           "SCVI", "get_model", "get_all_models", "load_model",
+           "SCVI", "LDVAE", "SCALE", "SCALAR", "FVAE", "SemiFVAE",
+           "get_model", "get_all_models", "load_model",
            "SCVIModule", "VAEModule", "VAEOutput", "compute_loss",
            "elbo_terms", "NetConf", "RVmeta"]
 
 
-_PORTED = (VAE, SISUA, MISA, DeepCountAutoencoder, SCVI)
+_PORTED = (VAE, SISUA, MISA, DeepCountAutoencoder, SCVI, LDVAE, SCALE,
+           SCALAR, FVAE, SemiFVAE)
 
 
 def get_all_models() -> List[Type[SingleCellModel]]:

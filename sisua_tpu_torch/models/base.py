@@ -10,6 +10,14 @@ the card's memory. Checkpoints: ``save_weights``/``load_weights`` write
 and read the JAX package's files (``train/checkpoint.py``), so a model
 saved by either package loads in the other (``models.load_model``).
 
+Hooks for the zoo, as in the JAX package: ``_init_aux`` builds a second
+parameter group (FactorVAE's discriminator) with its own optimizer
+(``_make_aux_optimizer``); ``_extra_loss`` adds a term to the loss;
+``_aux_step`` runs after the main optimizer step. The aux parameters are
+outside the main optimizer and its gradient clip, are written to
+``aux_params.msgpack``, and a rollback restores them with their optimizer
+state.
+
 The model owns an ``nn.Module`` on an explicit ``device`` (default
 ``"cuda"``, which raises when there is no card), a ``torch.Generator`` on
 that device for the reparameterization noise, dropout masks, the epoch
@@ -37,6 +45,7 @@ from typing import (Dict, Iterator, List, Optional, Sequence, Tuple,
 
 import numpy as np
 import torch
+from torch import nn
 
 from .. import convert
 from .. import dist as D
@@ -142,6 +151,10 @@ def _one_or_tuple(xs):
   return xs if len(xs) > 1 else xs[0]
 
 
+def _state_copy(module: nn.Module) -> Dict[str, torch.Tensor]:
+  return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
 class SingleCellModel:
   """Base class of the port's zoo. Subclasses customize via ctor."""
 
@@ -223,6 +236,10 @@ class SingleCellModel:
         self.outputs, self.latents, self.encoder, self.decoder,
         log_norm=self.log_norm, reduce_latent=reduce_latent,
         generator=init_gen, **module_kwargs).to(self.device)
+    self.aux = self._init_aux(init_gen)
+    if self.aux is not None:
+      self.aux.to(self.device)
+    self.aux_optimizer = None
     self.generator = torch.Generator(device=self.device)
     self.generator.manual_seed(self.seed)
     self.step = 0
@@ -305,10 +322,11 @@ class SingleCellModel:
   def _loss(self, batch, training: bool, beta: float,
             noise: Optional[Sequence[Optional[torch.Tensor]]] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], VAEOutput]:
-    """−ELBO of one batch {inputs: [x, …], library?, mask?}. The module is
-    put in train or eval mode (BatchNorm batch vs running stats, dropout);
-    in train mode BatchNorm updates its running stats. The mask gates the
-    label heads only in training."""
+    """−ELBO of one batch {inputs: [x, …], library?, mask?}, plus the
+    ``_extra_loss`` term when there is one. The module is put in train or
+    eval mode (BatchNorm batch vs running stats, dropout); in train mode
+    BatchNorm updates its running stats. The mask gates the label heads
+    only in training."""
     self.module.train(training)
     library = batch.get("library") if self.uses_library else None
     out = self.module(self._module_input(batch["inputs"]), library=library,
@@ -318,16 +336,46 @@ class SingleCellModel:
         alpha=self.alpha, analytic=self.analytic,
         mask_outputs=self.mask_outputs if training else False,
         mask_renorm=self.mask_renorm if training else False)
+    extra = self._extra_loss(out, batch, training)
+    if extra is not None:
+      loss = loss + extra[0]
+      metrics.update(extra[1])
+      metrics["loss"] = loss
     return loss, metrics, out
 
+  # ------------------------------------------------------------------ hooks
+  def _init_aux(self, generator: torch.Generator) -> Optional[nn.Module]:
+    """A second parameter group, initialized from ``generator`` (the
+    module's init stream), or None (FactorVAE overrides)."""
+    return None
+
+  def _make_aux_optimizer(self):
+    """The aux group's own optimizer (FactorVAE overrides)."""
+    raise NotImplementedError(f"{type(self).__name__} has aux parameters "
+                              "but no optimizer for them")
+
+  def _extra_loss(self, out: VAEOutput, batch, training: bool
+                  ) -> Optional[Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """None, or (term, metrics): the term is added to the loss and the
+    metrics to the step's (FactorVAE's γ·TC). The aux parameters must not
+    receive a gradient from it."""
+    return None
+
+  def _aux_step(self, batch, metrics: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """Runs after the main optimizer step; returns the step's metrics
+    (FactorVAE trains its discriminator here)."""
+    return metrics
+
   def _train_step(self, batch) -> Dict[str, torch.Tensor]:
-    """One optimizer step; β is the schedule at the current step."""
+    """One optimizer step; β is the schedule at the current step. Then the
+    aux step, on the updated parameters."""
     loss, metrics, _ = self._loss(batch, True, self.beta(self.step))
     self.optimizer.zero_grad()
     loss.backward()
     self.optimizer.step()
     self.step += 1
-    return metrics
+    return self._aux_step(batch, metrics)
 
   def _eval_step(self, batch) -> Dict[str, torch.Tensor]:
     with torch.no_grad():
@@ -335,16 +383,24 @@ class SingleCellModel:
     return metrics
 
   def _snapshot(self) -> Dict:
-    """Device-side copy of parameters, buffers, Adam state and step."""
-    return {"module": {k: v.detach().clone()
-                       for k, v in self.module.state_dict().items()},
+    """Device-side copy of parameters, buffers, Adam state and step, and
+    of the aux parameters and their optimizer's state (the JAX rollback
+    restores the whole ``TrainState``)."""
+    snap = {"module": _state_copy(self.module),
             "optimizer": copy.deepcopy(self.optimizer.state_dict()),
             "step": self.step}
+    if self.aux is not None:
+      snap["aux"] = _state_copy(self.aux)
+      snap["aux_optimizer"] = copy.deepcopy(self.aux_optimizer.state_dict())
+    return snap
 
   def _restore(self, snap: Dict) -> None:
     self.module.load_state_dict(snap["module"])
     self.optimizer.load_state_dict(snap["optimizer"])
     self.step = snap["step"]
+    if self.aux is not None:
+      self.aux.load_state_dict(snap["aux"])
+      self.aux_optimizer.load_state_dict(snap["aux_optimizer"])
 
   # --------------------------------------------------------------- forward
   @contextlib.contextmanager
@@ -499,6 +555,8 @@ class SingleCellModel:
                       metrics_interval=metrics_interval, verbose=verbose)
     if self.optimizer is None:
       self.optimizer = trainer.make_optimizer(self.module.parameters())
+    if self.aux is not None and self.aux_optimizer is None:
+      self.aux_optimizer = self._make_aux_optimizer()
     trainer.fit(self, xs, lib, epochs=epochs, batch_size=batch_size,
                 labels_percent=labels_percent, generator=self.generator,
                 valid=val)
@@ -847,11 +905,14 @@ class SingleCellModel:
   # -------------------------------------------------------------------- io
   def save_weights(self, path: str, backend: str = "msgpack") -> str:
     """The JAX package's checkpoint: ``params.msgpack`` (+
-    ``batch_stats.msgpack``) in the flax layout, ``metamodel.json``, and
-    ``history.json`` when there is a history. The optimizer state and the
-    step are not saved (nor are they by the JAX package)."""
+    ``batch_stats.msgpack``, + ``aux_params.msgpack``) in the flax layout,
+    ``metamodel.json``, and ``history.json`` when there is a history. The
+    optimizer states and the step are not saved (nor are they by the JAX
+    package)."""
     params, batch_stats = convert.torch_to_jax(self.module)
-    ckpt.save_weights(path, params, batch_stats or None, backend=backend)
+    aux = None if self.aux is None else convert.torch_to_jax(self.aux)[0]
+    ckpt.save_weights(path, params, batch_stats or None, aux_params=aux,
+                      backend=backend)
     ckpt.save_metamodel(path, type(self).__name__, self.dataset,
                         self.metadata, self._init_kwargs_for_save)
     hist = self.history
@@ -872,9 +933,13 @@ class SingleCellModel:
         raise FileNotFoundError(f"No checkpoint at {path}")
       return self
     params_t, stats_t = convert.torch_to_jax(self.module)
-    params, stats = ckpt.load_weights(path, params_t, stats_t or None)
+    aux_t = None if self.aux is None else convert.torch_to_jax(self.aux)[0]
+    params, stats, aux = ckpt.load_weights(path, params_t, stats_t or None,
+                                           aux_t)
     self.module.load_state_dict(convert.jax_to_torch(self.module, params,
                                                      stats))
+    if self.aux is not None:
+      self.aux.load_state_dict(convert.jax_to_torch(self.aux, aux))
     hist_path = os.path.join(path, "history.json")
     if os.path.isfile(hist_path) and self.trainer is None:
       with open(hist_path) as f:

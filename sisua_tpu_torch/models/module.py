@@ -7,8 +7,12 @@ priors; the ELBO is a function of it (``objective.py``). Train/eval mode is
 the module's own (``module.train()``/``eval()``), as BatchNorm and dropout
 read it. Randomness comes from an explicit ``torch.Generator`` (dropout
 masks and reparameterization noise), or the noise is given directly
-(``noise=``, one standard-normal tensor per latent) so a test can feed the
-JAX side's draws.
+(``noise=``, one entry per latent) so a test can feed the JAX side's draws.
+Each entry is what the latent's ``rsample`` takes as ``eps``: a standard-
+normal tensor of the draw's shape for 'diag'/'normal'/'tril'; for a
+mixture latent ('mixgaus'/'mdn'/'mixtril') the pair (component indices
+(…, B), every component's standard noise (…, B, K, D)); None for a
+deterministic latent (DCA).
 
 Submodule names are the flax names, so ``convert.py`` maps a JAX parameter
 path to a ``state_dict`` key by joining with '.'.
@@ -116,9 +120,10 @@ class VAEModule(nn.Module):
                  for rv in self.latents)
 
   def _sample(self, qZ, sample_shape, generator, noise):
-    """One reparameterized draw per latent; a deterministic latent (DCA)
-    returns its ``loc`` and takes no noise (its ``noise`` entry may be
-    None)."""
+    """One reparameterized draw per latent, each ``noise`` entry passed
+    through unchanged as that latent's ``eps`` (see the module docstring);
+    a deterministic latent (DCA) returns its ``loc`` and takes no noise
+    (its entry may be None)."""
     if noise is not None and len(noise) != len(qZ):
       raise ValueError(f"{len(noise)} noise tensors for {len(qZ)} latents")
     return tuple(q.rsample(sample_shape, generator=generator,

@@ -171,14 +171,16 @@ def _dropout(x: torch.Tensor, rate: float,
 
 
 class MLP(nn.Module):
-  """Dense stack with optional batchnorm / dropout / input dropout."""
+  """Dense stack with optional batchnorm / dropout / input dropout.
+  ``units=()`` is the identity (LDVAE's linear decoder): no parameters,
+  ``out_dim`` the input width, input dropout still applied."""
 
   def __init__(self, in_dim: int, conf: NetConf,
                generator: Optional[torch.Generator] = None):
     super().__init__()
     self.conf = conf
     self.act = _ACTIVATIONS[conf.activation]
-    self.out_dim = conf.units[-1]
+    self.out_dim = conf.units[-1] if conf.units else in_dim
     d = in_dim
     for i, u in enumerate(conf.units):
       self.add_module(f"dense{i}", dense(d, u, generator))

@@ -1,12 +1,14 @@
 """RVmeta — declarative random-variable spec (port of ``sisua_tpu/rv.py``).
 
-The vocabulary of SCVI and of the paper's models (VAE, SISUA, MISA, DCA):
-'diag', 'normal', the count heads 'zinbd', 'nbd', 'zinb', 'nb', 'poisson',
-'zip', the label heads 'onehot' and 'bernoulli', the deterministic
-'mse'/'linear'/'relu', and the mixtures 'mixgaus'/'mdn' and 'mixnb'. The
-activation conventions are the JAX package's: positive count parameters use
-``exp(clip(raw, -15, 15))``; Normal scales use ``softplus(raw) + 1e-4``.
-'tril', 'mixtril' and 'nzmse' are not ported yet and raise
+The vocabulary of SCVI, the paper's models (VAE, SISUA, MISA, DCA) and
+SCALE, FactorVAE and LDVAE: 'diag', 'normal', 'tril'/'mvntril', the count
+heads 'zinbd', 'nbd', 'zinb', 'nb', 'poisson', 'zip', the label heads
+'onehot' and 'bernoulli', the deterministic 'mse'/'linear'/'relu', and the
+mixtures 'mixgaus'/'mdn', 'mixtril' and 'mixnb'. The activation conventions
+are the JAX package's: positive count parameters use ``exp(clip(raw, -15,
+15))``; Normal scales and the diagonal of a lower-triangular scale use
+``softplus(raw) + 1e-4``; the packed entries of a triangular scale are in
+``tril_indices`` order. 'nzmse' is not ported yet and raises
 ``NotImplementedError``.
 """
 
@@ -38,6 +40,22 @@ def _soft_scale(raw: torch.Tensor) -> torch.Tensor:
   return F.softplus(raw) + _SCALE_EPS
 
 
+def _tril_size(d: int) -> int:
+  return d * (d + 1) // 2
+
+
+def _fill_tril(flat: torch.Tensor, d: int) -> torch.Tensor:
+  """(..., d(d+1)/2) → (..., d, d) lower-triangular, the entries in
+  ``tril_indices`` (row-major) order, the diagonal softplus + 1e-4: the JAX
+  package's ``_fill_tril``, term for term."""
+  rows, cols = torch.tril_indices(d, d, device=flat.device)
+  out = flat.new_zeros(tuple(flat.shape[:-1]) + (d, d))
+  out[..., rows, cols] = flat
+  diag = _soft_scale(torch.diagonal(out, dim1=-2, dim2=-1))
+  eye = torch.eye(d, dtype=flat.dtype, device=flat.device)
+  return out * (1.0 - eye) + eye * diag[..., None, :] * eye
+
+
 POSTERIORS: Dict[str, Any] = {}
 
 
@@ -50,7 +68,7 @@ def _register(*names):
 
 
 # posteriors of the JAX package that the port does not carry yet
-_NOT_PORTED = ("tril", "mvntril", "mixtril", "nzmse")
+_NOT_PORTED = ("nzmse",)
 
 
 class _Spec:
@@ -105,6 +123,22 @@ class _DiagSpec(_Spec):
     return D.MultivariateNormalDiag(
         loc=torch.zeros((dim,), device=device, dtype=dtype),
         scale_diag=torch.ones((dim,), device=device, dtype=dtype))
+
+
+@_register("tril", "mvntril")
+class _TrilSpec(_Spec):
+  @staticmethod
+  def n_params(dim, kw):
+    return dim + _tril_size(dim)
+
+  @staticmethod
+  def build(raw, dim, kw):
+    return D.MultivariateNormalTriL(loc=raw[..., :dim],
+                                    scale_tril=_fill_tril(raw[..., dim:], dim))
+
+  @staticmethod
+  def prior(dim, kw, device, dtype):
+    return _DiagSpec.prior(dim, kw, device, dtype)
 
 
 @_register("nbd")
@@ -278,6 +312,27 @@ class _MixNBSpec(_Spec):
                           gate_logits=body[..., 2 * dim:])
     return D.MixtureSameFamily(mixture_logits=raw[..., k * per:],
                                components=D.Independent(nb, 1))
+
+
+@_register("mixtril")
+class _MixTrilSpec(_Spec):
+  @staticmethod
+  def n_params(dim, kw):
+    return _n_components(kw) * (dim + _tril_size(dim) + 1)
+
+  @staticmethod
+  def build(raw, dim, kw):
+    k = _n_components(kw)
+    per = dim + _tril_size(dim)
+    body = raw[..., :k * per].reshape(tuple(raw.shape[:-1]) + (k, per))
+    comp = D.MultivariateNormalTriL(loc=body[..., :dim],
+                                    scale_tril=_fill_tril(body[..., dim:], dim))
+    return D.MixtureSameFamily(mixture_logits=raw[..., k * per:],
+                               components=comp)
+
+  @staticmethod
+  def prior(dim, kw, device, dtype):
+    return _DiagSpec.prior(dim, kw, device, dtype)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,11 @@
 """Checkpoints the JAX package reads and writes (port of
 ``sisua_tpu/train/checkpoint.py``).
 
-The files are the JAX package's: ``params.msgpack`` and
-``batch_stats.msgpack`` hold the flax pytrees (``convert.torch_to_jax``
-layout) in flax's msgpack encoding (``train/msgpack.py``), and
+The files are the JAX package's: ``params.msgpack``,
+``batch_stats.msgpack`` and ``aux_params.msgpack`` (a second parameter
+group: FactorVAE's discriminator) hold the flax pytrees
+(``convert.torch_to_jax`` layout) in flax's msgpack encoding
+(``train/msgpack.py``), and
 ``metamodel.json`` the class name, dataset, metadata and constructor
 kwargs (``format_version`` 1). A checkpoint written by either package
 loads in the other.
@@ -62,26 +64,25 @@ def decode_spec(obj):
   return obj
 
 
-def _refuse(backend: str = "msgpack", aux_params=None) -> None:
+def _refuse(backend: str = "msgpack") -> None:
   if backend == "orbax":
     raise NotImplementedError("backend='orbax' is not ported (msgpack only)")
   if backend != "msgpack":
     raise ValueError(f"unknown checkpoint backend {backend!r}")
-  if aux_params is not None:
-    raise NotImplementedError("aux_params (FactorVAE) are not ported yet")
 
 
 def save_weights(path: str, params: Mapping, batch_stats: Optional[Mapping]
-                 = None, aux_params=None, backend: str = "msgpack") -> str:
-  """Write <path>/params.msgpack (+ batch_stats.msgpack): nested dicts of
-  numpy arrays in the flax layout."""
-  _refuse(backend, aux_params)
+                 = None, aux_params: Optional[Mapping] = None,
+                 backend: str = "msgpack") -> str:
+  """Write <path>/params.msgpack (+ batch_stats.msgpack, +
+  aux_params.msgpack): nested dicts of numpy arrays in the flax layout."""
+  _refuse(backend)
   os.makedirs(path, exist_ok=True)
-  with open(os.path.join(path, "params.msgpack"), "wb") as f:
-    f.write(msgpack.packb(dict(params)))
-  if batch_stats is not None:
-    with open(os.path.join(path, "batch_stats.msgpack"), "wb") as f:
-      f.write(msgpack.packb(dict(batch_stats)))
+  for name, tree in (("params", params), ("batch_stats", batch_stats),
+                     ("aux_params", aux_params)):
+    if tree is not None:
+      with open(os.path.join(path, f"{name}.msgpack"), "wb") as f:
+        f.write(msgpack.packb(dict(tree)))
   return path
 
 
@@ -103,24 +104,29 @@ def _check_leaves(name: str, template: Mapping, loaded: Mapping) -> None:
 
 
 def load_weights(path: str, params_template: Mapping,
-                 batch_stats_template: Optional[Mapping] = None
-                 ) -> Tuple[Dict[str, Any], Optional[Dict[str, Any]]]:
-  """(params, batch_stats) read from <path>, checked leaf by leaf against
-  the templates; the batch-stats template comes back when the file is
-  absent, as in the JAX package."""
+                 batch_stats_template: Optional[Mapping] = None,
+                 aux_params_template: Optional[Mapping] = None
+                 ) -> Tuple[Dict[str, Any], Optional[Dict[str, Any]],
+                            Optional[Dict[str, Any]]]:
+  """(params, batch_stats, aux_params) read from <path>, each checked leaf
+  by leaf against its template; the batch-stats and aux templates come
+  back when their file is absent, as in the JAX package."""
   if (not os.path.isfile(os.path.join(path, "params.msgpack"))
       and os.path.isdir(os.path.join(path, "orbax"))):
     _refuse("orbax")
-  with open(os.path.join(path, "params.msgpack"), "rb") as f:
-    params = msgpack.unpackb(f.read())
-  _check_leaves("params", params_template, params)
-  batch_stats = batch_stats_template
-  bs_path = os.path.join(path, "batch_stats.msgpack")
-  if batch_stats_template is not None and os.path.isfile(bs_path):
-    with open(bs_path, "rb") as f:
-      batch_stats = msgpack.unpackb(f.read())
-    _check_leaves("batch_stats", batch_stats_template, batch_stats)
-  return params, batch_stats
+  out = []
+  for name, template in (("params", params_template),
+                         ("batch_stats", batch_stats_template),
+                         ("aux_params", aux_params_template)):
+    file = os.path.join(path, f"{name}.msgpack")
+    if template is None or (name != "params" and not os.path.isfile(file)):
+      out.append(template)
+      continue
+    with open(file, "rb") as f:
+      tree = msgpack.unpackb(f.read())
+    _check_leaves(name, template, tree)
+    out.append(tree)
+  return tuple(out)
 
 
 def save_metamodel(path: str, class_name: str, dataset: Optional[str],

@@ -1,15 +1,18 @@
 """Checkpoints shared by the JAX package and the port: the msgpack codec
 against flax, ``save_weights``/``load_model`` in both directions for SCVI
-('single' and 'full'), VAE, SISUA, MISA and DCA, what ``metamodel.json``
-carries (β schedules, ``NetConf``'s JAX-only fields, dataset, metadata,
-history), the refusals, and that the port imports none of JAX, flax,
-msgpack, pandas or ``sisua_tpu``.
+('single' and 'full'), VAE, SISUA, MISA, DCA, SCALE, SCALAR, FVAE and
+SemiFVAE (with FactorVAE's discriminator in ``aux_params.msgpack``) and
+LDVAE, what ``metamodel.json`` carries (β schedules, ``NetConf``'s
+JAX-only fields, dataset, metadata, history), the refusals, and that the
+port imports none of JAX, flax, msgpack, pandas or ``sisua_tpu``.
 
-Weights are random (perturbed off their init, batch stats too), so every
-leaf is worth comparing. The eval-mode forward of the loaded model is held
-to the model it came from at fed noise: the JAX draw is recovered as
-eps = (z − loc)/scale and handed to the port (rtol 1e-4, atol 1e-5, as
-tests/test_torch_port_models.py).
+Weights are random (perturbed off their init, batch stats and aux
+parameters too), so every leaf is worth comparing. The eval-mode forward
+and loss of the loaded model are held to the model it came from at fed
+noise: the JAX draws are replayed from the module's 'sample' key (a
+mixture latent's component indices and component noise too) and handed to
+the port (rtol 1e-4, atol 1e-5, as tests/test_torch_port_models.py; the
+eval loss metrics rtol 1e-3, ``EVAL_RTOL``).
 """
 
 import functools
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import sisua_tpu.dist as JD
 import sisua_tpu.models as J
 from sisua_tpu.nn import NetConf as JNetConf
 from sisua_tpu.rv import RVmeta as JRV
@@ -39,6 +43,10 @@ from sisua_tpu_torch.train import msgpack as tmp
 
 G, P, N = 60, 6, 40
 CLOSE = dict(rtol=1e-4, atol=1e-5)
+# eval-mode loss metrics across the packages: the perturbed weights put
+# NB dispersions up to e^15, where one float32 ulp of lgamma(θ) is ~0.5
+# and the two packages' lgamma differ by about that in a cell's sum
+EVAL_RTOL = 1e-3
 NETS = dict(encoder={"units": [32, 32], "batchnorm": True},
             decoder={"units": [32, 32], "batchnorm": True})
 
@@ -142,17 +150,29 @@ def _specs(RV, name):
   if name.startswith("scvi"):
     return "SCVI", RV(G, "zinbd", name="rna"), dict(
         lat, dispersion=name.split("_")[1], **NETS)
+  if name == "ldvae":
+    return "LDVAE", RV(G, "nbd", name="rna"), dict(
+        lat, encoder=NETS["encoder"])
   if name == "dca":
     return "DeepCountAutoencoder", RV(G, "zinb", name="rna"), dict(NETS)
-  outs = [RV(G, "zinb", name="rna"), RV(P, "nb" if name == "sisua" else
-                                        "nbd", name="adt")]
-  if name == "vae":
-    return "VAE", outs[0], dict(lat, **NETS)
-  return {"sisua": "SISUA", "misa": "MISA"}[name], outs, dict(
-      lat, alpha=10.0, **NETS)
+  outs = [RV(G, "zinb", name="rna"), RV(P, "nbd" if name == "misa" else
+                                        "nb", name="adt")]
+  if name in ("vae", "scale", "fvae"):
+    extra = {"scale": dict(n_components=3),
+             "fvae": dict(discriminator_units=(8, 8, 8))}.get(name, {})
+    return name.upper(), outs[0], dict(lat, **NETS, **extra)
+  if name == "scale_mixtril":
+    return "SCALE", outs[0], dict(NETS, latents=dict(
+        dim=3, posterior="mixtril", name="latents", n_components=2))
+  extra = {"scalar": dict(n_components=3),
+           "sfvae": dict(discriminator_units=(8, 8, 8))}.get(name, {})
+  return {"sisua": "SISUA", "misa": "MISA", "scalar": "SCALAR",
+          "sfvae": "SemiFVAE"}[name], outs, dict(lat, alpha=10.0, **NETS,
+                                                  **extra)
 
 
-MODELS = ["scvi_single", "scvi_full", "vae", "sisua", "misa", "dca"]
+MODELS = ["scvi_single", "scvi_full", "vae", "sisua", "misa", "dca",
+          "scale", "scale_mixtril", "scalar", "fvae", "sfvae", "ldvae"]
 EXTRA = dict(
     beta={"kind": "linear", "vmin": 0.0, "vmax": 2.0, "norm": 50.0,
           "delay_in": 5.0, "cyclical": True},
@@ -177,11 +197,12 @@ def _jax_model(name, **extra):
     if path[-1].key == "var":
       return (rng.uniform(0.5, 1.5, a.shape)).astype(np.float32)
     return (np.asarray(a) + rng.normal(0, 0.2, a.shape)).astype(np.float32)
-  bs = jm.batch_stats
+  bs, aux = jm.batch_stats, jm._state.aux_params
   jm._state = jm._state.replace(
       params=_perturbed(jm.params, 1),
       batch_stats=None if bs is None else jax.tree_util.tree_map_with_path(
-          stat, jax.device_get(bs)))
+          stat, jax.device_get(bs)),
+      aux_params=None if aux is None else _perturbed(aux, 5))
   return jm
 
 
@@ -189,8 +210,11 @@ def _port_model(name, **extra):
   cls, outs, kw = _specs(TRV, name)
   tm = getattr(T, cls)(outs, device="cpu", seed=3, **kw, **extra)
   gen = torch.Generator().manual_seed(4)
+  state = dict(tm.module.state_dict())
+  if tm.aux is not None:
+    state.update({f"aux.{k}": v for k, v in tm.aux.state_dict().items()})
   with torch.no_grad():
-    for key, v in tm.module.state_dict().items():
+    for key, v in state.items():
       if key.endswith("running_var"):
         v.copy_(torch.rand(v.shape, generator=gen) + 0.5)
       else:
@@ -210,23 +234,54 @@ def _library(x):
                    np.full(len(x), logc.var())], 1).astype(np.float32)
 
 
-def _jax_eval_forward(jm, x):
-  """JAX eval-mode forward and the noise it drew, as port tensors."""
-  lib = jnp.asarray(_library(x))
-  out = jm.apply(jnp.asarray(x), library=lib, training=False,
-                 key=jax.random.key(7, impl="rbg"))
-  noise = []
-  for q, z in zip(out.latents, out.latent_samples):
-    q = getattr(q, "base", q)
-    scale = getattr(q, "scale_diag", getattr(q, "scale", None))
-    noise.append(None if scale is None
-                 else torch.tensor(np.asarray((z - q.loc) / scale)))
-  return out, noise
+def _draw(q, key):
+  """The standard draws of a JAX latent's ``sample(key)`` as the port's
+  ``eps``: None (deterministic), a tensor, or (component indices,
+  component noise) for a mixture."""
+  if isinstance(q, JD.VectorDeterministic):
+    return None
+  if isinstance(q, JD.MixtureSameFamily):
+    kc, ks = jax.random.split(key)
+    k = jax.random.categorical(kc, q.mixture_logits, axis=-1,
+                               shape=tuple(q.batch_shape))
+    c = q.components
+    eps = jax.random.normal(ks, tuple(c.batch_shape) + tuple(c.event_shape))
+    return torch.tensor(np.asarray(k)), torch.tensor(np.asarray(eps))
+  return torch.tensor(np.asarray(jax.random.normal(
+      key, tuple(q.batch_shape) + tuple(q.event_shape))))
+
+
+def _replayed_noise(jm, x, key, latents):
+  """The draws of ``jm.apply``/``jm._loss`` with ``key``: both split it
+  into the 'sample' and 'dropout' streams, and the module splits its
+  first 'sample' key per latent."""
+  k_sample, k_drop = jax.random.split(key)
+  variables = {"params": jm.params}
+  if jm.batch_stats is not None:
+    variables["batch_stats"] = jm.batch_stats
+  skey = jm.module.apply(variables, x,
+                         rngs={"sample": k_sample, "dropout": k_drop},
+                         method=lambda m, *a, **k: m.make_rng("sample"))
+  return [_draw(q, k) for q, k in zip(
+      latents, jax.random.split(skey, len(latents)))]
+
+
+def _inputs(model, x):
+  """x and a protein matrix for each label output."""
+  rng = np.random.default_rng(9)
+  return [x] + [rng.poisson(5.0, (len(x), rv.dim)).astype(np.float32)
+                for rv in model.outputs[1:]]
 
 
 def _assert_same_forward(jm, tm, x):
-  jout, noise = _jax_eval_forward(jm, x)
-  tout = tm.apply(x, library=_library(x), noise=noise)
+  """Eval-mode forward (output and latent means) and eval-mode loss
+  metrics, at the same draws."""
+  lib = _library(x)
+  key = jax.random.key(7, impl="rbg")
+  jout = jm.apply(jnp.asarray(x), library=jnp.asarray(lib), training=False,
+                  key=key)
+  noise = _replayed_noise(jm, jnp.asarray(x), key, jout.latents)
+  tout = tm.apply(x, library=lib, noise=noise)
   for jp, tp in zip(jout.outputs, tout.outputs):
     assert type(tp).__name__ == type(jp).__name__
     np.testing.assert_allclose(tp.mean().detach().numpy(),
@@ -234,11 +289,27 @@ def _assert_same_forward(jm, tm, x):
   for jq, tq in zip(jout.latents, tout.latents):
     np.testing.assert_allclose(tq.mean().detach().numpy(),
                                np.asarray(jq.mean()), **CLOSE)
+  for jz, tz in zip(jout.latent_samples, tout.latent_samples):
+    np.testing.assert_allclose(tz.detach().numpy(), np.asarray(jz), **CLOSE)
+  xs = _inputs(tm, x)
+  batch = {"inputs": xs, "library": lib, "mask": np.ones(len(x), np.float32)}
+  _, (jmet, _, jo) = jm._loss(jm.params, jm.batch_stats, jax.tree_util.tree_map(
+      jnp.asarray, batch), key, 1.0, training=False)
+  with torch.no_grad():
+    _, tmet, _ = tm._loss(jax.tree_util.tree_map(torch.tensor, batch), False,
+                          1.0, noise=_replayed_noise(jm, jnp.asarray(x), key,
+                                                     jo.latents))
+  assert set(tmet) == set(jmet)
+  for k, v in jmet.items():  # EVAL_RTOL: see its comment
+    np.testing.assert_allclose(float(tmet[k]), float(v), rtol=EVAL_RTOL,
+                               err_msg=k)
 
 
 def _assert_same_leaves(jm, tm):
   params, stats = convert.torch_to_jax(tm.module)
-  for jt, tt in ((jm.params, params), (jm.batch_stats, stats or None)):
+  aux = None if tm.aux is None else convert.torch_to_jax(tm.aux)[0]
+  for jt, tt in ((jm.params, params), (jm.batch_stats, stats or None),
+                 (jm._state.aux_params, aux)):
     if jt is None:
       assert tt is None
       continue
@@ -278,17 +349,25 @@ def test_port_checkpoint_loads_in_jax(name, tmp_path):
   assert [vars(r) for r in jm.encoder] == [vars(r) for r in tm.encoder]
 
 
-@pytest.mark.parametrize("name", ["scvi_single", "sisua"])
+@pytest.mark.parametrize("name", ["scvi_single", "sisua", "scale",
+                                  "scalar", "fvae", "sfvae", "ldvae"])
 def test_both_packages_write_the_same_files(name, tmp_path):
-  """JAX save → port load → port save: byte-identical weights and the
-  same metamodel.json."""
+  """JAX save → port load → port save: byte-identical weights (the
+  discriminator's ``aux_params.msgpack`` too) and the same
+  metamodel.json; port save → JAX load → JAX save the same."""
   jm = _jax_model(name, **EXTRA)
   jm.save_weights(str(tmp_path / "jax"))
   T.load_model(str(tmp_path / "jax"), device="cpu").save_weights(
       str(tmp_path / "port"))
-  for f in ("params.msgpack", "batch_stats.msgpack"):
-    assert ((tmp_path / "jax" / f).read_bytes()
-            == (tmp_path / "port" / f).read_bytes())
+  _port_model(name, **EXTRA).save_weights(str(tmp_path / "port2"))
+  J.load_model(str(tmp_path / "port2")).save_weights(str(tmp_path / "jax2"))
+  files = {"params.msgpack", "batch_stats.msgpack"}
+  if name in ("fvae", "sfvae"):
+    files.add("aux_params.msgpack")
+  for a, b in (("jax", "port"), ("port2", "jax2")):
+    assert files <= {p.name for p in (tmp_path / a).iterdir()}
+    for f in files:
+      assert (tmp_path / a / f).read_bytes() == (tmp_path / b / f).read_bytes()
   meta = [json.loads((tmp_path / d / "metamodel.json").read_text())
           for d in ("jax", "port")]
   assert meta[0] == meta[1] and meta[0]["format_version"] == 1
@@ -374,12 +453,25 @@ def test_unported_backends_raise(tmp_path):
   (tmp_path / "ob" / "orbax").mkdir(parents=True)
   with pytest.raises(NotImplementedError, match="orbax"):
     tm.load_weights(str(tmp_path / "ob"))
-  with pytest.raises(NotImplementedError, match="aux_params"):
-    tckpt.save_weights(str(tmp_path / "a"), {}, aux_params={"d": 1})
+  # aux_params round trip, checked leaf by leaf against its template
+  aux = {"dense0": {"bias": np.arange(3, dtype=np.float32),
+                    "kernel": np.ones((2, 3), np.float32)}}
+  tckpt.save_weights(str(tmp_path / "a"), {"w": np.zeros(2, np.float32)},
+                     aux_params=aux)
+  assert (tmp_path / "a" / "aux_params.msgpack").read_bytes() \
+      == fser.msgpack_serialize(aux)
+  _, _, back = tckpt.load_weights(str(tmp_path / "a"),
+                                  {"w": np.zeros(2, np.float32)}, None, aux)
+  _leaves_equal(aux, back)
+  with pytest.raises(ValueError, match=r"aux_params/dense0/kernel"):
+    tckpt.load_weights(str(tmp_path / "a"), {"w": np.zeros(2, np.float32)},
+                       None, {"dense0": {"bias": aux["dense0"]["bias"],
+                                         "kernel": np.ones((3, 3))}})
   with pytest.raises(ValueError, match="among the ported"):
-    T.get_model("SCALE")
-  assert set(T.get_all_models()) == {T.VAE, T.SISUA, T.MISA, T.SCVI,
-                                     T.DeepCountAutoencoder}
+    T.get_model("TotalVI")
+  assert set(T.get_all_models()) == {
+      T.VAE, T.SISUA, T.MISA, T.SCVI, T.DeepCountAutoencoder, T.LDVAE,
+      T.SCALE, T.SCALAR, T.FVAE, T.SemiFVAE}
 
 
 def test_constructor_takes_the_jax_kwargs():

@@ -417,3 +417,121 @@ def test_checkpoint_round_trip_serves_on_card(dev, tmp_path):
   assert np.isfinite(list(llk.values())).all()
   assert np.isfinite(m2.marginal_log_prob(x[:40], 8, batch_size=16)).all()
   assert tz.launches == {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+
+
+# --------------------------------------------- the zoo: SCALE … LDVAE
+ZOO = {"SCALE": 1, "SCALAR": 2, "FVAE": 1, "SemiFVAE": 2, "LDVAE": 1}
+
+
+def _zoo_model(name, genes, dev):
+  from sisua_tpu_torch import models as T
+  rna = T.RVmeta(genes, "nbd" if name == "LDVAE" else "zinb", name="rna")
+  outs = [rna, T.RVmeta(10, "nb", name="adt")]
+  kw = {"SCALE": dict(n_components=10), "SCALAR": dict(n_components=10),
+        "FVAE": dict(gamma=6.0)}.get(name, {})
+  if name in ("SCALAR", "SemiFVAE"):
+    return getattr(T, name)(outs, device=dev, alpha=10.0, **kw)
+  return getattr(T, name)(rna, device=dev, **kw)
+
+
+def _zoo_batch(m, rows, seed, dev):
+  """A train batch for ``m`` (mixed mask, library stats) and reparameter-
+  ization noise for each of its latents: a standard-normal draw, or
+  (component indices, component noise) for a mixture latent."""
+  from sisua_tpu_torch.data import get_library_size
+  g = torch.Generator(device=dev).manual_seed(seed)
+  lam = torch.exp(-1.0 + torch.randn((rows, m.outputs[0].dim), generator=g,
+                                     device=dev))
+  xs = [torch.poisson(lam, generator=g)]
+  xs += [torch.poisson(torch.full((rows, rv.dim), 20.0, device=dev),
+                       generator=g) for rv in m.outputs[1:]]
+  batch = {"inputs": xs, "mask": (torch.rand(rows, generator=g, device=dev)
+                                  < 0.5).float()}
+  if m.uses_library:
+    batch["library"] = torch.cat(get_library_size(xs[0]), 1)
+  noise = []
+  for rv in m.latents:
+    k = rv.kw.get("n_components")
+    if rv.posterior == "mixgaus":
+      noise.append((torch.randint(0, k, (rows,), generator=g, device=dev),
+                    torch.randn((rows, k, rv.dim), generator=g, device=dev)))
+    else:
+      noise.append(torch.randn((rows, rv.dim), generator=g, device=dev))
+  return batch, noise
+
+
+def _route(m, state, batch, noise, mode):
+  """Loss and parameter gradients of one train-mode step under one route
+  ('auto' takes the kernels on the card, 'off' the distribution math)."""
+  import os
+  os.environ["SISUA_TPU_FUSED_LIKELIHOOD"] = mode
+  try:
+    m.module.load_state_dict(state)
+    m.generator.manual_seed(11)
+    m.module.zero_grad(set_to_none=True)
+    loss, _, out = m._loss(batch, True, 1.0, noise=noise)
+    loss.backward()
+  finally:
+    os.environ.pop("SISUA_TPU_FUSED_LIKELIHOOD", None)
+  return float(loss.detach()), {k: p.grad.clone()
+                       for k, p in m.module.named_parameters()}, out
+
+
+@pytest.mark.parametrize("name", list(ZOO))
+def test_zoo_step_kernel_route_matches_plain(dev, name):
+  """One train step's loss (rtol 1e-4) and every parameter gradient
+  (max|Δg| ≤ 1e-3·(max|g| of it + 1e-3·max|g| overall), as chip_smoke.py
+  phase 7) on the kernel route against the plain route, at the same
+  weights, dropout and noise; each head launches each kernel once. Then
+  one optimizer step through ``_train_step`` on the kernel route."""
+  m = _zoo_model(name, 1000, dev)
+  batch, noise = _zoo_batch(m, 128, 12, dev)
+  state = {k: v.clone() for k, v in m.module.state_dict().items()}
+  tz.reset_launches()
+  lk, gk, _ = _route(m, state, batch, noise, "auto")
+  heads = ZOO[name]
+  assert tz.launches == {"zinb_rowsum_fwd": heads, "zinb_rowsum_bwd": heads}
+  lp, gp, _ = _route(m, state, batch, noise, "off")
+  assert tz.launches["zinb_rowsum_fwd"] == heads
+  assert abs(lk - lp) <= 1e-4 * abs(lp)
+  top = max(float(g.abs().max()) for g in gp.values())
+  for k, g in gp.items():
+    assert float((gk[k] - g).abs().max()) \
+        <= 1e-3 * (float(g.abs().max()) + 1e-3 * top), k
+  if m.aux is not None:
+    assert all(p.grad is None for p in m.aux.parameters())
+  m.optimizer = torch.optim.Adam(m.module.parameters(), lr=1e-3)
+  if m.aux is not None:
+    m.aux_optimizer = m._make_aux_optimizer()
+  tz.reset_launches()
+  metrics = m._train_step(batch)
+  assert tz.launches == {"zinb_rowsum_fwd": heads, "zinb_rowsum_bwd": heads}
+  assert all(torch.isfinite(v).all() for v in metrics.values())
+  assert ("disc_loss" in metrics) == (m.aux is not None)
+
+
+def test_ldvae_per_gene_theta_gradient_at_full_width(dev):
+  """LDVAE 'nbd' with per-gene θ at 512 × 33,000: the gradient of
+  ``px_r_single`` is a column sum over the 512 rows, taken by the kernels
+  in another order than the plain route. Per gene it holds to rtol 2e-4
+  and atol 1e-5 + SUM_ULPS·Σ_rows |its row terms| (θ·∂ℓ/∂θ and the
+  ∂ℓ/∂logits term through logits = log μ − log θ, over B)."""
+  m = _zoo_model("LDVAE", 33_000, dev)
+  batch, noise = _zoo_batch(m, 512, 13, dev)
+  state = {k: v.clone() for k, v in m.module.state_dict().items()}
+  tz.reset_launches()
+  _, gk, _ = _route(m, state, batch, noise, "auto")
+  assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
+  _, gp, out = _route(m, state, batch, noise, "off")
+  nb = out.outputs[0].base
+  theta = nb.disp.detach()
+  logits = nb.log_loc.detach() - torch.log(theta + 1e-8)
+  gate = torch.full_like(theta, tz._NB_GATE)
+  d_theta, d_logits, _ = tz._zinb_grads_elem(batch["inputs"][0], theta,
+                                             logits, gate, True)
+  rows = ((theta * d_theta).abs() + d_logits.abs()).sum(0) / 512
+  a, b = gk["px_r_single"], gp["px_r_single"]
+  bound = GRAD["atol"] + SUM_ULPS * rows + GRAD["rtol"] * b.abs()
+  bad = (a - b).abs() > bound
+  assert not bad.any(), (f"{int(bad.sum())} of {b.numel()} genes off, "
+                         f"worst |Δ| {float((a - b).abs().max()):.3e}")

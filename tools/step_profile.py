@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Where a training step's time goes, for the models of ``chip_smoke.py``
+at 512 × 33,000, on one CUDA card.
+
+    python3 tools/step_profile.py [MODEL ...]
+
+MODEL is one of SISUA, FVAE, SCALAR, SCALE, LDVAE (default: all), built as
+``chip_smoke.py`` builds it (the JAX package's default nets). For each:
+one warm-up epoch of 8 steps through ``fit``, then STEPS steps of
+``_train_step`` on fixed batches:
+  * wall ms per step (host clock around the steps, ending in a
+    synchronize), median of ROUNDS rounds;
+  * under ``torch.profiler`` over STEPS steps: device-busy ms per step
+    (the sum of the device operations' times: kernels, copies, fills),
+    the idle share of the wall time, device operations per step, and the
+    ones that take the most device time;
+  * for a model with an aux step (FVAE): the wall ms per step without it,
+    in turns with the full step.
+Prints the card's name and power limit first; writes everything also to
+``chiprun_out/step_profile.txt``. Imports nothing of JAX.
+"""
+
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 8
+ROUNDS = 5
+_LINES = []
+
+
+def log(msg):
+  print(msg, flush=True)
+  _LINES.append(msg)
+
+
+def _wall_ms(torch, model, batches):
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for b in batches:
+    model._train_step(b)
+  torch.cuda.synchronize()
+  return (time.perf_counter() - t0) / len(batches) * 1e3
+
+
+def _union_us(ranges) -> float:
+  """Length of the union of time intervals, µs."""
+  total, end = 0.0, None
+  for r in sorted(ranges, key=lambda r: r.start):
+    if end is None or r.start > end:
+      total += r.end - r.start
+      end = r.end
+    elif r.end > end:
+      total += r.end - end
+      end = r.end
+  return total
+
+
+def _model(cs, name):
+  if name == "SISUA":
+    from sisua_tpu_torch.models import SISUA
+    return SISUA(cs._sisua_outputs(), alpha=cs.ALPHA, device=cs.DEVICE,
+                 seed=cs.SEED)
+  return cs._zoo_model(name)
+
+
+def profile(torch, cs, name, x, y):
+  from torch.profiler import ProfilerActivity
+  from sisua_tpu_torch.data import get_library_size
+  model = _model(cs, name)
+  two = name in ("SISUA", "SCALAR")
+  n = 8 * cs.BATCH
+  model.fit([x[:n], y[:n]] if two else x[:n], epochs=1,
+            batch_size=cs.BATCH, labels_percent=cs.LABELS_PERCENT)
+  batches = []
+  for i in range(STEPS):
+    rows = slice(i * cs.BATCH, (i + 1) * cs.BATCH)
+    b = {"inputs": [x[rows], y[rows]] if two else [x[rows]],
+         "mask": (torch.arange(cs.BATCH, device=x.device) % 10 == 0).float()}
+    if model.uses_library:
+      b["library"] = torch.cat(get_library_size(x[rows]), 1)
+    batches.append(b)
+  walls = [_wall_ms(torch, model, batches) for _ in range(ROUNDS)]
+  with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA],
+                              acc_events=True) as prof:
+    _wall_ms(torch, model, batches)
+  # device-side spans of annotations (``Optimizer.step#Adam.step``) hold
+  # the kernels they cover: only the operations themselves count, and
+  # busy time is the union of their intervals
+  dev = [e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA]
+  spans = [e for e in dev if e.is_user_annotation or "#" in e.name]
+  ops = [(e.name, e.time_range.elapsed_us()) for e in dev
+         if e not in spans]
+  busy = _union_us([e.time_range for e in dev if e not in spans]) \
+      / 1e3 / STEPS
+  wall = statistics.median(walls)
+  log(f"{name}: wall {wall:.3f} ms/step (rounds "
+      f"{', '.join(f'{w:.3f}' for w in walls)}); device busy {busy:.3f} "
+      f"ms/step (sum of operation times "
+      f"{sum(t for _, t in ops) / 1e3 / STEPS:.3f}), idle "
+      f"{1 - busy / wall:.1%}; {len(ops) / STEPS:.0f} device operations "
+      f"and {len(spans) / STEPS:.0f} annotation spans per step")
+  by_name = {}
+  for k, t in ops:
+    by_name[k] = by_name.get(k, 0.0) + t
+  total = sum(by_name.values())
+  for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    log(f"  {v / total:6.1%} {v / 1e3 / STEPS:7.3f} ms/step  {k[:110]}")
+  if model.aux is not None:
+    full, bare = [], []
+    aux_step = model._aux_step
+    for _ in range(ROUNDS):
+      for with_aux, acc in ((True, full), (False, bare), (False, bare),
+                            (True, full)):
+        model._aux_step = aux_step if with_aux else (lambda b, m: m)
+        acc.append(_wall_ms(torch, model, batches))
+    model._aux_step = aux_step
+    log(f"{name}: without the aux step {statistics.median(bare):.3f} "
+        f"ms/step, with it {statistics.median(full):.3f} ms/step (in turns)")
+
+
+def main(argv):
+  import torch
+  if not torch.cuda.is_available():
+    print("step_profile: no CUDA device", file=sys.stderr)
+    return 2
+  sys.path.insert(0, ROOT)
+  import chip_smoke as cs
+  smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True).stdout.strip()
+  log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+  gen = torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED + 1)
+  x = cs._counts(torch, gen, 8 * cs.BATCH, cs.GENES)
+  y = cs._proteins(torch, gen, 8 * cs.BATCH)
+  for name in argv or ["SISUA", "FVAE", "SCALAR", "SCALE", "LDVAE"]:
+    profile(torch, cs, name, x, y)
+  os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(ROOT, "chiprun_out", "step_profile.txt"), "w") as f:
+    f.write("\n".join(_LINES) + "\n")
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main(sys.argv[1:]))
