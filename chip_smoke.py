@@ -62,10 +62,27 @@ before the final line:
      discriminator) bitwise equal and ``evaluate`` equal within
      EVAL_RTOL; the kernel route against the plain route on one batch at
      the same converted weights and noise, with phase 7's bounds.
+ 10. batch-covariate conditioning and the scvi-tools models on the same
+     data plus a seeded one-hot over 4 batches, the 10 proteins and 10
+     cell types, each fit from launch counts set to 0, batch 512, 16
+     epochs in two windows of 8, validated on the 1,024 held-out cells:
+     SCVI 'zinbd' at n_batch = 4 with an 'nb' label head over the
+     proteins (phase 4's nets; two heads), TotalVI ('zinbd' RNA + the
+     proteins' background/foreground NB mixture, n_batch = 4,
+     mask_protein, labels_percent 0.5; the mixture takes plain math) and
+     SCANVI ('zinbd' + the cell types, α = 50, labels_percent 0.1), at
+     the JAX package's default nets. Each: every loss finite and falling,
+     each kernel launched heads × (steps + validation batches) forward
+     and heads × steps backward, steady step ms, cells/s and peak memory;
+     the kernel route against the plain route on one batch (phase 7's
+     bounds); ``save_weights`` → ``load_model`` with ``evaluate`` equal
+     within EVAL_RTOL; one served call: SCVI's ``predict_mean`` with the
+     one-hot (which must differ from the uniform batch prior's), TotalVI's
+     ``denoised_proteins`` (in [0, 1]), SCANVI's ``predict_labels``.
 Before the last line it prints the kernels' JSON summary (launches of the
-phase 4 and phase 6 fits, of phase 8 and of phase 9's fits and round
-trips; time, plain time and bound at 512 × 33,000 'main_full'); the last
-line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+phase 4 and phase 6 fits, of phase 8 and of phases 9 and 10's fits and
+round trips; time, plain time and bound at 512 × 33,000 'main_full'); the
+last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 import json
@@ -889,7 +906,7 @@ def _zoo_fit(torch, name, data, smi):
   return model, launches
 
 
-def _zoo_round_trip(torch, name, model, held_data, root):
+def _zoo_round_trip(torch, name, model, held_data, root, heads, phase="9 zoo"):
   """save_weights → load_model: weights (and FVAE's discriminator)
   bitwise equal, evaluate equal within EVAL_RTOL at the same noise.
   Returns the forward launches of the two evaluates."""
@@ -915,9 +932,9 @@ def _zoo_round_trip(torch, name, model, held_data, root):
     check(abs(ev[k] - v) <= EVAL_RTOL * abs(v),
           f"{name}: evaluate {k} {ev[k]} vs trained {v}")
   fwd = tz.launches["zinb_rowsum_fwd"] - before
-  check(fwd == 2 * ZOO[name] * -(-HELD_OUT // BATCH),
+  check(fwd == 2 * heads * -(-HELD_OUT // BATCH),
         f"{name}: the two evaluates launched the forward {fwd} times")
-  log(f"[9 zoo] {name}: save_weights → load_model ({saved['bytes']:,} "
+  log(f"[{phase}] {name}: save_weights → load_model ({saved['bytes']:,} "
       f"bytes{', aux_params.msgpack' if aux is not None else ''}): weights"
       f"{' and discriminator' if aux is not None else ''} bitwise equal, "
       f"evaluate loss {ev['loss']:.4f} = trained (rtol {EVAL_RTOL})")
@@ -935,7 +952,7 @@ def phase_zoo(torch, x, held, y, held_y, library, root, smi):
     two = name == "SCALAR"
     model, launches = _zoo_fit(torch, name, [x, y] if two else x, smi)
     fwd = _zoo_round_trip(torch, name, model, [held, held_y] if two
-                          else [held], root)
+                          else [held], root, ZOO[name])
     total = {k: v + launches[k] for k, v in total.items()}
     total["zinb_rowsum_fwd"] += fwd
     batch = {"inputs": [x[rows], y[rows]] if two else [x[rows]],
@@ -945,6 +962,171 @@ def phase_zoo(torch, x, held, y, held_y, library, root, smi):
     fresh = _zoo_model(name)
     _compare_routes(torch, "9 zoo", name, fresh, _converted(fresh, model),
                     batch, _latent_noise(torch, fresh, gen, BATCH), ZOO[name])
+    del model, fresh
+  return total
+
+
+# phase 10: each fit and its ZINB/NB heads (TotalVI's protein mixture and
+# SCANVI's cell-type head take plain math)
+PHASE10 = {"SCVI_batch": 2, "TotalVI": 1, "SCANVI": 1}
+N_BATCHES = 4
+CELL_TYPES = 10
+SCANVI_ALPHA = 50.0          # sisua_tpu/models/scanvi.py default
+TOTALVI_LABELS_PERCENT = 0.5
+
+
+def _phase10_model(name):
+  """Phase 4's nets for SCVI; the JAX package's default nets for TotalVI
+  and SCANVI."""
+  from sisua_tpu_torch import models as T
+  kw = dict(device=DEVICE, seed=SEED)
+  rna = T.RVmeta(GENES, "zinbd", name="rna")
+  if name == "SCVI_batch":
+    return T.SCVI([rna, T.RVmeta(PROTEINS, "nb", name="adt")],
+                  latents=T.RVmeta(16, "diag", name="latents"),
+                  encoder={"units": [128, 128], "batchnorm": True},
+                  decoder={"units": [128, 128], "batchnorm": True},
+                  n_batch=N_BATCHES, alpha=ALPHA, **kw)
+  if name == "TotalVI":
+    return T.TotalVI([rna, T.RVmeta(PROTEINS, "nbd", name="adt")],
+                     n_batch=N_BATCHES, mask_protein=True, **kw)
+  return T.SCANVI([rna, T.RVmeta(CELL_TYPES, "onehot", name="celltype")],
+                  alpha=SCANVI_ALPHA, **kw)
+
+
+def _phase10_inputs(name, x, y, b, ct):
+  """The data matrices of a phase 10 fit: [rna, proteins, batch one-hot]
+  or SCANVI's [rna, cell-type one-hot]."""
+  return [x, ct] if name == "SCANVI" else [x, y, b]
+
+
+def _onehots(torch, gen, rows, k):
+  return torch.nn.functional.one_hot(
+      torch.randint(0, k, (rows,), generator=gen, device=DEVICE), k).float()
+
+
+def _phase10_noise(torch, model, gen, rows):
+  """Phase 9's noise for each latent, then for the forward's second draw:
+  TotalVI's log β (rows, proteins), SCANVI's z₂ (classes, rows, z)."""
+  noise = _latent_noise(torch, model, gen, rows)
+  if type(model).__name__ == "TotalVI":
+    noise.append(torch.randn((rows, PROTEINS), generator=gen, device=DEVICE))
+  elif type(model).__name__ == "SCANVI":
+    noise.append(torch.randn((CELL_TYPES, rows, model.latents[0].dim),
+                             generator=gen, device=DEVICE))
+  return noise
+
+
+def _phase10_serve(torch, name, model, held_data):
+  """One served call of each model on the held-out cells."""
+  import numpy as np
+  held = held_data[0]
+  if name == "SCVI_batch":
+    outs = []
+    for data in (held_data[::2], held):  # [rna, one-hot], then rna alone
+      model.generator.manual_seed(SEED + 13)
+      outs.append(model.predict_mean(data, batch_size=BATCH)[0][0])
+    check(all(np.isfinite(o).all() and o.shape == (HELD_OUT, GENES)
+              for o in outs), "SCVI_batch: predict_mean not finite")
+    rel = float(np.abs(outs[0] - outs[1]).max() / np.abs(outs[1]).max())
+    check(rel > 1e-4, f"SCVI_batch: the one-hot does not move the means "
+          f"(max rel Δ {rel:.2e})")
+    return (f"predict_mean([rna, one-hot]) differs from the uniform batch "
+            f"prior's by up to {rel:.3e} of the largest mean")
+  if name == "TotalVI":
+    fg = model.denoised_proteins(held_data, batch_size=BATCH)
+    check(fg.shape == (HELD_OUT, PROTEINS) and np.isfinite(fg).all()
+          and fg.min() >= 0.0 and fg.max() <= 1.0,
+          f"TotalVI: denoised_proteins {fg.shape} in "
+          f"[{fg.min()}, {fg.max()}]")
+    return (f"denoised_proteins {fg.shape} in [{fg.min():.4f}, "
+            f"{fg.max():.4f}], mean {fg.mean():.4f}")
+  probs = model.predict_labels(held, batch_size=BATCH)
+  hard = model.predict_labels(held, batch_size=BATCH, hard=True)
+  check(probs.shape == (HELD_OUT, CELL_TYPES)
+        and np.abs(probs.sum(1) - 1).max() <= 1e-5
+        and np.array_equal(hard, probs.argmax(1)),
+        f"SCANVI: predict_labels {probs.shape}")
+  acc = float((hard == held_data[1].argmax(1).cpu().numpy()).mean())
+  return (f"predict_labels {probs.shape}, rows sum to 1; agreement with the "
+          f"(random) held-out labels {acc:.3f}")
+
+
+def _phase10_fit(torch, name, data, valid, smi):
+  """One phase 10 fit from launch counts set to 0; returns the model and
+  the counts read right after it."""
+  import numpy as np
+  from sisua_tpu_torch.ops import zinb as tz
+  model = _phase10_model(name)
+  labels = {"TotalVI": TOTALVI_LABELS_PERCENT}.get(name, LABELS_PERCENT)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  model.fit(data, valid=valid, epochs=EPOCHS, batch_size=BATCH,
+            learning_rate=1e-3, labels_percent=labels,
+            metrics_interval=WINDOW)
+  fit_s = time.perf_counter() - t0
+  launches = dict(tz.launches)
+  steps = EPOCHS * (CELLS // BATCH)
+  val_batches = (EPOCHS // WINDOW) * -(-HELD_OUT // BATCH)
+  h = model.history
+  losses = np.asarray(h["loss"])
+  check(len(losses) == EPOCHS and model.step == steps,
+        f"{name}: ran {len(losses)} epochs / {model.step} steps")
+  check(np.isfinite(losses).all() and np.isfinite(h["val_loss"]).all(),
+        f"{name}: non-finite loss {losses} / {h['val_loss']}")
+  first, last = losses[:WINDOW].mean(), losses[-WINDOW:].mean()
+  check(last < first, f"{name}: last window loss {last} !< first {first}")
+  own = {"SCVI_batch": ("llk_x1",), "TotalVI": ("llk_x1", "klqp_z2"),
+         "SCANVI": ("klqp_hierarchy", "kl_y")}[name]
+  check(all(k in h and np.isfinite(h[k]).all() for k in own),
+        f"{name}: history keys {sorted(h)}")
+  heads = PHASE10[name]
+  check(launches == {"zinb_rowsum_fwd": heads * (steps + val_batches),
+                     "zinb_rowsum_bwd": heads * steps},
+        f"{name}: launches {launches}, expected {heads} × ({steps} steps "
+        f"+ {val_batches} validation batches) forward, {heads} × {steps} "
+        "backward")
+  step_ms, cells_s, peak = _steady(h, torch)
+  log(f"[10 batch] {name}: {steps} steps in {fit_s:.1f} s; loss first "
+      f"window {first:.2f} last window {last:.2f}; val_loss "
+      f"{h['val_loss'][0]:.2f} → {h['val_loss'][-1]:.2f}; "
+      + ", ".join(f"{k} {h[k][-1]:.3f}" for k in own)
+      + f"; launches {launches}")
+  log(f"[10 batch] {name}: steady step {step_ms:.3f} ms, {cells_s:.0f} "
+      f"cells/s (last window), peak memory {peak:.2f} GiB | {smi}")
+  return model, launches
+
+
+def phase_batch(torch, x, held, y, held_y, library, root, smi):
+  """Phase 10; returns the launches of its fits and round trips."""
+  from sisua_tpu_torch.ops import zinb as tz
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+  b, held_b = _onehots(torch, gen, CELLS, N_BATCHES), _onehots(
+      torch, gen, HELD_OUT, N_BATCHES)
+  ct, held_ct = _onehots(torch, gen, CELLS, CELL_TYPES), _onehots(
+      torch, gen, HELD_OUT, CELL_TYPES)
+  rows = torch.arange(BATCH, device=DEVICE)
+  mask = (torch.rand((BATCH,), generator=gen, device=DEVICE)
+          < 0.5).to(torch.float32)
+  total = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+  for name, heads in PHASE10.items():
+    data = _phase10_inputs(name, x, y, b, ct)
+    held_data = _phase10_inputs(name, held, held_y, held_b, held_ct)
+    model, launches = _phase10_fit(torch, name, data, held_data, smi)
+    fwd = _zoo_round_trip(torch, name, model, held_data, root, heads,
+                          phase="10 batch")
+    total = {k: v + launches[k] for k, v in total.items()}
+    total["zinb_rowsum_fwd"] += fwd
+    before = dict(tz.launches)
+    log(f"[10 batch] {name}: {_phase10_serve(torch, name, model, held_data)}")
+    check(tz.launches == before, f"{name}: serving launched a kernel")
+    batch = {"inputs": [m[rows] for m in data], "mask": mask,
+             "library": library[rows]}
+    fresh = _phase10_model(name)
+    _compare_routes(torch, "10 batch", name, fresh, _converted(fresh, model),
+                    batch, _phase10_noise(torch, fresh, gen, BATCH), heads)
     del model, fresh
   return total
 
@@ -975,10 +1157,12 @@ def main():
     del saved
     zoo_launches = phase_zoo(torch, x, held, y, held_y, library, ckpt_root,
                              smi)
+    batch_launches = phase_batch(torch, x, held, y, held_y, library,
+                                 ckpt_root, smi)
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
   launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]
-              for k, v in launches.items()}
+              + batch_launches[k] for k, v in launches.items()}
   main_case = kern["main_full"]
   kernels = []
   for name, line, key, err, kind in (

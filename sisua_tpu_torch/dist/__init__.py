@@ -6,8 +6,8 @@ from .base import (Distribution, Independent, NoAnalyticKL, kl_divergence,
 from .continuous import (MultivariateNormalDiag, MultivariateNormalTriL,
                          Normal, VectorDeterministic)
 from .count import (Bernoulli, NegativeBinomial, NegativeBinomialDisp,
-                    NegativeBinomialDispLog, NegativeBinomialLog, Poisson,
-                    ZeroInflated)
+                    NegativeBinomialDispLog, NegativeBinomialLog,
+                    NegativeBinomialMixture, Poisson, ZeroInflated)
 from .discrete import Categorical, OneHotCategorical
 from .mixture import MixtureSameFamily
 
@@ -17,6 +17,7 @@ __all__ = [
     "MultivariateNormalTriL", "Normal",
     "VectorDeterministic",
     "Poisson", "Bernoulli", "NegativeBinomial", "NegativeBinomialDisp",
-    "NegativeBinomialDispLog", "NegativeBinomialLog", "ZeroInflated",
+    "NegativeBinomialDispLog", "NegativeBinomialLog",
+    "NegativeBinomialMixture", "ZeroInflated",
     "Categorical", "OneHotCategorical", "MixtureSameFamily",
 ]

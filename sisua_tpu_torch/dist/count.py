@@ -1,5 +1,5 @@
-"""Count likelihoods: Poisson, Bernoulli, NB in four parameterizations and
-zero-inflation.
+"""Count likelihoods: Poisson, Bernoulli, NB in four parameterizations,
+zero-inflation, and TotalVI's element-wise two-component NB mixture.
 
 Port of ``sisua_tpu/dist/count.py``. The four NB classes are the four
 kinds the objective maps onto the fused kernel (``models/objective.py``):
@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from .base import Distribution, Tensor
 
 __all__ = ["Poisson", "Bernoulli", "NegativeBinomial", "NegativeBinomialDisp",
-           "NegativeBinomialDispLog", "NegativeBinomialLog", "ZeroInflated"]
+           "NegativeBinomialDispLog", "NegativeBinomialLog",
+           "NegativeBinomialMixture", "ZeroInflated"]
 
 _EXP_CLIP = 15.0  # rv._EXP_CLIP and ops.zinb._EXP_CLIP
 
@@ -205,6 +206,73 @@ class NegativeBinomialLog(Distribution):
 
   def mean(self):
     return self.loc.expand(self.batch_shape)
+
+
+class NegativeBinomialMixture(Distribution):
+  """Element-wise two-component NB mixture (TotalVI's protein likelihood):
+  each feature mixes a background NB(μ_b, θ) and a foreground NB(μ_f, θ)
+  with σ(``mixing_logits``) = P(background). Unlike ``MixtureSameFamily``
+  the mixture is independent per element."""
+
+  def __init__(self, loc_back: Tensor, loc_fore: Tensor, disp: Tensor,
+               mixing_logits: Tensor):
+    self.loc_back = loc_back
+    self.loc_fore = loc_fore
+    self.disp = disp
+    self.mixing_logits = mixing_logits
+
+  @property
+  def batch_shape(self):
+    return _shape(self.loc_back, self.loc_fore, self.disp,
+                  self.mixing_logits)
+
+  def _components(self):
+    return (NegativeBinomialDisp(loc=self.loc_back, disp=self.disp),
+            NegativeBinomialDisp(loc=self.loc_fore, disp=self.disp))
+
+  @property
+  def mixing_probs(self):
+    return torch.sigmoid(self.mixing_logits)
+
+  def _weighted_log_probs(self, x):
+    back, fore = self._components()
+    return (F.logsigmoid(self.mixing_logits) + back.log_prob(x),
+            F.logsigmoid(-self.mixing_logits) + fore.log_prob(x))
+
+  def log_prob(self, x):
+    return torch.logaddexp(*self._weighted_log_probs(x))
+
+  def mean(self):
+    pi = self.mixing_probs
+    return pi * self.loc_back + (1.0 - pi) * self.loc_fore
+
+  def foreground_probability(self, x):
+    """Posterior P(foreground | x): TotalVI's denoised protein signal."""
+    lb, lf = self._weighted_log_probs(x)
+    return torch.exp(lf - torch.logaddexp(lb, lf))
+
+  def variance(self):
+    pi = self.mixing_probs
+    back, fore = self._components()
+    m = self.mean()
+    return (pi * (back.variance() + torch.square(self.loc_back - m))
+            + (1 - pi) * (fore.variance() + torch.square(self.loc_fore - m)))
+
+  def mode(self):
+    back, fore = self._components()
+    return torch.where(self.mixing_probs > 0.5, back.mode(), fore.mode())
+
+  def sample(self, sample_shape=(), generator=None):
+    # both components are drawn at the MIXTURE's batch shape, so per-protein
+    # parameters under per-cell mixing get one draw per cell
+    shape = tuple(sample_shape) + self.batch_shape
+    back, fore = self._components()
+    with torch.no_grad():
+      b = back.draw(shape, generator)
+      f = fore.draw(shape, generator)
+      u = torch.rand(shape, generator=generator, device=b.device,
+                     dtype=b.dtype)
+      return torch.where(u < self.mixing_probs, b, f)
 
 
 class ZeroInflated(Distribution):

@@ -26,8 +26,11 @@ counter. Parameters are initialized on the CPU from the seed and then
 moved, so the initial weights do not depend on the device. Data is one
 matrix or a list ``[rna, adt, …]`` (one per output; numpy, scipy or
 tensor); training makes it device-resident once, the first feeds the
-encoder and the rest are label targets. Serving reads only the encoder's
-matrix. Not ported yet: ``n_batch`` conditioning, mixed precision,
+encoder and the rest are label targets. With batch-covariate conditioning
+(``n_batch`` > 0) the LAST matrix is the per-cell batch one-hot, appended
+to the encoder input (``_module_input``); ``_batch_onehot`` builds it from
+a container's ``obs[batch_key]``. Serving reads only the matrices the
+encoder consumes. Not ported yet: mixed precision,
 ``differential_expression``, ``create_posterior`` and the mesh.
 """
 
@@ -40,6 +43,7 @@ import json
 import math
 import os
 import re
+import warnings
 from typing import (Dict, Iterator, List, Optional, Sequence, Tuple,
                     Union)
 
@@ -193,9 +197,6 @@ class SingleCellModel:
       raise NotImplementedError(
           f"compute_dtype={compute_dtype!r} is not ported yet (mixed "
           "precision)")
-    if module_kwargs.get("n_batch"):
-      raise NotImplementedError("n_batch conditioning is not ported yet")
-    module_kwargs.pop("n_batch", None)
     outputs = tuple(parse_rv(o, f"output{i}")
                     for i, o in enumerate(_flatten(outputs)))
     if latents is None:
@@ -284,6 +285,11 @@ class SingleCellModel:
     return False
 
   @property
+  def n_batch(self) -> int:
+    """Batch-covariate conditioning cardinality (0 = off)."""
+    return self.module.n_batch
+
+  @property
   def is_semi_supervised(self) -> bool:
     return self.mask_outputs and len(self.outputs) > 1
 
@@ -311,13 +317,58 @@ class SingleCellModel:
 
   # -------------------------------------------------------------- loss/step
   def _module_input(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The encoder's input: the first (main) omic; the rest are labels."""
-    return inputs[0]
+    """The encoder's input: the first (main) omic; the rest are labels.
+    With batch conditioning a trailing matrix of width ``n_batch`` is the
+    batch one-hot and is appended (the module splits it back off)."""
+    x = inputs[0]
+    if self.n_batch and len(inputs) >= 2 \
+        and inputs[-1].shape[-1] == self.n_batch:
+      x = torch.cat([x, inputs[-1].to(x.dtype)], dim=-1)
+    return x
+
+  def _masked_module_input(self, batch, training: bool) -> torch.Tensor:
+    """The training-time module input. A model whose encoder reads a
+    semi-supervised omic (TotalVI's proteins) zeroes it for unlabeled
+    cells here, or the encoder would see what the mask hides."""
+    return self._module_input(batch["inputs"])
 
   def _serving_source_indices(self, n_sources: int) -> List[int]:
-    """The matrices ``_module_input`` consumes: serving uploads only
-    these (a SISUA model serves from the RNA matrix alone)."""
-    return [0]
+    """The matrices ``_module_input`` consumes, in order: serving uploads
+    only these (a SISUA model serves from the RNA matrix alone); the
+    trailing batch one-hot stays trailing."""
+    idx = [0]
+    if self.n_batch and n_sources >= 2:
+      idx.append(n_sources - 1)
+    return idx
+
+  def _batch_onehot(self, sco) -> np.ndarray:
+    """Per-cell batch one-hot (n_obs, n_batch) from ``sco.obs[batch_key]``
+    (duck-typed on ``sco.obs`` and ``sco.n_obs``), to pass as the last
+    data matrix. The level→code map is fixed by the first data seen and
+    kept in ``metadata['batch_categories']`` (so in the checkpoint):
+    later data with a subset of the levels gets the same codes, unseen
+    levels are appended while ``n_batch`` has room, else it raises. A
+    missing column warns and puts every cell in batch 0."""
+    nb = self.n_batch
+    if not nb:
+      raise ValueError("the model has no batch conditioning (n_batch=0)")
+    if self.batch_key not in sco.obs:
+      warnings.warn(f"batch conditioning is on (n_batch={nb}) but "
+                    f"obs['{self.batch_key}'] is absent; assuming one batch")
+      return np.eye(nb, dtype=np.float32)[np.zeros(sco.n_obs, np.int64)]
+    col = [str(v) for v in np.asarray(sco.obs[self.batch_key])]
+    uniq = [str(v) for v in self.metadata.get("batch_categories", [])]
+    unseen = sorted(set(col) - set(uniq))
+    if unseen:
+      if len(uniq) + len(unseen) > nb:
+        raise ValueError(
+            f"obs['{self.batch_key}'] carries {len(unseen)} level(s) beyond "
+            f"the {len(uniq)} known ones; total exceeds n_batch={nb}")
+      uniq = uniq + unseen
+      self.metadata["batch_categories"] = list(uniq)
+    idx = {v: i for i, v in enumerate(uniq)}
+    codes = np.array([idx[v] for v in col], np.int64)
+    return np.eye(nb, dtype=np.float32)[codes]
 
   def _loss(self, batch, training: bool, beta: float,
             noise: Optional[Sequence[Optional[torch.Tensor]]] = None
@@ -329,8 +380,8 @@ class SingleCellModel:
     only in training."""
     self.module.train(training)
     library = batch.get("library") if self.uses_library else None
-    out = self.module(self._module_input(batch["inputs"]), library=library,
-                      generator=self.generator, noise=noise)
+    out = self.module(self._masked_module_input(batch, training),
+                      library=library, generator=self.generator, noise=noise)
     loss, metrics = compute_loss(
         out, batch["inputs"], mask=batch.get("mask"), beta=beta,
         alpha=self.alpha, analytic=self.analytic,
@@ -446,14 +497,20 @@ class SingleCellModel:
 
   def encode(self, x, library=None, training: bool = False,
              sample_shape: Tuple[int, ...] = ()):
-    """q(Z|X) distributions (log1p applied inside per ``log_norm``)."""
+    """q(Z|X) distributions (log1p applied inside per ``log_norm``): the
+    model's latents, without a module's nuisance posteriors (TotalVI's
+    q(log β))."""
     out = self.apply(x, library=library, training=training,
                      sample_shape=sample_shape)
-    return _one_or_tuple(out.latents)
+    return _one_or_tuple(out.latents[:self.n_latents])
 
   def decode(self, z, library=None, training: bool = False):
     """p(X|Z) distributions from latent samples or means. SCVI needs both
-    latents (z, library), as ``encode`` returns them."""
+    latents (z, library), as ``encode`` returns them. No latent noise is
+    drawn, as the JAX package's ``decode`` applies the module without a
+    'sample' stream: TotalVI decodes log β at its posterior mean (the
+    generator only feeds dropout masks in train mode). A batch-conditioned
+    model decodes at the uniform batch prior."""
     zs = [_as_device_matrix(zi, self.device) for zi in _flatten(z)]
     self.module.train(training)
     with self._batch_stats_kept(training):
@@ -733,12 +790,13 @@ class SingleCellModel:
     outs, lats = [], []
     with torch.no_grad():
       for s in range(0, n, batch_size):
-        x = _as_device_matrix(mats[0][s:s + batch_size], self.device)
+        x = self._module_input([_as_device_matrix(m[s:s + batch_size],
+                                                  self.device) for m in mats])
         lib = (None if library is None else
                _as_device_matrix(library[s:s + batch_size], self.device))
         out = self._serve(x, lib, sample_shape)
         outs.append(_to_host(out.outputs))
-        lats.append(_to_host(out.latents))
+        lats.append(_to_host(out.latents[:self.n_latents]))
       pX = _merge_dists(outs, ax)
       qZ = _merge_dists(lats, 0)
     return _one_or_tuple(pX), _one_or_tuple(qZ)
@@ -755,7 +813,8 @@ class SingleCellModel:
         keep = dict(n=n, batch=B)
         parts.append((
             _to_host(_merge_dists([o.outputs for o in outs], ax, **keep)),
-            _to_host(_merge_dists([o.latents for o in outs], 0, **keep))))
+            _to_host(_merge_dists([o.latents[:self.n_latents]
+                                   for o in outs], 0, **keep))))
         del outs
       if len(parts) == 1:
         pX, qZ = parts[0]
@@ -789,7 +848,8 @@ class SingleCellModel:
                             sample_shape)
           xm.append([(p.mean().mean(dim=mc_axes) if mc_axes
                       else p.mean()).to(out_dt) for p in out.outputs])
-          zm.append([q.mean().to(out_dt) for q in out.latents])
+          zm.append([q.mean().to(out_dt)
+                     for q in out.latents[:self.n_latents]])
 
         def fetch(per_batch):
           return [torch.cat(leaves)[:n].cpu().float().numpy()
@@ -881,18 +941,21 @@ class SingleCellModel:
                         batch_size: int = 32) -> np.ndarray:
     """Importance-weighted marginal log-likelihood per cell,
     log p(x) ≈ logsumexp_s[log p(x|z_s) + log p(z_s) − log q(z_s|x)]
-    − log S; a latent without a prior contributes zeros."""
+    − log S, over every latent of the forward (a nuisance one such as
+    TotalVI's q(log β) included); a latent without a prior contributes
+    zeros. The likelihood target is the first matrix."""
     mats, library = self._serving_inputs(inputs)
     S = int(sample_shape)
     n = int(mats[0].shape[0])
     chunks = []
     with torch.no_grad():
       for s in range(0, n, batch_size):
-        x = _as_device_matrix(mats[0][s:s + batch_size], self.device)
+        xs = [_as_device_matrix(m[s:s + batch_size], self.device)
+              for m in mats]
         lib = (None if library is None else
                _as_device_matrix(library[s:s + batch_size], self.device))
-        out = self._serve(x, lib, (S,))
-        llk = out.outputs[0].log_prob(x)                     # (S, B)
+        out = self._serve(self._module_input(xs), lib, (S,))
+        llk = out.outputs[0].log_prob(xs[0])                 # (S, B)
         lq = sum(q.log_prob(z) for q, z in zip(out.latents,
                                                out.latent_samples))
         lp = sum(prior.log_prob(z) if prior is not None

@@ -30,21 +30,13 @@ class LDVAE(SCVI):
                      decoder=NetConf(units=(), name="decoder_identity"),
                      **kwargs)
 
-  def get_loadings(self, var_names=None):
+  def get_loadings(self) -> np.ndarray:
     """Per-gene loadings of each latent dimension, (genes, z): the
     ``MeanScale`` weight's z columns (a torch ``Linear`` weight is (out,
-    in)). With ``var_names`` (or the metadata recorded for the main
-    output), a pandas DataFrame indexed by gene."""
+    in); the batch one-hot's columns under ``n_batch`` are left out). The
+    JAX package wraps them in a pandas DataFrame indexed by the recorded
+    gene names; the port imports no pandas, so the rows are in the order
+    of ``metadata[<main output name>]``."""
     weight = self.module.MeanScale.weight.detach().cpu().numpy()
-    loadings = np.ascontiguousarray(weight[:, :int(self.latents[0].dim)],
-                                    np.float32)
-    if var_names is None:
-      main = self.outputs[0].name or "transcriptomic"
-      var_names = (self.metadata.get(main)
-                   or self.metadata.get("transcriptomic"))
-    if var_names is not None and len(var_names) == loadings.shape[0]:
-      import pandas as pd
-      return pd.DataFrame(
-          loadings, index=list(var_names),
-          columns=[f"Z{i}" for i in range(loadings.shape[1])])
-    return loadings
+    return np.ascontiguousarray(weight[:, :int(self.latents[0].dim)],
+                                np.float32)

@@ -12,7 +12,14 @@ Each entry is what the latent's ``rsample`` takes as ``eps``: a standard-
 normal tensor of the draw's shape for 'diag'/'normal'/'tril'; for a
 mixture latent ('mixgaus'/'mdn'/'mixtril') the pair (component indices
 (…, B), every component's standard noise (…, B, K, D)); None for a
-deterministic latent (DCA).
+deterministic latent (DCA). A module that draws again after the latents
+(TotalVI's log β, SCANVI's z₂) takes that draw's noise as one more entry,
+in the order the JAX module calls ``make_rng('sample')``.
+
+Batch-covariate conditioning (``n_batch`` > 0, scvi-tools semantics): the
+module input may end in a batch one-hot block, which joins both the
+encoder input and the decoder input; an input without it conditions on
+the uniform batch prior 1/n_batch, so parameter shapes never change.
 
 Submodule names are the flax names, so ``convert.py`` maps a JAX parameter
 path to a ``state_dict`` key by joining with '.'.
@@ -45,6 +52,9 @@ class VAEOutput:
   latents: Tuple[D.Distribution, ...]        # q(Z_j | X)
   latent_samples: Tuple[torch.Tensor, ...]   # reparameterized draws
   priors: Tuple[Optional[D.Distribution], ...]
+  # terms a topology adds to its loss but not to serving (SCANVI's
+  # per-class hierarchy penalty), read by the model's ``_extra_loss``
+  aux_outputs: Tuple = ()
 
 
 class VAEModule(nn.Module):
@@ -55,22 +65,23 @@ class VAEModule(nn.Module):
   def __init__(self, outputs: Sequence[RVmeta], latents: Sequence[RVmeta],
                encoder_confs: Sequence[NetConf],
                decoder_confs: Sequence[NetConf], log_norm: bool = True,
-               reduce_latent: str = "concat",
+               reduce_latent: str = "concat", n_batch: int = 0,
                generator: Optional[torch.Generator] = None):
     super().__init__()
     self.outputs = tuple(outputs)
     self.latents = tuple(latents)
     self.log_norm = bool(log_norm)
     self.reduce_latent = reduce_latent
-    in_dim = self.outputs[0].dim
+    self.n_batch = int(n_batch)
+    in_dim = self._main_dim() + self.n_batch
     self.encoders = []
     for i, c in enumerate(encoder_confs):
       self.add_module(f"encoder{i}", c.build(in_dim, generator))
       self.encoders.append(getattr(self, f"encoder{i}"))
     self.decoders = []
     for i, c in enumerate(decoder_confs):
-      self.add_module(f"decoder{i}", c.build(self._decoder_in_dim(),
-                                             generator))
+      self.add_module(f"decoder{i}", c.build(
+          self._decoder_in_dim() + self.n_batch, generator))
       self.decoders.append(getattr(self, f"decoder{i}"))
     n_enc = len(self.encoders)
     self.latent_heads = []
@@ -82,20 +93,61 @@ class VAEModule(nn.Module):
     self.output_heads = []
     for i, rv in enumerate(self.outputs):
       name = f"output_head_{rv.name or i}"
-      self.add_module(name, DistributionDense(self.decoders[0].out_dim, rv,
+      self.add_module(name, DistributionDense(self._output_in_dim(i), rv,
                                               generator))
       self.output_heads.append(getattr(self, name))
+
+  def _main_dim(self) -> int:
+    """Width of the module input without the batch block."""
+    return self.outputs[0].dim
 
   def _decoder_in_dim(self) -> int:
     if self.reduce_latent == "concat":
       return sum(rv.dim for rv in self.latents)
     return self.latents[0].dim
 
+  def _output_in_dim(self, i: int) -> int:
+    """Input width of output head ``i`` (the decoder's hidden width)."""
+    return self.decoders[0].out_dim
+
   def preprocess(self, x):
     return torch.log1p(x) if self.log_norm else x
 
+  def split_batch(self, x):
+    """(main input, batch block): the trailing one-hot block when the
+    width is main + n_batch, else the uniform batch prior; (x, None)
+    without batch conditioning. Any other width raises."""
+    nb = self.n_batch
+    if not nb:
+      return x, None
+    main = self._main_dim()
+    if x.shape[-1] == main + nb:
+      return x[..., :main], x[..., main:]
+    if x.shape[-1] != main:
+      raise ValueError(f"input width {x.shape[-1]} is neither {main} nor "
+                       f"{main + nb} (n_batch={nb})")
+    return x, self._uniform_batch(x)
+
+  def _uniform_batch(self, like: torch.Tensor) -> torch.Tensor:
+    return torch.full(tuple(like.shape[:-1]) + (self.n_batch,),
+                      1.0 / self.n_batch, dtype=torch.float32,
+                      device=like.device)
+
+  def _with_batch(self, h, b):
+    if b is None:
+      return h
+    b = b.expand(tuple(h.shape[:-1]) + (b.shape[-1],))
+    return torch.cat([h, b.to(h.dtype)], dim=-1)
+
+  def _decoder_input(self, z, batch):
+    """z with the batch block (the uniform prior when none is given)."""
+    if self.n_batch and batch is None:
+      batch = self._uniform_batch(z)
+    return self._with_batch(z, batch)
+
   def encode(self, x, generator=None) -> Tuple[D.Distribution, ...]:
-    h = self.preprocess(x)
+    x, b = self.split_batch(x)
+    h = self._with_batch(self.preprocess(x), b)
     hs = [enc(h, generator) for enc in self.encoders]
     return tuple(head(hs[min(i, len(hs) - 1)])
                  for i, head in enumerate(self.latent_heads))
@@ -111,8 +163,8 @@ class VAEModule(nn.Module):
       return sum(zs) / len(zs)
     raise ValueError(f"unknown reduce_latent: {self.reduce_latent}")
 
-  def decode(self, z, library=None, generator=None):
-    d = self.decoders[0](z, generator)
+  def decode(self, z, library=None, generator=None, batch=None):
+    d = self.decoders[0](self._decoder_input(z, batch), generator)
     return tuple(head(d) for head in self.output_heads)
 
   def latent_priors(self, library=None, like: Optional[torch.Tensor] = None):
@@ -133,11 +185,23 @@ class VAEModule(nn.Module):
   def forward(self, x, library=None, sample_shape: Tuple[int, ...] = (),
               generator: Optional[torch.Generator] = None,
               noise: Optional[Sequence[torch.Tensor]] = None) -> VAEOutput:
+    _, b = self.split_batch(x)
     qZ = self.encode(x, generator)
     zs = self._sample(qZ, sample_shape, generator, noise)
-    pX = self.decode(self.reduce_latents(zs), library, generator)
+    pX = self.decode(self.reduce_latents(zs), library, generator, b)
     return VAEOutput(outputs=pX, latents=qZ, latent_samples=zs,
                      priors=self.latent_priors(library, like=x))
+
+
+def with_library_prior(priors, library):
+  """``priors`` with the last (library) latent's prior replaced by
+  Normal(local_mean, sqrt(local_var)) from the per-cell (n, 2) library
+  stats, when they are given (SCVI, TotalVI)."""
+  priors = list(priors)
+  if library is not None:
+    mean, var = torch.chunk(library, 2, dim=-1)
+    priors[-1] = D.Independent(D.Normal(loc=mean, scale=torch.sqrt(var)), 1)
+  return tuple(priors)
 
 
 class SCVIModule(VAEModule):
@@ -150,20 +214,19 @@ class SCVIModule(VAEModule):
     floored at log 1e-7; 'full' dispersion gives log θ = the raw
     Dispersion output (``NegativeBinomialLog``), 'single' a per-gene
     θ = exp(px_r_single) row that is never broadcast to (B, D)
-    (``NegativeBinomialDispLog``); gate logits are raw.
+    (``NegativeBinomialDispLog``); gate logits are raw;
+  * extra (semi-supervised) label heads decode from the shared hidden d
+    (``_label_heads``).
   """
 
   def __init__(self, outputs, latents, encoder_confs, decoder_confs,
                log_norm: bool = True, reduce_latent: str = "first",
                dispersion: str = "full", inflation: str = "full",
-               clip_library: float = 1e3,
+               clip_library: float = 1e3, n_batch: int = 0,
                generator: Optional[torch.Generator] = None):
-    if len(outputs) != 1:
-      raise NotImplementedError("the port's SCVI has one output; label "
-                                "heads are not ported yet")
     super().__init__(outputs, latents, encoder_confs, decoder_confs,
                      log_norm=log_norm, reduce_latent="first",
-                     generator=generator)
+                     n_batch=n_batch, generator=generator)
     if dispersion not in ("full", "single"):
       raise ValueError(f"dispersion must be 'full' or 'single', got "
                        f"{dispersion!r}")
@@ -185,17 +248,12 @@ class SCVIModule(VAEModule):
     return self.outputs[0].is_zero_inflated and self.inflation == "full"
 
   def latent_priors(self, library=None, like=None):
-    priors = list(super().latent_priors(library, like))
-    if library is not None:
-      mean, var = torch.chunk(library, 2, dim=-1)
-      priors[-1] = D.Independent(D.Normal(loc=mean, scale=torch.sqrt(var)),
-                                 1)
-    return tuple(priors)
+    return with_library_prior(super().latent_priors(library, like), library)
 
-  def decode(self, latent_samples, library=None, generator=None):
+  def decode(self, latent_samples, library=None, generator=None, batch=None):
     z, l = latent_samples
     l = torch.clamp(l, 0.0, self.clip_library)
-    d = self.decoders[0](z, generator)
+    d = self.decoders[0](self._decoder_input(z, batch), generator)
     log_scale = torch.clamp_min(F.log_softmax(self.MeanScale(d), dim=-1),
                                 _LOG_SCALE_FLOOR)
     log_rate = l + log_scale
@@ -206,14 +264,22 @@ class SCVIModule(VAEModule):
       nb = D.NegativeBinomialDispLog(log_loc=log_rate,
                                      disp=torch.exp(self.px_r_single)[None])
     if self.zero_inflated:
-      return (D.Independent(D.ZeroInflated(
-          count_distribution=nb, gate_logits=self.DropoutLogits(d)), 1),)
-    return (D.Independent(nb, 1),)
+      pX = D.Independent(D.ZeroInflated(
+          count_distribution=nb, gate_logits=self.DropoutLogits(d)), 1)
+    else:
+      pX = D.Independent(nb, 1)
+    return (pX,) + self._label_heads(d, z, generator)
+
+  def _label_heads(self, d, z, generator=None) -> Tuple[D.Distribution, ...]:
+    """The extra heads, from the shared hidden ``d`` (SCANVI reads its
+    classifier on z instead)."""
+    return tuple(head(d) for head in self.output_heads[1:])
 
   def forward(self, x, library=None, sample_shape=(), generator=None,
               noise=None) -> VAEOutput:
+    _, b = self.split_batch(x)
     qZ = self.encode(x, generator)
     zs = self._sample(qZ, sample_shape, generator, noise)
-    pX = self.decode(zs, library, generator)
+    pX = self.decode(zs, library, generator, b)
     return VAEOutput(outputs=pX, latents=qZ, latent_samples=zs,
                      priors=self.latent_priors(library, like=x))

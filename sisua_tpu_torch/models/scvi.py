@@ -5,7 +5,9 @@
 Two encoders (z and library l), latents ``[z_rv, RVmeta(1, 'normal',
 'library')]``, a main output that must be 'zinbd' or 'nbd' and is decoded
 directly (``projection=False``), dispersion 'full' (per cell and gene) or
-'single' (per gene).
+'single' (per gene). Extra outputs are label heads decoded from the shared
+hidden state (weighted by ``alpha``, unmasked: SCVI is not
+semi-supervised).
 """
 
 from __future__ import annotations

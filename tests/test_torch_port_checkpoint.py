@@ -1,17 +1,19 @@
 """Checkpoints shared by the JAX package and the port: the msgpack codec
 against flax, ``save_weights``/``load_model`` in both directions for SCVI
-('single' and 'full'), VAE, SISUA, MISA, DCA, SCALE, SCALAR, FVAE and
-SemiFVAE (with FactorVAE's discriminator in ``aux_params.msgpack``) and
-LDVAE, what ``metamodel.json`` carries (β schedules, ``NetConf``'s
+('single' and 'full', with ``n_batch`` and with a label head), VAE,
+SISUA, MISA, DCA, SCALE, SCALAR, FVAE and SemiFVAE (with FactorVAE's
+discriminator in ``aux_params.msgpack``), LDVAE, TotalVI (``mask_protein``,
+``n_batch``) and SCANVI (its classifier and hierarchy nets), what
+``metamodel.json`` carries (β schedules, ``NetConf``'s
 JAX-only fields, dataset, metadata, history), the refusals, and that the
 port imports none of JAX, flax, msgpack, pandas or ``sisua_tpu``.
 
 Weights are random (perturbed off their init, batch stats and aux
 parameters too), so every leaf is worth comparing. The eval-mode forward
 and loss of the loaded model are held to the model it came from at fed
-noise: the JAX draws are replayed from the module's 'sample' key (a
-mixture latent's component indices and component noise too) and handed to
-the port (rtol 1e-4, atol 1e-5, as tests/test_torch_port_models.py; the
+noise: the JAX draws are replayed from the module's 'sample' keys (a
+mixture latent's component indices and component noise too; TotalVI's
+log β and SCANVI's z₂ from the second key) and handed to the port (rtol 1e-4, atol 1e-5, as tests/test_torch_port_models.py; the
 eval loss metrics rtol 1e-3, ``EVAL_RTOL``).
 """
 
@@ -42,6 +44,7 @@ from sisua_tpu_torch.train import checkpoint as tckpt
 from sisua_tpu_torch.train import msgpack as tmp
 
 G, P, N = 60, 6, 40
+NB, C = 3, 4  # batch levels of the n_batch models, SCANVI's cell types
 CLOSE = dict(rtol=1e-4, atol=1e-5)
 # eval-mode loss metrics across the packages: the perturbed weights put
 # NB dispersions up to e^15, where one float32 ulp of lgamma(θ) is ~0.5
@@ -147,6 +150,22 @@ def test_codec_refuses_what_it_cannot_read_right(monkeypatch):
 def _specs(RV, name):
   """(class name, outputs, kwargs) of one zoo configuration."""
   lat = dict(latents=dict(dim=4, posterior="diag", name="latents"))
+  if name == "scvi_nb":
+    return "SCVI", RV(G, "zinbd", name="rna"), dict(lat, n_batch=NB,
+                                                     **NETS)
+  if name == "scvi_label":
+    return "SCVI", [RV(G, "zinbd", name="rna"), RV(P, "nb", name="adt")], \
+        dict(lat, alpha=10.0, **NETS)
+  if name == "totalvi":
+    return "TotalVI", [RV(G, "zinbd", name="rna"),
+                       RV(P, "nbd", name="adt")], dict(
+                           lat, mask_protein=True, n_batch=NB, **NETS)
+  if name == "scanvi":
+    return "SCANVI", [RV(G, "nbd", name="rna"),
+                      RV(C, "onehot", name="celltype")], dict(
+                          lat, n_batch=NB, classifier={"units": [8]},
+                          encoder_z2={"units": [8]},
+                          decoder_z1={"units": [8]}, **NETS)
   if name.startswith("scvi"):
     return "SCVI", RV(G, "zinbd", name="rna"), dict(
         lat, dispersion=name.split("_")[1], **NETS)
@@ -172,12 +191,14 @@ def _specs(RV, name):
 
 
 MODELS = ["scvi_single", "scvi_full", "vae", "sisua", "misa", "dca",
-          "scale", "scale_mixtril", "scalar", "fvae", "sfvae", "ldvae"]
+          "scale", "scale_mixtril", "scalar", "fvae", "sfvae", "ldvae",
+          "scvi_nb", "scvi_label", "totalvi", "scanvi"]
 EXTRA = dict(
     beta={"kind": "linear", "vmin": 0.0, "vmax": 2.0, "norm": 50.0,
           "delay_in": 5.0, "cyclical": True},
     dataset="toy_citeseq",
-    metadata={"rna": [f"g{i}" for i in range(G)], "note": ["a", "b"]})
+    metadata={"rna": [f"g{i}" for i in range(G)], "note": ["a", "b"],
+              "batch_categories": ["donor1", "donor2", "donor3"]})
 
 
 def _perturbed(tree, seed):
@@ -251,26 +272,44 @@ def _draw(q, key):
       key, tuple(q.batch_shape) + tuple(q.event_shape))))
 
 
-def _replayed_noise(jm, x, key, latents):
+def _replayed_noise(jm, x, key, out):
   """The draws of ``jm.apply``/``jm._loss`` with ``key``: both split it
-  into the 'sample' and 'dropout' streams, and the module splits its
-  first 'sample' key per latent."""
+  into the 'sample' and 'dropout' streams; the module splits its first
+  'sample' key per latent and draws TotalVI's log β (a nuisance latent
+  of ``out``) or SCANVI's z₂ from its second."""
   k_sample, k_drop = jax.random.split(key)
   variables = {"params": jm.params}
   if jm.batch_stats is not None:
     variables["batch_stats"] = jm.batch_stats
-  skey = jm.module.apply(variables, x,
-                         rngs={"sample": k_sample, "dropout": k_drop},
-                         method=lambda m, *a, **k: m.make_rng("sample"))
-  return [_draw(q, k) for q, k in zip(
-      latents, jax.random.split(skey, len(latents)))]
+  k1, k2 = jm.module.apply(
+      variables, x, rngs={"sample": k_sample, "dropout": k_drop},
+      method=lambda m, *a, **k: (m.make_rng("sample"), m.make_rng("sample")))
+  n = jm.n_latents
+  noise = [_draw(q, k) for q, k in zip(out.latents[:n],
+                                       jax.random.split(k1, n))]
+  if len(out.latents) > n:
+    noise.append(_draw(out.latents[n], k2))
+  elif out.aux_outputs:
+    noise.append(torch.tensor(np.asarray(jax.random.normal(
+        k2, (jm.n_labels,) + tuple(out.latent_samples[0].shape)))))
+  return noise
 
 
 def _inputs(model, x):
-  """x and a protein matrix for each label output."""
+  """x, a protein matrix (or SCANVI's cell-type one-hot) for each label
+  output, and the batch one-hot of an n_batch model."""
   rng = np.random.default_rng(9)
-  return [x] + [rng.poisson(5.0, (len(x), rv.dim)).astype(np.float32)
-                for rv in model.outputs[1:]]
+  xs = [x]
+  for rv in model.outputs[1:]:
+    if rv.posterior == "onehot":
+      xs.append(np.eye(rv.dim, dtype=np.float32)[
+          rng.integers(0, rv.dim, len(x))])
+    else:
+      xs.append(rng.poisson(5.0, (len(x), rv.dim)).astype(np.float32))
+  if model.n_batch:
+    xs.append(np.eye(model.n_batch, dtype=np.float32)[
+        rng.integers(0, model.n_batch, len(x))])
+  return xs
 
 
 def _assert_same_forward(jm, tm, x):
@@ -278,10 +317,12 @@ def _assert_same_forward(jm, tm, x):
   metrics, at the same draws."""
   lib = _library(x)
   key = jax.random.key(7, impl="rbg")
-  jout = jm.apply(jnp.asarray(x), library=jnp.asarray(lib), training=False,
-                  key=key)
-  noise = _replayed_noise(jm, jnp.asarray(x), key, jout.latents)
-  tout = tm.apply(x, library=lib, noise=noise)
+  xs = _inputs(tm, x)
+  xin = np.array(jm._module_input([jnp.asarray(a) for a in xs]))
+  jout = jm.apply(jnp.asarray(xin), library=jnp.asarray(lib),
+                  training=False, key=key)
+  noise = _replayed_noise(jm, jnp.asarray(xin), key, jout)
+  tout = tm.apply(xin, library=lib, noise=noise)
   for jp, tp in zip(jout.outputs, tout.outputs):
     assert type(tp).__name__ == type(jp).__name__
     np.testing.assert_allclose(tp.mean().detach().numpy(),
@@ -291,14 +332,13 @@ def _assert_same_forward(jm, tm, x):
                                np.asarray(jq.mean()), **CLOSE)
   for jz, tz in zip(jout.latent_samples, tout.latent_samples):
     np.testing.assert_allclose(tz.detach().numpy(), np.asarray(jz), **CLOSE)
-  xs = _inputs(tm, x)
   batch = {"inputs": xs, "library": lib, "mask": np.ones(len(x), np.float32)}
   _, (jmet, _, jo) = jm._loss(jm.params, jm.batch_stats, jax.tree_util.tree_map(
       jnp.asarray, batch), key, 1.0, training=False)
   with torch.no_grad():
     _, tmet, _ = tm._loss(jax.tree_util.tree_map(torch.tensor, batch), False,
-                          1.0, noise=_replayed_noise(jm, jnp.asarray(x), key,
-                                                     jo.latents))
+                          1.0, noise=_replayed_noise(jm, jnp.asarray(xin), key,
+                                                     jo))
   assert set(tmet) == set(jmet)
   for k, v in jmet.items():  # EVAL_RTOL: see its comment
     np.testing.assert_allclose(float(tmet[k]), float(v), rtol=EVAL_RTOL,
@@ -350,7 +390,9 @@ def test_port_checkpoint_loads_in_jax(name, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["scvi_single", "sisua", "scale",
-                                  "scalar", "fvae", "sfvae", "ldvae"])
+                                  "scalar", "fvae", "sfvae", "ldvae",
+                                  "scvi_nb", "scvi_label", "totalvi",
+                                  "scanvi"])
 def test_both_packages_write_the_same_files(name, tmp_path):
   """JAX save → port load → port save: byte-identical weights (the
   discriminator's ``aux_params.msgpack`` too) and the same
@@ -468,10 +510,10 @@ def test_unported_backends_raise(tmp_path):
                        None, {"dense0": {"bias": aux["dense0"]["bias"],
                                          "kernel": np.ones((3, 3))}})
   with pytest.raises(ValueError, match="among the ported"):
-    T.get_model("TotalVI")
+    T.get_model("PEAKVI")
   assert set(T.get_all_models()) == {
       T.VAE, T.SISUA, T.MISA, T.SCVI, T.DeepCountAutoencoder, T.LDVAE,
-      T.SCALE, T.SCALAR, T.FVAE, T.SemiFVAE}
+      T.SCALE, T.SCALAR, T.FVAE, T.SemiFVAE, T.TotalVI, T.SCANVI}
 
 
 def test_constructor_takes_the_jax_kwargs():

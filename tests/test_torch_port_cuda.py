@@ -535,3 +535,82 @@ def test_ldvae_per_gene_theta_gradient_at_full_width(dev):
   bad = (a - b).abs() > bound
   assert not bad.any(), (f"{int(bad.sum())} of {b.numel()} genes off, "
                          f"worst |Δ| {float((a - b).abs().max()):.3e}")
+
+
+# ------------------------ batch conditioning, TotalVI and SCANVI at width
+NEW = {"SCVI_batch": 2, "TotalVI": 1, "SCANVI": 1}  # ZINB/NB heads
+
+
+def _new_model(name, genes, dev):
+  """chip_smoke.py phase 10's models: SCVI 'zinbd' at n_batch = 4 with an
+  'nb' label head, TotalVI (n_batch = 4, mask_protein), SCANVI over 10
+  cell types."""
+  from sisua_tpu_torch import models as T
+  rna = T.RVmeta(genes, "zinbd", name="rna")
+  if name == "SCVI_batch":
+    return T.SCVI([rna, T.RVmeta(10, "nb", name="adt")], n_batch=4,
+                  alpha=10.0, device=dev)
+  if name == "TotalVI":
+    return T.TotalVI([rna, T.RVmeta(10, "nbd", name="adt")], n_batch=4,
+                     mask_protein=True, device=dev)
+  return T.SCANVI([rna, T.RVmeta(10, "onehot", name="celltype")],
+                  device=dev)
+
+
+def _new_batch(m, rows, seed, dev):
+  """A train batch for ``m`` (counts, proteins or cell types, the batch
+  one-hot, a mixed mask, library stats) and noise for each latent and for
+  the forward's second draw (TotalVI's log β, SCANVI's z₂)."""
+  from sisua_tpu_torch.data import get_library_size
+  g = torch.Generator(device=dev).manual_seed(seed)
+
+  def onehot(k):
+    return torch.nn.functional.one_hot(
+        torch.randint(0, k, (rows,), generator=g, device=dev), k).float()
+  lam = torch.exp(-1.0 + torch.randn((rows, m.outputs[0].dim), generator=g,
+                                     device=dev))
+  xs = [torch.poisson(lam, generator=g)]
+  if type(m).__name__ == "SCANVI":
+    xs.append(onehot(m.n_labels))
+  else:
+    xs += [torch.poisson(torch.full((rows, 10), 20.0, device=dev),
+                         generator=g), onehot(m.n_batch)]
+  batch = {"inputs": xs, "library": torch.cat(get_library_size(xs[0]), 1),
+           "mask": (torch.rand(rows, generator=g, device=dev) < 0.5).float()}
+  noise = [torch.randn((rows, rv.dim), generator=g, device=dev)
+           for rv in m.latents]
+  if type(m).__name__ == "TotalVI":
+    noise.append(torch.randn((rows, 10), generator=g, device=dev))
+  elif type(m).__name__ == "SCANVI":
+    noise.append(torch.randn((m.n_labels, rows, m.latents[0].dim),
+                             generator=g, device=dev))
+  return batch, noise
+
+
+@pytest.mark.parametrize("name", list(NEW))
+def test_batch_totalvi_scanvi_step_at_full_width(dev, name):
+  """One train step at 512 × 33,000 on the kernel route against the plain
+  route (loss rtol 1e-4, every gradient within chip_smoke.py phase 7's
+  bound): each ZINB/NB head launches each kernel once (SCVI's RNA and
+  label heads; TotalVI's and SCANVI's RNA head, their protein mixture and
+  cell-type head take plain math). Then one optimizer step through
+  ``_train_step``, with the same launches per step."""
+  m = _new_model(name, 33_000, dev)
+  batch, noise = _new_batch(m, 512, 14, dev)
+  state = {k: v.clone() for k, v in m.module.state_dict().items()}
+  heads = NEW[name]
+  tz.reset_launches()
+  lk, gk, _ = _route(m, state, batch, noise, "auto")
+  assert tz.launches == {"zinb_rowsum_fwd": heads, "zinb_rowsum_bwd": heads}
+  lp, gp, _ = _route(m, state, batch, noise, "off")
+  assert tz.launches["zinb_rowsum_fwd"] == heads
+  assert abs(lk - lp) <= 1e-4 * abs(lp)
+  top = max(float(g.abs().max()) for g in gp.values())
+  for k, g in gp.items():
+    assert float((gk[k] - g).abs().max()) \
+        <= 1e-3 * (float(g.abs().max()) + 1e-3 * top), k
+  m.optimizer = torch.optim.Adam(m.module.parameters(), lr=1e-3)
+  tz.reset_launches()
+  metrics = m._train_step(batch)
+  assert tz.launches == {"zinb_rowsum_fwd": heads, "zinb_rowsum_bwd": heads}
+  assert all(torch.isfinite(v).all() for v in metrics.values())

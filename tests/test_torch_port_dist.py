@@ -359,3 +359,61 @@ def test_library_size_numpy_and_torch():
     assert isinstance(tm2, torch.Tensor) and tm2.shape == (40, 1)
     np.testing.assert_allclose(tm2.numpy(), jm, rtol=1e-6)
     np.testing.assert_allclose(tv2.numpy(), jv, rtol=1e-5)
+
+
+def _nb_mixture_params(seed, shape=(6, 5)):
+  rng = np.random.default_rng(seed)
+  back = rng.gamma(2.0, 2.0, shape).astype(np.float32)
+  fore = back * (1.0 + rng.gamma(2.0, 2.0, shape)).astype(np.float32)
+  disp = np.broadcast_to(rng.gamma(2.0, 1.0, shape[-1:]),
+                         shape).astype(np.float32)
+  mix = rng.normal(0, 2, shape).astype(np.float32)
+  return back, fore, disp, mix
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nb_mixture_matches_jax(seed):
+  """TotalVI's per-element background/foreground NB mixture: log_prob
+  (counts up to 1e6), mean, variance, mode and the posterior foreground
+  probability, rtol 1e-5 (log-probs with the lgamma atol)."""
+  params = _nb_mixture_params(seed)
+  (jb, jf, jd, jm), (tb, tf, td, tm) = _both(*params)
+  jq = JD.NegativeBinomialMixture(loc_back=jb, loc_fore=jf, disp=jd,
+                                  mixing_logits=jm)
+  tq = TD.NegativeBinomialMixture(loc_back=tb, loc_fore=tf, disp=td,
+                                  mixing_logits=tm)
+  _, x = _counts(seed, (6, 5))
+  (jx,), (tx,) = _both(x)
+  assert tq.batch_shape == tuple(jq.batch_shape) == (6, 5)
+  _close(tq.log_prob(tx), jq.log_prob(jx))
+  fg = tq.foreground_probability(tx)
+  _close(fg, jq.foreground_probability(jx))
+  assert ((fg >= 0) & (fg <= 1)).all()
+  for attr in ("mean", "variance", "mode"):
+    _close(getattr(tq, attr)(), getattr(jq, attr)(), err_msg=attr)
+  # an Independent head sums the proteins, as the JAX one
+  _close(TD.Independent(tq, 1).log_prob(tx),
+         JD.Independent(jq, 1).log_prob(jx))
+
+
+def test_nb_mixture_sample_and_merge():
+  """Draws come at the mixture's batch shape from the generator (per-
+  protein parameters under per-cell mixing), reproducibly, with the
+  mixture's mean; ``tree_map`` merges its four leaves."""
+  back, fore, disp, mix = _nb_mixture_params(2, (4, 3))
+  tq = TD.NegativeBinomialMixture(
+      torch.tensor(back), torch.tensor(fore), torch.tensor(disp[:1]),
+      torch.tensor(mix))
+  a = tq.sample((4000,), generator=torch.Generator().manual_seed(0))
+  b = tq.sample((4000,), generator=torch.Generator().manual_seed(0))
+  assert a.shape == (4000, 4, 3) and torch.equal(a, b)
+  assert (a >= 0).all() and torch.equal(a, a.round())
+  np.testing.assert_allclose(a.mean(0).numpy(), tq.mean().numpy(),
+                             rtol=0.15)
+  # TotalVI broadcasts θ to (B, P) before the mixture: every leaf merges
+  tq.disp = tq.disp.expand(4, 3)
+  merged = TD.tree_map(lambda *t: torch.cat(t), tq, tq)
+  assert isinstance(merged, TD.NegativeBinomialMixture)
+  assert merged.batch_shape == (8, 3)
+  np.testing.assert_array_equal(merged.variance().numpy()[4:],
+                                tq.variance().numpy())

@@ -30,6 +30,7 @@ from sisua_tpu_torch import models as T
 from sisua_tpu_torch.rv import RVmeta as TRV
 
 G, P, N, B = 60, 6, 70, 32   # 3 batches, the last one ragged (6 rows)
+NB = 3                       # batch-covariate levels of 'scvi_nb'
 CLOSE = dict(rtol=1e-4, atol=1e-5)
 NETS = dict(encoder={"units": [32, 32], "batchnorm": True},
             decoder={"units": [32, 32], "batchnorm": True})
@@ -40,6 +41,9 @@ def _build(zoo, RV, name, **kw):
   if name == "scvi":
     return zoo.SCVI(RV(G, "zinbd", name="rna"), dispersion="single",
                     **LAT, **NETS, **kw)
+  if name == "scvi_nb":
+    return zoo.SCVI(RV(G, "zinbd", name="rna"), n_batch=NB, **LAT, **NETS,
+                    **kw)
   if name == "sisua":
     return zoo.SISUA([RV(G, "zinb", name="rna"), RV(P, "nb", name="adt")],
                      alpha=10.0, **LAT, **NETS, **kw)
@@ -105,19 +109,22 @@ def _library(x):
                    np.full(len(x), logc.var())], 1).astype(np.float32)
 
 
-def _jax_draws(jm, x, sample_shape, streaming, batch=B):
+def _jax_draws(jm, x, sample_shape, streaming, batch=B, onehot=None):
   """The eps the JAX serving call on ``x`` (starting from the model's
-  current key) draws, batch by batch, as port tensors."""
+  current key) draws, batch by batch, as port tensors; ``onehot`` is the
+  batch block the module input carries."""
   n = len(x)
   k = -(-n // batch)
   lib = _library(x)
+  if onehot is not None:
+    x = np.concatenate([x, onehot], 1)
   if streaming:
     keys = _stream_keys(jm._rng, k)
     batches = [(x[i * batch:(i + 1) * batch], lib[i * batch:(i + 1) * batch])
                for i in range(k)]
   else:
     keys = _chunk_keys(jm._rng, k)
-    xp = np.zeros((k * batch, G), np.float32)
+    xp = np.zeros((k * batch, x.shape[1]), np.float32)
     xp[:n] = x
     lp = np.zeros((k * batch, 2), np.float32)
     lp[:n] = lib
@@ -420,3 +427,55 @@ def test_mesh_is_not_ported():
   _, tm = _pair("dca")
   with pytest.raises(NotImplementedError, match="mesh"):
     tm.predict(_data()[0], mesh=object())
+
+
+# ---------------------------------------------- batch-covariate conditioning
+def _onehot(n=N, seed=3):
+  return np.eye(NB, dtype=np.float32)[
+      np.random.default_rng(seed).integers(0, NB, n)]
+
+
+@pytest.mark.parametrize("device_cache", [False, True],
+                         ids=["streaming", "device_cache"])
+def test_predict_at_n_batch_matches_jax(device_cache):
+  """``predict([rna, one-hot])``: both paths hand the batch block to the
+  encoder and the decoder, as JAX's (the streaming path once read the RNA
+  matrix alone and fell back to the uniform batch prior)."""
+  jm, tm = _pair("scvi_nb")
+  x, _ = _data()
+  oh = _onehot()
+  draws = _jax_draws(jm, x, (), streaming=not device_cache, onehot=oh)
+  jX, jZ = jm.predict([x, oh], batch_size=B, device_cache=device_cache)
+  with _fed(tm, draws):
+    tX, tZ = tm.predict([x, oh], batch_size=B, device_cache=device_cache)
+  for t, j in zip(_tuple(tX) + _tuple(tZ), _tuple(jX) + _tuple(jZ)):
+    _assert_dist_close(t, j)
+  with _fed(tm, draws):
+    prior, _ = tm.predict(x, batch_size=B, device_cache=device_cache)
+  assert not np.allclose(_means(prior)[0], _means(tX)[0], rtol=1e-3)
+
+
+def test_predict_mean_at_n_batch_matches_jax():
+  jm, tm = _pair("scvi_nb")
+  x, _ = _data()
+  oh = _onehot()
+  draws = _jax_draws(jm, x, (), streaming=False, onehot=oh)
+  jx, jz = jm.predict_mean([x, oh], batch_size=B)
+  with _fed(tm, draws):
+    tx, tz = tm.predict_mean([x, oh], batch_size=B)
+  for a, b in zip(tx + tz, jx + jz):
+    np.testing.assert_allclose(a, b, **CLOSE)
+
+
+def test_marginal_log_prob_at_n_batch_matches_jax():
+  """The module input carries the one-hot; the likelihood target is the
+  RNA matrix (it once was the encoder input itself)."""
+  jm, tm = _pair("scvi_nb")
+  x, _ = _data()
+  oh = _onehot()
+  draws = _jax_draws(jm, x, (5,), streaming=True, onehot=oh)
+  j = jm.marginal_log_prob([x, oh], sample_shape=5, batch_size=B)
+  with _fed(tm, draws):
+    t = tm.marginal_log_prob([x, oh], sample_shape=5, batch_size=B)
+  assert t.shape == (N,)
+  np.testing.assert_allclose(t, j, **CLOSE)

@@ -4,8 +4,9 @@ at 512 × 33,000, on one CUDA card.
 
     python3 tools/step_profile.py [MODEL ...]
 
-MODEL is one of SISUA, FVAE, SCALAR, SCALE, LDVAE (default: all), built as
-``chip_smoke.py`` builds it (the JAX package's default nets). For each:
+MODEL is one of SISUA, FVAE, SCALAR, SCALE, LDVAE, and phase 10's
+scvi_batch (SCVI at n_batch = 4 with an 'nb' label head), totalvi and
+scanvi (default: all), built as ``chip_smoke.py`` builds it. For each:
 one warm-up epoch of 8 steps through ``fit``, then STEPS steps of
 ``_train_step`` on fixed batches:
   * wall ms per step (host clock around the steps, ending in a
@@ -59,26 +60,42 @@ def _union_us(ranges) -> float:
   return total
 
 
+# phase 10's models by the names this tool takes
+PHASE10 = {"scvi_batch": "SCVI_batch", "totalvi": "TotalVI",
+           "scanvi": "SCANVI"}
+ALL = ["SISUA", "FVAE", "SCALAR", "SCALE", "LDVAE", *PHASE10]
+
+
 def _model(cs, name):
   if name == "SISUA":
     from sisua_tpu_torch.models import SISUA
     return SISUA(cs._sisua_outputs(), alpha=cs.ALPHA, device=cs.DEVICE,
                  seed=cs.SEED)
+  if name in PHASE10:
+    return cs._phase10_model(PHASE10[name])
   return cs._zoo_model(name)
 
 
-def profile(torch, cs, name, x, y):
+def _inputs(cs, name, data, rows):
+  """The model's data matrices, rows ``rows``."""
+  x, y, b, ct = (a[rows] for a in data)
+  if name in PHASE10:
+    return cs._phase10_inputs(PHASE10[name], x, y, b, ct)
+  return [x, y] if name in ("SISUA", "SCALAR") else [x]
+
+
+def profile(torch, cs, name, data):
   from torch.profiler import ProfilerActivity
   from sisua_tpu_torch.data import get_library_size
   model = _model(cs, name)
-  two = name in ("SISUA", "SCALAR")
   n = 8 * cs.BATCH
-  model.fit([x[:n], y[:n]] if two else x[:n], epochs=1,
+  model.fit(_inputs(cs, name, data, slice(0, n)), epochs=1,
             batch_size=cs.BATCH, labels_percent=cs.LABELS_PERCENT)
+  x = data[0]
   batches = []
   for i in range(STEPS):
     rows = slice(i * cs.BATCH, (i + 1) * cs.BATCH)
-    b = {"inputs": [x[rows], y[rows]] if two else [x[rows]],
+    b = {"inputs": _inputs(cs, name, data, rows),
          "mask": (torch.arange(cs.BATCH, device=x.device) % 10 == 0).float()}
     if model.uses_library:
       b["library"] = torch.cat(get_library_size(x[rows]), 1)
@@ -136,10 +153,12 @@ def main(argv):
                        text=True).stdout.strip()
   log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
   gen = torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED + 1)
-  x = cs._counts(torch, gen, 8 * cs.BATCH, cs.GENES)
-  y = cs._proteins(torch, gen, 8 * cs.BATCH)
-  for name in argv or ["SISUA", "FVAE", "SCALAR", "SCALE", "LDVAE"]:
-    profile(torch, cs, name, x, y)
+  n = 8 * cs.BATCH
+  data = (cs._counts(torch, gen, n, cs.GENES), cs._proteins(torch, gen, n),
+          cs._onehots(torch, gen, n, cs.N_BATCHES),
+          cs._onehots(torch, gen, n, cs.CELL_TYPES))
+  for name in argv or ALL:
+    profile(torch, cs, name, data)
   os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
   with open(os.path.join(ROOT, "chiprun_out", "step_profile.txt"), "w") as f:
     f.write("\n".join(_LINES) + "\n")
