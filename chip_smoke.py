@@ -79,8 +79,25 @@ before the final line:
      within EVAL_RTOL; one served call: SCVI's ``predict_mean`` with the
      one-hot (which must differ from the uniform batch prior's), TotalVI's
      ``denoised_proteins`` (in [0, 1]), SCANVI's ``predict_labels``.
+ 11. the multiome models at 10x Multiome width: phase 4's counts plus a
+     seeded 8,192 × 108,377 peak matrix on the card (~5% nonzero, counts
+     1–4), 10% of the cells made ATAC-only and another 10% RNA-only, in
+     training and held-out data alike. PEAKVI on the peaks and MULTIVI
+     ('zinbd' RNA + peaks, n_batch = 4), at the JAX package's default
+     nets, batch 512, 16 epochs in two windows of 8, validated on the
+     held-out cells, each from launch counts set to 0. Each: every loss
+     finite and falling, MULTIVI's ``modality_penalty``, ``klqp_z1`` and
+     ``llk_x1`` in the history, MULTIVI launching each kernel once per
+     step and the forward once per validation and evaluate batch, PEAKVI
+     none; steady step ms, cells/s and peak memory; ``save_weights`` →
+     ``load_model`` bitwise with ``evaluate`` within EVAL_RTOL;
+     ``get_accessibility_estimates`` in [0, 1], the region-free ones never
+     below; MULTIVI's joint mean of ATAC-only cells unmoved by zeroing
+     their RNA block, a paired cell's moved; the kernel route against the
+     plain route on one batch of paired, RNA-only and ATAC-only cells
+     (phase 7's bounds).
 Before the last line it prints the kernels' JSON summary (launches of the
-phase 4 and phase 6 fits, of phase 8 and of phases 9 and 10's fits and
+phase 4 and phase 6 fits, of phase 8 and of phases 9 to 11's fits and
 round trips; time, plain time and bound at 512 × 33,000 'main_full'); the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -1099,12 +1116,17 @@ def _phase10_fit(torch, name, data, valid, smi):
   return model, launches
 
 
+def _batch_onehots(torch, gen):
+  """Phase 10's batch one-hots over N_BATCHES, training and held-out."""
+  return (_onehots(torch, gen, CELLS, N_BATCHES),
+          _onehots(torch, gen, HELD_OUT, N_BATCHES))
+
+
 def phase_batch(torch, x, held, y, held_y, library, root, smi):
   """Phase 10; returns the launches of its fits and round trips."""
   from sisua_tpu_torch.ops import zinb as tz
   gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
-  b, held_b = _onehots(torch, gen, CELLS, N_BATCHES), _onehots(
-      torch, gen, HELD_OUT, N_BATCHES)
+  b, held_b = _batch_onehots(torch, gen)
   ct, held_ct = _onehots(torch, gen, CELLS, CELL_TYPES), _onehots(
       torch, gen, HELD_OUT, CELL_TYPES)
   rows = torch.arange(BATCH, device=DEVICE)
@@ -1127,6 +1149,205 @@ def phase_batch(torch, x, held, y, held_y, library, root, smi):
     fresh = _phase10_model(name)
     _compare_routes(torch, "10 batch", name, fresh, _converted(fresh, model),
                     batch, _phase10_noise(torch, fresh, gen, BATCH), heads)
+    del model, fresh
+  return total
+
+
+# phase 11: PEAKVI and MULTIVI at Multiome width: 10x Genomics' "PBMC from
+# a healthy donor, granulocytes removed through cell sorting (10k)"
+# Multiome set as scvi-tools' MultiVI tutorial loads it has 108,377 peaks
+# (and 36,601 genes; the RNA side keeps phase 4's 33,000)
+PEAKS = 108_377
+ATAC_RATE = 0.027     # Poisson scale: ~5% of (cell, peak) entries nonzero
+ATAC_MAX = 4.0        # counts of 1–4
+MOSAIC = 0.1          # share of ATAC-only cells, and of RNA-only cells
+MULTIOME = {"PEAKVI": 0, "MULTIVI": 1}  # ZINB/NB heads of each fit
+
+
+def _atac(torch, gen, rows):
+  """Seeded peak counts on the card: Poisson(ATAC_RATE · depth · openness)
+  capped at ATAC_MAX, with a per-cell depth exp(0.5·N(0,1)) and a per-peak
+  openness exp(N(0,1)), 1,024 rows at a time."""
+  opening = torch.exp(torch.randn((PEAKS,), generator=gen, device=DEVICE))
+  parts = []
+  for lo in range(0, rows, 1024):
+    n = min(1024, rows - lo)
+    depth = torch.exp(0.5 * torch.randn((n, 1), generator=gen,
+                                        device=DEVICE))
+    rate = ATAC_RATE * depth * opening
+    parts.append(torch.clamp_max(torch.poisson(rate, generator=gen),
+                                 ATAC_MAX))
+    del rate
+  return torch.cat(parts)
+
+
+def _mosaic(torch, gen, x, a):
+  """Zero, in place, the RNA rows of MOSAIC of the cells (ATAC-only) and
+  the ATAC rows of another MOSAIC (RNA-only); returns (ATAC-only, RNA-only)
+  row indices."""
+  n = x.shape[0]
+  perm = torch.randperm(n, generator=gen, device=DEVICE)
+  k = int(MOSAIC * n)
+  atac_only, rna_only = perm[:k], perm[k:2 * k]
+  x.index_fill_(0, atac_only, 0.0)
+  a.index_fill_(0, rna_only, 0.0)
+  return atac_only, rna_only
+
+
+def _multiome_model(name):
+  """The JAX package's defaults: PEAKVI's encoder (64, 64) with batchnorm
+  and input dropout 0.3, decoder (64, 64), latent 10 'diag', depth (32,);
+  MULTIVI's 'zinbd' RNA at n_batch = 4, latent 16 'diag', encoders and
+  decoders (128, 128) with batchnorm (encoders with dropout 0.1), depth
+  (32,), modality_penalty 1."""
+  from sisua_tpu_torch import models as T
+  kw = dict(device=DEVICE, seed=SEED)
+  atac = T.RVmeta(PEAKS, "bernoulli", name="atac")
+  if name == "PEAKVI":
+    return T.PEAKVI(atac, **kw)
+  return T.MULTIVI([T.RVmeta(GENES, "zinbd", name="rna"), atac],
+                   n_batch=N_BATCHES, **kw)
+
+
+def _multiome_inputs(name, x, a, b):
+  return [a] if name == "PEAKVI" else [x, a, b]
+
+
+def _multiome_fit(torch, name, data, valid, smi):
+  """One phase 11 fit from launch counts set to 0."""
+  import numpy as np
+  from sisua_tpu_torch.ops import zinb as tz
+  model = _multiome_model(name)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  resident = torch.cuda.memory_allocated() / 2**30
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  model.fit(data, valid=valid, epochs=EPOCHS, batch_size=BATCH,
+            learning_rate=1e-3, metrics_interval=WINDOW)
+  fit_s = time.perf_counter() - t0
+  launches = dict(tz.launches)
+  steps = EPOCHS * (CELLS // BATCH)
+  val_batches = (EPOCHS // WINDOW) * -(-HELD_OUT // BATCH)
+  h = model.history
+  losses = np.asarray(h["loss"])
+  check(len(losses) == EPOCHS and model.step == steps,
+        f"{name}: ran {len(losses)} epochs / {model.step} steps")
+  check(np.isfinite(losses).all() and np.isfinite(h["val_loss"]).all(),
+        f"{name}: non-finite loss {losses} / {h['val_loss']}")
+  first, last = losses[:WINDOW].mean(), losses[-WINDOW:].mean()
+  check(last < first, f"{name}: last window loss {last} !< first {first}")
+  own = ("modality_penalty", "klqp_z1", "llk_x1") if name == "MULTIVI" \
+      else ("llk_x", "klqp_z")
+  check(all(k in h and np.isfinite(h[k]).all() for k in own),
+        f"{name}: history keys {sorted(h)}")
+  heads = MULTIOME[name]
+  check(launches == {"zinb_rowsum_fwd": heads * (steps + val_batches),
+                     "zinb_rowsum_bwd": heads * steps},
+        f"{name}: launches {launches}, expected {heads} × ({steps} steps "
+        f"+ {val_batches} validation batches) forward, {heads} × {steps} "
+        "backward")
+  step_ms, cells_s, peak = _steady(h, torch)
+  log(f"[11 multiome] {name}: {steps} steps in {fit_s:.1f} s; loss first "
+      f"window {first:.2f} last window {last:.2f}; val_loss "
+      f"{h['val_loss'][0]:.2f} → {h['val_loss'][-1]:.2f}; "
+      + ", ".join(f"{k} {h[k][-1]:.3f}" for k in own)
+      + f"; launches {launches}")
+  log(f"[11 multiome] {name}: steady step {step_ms:.3f} ms, {cells_s:.0f} "
+      f"cells/s (last window), peak memory {peak:.2f} GiB ({resident:.2f} "
+      f"GiB resident before the fit) | {smi}")
+  return model, launches
+
+
+def _multiome_serve(torch, name, model, held_data, held_atac_only):
+  """Accessibility estimates over the held-out cells in [0, 1], the
+  region-free ones never below; MULTIVI: the joint posterior mean of an
+  ATAC-only cell does not move when its (zero) RNA block is fed as zeros,
+  a paired cell's does."""
+  import numpy as np
+  t0 = time.perf_counter()
+  est = model.get_accessibility_estimates(held_data, batch_size=BATCH)
+  est_s = time.perf_counter() - t0
+  free = model.get_accessibility_estimates(held_data, batch_size=BATCH,
+                                           region=False)
+  check(est.shape == (HELD_OUT, PEAKS) and np.isfinite(est).all()
+        and est.min() >= 0.0 and est.max() <= 1.0,
+        f"{name}: estimates {est.shape} in [{est.min()}, {est.max()}]")
+  check(bool((free >= est).all()),
+        f"{name}: region=False below region=True at "
+        f"{int((free < est).sum())} entries")
+  msg = (f"get_accessibility_estimates {est.shape} in [{est.min():.4f}, "
+         f"{est.max():.4f}] ({HELD_OUT / est_s:.0f} cells/s), region=False "
+         f"≥ region=True everywhere (mean {free.mean():.4f} vs "
+         f"{est.mean():.4f})")
+  if name != "MULTIVI":
+    return msg
+  x, a, b = held_data
+  rows = torch.arange(HELD_OUT, device=DEVICE)
+  paired = rows[(x.sum(1) > 0) & (a.sum(1) > 0)][:64]
+  take = torch.cat([held_atac_only[:64], paired])
+  k = len(held_atac_only[:64])
+  with torch.no_grad():
+    z = model.encode(model._module_input([x[take], a[take], b[take]]))[0]
+    z0 = model.encode(model._module_input([torch.zeros_like(x[take]),
+                                           a[take], b[take]]))[0]
+  z, z0 = z.mean().cpu().numpy(), z0.mean().cpu().numpy()
+  same = float(np.abs(z[:k] - z0[:k]).max())
+  moved = float(np.abs(z[k:] - z0[k:]).max())
+  check(same <= 1e-5 and moved > 1e-3,
+        f"MULTIVI: joint mean of ATAC-only cells moved by {same}, of "
+        f"paired cells by {moved}")
+  return (msg + f"; zeroed RNA block: joint mean of {k} ATAC-only cells "
+          f"moved ≤ {same:.1e}, of {len(paired)} paired cells by "
+          f"{moved:.3f}")
+
+
+def phase_multiome(torch, x, held, root, smi):
+  """Phase 11 on phase 4's transcriptome (made mosaic in place: the last
+  phase to read it) and a seeded ATAC matrix; returns the launches of its
+  fits and round trips."""
+  from sisua_tpu_torch.data import get_library_size
+  from sisua_tpu_torch.ops import zinb as tz
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+  t0 = time.perf_counter()
+  a, held_a = _atac(torch, gen, CELLS), _atac(torch, gen, HELD_OUT)
+  _, rna_only = _mosaic(torch, gen, x, a)
+  held_atac_only, _ = _mosaic(torch, gen, held, held_a)
+  torch.cuda.synchronize()
+  nz = float((a > 0).float().mean())
+  log(f"[11 multiome] ATAC {tuple(a.shape)} + held-out {tuple(held_a.shape)} "
+      f"on the card ({(a.numel() + held_a.numel()) * 4 / 1e9:.2f} GB f32) in "
+      f"{time.perf_counter() - t0:.1f} s: {nz:.4f} nonzero, counts up to "
+      f"{float(a.max()):.0f}, {float((a > 1).float().mean()):.4f} above 1; "
+      f"mosaic: {int(MOSAIC * CELLS)} ATAC-only and {len(rna_only)} "
+      f"RNA-only training cells")
+  b, held_b = _batch_onehots(  # phase 10's
+      torch, torch.Generator(device=DEVICE).manual_seed(SEED + 14))
+  library = torch.cat(get_library_size(x), 1)
+  rows = torch.arange(BATCH, device=DEVICE)
+  kinds = ((x[rows].sum(1) > 0) & (a[rows].sum(1) > 0),
+           x[rows].sum(1) == 0, a[rows].sum(1) == 0)
+  check(all(bool(k.any()) for k in kinds),
+        "the route batch lacks paired, ATAC-only or RNA-only cells")
+  total = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+  for name, heads in MULTIOME.items():
+    data = _multiome_inputs(name, x, a, b)
+    held_data = _multiome_inputs(name, held, held_a, held_b)
+    model, launches = _multiome_fit(torch, name, data, held_data, smi)
+    fwd = _zoo_round_trip(torch, name, model, held_data, root, heads,
+                          phase="11 multiome")
+    total = {k: v + launches[k] for k, v in total.items()}
+    total["zinb_rowsum_fwd"] += fwd
+    before = dict(tz.launches)
+    log(f"[11 multiome] {name}: "
+        f"{_multiome_serve(torch, name, model, held_data, held_atac_only)}")
+    check(tz.launches == before, f"{name}: serving launched a kernel")
+    batch = {"inputs": [m[rows] for m in data], "library": library[rows],
+             "mask": torch.ones(BATCH, device=DEVICE)}
+    fresh = _multiome_model(name)
+    _compare_routes(torch, "11 multiome", f"{name} (paired, RNA-only and "
+                    f"ATAC-only rows)", fresh, _converted(fresh, model),
+                    batch, _latent_noise(torch, fresh, gen, BATCH), heads)
     del model, fresh
   return total
 
@@ -1159,10 +1380,12 @@ def main():
                              smi)
     batch_launches = phase_batch(torch, x, held, y, held_y, library,
                                  ckpt_root, smi)
+    multiome_launches = phase_multiome(torch, x, held, ckpt_root, smi)
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
   launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]
-              + batch_launches[k] for k, v in launches.items()}
+              + batch_launches[k] + multiome_launches[k]
+              for k, v in launches.items()}
   main_case = kern["main_full"]
   kernels = []
   for name, line, key, err, kind in (

@@ -1,7 +1,7 @@
 """sisua_tpu_torch.models — the port's models (counterpart of
 ``sisua_tpu.models``): SCVI and LDVAE, the paper's own VAE, SISUA, MISA and
-DeepCountAutoencoder, SCALE/SCALAR, FVAE/SemiFVAE, TotalVI and SCANVI (every
-one takes ``n_batch`` conditioning), with ``get_model``,
+DeepCountAutoencoder, SCALE/SCALAR, FVAE/SemiFVAE, TotalVI, SCANVI, PEAKVI
+and MULTIVI (every one takes ``n_batch`` conditioning), with ``get_model``,
 ``get_all_models`` and ``load_model`` over them. ``load_model`` reads a
 checkpoint written by either package."""
 
@@ -20,7 +20,9 @@ from .dca import DeepCountAutoencoder
 from .fvae import FVAE, SemiFVAE
 from .ldvae import LDVAE
 from .module import SCVIModule, VAEModule, VAEOutput
+from .multivi import MULTIVI
 from .objective import compute_loss, elbo_terms
+from .peakvi import PEAKVI
 from .scale import SCALAR, SCALE
 from .scanvi import SCANVI
 from .scvi import SCVI
@@ -29,13 +31,13 @@ from .vae import MISA, SISUA, VAE
 
 __all__ = ["SingleCellModel", "VAE", "SISUA", "MISA", "DeepCountAutoencoder",
            "SCVI", "LDVAE", "SCALE", "SCALAR", "FVAE", "SemiFVAE", "TotalVI",
-           "SCANVI", "get_model", "get_all_models", "load_model",
-           "SCVIModule", "VAEModule", "VAEOutput", "compute_loss",
-           "elbo_terms", "NetConf", "RVmeta"]
+           "SCANVI", "PEAKVI", "MULTIVI", "get_model", "get_all_models",
+           "load_model", "SCVIModule", "VAEModule", "VAEOutput",
+           "compute_loss", "elbo_terms", "NetConf", "RVmeta"]
 
 
 _PORTED = (VAE, SISUA, MISA, DeepCountAutoencoder, SCVI, LDVAE, SCALE,
-           SCALAR, FVAE, SemiFVAE, TotalVI, SCANVI)
+           SCALAR, FVAE, SemiFVAE, TotalVI, SCANVI, PEAKVI, MULTIVI)
 
 
 def get_all_models() -> List[Type[SingleCellModel]]:

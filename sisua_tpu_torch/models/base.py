@@ -165,6 +165,9 @@ class SingleCellModel:
   module_cls = VAEModule
   #: multitask semi-supervised masking of non-primary outputs (SISUA family)
   mask_outputs: bool = False
+  #: leading data matrices the encoder reads (TotalVI's RNA + proteins,
+  #: MULTIVI's RNA + peaks: 2); the rest are label targets
+  n_input_sources: int = 1
 
   def __init__(self,
                outputs: Union[RVmeta, Sequence[RVmeta]],
@@ -317,14 +320,22 @@ class SingleCellModel:
 
   # -------------------------------------------------------------- loss/step
   def _module_input(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The encoder's input: the first (main) omic; the rest are labels.
-    With batch conditioning a trailing matrix of width ``n_batch`` is the
-    batch one-hot and is appended (the module splits it back off)."""
-    x = inputs[0]
-    if self.n_batch and len(inputs) >= 2 \
+    """The encoder's input: the first ``n_input_sources`` omics side by
+    side (the main one alone for most models); the rest are labels. With
+    batch conditioning a trailing matrix of width ``n_batch`` is the batch
+    one-hot and is appended (the module splits it back off)."""
+    k = self.n_input_sources
+    if len(inputs) < k:
+      raise ValueError(f"{type(self).__name__} needs {k} input matrices, "
+                       f"got {len(inputs)}")
+    parts = list(inputs[:k])
+    if self.n_batch and len(inputs) > k \
         and inputs[-1].shape[-1] == self.n_batch:
-      x = torch.cat([x, inputs[-1].to(x.dtype)], dim=-1)
-    return x
+      parts.append(inputs[-1])
+    if len(parts) == 1:
+      return parts[0]
+    return torch.cat([parts[0]] + [p.to(parts[0].dtype) for p in parts[1:]],
+                     dim=-1)
 
   def _masked_module_input(self, batch, training: bool) -> torch.Tensor:
     """The training-time module input. A model whose encoder reads a
@@ -336,8 +347,8 @@ class SingleCellModel:
     """The matrices ``_module_input`` consumes, in order: serving uploads
     only these (a SISUA model serves from the RNA matrix alone); the
     trailing batch one-hot stays trailing."""
-    idx = [0]
-    if self.n_batch and n_sources >= 2:
+    idx = list(range(self.n_input_sources))
+    if self.n_batch and n_sources > self.n_input_sources:
       idx.append(n_sources - 1)
     return idx
 
@@ -377,16 +388,19 @@ class SingleCellModel:
     ``_extra_loss`` term when there is one. The module is put in train or
     eval mode (BatchNorm batch vs running stats, dropout); in train mode
     BatchNorm updates its running stats. The mask gates the label heads
-    only in training."""
+    only in training; the missing-modality gates (``_output_masks``,
+    ``_latent_masks``) in training and evaluation alike."""
     self.module.train(training)
     library = batch.get("library") if self.uses_library else None
     out = self.module(self._masked_module_input(batch, training),
                       library=library, generator=self.generator, noise=noise)
     loss, metrics = compute_loss(
-        out, batch["inputs"], mask=batch.get("mask"), beta=beta,
+        out, self._loss_targets(batch), mask=batch.get("mask"), beta=beta,
         alpha=self.alpha, analytic=self.analytic,
         mask_outputs=self.mask_outputs if training else False,
-        mask_renorm=self.mask_renorm if training else False)
+        mask_renorm=self.mask_renorm if training else False,
+        output_masks=self._output_masks(batch),
+        latent_masks=self._latent_masks(batch))
     extra = self._extra_loss(out, batch, training)
     if extra is not None:
       loss = loss + extra[0]
@@ -395,6 +409,21 @@ class SingleCellModel:
     return loss, metrics, out
 
   # ------------------------------------------------------------------ hooks
+  def _loss_targets(self, batch) -> Sequence[torch.Tensor]:
+    """Likelihood targets, one per output (PEAKVI and MULTIVI binarize the
+    accessibility counts)."""
+    return batch["inputs"]
+
+  def _output_masks(self, batch) -> Optional[Sequence[Optional[torch.Tensor]]]:
+    """None, or per-output (B,) likelihood gates for cells missing that
+    modality (MULTIVI's all-zero rows)."""
+    return None
+
+  def _latent_masks(self, batch) -> Optional[Sequence[Optional[torch.Tensor]]]:
+    """None, or per-latent (B,) KL gates: a latent encoded from a modality
+    a cell lacks charges that cell no KL (MULTIVI's library)."""
+    return None
+
   def _init_aux(self, generator: torch.Generator) -> Optional[nn.Module]:
     """A second parameter group, initialized from ``generator`` (the
     module's init stream), or None (FactorVAE overrides)."""

@@ -59,8 +59,9 @@ class VAEOutput:
 
 class VAEModule(nn.Module):
   """β-VAE engine over RVmeta/NetConf specs. Encoder i feeds latent head i
-  (extra heads reuse the last encoder); the first input is ``log1p``-ed
-  when ``log_norm``."""
+  (extra heads reuse the last encoder; a topology picks otherwise through
+  ``_encoder_in_dim`` and ``_latent_head_source``); the first input is
+  ``log1p``-ed when ``log_norm``."""
 
   def __init__(self, outputs: Sequence[RVmeta], latents: Sequence[RVmeta],
                encoder_confs: Sequence[NetConf],
@@ -73,22 +74,25 @@ class VAEModule(nn.Module):
     self.log_norm = bool(log_norm)
     self.reduce_latent = reduce_latent
     self.n_batch = int(n_batch)
-    in_dim = self._main_dim() + self.n_batch
     self.encoders = []
     for i, c in enumerate(encoder_confs):
-      self.add_module(f"encoder{i}", c.build(in_dim, generator))
+      self.add_module(f"encoder{i}", c.build(
+          self._encoder_in_dim(i) + self.n_batch, generator))
       self.encoders.append(getattr(self, f"encoder{i}"))
     self.decoders = []
     for i, c in enumerate(decoder_confs):
       self.add_module(f"decoder{i}", c.build(
           self._decoder_in_dim() + self.n_batch, generator))
       self.decoders.append(getattr(self, f"decoder{i}"))
-    n_enc = len(self.encoders)
     self.latent_heads = []
     for i, rv in enumerate(self.latents):
+      src = self._latent_head_source(i)
+      if src is None:
+        self.latent_heads.append(None)
+        continue
       name = f"latent_head_{rv.name or i}"
-      enc = self.encoders[min(i, n_enc - 1)]
-      self.add_module(name, DistributionDense(enc.out_dim, rv, generator))
+      self.add_module(name, DistributionDense(self.encoders[src].out_dim, rv,
+                                              generator))
       self.latent_heads.append(getattr(self, name))
     self.output_heads = []
     for i, rv in enumerate(self.outputs):
@@ -100,6 +104,17 @@ class VAEModule(nn.Module):
   def _main_dim(self) -> int:
     """Width of the module input without the batch block."""
     return self.outputs[0].dim
+
+  def _encoder_in_dim(self, i: int) -> int:
+    """Input width of encoder ``i`` without the batch block: the whole
+    module input (MULTIVI's encoders read one modality each)."""
+    return self._main_dim()
+
+  def _latent_head_source(self, i: int) -> Optional[int]:
+    """The encoder feeding latent head ``i`` (extra heads reuse the last),
+    or None for a head the forward never calls: flax creates no
+    parameters for it, so neither does the port (MULTIVI's z)."""
+    return min(i, len(self.encoders) - 1)
 
   def _decoder_in_dim(self) -> int:
     if self.reduce_latent == "concat":

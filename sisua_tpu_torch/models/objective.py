@@ -2,7 +2,9 @@
 
 ``ELBO = Σ llkᵢ·maskᵢ − β·KL``, with the main count likelihood routed
 through the fused ZINB/NB kernels (``sisua_tpu_torch.ops.zinb``) when
-``route_fused_likelihood`` says so.
+``route_fused_likelihood`` says so. Missing-modality gates (MULTIVI's
+mosaic data) multiply each output's row log-likelihoods after the fused
+op, and each latent's KL.
 
 Routing (``SISUA_TPU_FUSED_LIKELIHOOD``, the JAX package's variable):
   * 'on'   — always the fused op: its CUDA kernels on a CUDA tensor, its
@@ -108,8 +110,16 @@ def elbo_terms(out: VAEOutput,
                mask_outputs: bool = False,
                alpha: float = 1.0,
                mask_renorm: bool = False,
+               output_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+               latent_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-  """Per-example log-likelihoods ``llk_<x…>`` and KLs ``klqp_<z…>``."""
+  """Per-example log-likelihoods ``llk_<x…>`` and KLs ``klqp_<z…>``.
+
+  ``output_masks``: per-output (B,) gates for cells missing that modality
+  (None entries: no gate). Unlike the semi-supervised ``mask`` they gate
+  every output, the main one included, after α and the semi-supervised
+  mask, in training and evaluation alike. ``latent_masks``: per-latent
+  (B,) gates of the KL, for a latent inferred from one modality branch."""
   llk: Dict[str, torch.Tensor] = {}
   for i, (pX, x) in enumerate(zip(out.outputs, targets)):
     name = f"x{i}" if i else "x"
@@ -124,11 +134,17 @@ def elbo_terms(out: VAEOutput,
         lp = lp * m
         if mask_renorm:
           lp = lp * (m.shape[0] / torch.clamp_min(m.sum(), 1.0))
+    if output_masks is not None and output_masks[i] is not None:
+      lp = lp * output_masks[i].to(lp.dtype).reshape(lp.shape[0])
     llk[f"llk_{name}"] = lp
   kl: Dict[str, torch.Tensor] = {}
   for j, (q, prior, z) in enumerate(
       zip(out.latents, out.priors, out.latent_samples)):
-    kl[f"klqp_z{j}" if j else "klqp_z"] = _kl_term(q, prior, z, analytic)
+    term = _kl_term(q, prior, z, analytic)
+    if latent_masks is not None and j < len(latent_masks) \
+        and latent_masks[j] is not None:
+      term = term * latent_masks[j].to(term.dtype).reshape(term.shape[0])
+    kl[f"klqp_z{j}" if j else "klqp_z"] = term
   return llk, kl
 
 
@@ -140,12 +156,17 @@ def compute_loss(out: VAEOutput,
                  analytic: bool = True,
                  mask_outputs: bool = False,
                  mask_renorm: bool = False,
+                 output_masks: Optional[Sequence[Optional[torch.Tensor]]]
+                 = None,
+                 latent_masks: Optional[Sequence[Optional[torch.Tensor]]]
+                 = None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """Scalar −ELBO plus scalar metrics (means over the batch), all tensors
   on the device — nothing here synchronizes with the host."""
   llk, kl = elbo_terms(out, targets, mask=mask, analytic=analytic,
                        mask_outputs=mask_outputs, alpha=alpha,
-                       mask_renorm=mask_renorm)
+                       mask_renorm=mask_renorm, output_masks=output_masks,
+                       latent_masks=latent_masks)
   elbo = sum(llk.values()) - beta * sum(kl.values())
   loss = -elbo.mean()
   metrics = {k: v.mean() for k, v in {**llk, **kl}.items()}

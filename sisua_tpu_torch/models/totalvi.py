@@ -139,6 +139,7 @@ class TotalVI(SingleCellModel):
   data is ``[rna, protein]`` (then the batch one-hot under ``n_batch``)."""
 
   module_cls = TotalVIModule
+  n_input_sources = 2  # the encoder reads concat(rna, protein)
 
   def __init__(self,
                outputs,
@@ -212,21 +213,6 @@ class TotalVI(SingleCellModel):
       m = mask.to(torch.float32).reshape(-1, 1)
       inputs = [inputs[0], inputs[1] * m, *inputs[2:]]
     return self._module_input(inputs)
-
-  def _module_input(self, inputs) -> torch.Tensor:
-    if len(inputs) < 2:
-      raise ValueError("TotalVI needs (rna, protein) inputs")
-    parts = [inputs[0], inputs[1].to(inputs[0].dtype)]
-    if self.n_batch and len(inputs) >= 3 \
-        and inputs[-1].shape[-1] == self.n_batch:
-      parts.append(inputs[-1].to(inputs[0].dtype))
-    return torch.cat(parts, dim=-1)
-
-  def _serving_source_indices(self, n_sources: int):
-    idx = [0, 1]  # the joint RNA+protein input
-    if self.n_batch and n_sources >= 3:
-      idx.append(n_sources - 1)
-    return idx
 
   def denoised_proteins(self, inputs, batch_size: int = 256) -> np.ndarray:
     """Posterior foreground probability per protein, (n, proteins):

@@ -510,10 +510,11 @@ def test_unported_backends_raise(tmp_path):
                        None, {"dense0": {"bias": aux["dense0"]["bias"],
                                          "kernel": np.ones((3, 3))}})
   with pytest.raises(ValueError, match="among the ported"):
-    T.get_model("PEAKVI")
+    T.get_model("AUTOZI")
   assert set(T.get_all_models()) == {
       T.VAE, T.SISUA, T.MISA, T.SCVI, T.DeepCountAutoencoder, T.LDVAE,
-      T.SCALE, T.SCALAR, T.FVAE, T.SemiFVAE, T.TotalVI, T.SCANVI}
+      T.SCALE, T.SCALAR, T.FVAE, T.SemiFVAE, T.TotalVI, T.SCANVI, T.PEAKVI,
+      T.MULTIVI}
 
 
 def test_constructor_takes_the_jax_kwargs():

@@ -614,3 +614,99 @@ def test_batch_totalvi_scanvi_step_at_full_width(dev, name):
   metrics = m._train_step(batch)
   assert tz.launches == {"zinb_rowsum_fwd": heads, "zinb_rowsum_bwd": heads}
   assert all(torch.isfinite(v).all() for v in metrics.values())
+
+
+# ------------------------------------------ MULTIVI: mosaic rows, gated θ
+def test_gated_rows_add_nothing_to_per_gene_theta(dev):
+  """MULTIVI's RNA head through the fused op: per-gene θ, logits =
+  log μ − log θ, and the output gate multiplying the row sums after the op,
+  so the backward gets g = 0 on RNA-less rows. Those rows are all-zero
+  counts at log μ = −16.118095 (library clipped to 0, the log-scale
+  floor), so their row sums are ~−1e-4, differences of O(1) terms:
+  kernels against plain with ``_compare``'s per-element atol; no NaN;
+  θ's gradient with the gated rows equals θ's gradient of the ungated rows
+  alone (per gene, rtol 2e-4 and atol 1e-5 + SUM_ULPS·Σ_rows |∂ℓ/∂θ
+  terms|, the two sums running over other rows in another order)."""
+  rng = np.random.default_rng(31)
+  B, D = 512, 2048
+  x = rng.poisson(1.0, (B, D)).astype(np.float32)
+  log_mu = rng.normal(-1.0, 1.5, (B, D)).astype(np.float32)
+  gated = np.zeros(B, bool)
+  gated[:51] = True
+  gated[300:310] = True
+  x[gated] = 0.0
+  log_mu[gated] = -16.118095
+  theta = np.exp(rng.normal(0, 1, (1, D))).astype(np.float32)
+  gate = rng.normal(-1, 1, (B, D)).astype(np.float32)
+  mask = (~gated).astype(np.float32)
+  x, log_mu, theta_t, gate, mask = (torch.tensor(a, device=dev) for a in
+                                    (x, log_mu, theta, gate, mask))
+  logits = log_mu - torch.log(theta_t + 1e-8)
+  g = mask * torch.tensor(rng.normal(0, 1, B).astype(np.float32), device=dev)
+  grads = _compare([x, theta_t, logits, gate, g], True, elem_ulps=True)
+  assert all(torch.isfinite(t).all() for t in grads)
+  assert torch.equal(grads[1][gated], torch.zeros_like(grads[1][gated]))
+  assert torch.equal(grads[2][gated], torch.zeros_like(grads[2][gated]))
+
+  def theta_grad(rows):
+    th = theta_t.clone().requires_grad_(True)
+    lg = log_mu[rows] - torch.log(th + 1e-8)
+    lp = tz.zinb_log_prob_rowsum(x[rows], th, lg, gate[rows],
+                                 constrained=True)
+    (lp * mask[rows]).sum().backward()
+    return th.grad
+  tz.reset_launches()
+  full = theta_grad(slice(None))
+  kept = theta_grad(torch.nonzero(mask).squeeze(1))
+  assert tz.launches == {"zinb_rowsum_fwd": 2, "zinb_rowsum_bwd": 2}
+  assert torch.isfinite(full).all()
+  terms = tz._zinb_grads_elem(x, theta_t, logits, gate, True)
+  rows = (terms[0].abs() + terms[1].abs() / theta_t).sum(0)
+  bound = GRAD["atol"] + SUM_ULPS * rows + GRAD["rtol"] * kept.abs()
+  assert bool(((full - kept).abs() <= bound).all())
+
+
+def test_multivi_step_with_mosaic_rows(dev):
+  """One MULTIVI train step at 512 × (2,048 genes + 4,096 peaks), n_batch =
+  4, with paired, RNA-only and ATAC-only rows: the kernel route against
+  the plain route (loss rtol 1e-4, every gradient within chip_smoke.py
+  phase 7's bound), the RNA head launching each kernel once and the
+  Bernoulli peaks none; then one optimizer step through ``_train_step``."""
+  from sisua_tpu_torch import models as T
+  from sisua_tpu_torch.data import get_library_size
+  G, R, rows = 2048, 4096, 512
+  m = T.MULTIVI([T.RVmeta(G, "zinbd", name="rna"),
+                 T.RVmeta(R, "bernoulli", name="atac")], n_batch=4,
+                device=dev)
+  g = torch.Generator(device=dev).manual_seed(15)
+  x = torch.poisson(torch.exp(-1.0 + torch.randn((rows, G), generator=g,
+                                                 device=dev)), generator=g)
+  a = torch.clamp_max(torch.poisson(torch.full((rows, R), 0.05, device=dev),
+                                    generator=g), 4.0)
+  x[:51] = 0.0     # ATAC-only
+  a[51:102] = 0.0  # RNA-only
+  onehot = torch.nn.functional.one_hot(
+      torch.randint(0, 4, (rows,), generator=g, device=dev), 4).float()
+  batch = {"inputs": [x, a, onehot],
+           "library": torch.cat(get_library_size(x), 1),
+           "mask": torch.ones(rows, device=dev)}
+  noise = [torch.randn((rows, rv.dim), generator=g, device=dev)
+           for rv in m.latents]
+  state = {k: v.clone() for k, v in m.module.state_dict().items()}
+  tz.reset_launches()
+  lk, gk, out = _route(m, state, batch, noise, "auto")
+  assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
+  lp, gp, _ = _route(m, state, batch, noise, "off")
+  assert tz.launches["zinb_rowsum_fwd"] == 1
+  assert abs(lk - lp) <= 1e-4 * abs(lp)
+  top = max(float(g.abs().max()) for g in gp.values())
+  for k, g in gp.items():
+    assert torch.isfinite(gk[k]).all(), k
+    assert float((gk[k] - g).abs().max()) \
+        <= 1e-3 * (float(g.abs().max()) + 1e-3 * top), k
+  m.optimizer = torch.optim.Adam(m.module.parameters(), lr=1e-3)
+  tz.reset_launches()
+  metrics = m._train_step(batch)
+  assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
+  assert all(torch.isfinite(v).all() for v in metrics.values())
+  assert float(metrics["modality_penalty"].detach()) > 0.0

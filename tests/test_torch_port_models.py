@@ -251,7 +251,7 @@ def test_sisua_rejects_a_single_output():
   assert T.get_model("sisua") is T.SISUA
   assert T.get_model("dca") is T.DeepCountAutoencoder
   with pytest.raises(ValueError, match="ported"):
-    T.get_model("multivi")
+    T.get_model("scscope")
 
 
 @pytest.mark.parametrize("reduce_latent", ["sum", "mean"])

@@ -4,9 +4,10 @@ at 512 × 33,000, on one CUDA card.
 
     python3 tools/step_profile.py [MODEL ...]
 
-MODEL is one of SISUA, FVAE, SCALAR, SCALE, LDVAE, and phase 10's
+MODEL is one of SISUA, FVAE, SCALAR, SCALE, LDVAE, phase 10's
 scvi_batch (SCVI at n_batch = 4 with an 'nb' label head), totalvi and
-scanvi (default: all), built as ``chip_smoke.py`` builds it. For each:
+scanvi, and phase 11's peakvi and multivi (on 108,377 peaks with mosaic
+cells) (default: all), built as ``chip_smoke.py`` builds it. For each:
 one warm-up epoch of 8 steps through ``fit``, then STEPS steps of
 ``_train_step`` on fixed batches:
   * wall ms per step (host clock around the steps, ending in a
@@ -63,7 +64,8 @@ def _union_us(ranges) -> float:
 # phase 10's models by the names this tool takes
 PHASE10 = {"scvi_batch": "SCVI_batch", "totalvi": "TotalVI",
            "scanvi": "SCANVI"}
-ALL = ["SISUA", "FVAE", "SCALAR", "SCALE", "LDVAE", *PHASE10]
+PHASE11 = {"peakvi": "PEAKVI", "multivi": "MULTIVI"}
+ALL = ["SISUA", "FVAE", "SCALAR", "SCALE", "LDVAE", *PHASE10, *PHASE11]
 
 
 def _model(cs, name):
@@ -73,14 +75,18 @@ def _model(cs, name):
                  seed=cs.SEED)
   if name in PHASE10:
     return cs._phase10_model(PHASE10[name])
+  if name in PHASE11:
+    return cs._multiome_model(PHASE11[name])
   return cs._zoo_model(name)
 
 
 def _inputs(cs, name, data, rows):
   """The model's data matrices, rows ``rows``."""
-  x, y, b, ct = (a[rows] for a in data)
+  x, y, b, ct, xm, a = (None if m is None else m[rows] for m in data)
   if name in PHASE10:
     return cs._phase10_inputs(PHASE10[name], x, y, b, ct)
+  if name in PHASE11:
+    return cs._multiome_inputs(PHASE11[name], xm, a, b)
   return [x, y] if name in ("SISUA", "SCALAR") else [x]
 
 
@@ -91,14 +97,14 @@ def profile(torch, cs, name, data):
   n = 8 * cs.BATCH
   model.fit(_inputs(cs, name, data, slice(0, n)), epochs=1,
             batch_size=cs.BATCH, labels_percent=cs.LABELS_PERCENT)
-  x = data[0]
   batches = []
   for i in range(STEPS):
     rows = slice(i * cs.BATCH, (i + 1) * cs.BATCH)
     b = {"inputs": _inputs(cs, name, data, rows),
-         "mask": (torch.arange(cs.BATCH, device=x.device) % 10 == 0).float()}
+         "mask": (torch.arange(cs.BATCH, device=cs.DEVICE) % 10
+                  == 0).float()}
     if model.uses_library:
-      b["library"] = torch.cat(get_library_size(x[rows]), 1)
+      b["library"] = torch.cat(get_library_size(b["inputs"][0]), 1)
     batches.append(b)
   walls = [_wall_ms(torch, model, batches) for _ in range(ROUNDS)]
   with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -154,9 +160,13 @@ def main(argv):
   log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
   gen = torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED + 1)
   n = 8 * cs.BATCH
-  data = (cs._counts(torch, gen, n, cs.GENES), cs._proteins(torch, gen, n),
+  x = cs._counts(torch, gen, n, cs.GENES)
+  data = [x, cs._proteins(torch, gen, n),
           cs._onehots(torch, gen, n, cs.N_BATCHES),
-          cs._onehots(torch, gen, n, cs.CELL_TYPES))
+          cs._onehots(torch, gen, n, cs.CELL_TYPES), None, None]
+  if set(argv or ALL) & set(PHASE11):  # mosaic RNA and peaks
+    data[4], data[5] = x.clone(), cs._atac(torch, gen, n)
+    cs._mosaic(torch, gen, data[4], data[5])
   for name in argv or ALL:
     profile(torch, cs, name, data)
   os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
