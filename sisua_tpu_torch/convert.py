@@ -83,44 +83,56 @@ def jax_to_torch(module: nn.Module, params: Mapping,
       if key in out:
         raise KeyError(f"two JAX leaves map onto '{key}'")
       arr = np.asarray(value, np.float32)
-      if transpose:
-        arr = arr.T
       ref = target[key]
-      if tuple(arr.shape) != tuple(ref.shape):
-        raise ValueError(f"'{key}': JAX shape {arr.shape} != torch shape "
+      shape = arr.shape[::-1] if transpose else arr.shape
+      if tuple(shape) != tuple(ref.shape):
+        raise ValueError(f"'{key}': JAX shape {shape} != torch shape "
                          f"{tuple(ref.shape)}")
-      out[key] = torch.tensor(np.ascontiguousarray(arr),
-                                 dtype=ref.dtype, device=ref.device)
+      # one host copy at most; a kernel is transposed where it lands
+      t = (torch.from_numpy(arr) if arr.flags.writeable
+           else torch.tensor(arr)).to(device=ref.device, dtype=ref.dtype,
+                                      copy=True)
+      out[key] = t.T.contiguous() if transpose else t
   missing = sorted(set(target) - set(out))
   if missing:
     raise KeyError(f"torch state entries with no JAX leaf: {missing}")
   return out
 
 
-def torch_to_jax(module: nn.Module) -> Tuple[Dict, Dict]:
+def torch_to_jax(module: nn.Module,
+                 values: Tuple[str, ...] = ("params", "batch_stats")
+                 ) -> Tuple[Dict, Dict]:
   """(params, batch_stats) nested dicts of numpy arrays in the flax
-  layout, the inverse of ``jax_to_torch``."""
+  layout, the inverse of ``jax_to_torch``. A kernel is transposed where
+  the module lives, before its one copy to the host. A collection left
+  out of ``values`` gets each leaf as a zero-stride array of its shape
+  and dtype (a template that copies nothing)."""
   params: Dict = {}
   batch_stats: Dict = {}
   buffers = {k for k, _ in module.named_buffers()}
   for key, value in module.state_dict().items():
     parts = key.split(".")
     owner, leaf = parts[:-1], parts[-1]
-    arr = value.detach().cpu().numpy()
+    value = value.detach()
     if key in buffers:
       names = {"running_mean": "mean", "running_var": "var"}
       if leaf not in names:
         raise KeyError(f"buffer '{key}' has no flax batch_stats leaf")
-      tree, leaf = batch_stats, names[leaf]
+      collection, tree, leaf = "batch_stats", batch_stats, names[leaf]
     else:
-      tree = params
+      collection, tree = "params", params
       if leaf == "weight":
         if _owner_is_batchnorm(module, ".".join(owner)):
           leaf = "scale"
         else:
-          leaf, arr = "kernel", arr.T
+          leaf, value = "kernel", value.T
     node = tree
     for p in owner:
       node = node.setdefault(p, {})
-    node[leaf] = np.ascontiguousarray(arr)
+    if collection in values:
+      node[leaf] = value.contiguous().cpu().numpy()
+    else:
+      node[leaf] = np.broadcast_to(
+          np.zeros((), torch.empty((), dtype=value.dtype).numpy().dtype),
+          tuple(value.shape))
   return params, batch_stats

@@ -3,7 +3,8 @@
 
 from .base import (Distribution, Independent, NoAnalyticKL, kl_divergence,
                    register_kl, tree_map)
-from .continuous import (MultivariateNormalDiag, MultivariateNormalTriL,
+from .continuous import (Gamma, LogNormal, MultivariateNormalDiag,
+                         MultivariateNormalTriL, NonzeroMaskedDeterministic,
                          Normal, VectorDeterministic)
 from .count import (Bernoulli, NegativeBinomial, NegativeBinomialDisp,
                     NegativeBinomialDispLog, NegativeBinomialLog,
@@ -15,7 +16,7 @@ __all__ = [
     "Distribution", "Independent", "NoAnalyticKL", "kl_divergence",
     "register_kl", "tree_map", "MultivariateNormalDiag",
     "MultivariateNormalTriL", "Normal",
-    "VectorDeterministic",
+    "VectorDeterministic", "NonzeroMaskedDeterministic", "Gamma", "LogNormal",
     "Poisson", "Bernoulli", "NegativeBinomial", "NegativeBinomialDisp",
     "NegativeBinomialDispLog", "NegativeBinomialLog",
     "NegativeBinomialMixture", "ZeroInflated",

@@ -1,5 +1,6 @@
 """Continuous distributions: Normal, MultivariateNormalDiag,
-MultivariateNormalTriL and VectorDeterministic.
+MultivariateNormalTriL, VectorDeterministic, NonzeroMaskedDeterministic,
+Gamma and LogNormal.
 
 Port of part of ``sisua_tpu/dist/continuous.py``: the 'diag' latent
 posterior and prior, the 'normal' library posterior and prior and the
@@ -7,7 +8,10 @@ components of the 'mixgaus' head, each with log_prob, analytic KL and a
 reparameterized ``rsample`` that also accepts given standard noise; the
 'tril' posterior and the components of 'mixtril' (no closed-form KL: the
 objective takes the Monte-Carlo estimate); and the deterministic
-'mse'/'linear'/'relu' head, whose KL to anything is 0.
+'mse'/'linear'/'relu' head, whose KL to anything is 0, and scScope's
+'nzmse' head (``NonzeroMaskedDeterministic``), which scores only the
+nonzero entries of its target. ``Gamma`` and ``LogNormal`` draw from an
+explicit generator.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import torch
 from .base import Distribution, Tensor, register_kl
 
 __all__ = ["Normal", "MultivariateNormalDiag", "MultivariateNormalTriL",
-           "VectorDeterministic"]
+           "VectorDeterministic", "NonzeroMaskedDeterministic", "Gamma",
+           "LogNormal"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -182,3 +187,94 @@ class VectorDeterministic(Distribution):
 def _kl_deterministic_any(p: VectorDeterministic, q: Distribution):
   # the JAX package's convention: a deterministic latent adds no KL (DCA)
   return torch.zeros(p.batch_shape, dtype=p.loc.dtype, device=p.loc.device)
+
+
+class NonzeroMaskedDeterministic(VectorDeterministic):
+  """The 'nzmse' head (scScope's objective): ``log_prob(x)`` is minus the
+  squared error over the entries where ``x > 0``, divided by their count
+  (floored at 1, so an all-zero row scores 0). With ``log_space`` the
+  error is taken between ``log1p(x)`` and ``loc``, and ``mean``, ``mode``
+  and draws are ``expm1(loc)``: counts. Its KL to anything is 0, through
+  ``VectorDeterministic``'s rule."""
+
+  def __init__(self, loc: Tensor, log_space: bool = False):
+    super().__init__(loc)
+    self.log_space = bool(log_space)
+
+  def log_prob(self, x):
+    m = (x > 0).to(self.loc.dtype)
+    t = torch.log1p(x) if self.log_space else x
+    se = torch.square(t - self.loc) * m
+    n = torch.clamp_min(torch.sum(m, dim=-1), 1.0)
+    return -torch.sum(se, dim=-1) / n
+
+  def mean(self):
+    return torch.expm1(self.loc) if self.log_space else self.loc
+
+  def mode(self):
+    return self.mean()
+
+  def rsample(self, sample_shape=(), generator=None, eps=None):
+    m = self.mean()
+    return m.expand(tuple(sample_shape) + tuple(m.shape))
+
+
+class Gamma(Distribution):
+  """Gamma(concentration, rate); ``rsample`` carries torch's implicit
+  reparameterization gradient to the concentration."""
+
+  def __init__(self, concentration: Tensor, rate: Tensor):
+    self.concentration = concentration
+    self.rate = rate
+
+  @property
+  def batch_shape(self):
+    return tuple(torch.broadcast_shapes(self.concentration.shape,
+                                        self.rate.shape))
+
+  def log_prob(self, x):
+    a, b = self.concentration, self.rate
+    return (a * torch.log(b) + (a - 1.0) * torch.log(x) - b * x
+            - torch.lgamma(a))
+
+  def mean(self):
+    return self.concentration / self.rate
+
+  def variance(self):
+    return self.concentration / torch.square(self.rate)
+
+  def mode(self):
+    return torch.clamp_min(self.concentration - 1.0, 0.0) / self.rate
+
+  def rsample(self, sample_shape=(), generator=None, eps=None):
+    shape = tuple(sample_shape) + self.batch_shape
+    a = self.concentration.expand(shape)
+    return torch._standard_gamma(a, generator=generator) / self.rate
+
+
+class LogNormal(Distribution):
+
+  def __init__(self, loc: Tensor, scale: Tensor):
+    self.loc = loc
+    self.scale = scale
+
+  @property
+  def batch_shape(self):
+    return tuple(torch.broadcast_shapes(self.loc.shape, self.scale.shape))
+
+  def log_prob(self, x):
+    lx = torch.log(x)
+    z = (lx - self.loc) / self.scale
+    return -0.5 * z * z - torch.log(self.scale) - _HALF_LOG_2PI - lx
+
+  def mean(self):
+    return torch.exp(self.loc + 0.5 * self.scale * self.scale)
+
+  def variance(self):
+    s2 = self.scale * self.scale
+    return (torch.exp(s2) - 1.0) * torch.exp(2.0 * self.loc + s2)
+
+  def rsample(self, sample_shape=(), generator=None, eps=None):
+    shape = tuple(sample_shape) + self.batch_shape
+    return torch.exp(self.loc + self.scale * _standard_noise(
+        shape, self.loc, generator, eps))

@@ -1,9 +1,12 @@
 """sisua_tpu_torch.models — the port's models (counterpart of
 ``sisua_tpu.models``): SCVI and LDVAE, the paper's own VAE, SISUA, MISA and
-DeepCountAutoencoder, SCALE/SCALAR, FVAE/SemiFVAE, TotalVI, SCANVI, PEAKVI
-and MULTIVI (every one takes ``n_batch`` conditioning), with ``get_model``,
-``get_all_models`` and ``load_model`` over them. ``load_model`` reads a
-checkpoint written by either package."""
+DeepCountAutoencoder, SCALE/SCALAR, FVAE/SemiFVAE, TotalVI, SCANVI, PEAKVI,
+MULTIVI, SCScope and AUTOZI (every one takes ``n_batch`` conditioning),
+with ``get_model``, ``get_all_models`` and ``load_model`` over them.
+``load_model`` reads a checkpoint written by either package. SOLO (doublet
+detection on a trained model) and CellAssign (marker-based annotation) are
+not ``SingleCellModel``s and are left out of ``get_all_models``, as in the
+JAX package."""
 
 from __future__ import annotations
 
@@ -15,7 +18,9 @@ import torch
 from ..nn import NetConf
 from ..rv import RVmeta
 from ..train.checkpoint import load_metamodel
+from .autozi import AUTOZI, AUTOZIModule
 from .base import SingleCellModel
+from .cellassign import CellAssign
 from .dca import DeepCountAutoencoder
 from .fvae import FVAE, SemiFVAE
 from .ldvae import LDVAE
@@ -25,19 +30,24 @@ from .objective import compute_loss, elbo_terms
 from .peakvi import PEAKVI
 from .scale import SCALAR, SCALE
 from .scanvi import SCANVI
+from .scscope import SCScope, SCScopeModule
 from .scvi import SCVI
+from .solo import SOLO
 from .totalvi import TotalVI
 from .vae import MISA, SISUA, VAE
 
 __all__ = ["SingleCellModel", "VAE", "SISUA", "MISA", "DeepCountAutoencoder",
            "SCVI", "LDVAE", "SCALE", "SCALAR", "FVAE", "SemiFVAE", "TotalVI",
-           "SCANVI", "PEAKVI", "MULTIVI", "get_model", "get_all_models",
-           "load_model", "SCVIModule", "VAEModule", "VAEOutput",
-           "compute_loss", "elbo_terms", "NetConf", "RVmeta"]
+           "SCANVI", "PEAKVI", "MULTIVI", "SCScope", "AUTOZI", "SOLO",
+           "CellAssign", "get_model", "get_all_models", "load_model",
+           "SCVIModule", "VAEModule", "VAEOutput", "SCScopeModule",
+           "AUTOZIModule", "compute_loss", "elbo_terms", "NetConf",
+           "RVmeta"]
 
 
 _PORTED = (VAE, SISUA, MISA, DeepCountAutoencoder, SCVI, LDVAE, SCALE,
-           SCALAR, FVAE, SemiFVAE, TotalVI, SCANVI, PEAKVI, MULTIVI)
+           SCALAR, FVAE, SemiFVAE, TotalVI, SCANVI, PEAKVI, MULTIVI, SCScope,
+           AUTOZI)
 
 
 def get_all_models() -> List[Type[SingleCellModel]]:

@@ -1024,7 +1024,9 @@ class SingleCellModel:
       if raise_notfound:
         raise FileNotFoundError(f"No checkpoint at {path}")
       return self
-    params_t, stats_t = convert.torch_to_jax(self.module)
+    # the params file is always read: its template needs shapes only
+    params_t, stats_t = convert.torch_to_jax(self.module,
+                                             values=("batch_stats",))
     aux_t = None if self.aux is None else convert.torch_to_jax(self.aux)[0]
     params, stats, aux = ckpt.load_weights(path, params_t, stats_t or None,
                                            aux_t)

@@ -112,12 +112,18 @@ _TRUNC_STD = 0.87962566103423978
 
 def dense(in_dim: int, out_dim: int,
           generator: Optional[torch.Generator] = None) -> nn.Linear:
-  """``nn.Linear`` initialized like flax ``nn.Dense``."""
-  lin = nn.Linear(in_dim, out_dim)
+  """``nn.Linear`` initialized like flax ``nn.Dense``: the kernel from a
+  normal truncated to ±2 std by the inverse CDF (one uniform draw per
+  weight, so SCScope's 33,000 × 33,000 imputer draws in seconds; torch's
+  ``trunc_normal_`` rejects and redraws over the whole tensor), zero bias.
+  nn.Linear's own initialization is skipped."""
+  lin = torch.nn.utils.skip_init(nn.Linear, in_dim, out_dim)
   std = math.sqrt(1.0 / in_dim) / _TRUNC_STD
+  edge = math.erf(2.0 / math.sqrt(2.0))  # 2Φ(2) − 1
   with torch.no_grad():
-    nn.init.trunc_normal_(lin.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
+    lin.weight.uniform_(-edge, edge, generator=generator)
+    lin.weight.erfinv_().mul_(std * math.sqrt(2.0))
+    lin.weight.clamp_(-2.0 * std, 2.0 * std)
     lin.bias.zero_()
   return lin
 

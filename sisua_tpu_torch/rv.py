@@ -8,8 +8,8 @@ mixtures 'mixgaus'/'mdn', 'mixtril' and 'mixnb'. The activation conventions
 are the JAX package's: positive count parameters use ``exp(clip(raw, -15,
 15))``; Normal scales and the diagonal of a lower-triangular scale use
 ``softplus(raw) + 1e-4``; the packed entries of a triangular scale are in
-``tril_indices`` order. 'nzmse' is not ported yet and raises
-``NotImplementedError``.
+``tril_indices`` order. scScope's 'nzmse' head is deterministic, 'relu' by
+default and scored in ``log1p`` space unless ``log_space=False``.
 """
 
 from __future__ import annotations
@@ -65,10 +65,6 @@ def _register(*names):
       POSTERIORS[n] = cls
     return cls
   return deco
-
-
-# posteriors of the JAX package that the port does not carry yet
-_NOT_PORTED = ("nzmse",)
 
 
 class _Spec:
@@ -267,6 +263,23 @@ class _DeterministicSpec(_Spec):
     return D.VectorDeterministic(loc=loc)
 
 
+@_register("nzmse")
+class _NonzeroMSESpec(_Spec):
+  """Nonzero-masked MSE (scScope): ``-log_prob(x)`` averages the squared
+  error over the observed (x > 0) entries only."""
+  deterministic = True
+
+  @staticmethod
+  def n_params(dim, kw):
+    return dim
+
+  @staticmethod
+  def build(raw, dim, kw):
+    loc = F.relu(raw) if kw.get("activation", "relu") == "relu" else raw
+    return D.NonzeroMaskedDeterministic(
+        loc=loc, log_space=bool(kw.get("log_space", True)))
+
+
 def _n_components(kw) -> int:
   return int(kw.get("n_components", 2))
 
@@ -346,10 +359,6 @@ class RVmeta:
   kwargs: Tuple[Tuple[str, Any], ...] = ()
 
   def __post_init__(self):
-    if self.posterior in _NOT_PORTED:
-      raise NotImplementedError(
-          f"posterior '{self.posterior}' is not ported yet "
-          f"({', '.join(repr(p) for p in _NOT_PORTED)} are not)")
     if self.posterior not in POSTERIORS:
       raise ValueError(
           f"Unknown posterior '{self.posterior}'. "

@@ -82,7 +82,7 @@ def save_weights(path: str, params: Mapping, batch_stats: Optional[Mapping]
                      ("aux_params", aux_params)):
     if tree is not None:
       with open(os.path.join(path, f"{name}.msgpack"), "wb") as f:
-        f.write(msgpack.packb(dict(tree)))
+        msgpack.dump(dict(tree), f)
   return path
 
 

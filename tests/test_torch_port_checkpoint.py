@@ -18,6 +18,7 @@ eval loss metrics rtol 1e-3, ``EVAL_RTOL``).
 """
 
 import functools
+import io
 import json
 import os
 import subprocess
@@ -129,14 +130,40 @@ def test_codec_plain_values_match_msgpack(obj):
 
 
 def test_codec_refuses_what_it_cannot_read_right(monkeypatch):
-  chunked = fser.msgpack_serialize(
-      {"w": {"__msgpack_chunked_array__": True, "shape": {"0": 2},
-             "chunks": {"0": np.zeros(2, np.float32)}}})
-  with pytest.raises(ValueError, match="chunked"):
-    tmp.unpackb(chunked)
+  """Leaves above flax's MAX_CHUNK_SIZE (both limits lowered to 64 bytes
+  here) are written as flax's chunked maps, byte for byte, in both
+  directions: a leaf in a map is chunked (the last chunk ragged), a leaf in
+  a list is not, a bf16 tensor chunks by its 2-byte items; each side reads
+  the other's bytes back to the same leaves. What the codec cannot read
+  right still raises."""
   monkeypatch.setattr(tmp, "MAX_LEAF_BYTES", 64)
-  with pytest.raises(ValueError, match="chunked"):
-    tmp.packb({"w": np.zeros(17, np.float32)})
+  monkeypatch.setattr(fser, "MAX_CHUNK_SIZE", 64)
+  rng = np.random.default_rng(7)
+  bf16 = torch.randn(5, 9).to(torch.bfloat16)
+  tree = {"Imputation": {"kernel": rng.normal(size=(9, 7)).astype(np.float32),
+                         "bias": rng.normal(size=7).astype(np.float32)},
+          "at_limit": np.zeros(16, np.float32),
+          "ints": np.arange(70, dtype=np.int64).reshape(2, 5, 7),
+          "listed": [rng.normal(size=30).astype(np.float32)],
+          "scalar": np.float32(2.5)}
+  data = tmp.packb(tree)
+  assert data == fser.msgpack_serialize(tree)
+  raw = upstream_msgpack.unpackb(data, raw=False)
+  chunked = raw["Imputation"]["kernel"]
+  assert list(chunked) == ["__msgpack_chunked_array__", "shape", "chunks"]
+  assert chunked["shape"] == {"0": 9, "1": 7} and len(chunked["chunks"]) == 4
+  assert isinstance(raw["at_limit"], upstream_msgpack.ExtType)
+  assert isinstance(raw["listed"][0], upstream_msgpack.ExtType)
+  _leaves_equal(tmp.unpackb(data), fser.msgpack_restore(data))
+  _leaves_equal(tmp.unpackb(data), tree)
+  back = tmp.unpackb(data)["Imputation"]["kernel"]
+  assert back.flags.writeable and back.flags.c_contiguous
+  ref = np.asarray(bf16.float().numpy(), ml_dtypes.bfloat16)
+  assert tmp.packb({"b": bf16}) == fser.msgpack_serialize({"b": ref})
+  assert torch.equal(tmp.unpackb(tmp.packb({"b": bf16}))["b"], bf16)
+  buf = io.BytesIO()
+  tmp.dump(tree, buf)
+  assert buf.getvalue() == data
   data = fser.msgpack_serialize({"a": np.ones(3, np.float32)})
   with pytest.raises(ValueError, match="truncated"):
     tmp.unpackb(data[:-1])
@@ -510,11 +537,13 @@ def test_unported_backends_raise(tmp_path):
                        None, {"dense0": {"bias": aux["dense0"]["bias"],
                                          "kernel": np.ones((3, 3))}})
   with pytest.raises(ValueError, match="among the ported"):
-    T.get_model("AUTOZI")
+    T.get_model("NoSuchModel")
   assert set(T.get_all_models()) == {
       T.VAE, T.SISUA, T.MISA, T.SCVI, T.DeepCountAutoencoder, T.LDVAE,
       T.SCALE, T.SCALAR, T.FVAE, T.SemiFVAE, T.TotalVI, T.SCANVI, T.PEAKVI,
-      T.MULTIVI}
+      T.MULTIVI, T.SCScope, T.AUTOZI}
+  assert sorted(c.__name__ for c in T.get_all_models()) \
+      == sorted(c.__name__ for c in J.get_all_models())
 
 
 def test_constructor_takes_the_jax_kwargs():

@@ -710,3 +710,88 @@ def test_multivi_step_with_mosaic_rows(dev):
   assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
   assert all(torch.isfinite(v).all() for v in metrics.values())
   assert float(metrics["modality_penalty"].detach()) > 0.0
+
+
+# ------------------------------------------------- AUTOZI and the chunked codec
+def _autozi_step_inputs(dev, genes, rows, seed):
+  """An AUTOZI ('full' dispersion), a train batch, and noise for z, l and
+  δ's two log-gamma draws."""
+  from sisua_tpu_torch import models as T
+  from sisua_tpu_torch.data import get_library_size
+  from sisua_tpu_torch.models.autozi import _draw_log_gamma
+  m = T.AUTOZI(T.RVmeta(genes, "zinbd", name="rna"), device=dev,
+               n_total_cells=8192)
+  g = torch.Generator(device=dev).manual_seed(seed)
+  with torch.no_grad():  # δ's posterior off Beta(1, 1)
+    m.module.log_alpha_delta.normal_(0.0, 1.0, generator=g)
+    m.module.log_beta_delta.normal_(0.0, 1.0, generator=g)
+  lam = torch.exp(-1.0 + torch.randn((rows, genes), generator=g, device=dev))
+  x = torch.poisson(lam, generator=g)
+  batch = {"inputs": [x], "library": torch.cat(get_library_size(x), 1),
+           "mask": torch.ones(rows, device=dev)}
+  a, b = m.module.delta_posterior()
+  with torch.no_grad():
+    noise = [torch.randn((rows, rv.dim), generator=g, device=dev)
+             for rv in m.latents]
+    noise.append((_draw_log_gamma(a, g), _draw_log_gamma(b, g)))
+  return m, batch, noise
+
+
+def test_autozi_step_kernel_route_matches_plain(dev):
+  """One AUTOZI train step at 512 × 4,096, the same weights, dropout and
+  draws (δ's as a noise entry): the composed (B, D) gate reaches both
+  kernels once ('loglog'), loss rtol 1e-4 and every gradient within
+  chip_smoke.py phase 7's bound; then one optimizer step."""
+  m, batch, noise = _autozi_step_inputs(dev, 4096, 512, 16)
+  state = {k: v.clone() for k, v in m.module.state_dict().items()}
+  tz.reset_launches()
+  lk, gk, out = _route(m, state, batch, noise, "auto")
+  assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
+  assert out.outputs[0].base.gate_logits.shape == (512, 4096)
+  lp, gp, _ = _route(m, state, batch, noise, "off")
+  assert tz.launches["zinb_rowsum_fwd"] == 1
+  assert abs(lk - lp) <= 1e-4 * abs(lp)
+  top = max(float(g.abs().max()) for g in gp.values())
+  for k, g in gp.items():
+    assert torch.isfinite(gk[k]).all(), k
+    assert float((gk[k] - g).abs().max()) \
+        <= 1e-3 * (float(g.abs().max()) + 1e-3 * top), k
+  m.optimizer = torch.optim.Adam(m.module.parameters(), lr=1e-3)
+  tz.reset_launches()
+  metrics = m._train_step(batch)
+  assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
+  assert all(torch.isfinite(v).all() for v in metrics.values())
+  assert "klqp_delta" in metrics
+
+
+def test_autozi_gate_gradient_reaches_delta(dev):
+  """δ's two parameters get their gradient from the backward kernel's
+  gate gradient (a column sum over the rows) plus the Beta KL: with the
+  KL taken out it is still non-zero, and finite, on the kernel route."""
+  m, batch, noise = _autozi_step_inputs(dev, 2048, 256, 17)
+  m._extra_loss = lambda out, batch, training: None  # the likelihood only
+  state = {k: v.clone() for k, v in m.module.state_dict().items()}
+  tz.reset_launches()
+  _, gk, _ = _route(m, state, batch, noise, "auto")
+  assert tz.launches["zinb_rowsum_bwd"] == 1
+  for k in ("log_alpha_delta", "log_beta_delta"):
+    assert torch.isfinite(gk[k]).all() and float(gk[k].abs().max()) > 0, k
+
+
+def test_chunked_leaf_round_trip_on_card(dev, tmp_path):
+  """A (16,385 × 16,385) f32 leaf (1.07 GB > 2^30 bytes) on the card goes
+  out chunked (two chunks, the second of 16,385 · 16,385 − 2^28 elements)
+  and comes back bitwise."""
+  from sisua_tpu_torch.train import checkpoint as ckpt
+  from sisua_tpu_torch.train import msgpack as mp
+  n = 16_385
+  w = torch.randn((n, n), generator=torch.Generator(device=dev)
+                  .manual_seed(18), device=dev)
+  ckpt.save_weights(str(tmp_path), {"Imputation": {"kernel": w}})
+  with open(tmp_path / "params.msgpack", "rb") as f:
+    head = f.read(256)
+  assert b"__msgpack_chunked_array__" in head
+  with open(tmp_path / "params.msgpack", "rb") as f:
+    back = mp.unpackb(f.read())["Imputation"]["kernel"]
+  assert back.shape == (n, n) and back.flags.writeable
+  assert torch.equal(torch.from_numpy(back).to(dev), w)

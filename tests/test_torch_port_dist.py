@@ -151,12 +151,17 @@ def test_zero_inflated_log_prob_and_gradients(kind):
 _COUNT_POSTERIORS = ("zinbd", "nbd", "zinb", "nb", "poisson", "zip", "mixnb")
 # RV kwargs of the cases that carry some, by (posterior, dim)
 _RV_KWARGS = {("mdn", 5): {"n_components": 3},
-              ("mixnb", 13): {"zero_inflated": True, "n_components": 3}}
+              ("mixnb", 13): {"zero_inflated": True, "n_components": 3},
+              ("nzmse", 13): {"log_space": False, "activation": "linear"}}
 
 
 def _rv_target(posterior, rng, dim):
   if posterior in _COUNT_POSTERIORS:
     return rng.poisson(2.0, (8, dim)).astype(np.float32)
+  if posterior == "nzmse":  # counts with dropout zeros, one all-zero row
+    x = (rng.poisson(2.0, (8, dim)) * (rng.uniform(size=(8, dim)) > 0.4))
+    x[3] = 0
+    return x.astype(np.float32)
   if posterior == "onehot":
     return np.eye(dim, dtype=np.float32)[rng.integers(0, dim, 8)]
   if posterior == "bernoulli":
@@ -168,7 +173,7 @@ def _rv_target(posterior, rng, dim):
     ("diag", 6), ("normal", 1), ("zinbd", 12), ("nbd", 12), ("zinb", 12),
     ("nb", 12), ("poisson", 12), ("zip", 12), ("onehot", 5),
     ("bernoulli", 5), ("mse", 6), ("relu", 6), ("mixgaus", 4), ("mdn", 5),
-    ("mixnb", 12), ("mixnb", 13)])
+    ("mixnb", 12), ("mixnb", 13), ("nzmse", 12), ("nzmse", 13)])
 def test_rv_specs_and_priors(posterior, dim):
   """RVmeta builds the same distribution from the same raw head output,
   with exp(clip ±15) positives and softplus + 1e-4 scales."""
@@ -211,9 +216,19 @@ def test_parse_rv_and_unknown_posterior():
   assert meta.kw == {"dispersion": "single"} and meta.name == "rv"
   with pytest.raises(ValueError, match="Unknown posterior"):
     trv.RVmeta(3, "gamma")
-  assert "nzmse" in jrv.POSTERIORS
-  with pytest.raises(NotImplementedError, match="not ported yet"):
-    trv.RVmeta(3, "nzmse")
+  # 'nzmse' (scScope's head): deterministic, 'relu' and log1p space by
+  # default, the same distribution as JAX's from the same raw output
+  t_nz, j_nz = trv.RVmeta(4, "nzmse"), jrv.RVmeta(4, "nzmse")
+  assert (t_nz.n_params, t_nz.kw, t_nz.is_deterministic) \
+      == (j_nz.n_params, j_nz.kw, j_nz.is_deterministic) == (4, {}, True)
+  raw = np.array([[-1.0, 0.5, 2.0, 0.1]], np.float32)
+  td, jd = (t_nz.create_distribution(torch.tensor(raw)),
+            j_nz.create_distribution(jnp.asarray(raw)))
+  assert isinstance(td, TD.NonzeroMaskedDeterministic) and td.log_space
+  _close(td.loc, jd.loc)
+  _close(td.mean(), jd.mean())
+  x = np.array([[0.0, 3.0, 1.0, 0.0]], np.float32)
+  _close(td.log_prob(torch.tensor(x)), jd.log_prob(jnp.asarray(x)))
   for name in ("tril", "mvntril", "mixtril"):  # ported: the JAX count
     assert trv.RVmeta(3, name).n_params == jrv.RVmeta(3, name).n_params
   assert trv.RVmeta(3, "relu").kw == jrv.RVmeta(3, "relu").kw \

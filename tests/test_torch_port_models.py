@@ -250,8 +250,9 @@ def test_sisua_rejects_a_single_output():
     T.SISUA(TRV(G, "zinb", name="rna"), device="cpu")
   assert T.get_model("sisua") is T.SISUA
   assert T.get_model("dca") is T.DeepCountAutoencoder
+  assert T.get_model("scscope") is T.SCScope
   with pytest.raises(ValueError, match="ported"):
-    T.get_model("scscope")
+    T.get_model("nosuchmodel")
 
 
 @pytest.mark.parametrize("reduce_latent", ["sum", "mean"])

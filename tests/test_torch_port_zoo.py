@@ -451,8 +451,7 @@ def test_zoo_resolves_and_tril_latents_build():
                     D.MultivariateNormalTriL)
   assert isinstance(TRV(3, "mixtril").create_distribution(
       torch.zeros(2, 2 * 10)), D.MixtureSameFamily)
-  with pytest.raises(NotImplementedError, match="nzmse"):
-    TRV(3, "nzmse")
+  assert TRV(3, "nzmse").is_deterministic  # scScope's head, ported
   with pytest.raises(ValueError, match="≥2 outputs"):
     T.SCALAR(TRV(G, "zinb", name="rna"), device="cpu")
   with pytest.raises(ValueError, match="≥2 outputs"):

@@ -6,8 +6,9 @@ at 512 × 33,000, on one CUDA card.
 
 MODEL is one of SISUA, FVAE, SCALAR, SCALE, LDVAE, phase 10's
 scvi_batch (SCVI at n_batch = 4 with an 'nb' label head), totalvi and
-scanvi, and phase 11's peakvi and multivi (on 108,377 peaks with mosaic
-cells) (default: all), built as ``chip_smoke.py`` builds it. For each:
+scanvi, phase 11's peakvi and multivi (on 108,377 peaks with mosaic
+cells), and phase 12's autozi and scscope (its 33,000 × 33,000 imputer)
+(default: all), built as ``chip_smoke.py`` builds it. For each:
 one warm-up epoch of 8 steps through ``fit``, then STEPS steps of
 ``_train_step`` on fixed batches:
   * wall ms per step (host clock around the steps, ending in a
@@ -65,7 +66,9 @@ def _union_us(ranges) -> float:
 PHASE10 = {"scvi_batch": "SCVI_batch", "totalvi": "TotalVI",
            "scanvi": "SCANVI"}
 PHASE11 = {"peakvi": "PEAKVI", "multivi": "MULTIVI"}
-ALL = ["SISUA", "FVAE", "SCALAR", "SCALE", "LDVAE", *PHASE10, *PHASE11]
+PHASE12 = {"autozi": "AUTOZI", "scscope": "SCScope"}
+ALL = ["SISUA", "FVAE", "SCALAR", "SCALE", "LDVAE", *PHASE10, *PHASE11,
+       *PHASE12]
 
 
 def _model(cs, name):
@@ -77,6 +80,8 @@ def _model(cs, name):
     return cs._phase10_model(PHASE10[name])
   if name in PHASE11:
     return cs._multiome_model(PHASE11[name])
+  if name in PHASE12:
+    return cs._phase12_model(PHASE12[name])
   return cs._zoo_model(name)
 
 
@@ -96,7 +101,8 @@ def profile(torch, cs, name, data):
   model = _model(cs, name)
   n = 8 * cs.BATCH
   model.fit(_inputs(cs, name, data, slice(0, n)), epochs=1,
-            batch_size=cs.BATCH, labels_percent=cs.LABELS_PERCENT)
+            batch_size=cs.BATCH, labels_percent=cs.LABELS_PERCENT,
+            learning_rate=cs.SCSCOPE_LR if name == "scscope" else 1e-3)
   batches = []
   for i in range(STEPS):
     rows = slice(i * cs.BATCH, (i + 1) * cs.BATCH)
