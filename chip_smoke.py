@@ -6,8 +6,10 @@
 Builds the hand-written CUDA kernels from ``sisua_tpu_torch/csrc`` and
 drives the port's two paths at full transcriptome width (33,000 genes)
 through the entry points a user calls, ``fit`` and ``evaluate``: SCVI
-training with the ZINB likelihood in its 'full' dispersion form, and SISUA
-training (a 'zinb' RNA head and a masked 'nb' head over 10 proteins).
+training with the ZINB likelihood in its 'full' dispersion form (in
+float32, and in mixed precision through the kernels' bf16 modes), and
+SISUA training (a 'zinb' RNA head and a masked 'nb' head over 10
+proteins).
 
 Phases, one result line each; any failure raises and exits non-zero
 before the final line:
@@ -21,7 +23,12 @@ before the final line:
      plain, timed with CUDA events over back-to-back calls in turns
      (plain, kernel, kernel, plain), beside the case's bound (bytes at
      3.35 TB/s, or this data's operations at 67 TFLOP/s if larger) and the
-     share of it reached;
+     share of it reached; then the bf16 modes on the same operands
+     (BF16_CASES): bf16 (B, D) operands at 'main_full', 'single' (a
+     float32 per-gene θ beside bf16 logits), the 10-protein NB head (D =
+     10, 20-byte bf16 rows), ragged and extreme, and float32 operands
+     with SISUA_TPU_BWD_WRITES=bf16 at 'main_full'; a bf16-written
+     gradient within 1 bf16 ulp of the plain version's (rtol 7.9e-3);
   4. SCVI fit on 8,192 × 33,000 device-resident synthetic counts, batch
      512, 16 epochs in two windows of 8; every loss finite, the last
      window's mean loss below the first's, both launch counters equal to
@@ -117,10 +124,32 @@ before the final line:
      fit seconds and predict cells/s); CellAssign on a planted panel of
      300 genes and 10 types (150 epochs, lr 1e-2; the planted type
      recovered for at least 90% of the cells, no kernel).
+ 13. this slice's path and the rest of ``fit``, on phase 4's counts:
+     (a) SCVI at ``compute_dtype='bfloat16'`` with
+     SISUA_TPU_FWD_OPERANDS=bf16 (both kernels in their bf16 modes),
+     batch 512, 16 epochs in two windows of 8, validated on the 1,024
+     held-out cells, from launch counts set to 0: every loss finite and
+     falling, float32 parameters, both kernels launched once a step and
+     the forward once per validation and evaluate batch; the kernel route
+     against the plain route (loss rtol 1e-4, gradient bound 1e-2 over
+     max|g| + 2^-8·G); ``save_weights`` → ``load_model`` keeping the
+     compute dtype, ``evaluate`` within EVAL_RTOL; then the A/B of
+     steady step ms, cells/s and peak memory with bf16 operands, f32
+     operands, and f32 operands with bf16 writes, each twice in turns.
+     (b) phase 4's float32 SCVI: each of the six other optimizers for 4
+     epochs (loss finite, every parameter moved); ``fit_query`` on the
+     held-out cells (frozen tensors bitwise unchanged); ``mc_samples=3``
+     (no kernel in training, the forward in evaluate); ``callbacks``,
+     ``track_gradient_norms`` and ``checkpoint_path`` in one validated
+     fit (call counts, a metric injected into the history, the file
+     reloading bitwise to the best state); ``device_dtype='int16'``
+     (resident bytes halved, the losses of the float32 fit).
 Before the last line it prints the kernels' JSON summary (launches of the
-phase 4 and phase 6 fits, of phase 8 and of phases 9 to 12's fits and
-round trips; time, plain time and bound at 512 × 33,000 'main_full'); the
-last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+phase 4 and phase 6 fits, of phase 8 and of phases 9 to 13's fits and
+round trips; time, plain time and bound at 512 × 33,000 'main_full', and
+under ``bf16_operands`` / ``bf16_writes`` the bf16 modes' at the same
+shape with phase 13a's launches); the last line is ``{"ok": true,
+"device": {...}}``. Imports nothing of JAX.
 """
 
 import json
@@ -147,6 +176,9 @@ ALPHA = 10.0          # configs/base.yaml:10
 LABELS_PERCENT = 0.1  # configs/base.yaml:26
 FWD_RTOL = 1e-4       # row-sum order bound (tests/test_ops.py:79)
 GRAD_TOL = dict(rtol=2e-4, atol=1e-5)  # tests/test_ops.py:130
+# a bf16 (B, D) gradient: kernel and plain round the same f32 formula, so
+# they differ by at most 1 bf16 ulp (2^-7 relative)
+BF16_GRAD_RTOL = 7.9e-3
 # a per-gene (1, D) gradient sums B rows in another order than the plain
 # version: its atol adds ~8 float32 ulps (1e-6) of Σ_rows |term|
 SUM_ULPS = 1e-6
@@ -209,9 +241,10 @@ def phase_build():
     for line in report.read_text().splitlines():
       if "Compiling entry function" in line:
         name = next((k for k in KERNEL_NAMES if k in line), line)
-        flags = re.search(r"ILb([01])ELb([01])E", line)
+        flags = re.search(r"ILb([01])ELb([01])E(?:Lb([01])E)?", line)
         if flags:
-          name += f"<constrained={flags[1]},vec={flags[2]}>"
+          name += f"<constrained={flags[1]},vec={flags[2]}"
+          name += f",mixed={flags[3]}>" if flags[3] else ">"
       elif "spill" in line:
         spills = line.strip()
       elif "registers" in line and name:
@@ -265,7 +298,19 @@ CASES = (
     ("extreme", 4, 16, True, (False, False, False)),
 )
 # phase-3 cases whose gate is the NB heads' −1e30 per-gene row
-NB_GATE_CASES = ("nb_gate", "adt_nb")
+NB_GATE_CASES = ("nb_gate", "adt_nb", "adt_nb_bf16")
+# phase-3 bf16 cases: name, the f32 case they cast, and the mode —
+# 'operands': every (B, D) parameter bf16 (per-gene rows stay float32),
+# and then bf16 gradient writes; 'writes': float32 operands with
+# SISUA_TPU_BWD_WRITES=bf16
+BF16_CASES = (
+    ("main_full_bf16", "main_full", "operands"),
+    ("main_single_bf16", "main_gene_theta", "operands"),
+    ("adt_nb_bf16", "adt_nb", "operands"),
+    ("ragged_bf16", "ragged", "operands"),
+    ("extreme_bf16", "extreme", "operands"),
+    ("main_full_writes", "main_full", "writes"),
+)
 
 
 def _case(torch, gen, name, rows, cols, constrained, per_gene):
@@ -296,11 +341,26 @@ def _extreme_case(torch):
   return x, th, lg, gt
 
 
+def _to_bf16_case(torch, name, x, cr, lg, gt):
+  """A phase-3 case's (B, D) parameters as bf16 (per-gene rows stay
+  float32). The protein head's θ operand and logits become two 10-column
+  chunks of one (B, 20) bf16 matrix: 20-byte rows whose second chunk
+  starts 20 bytes in, 4-byte aligned only, as the head passes them."""
+  b = x.shape[0]
+  cast = [p if p.shape[0] == 1 < b else p.to(torch.bfloat16)
+          for p in (cr, lg, gt)]
+  if name.startswith("adt_nb"):
+    buf = torch.cat(cast[:2], dim=1)
+    cast[:2] = torch.chunk(buf, 2, dim=1)
+  return cast
+
+
 def check_kernels(torch, tz, name, x, cr, lg, gt, g, constrained, need):
   """One case of ``tz``'s two kernels against their plain versions
   (forward rtol FWD_RTOL; gradients GRAD_TOL plus the per-gene sum-order
-  term; no unneeded gradient written), run twice for the same bits.
-  Returns (forward max|Δ|, gradient max|Δ|)."""
+  term, a bf16-written (B, D) field within 1 bf16 ulp, BF16_GRAD_RTOL, in
+  its primal's dtype; no unneeded gradient written), run twice for the
+  same bits. Returns (forward max|Δ|, gradient max|Δ|)."""
   import numpy as np
   out = tz._fwd_launch(x, cr, lg, gt, constrained)
   grads = tz._bwd_launch(x, cr, lg, gt, g, constrained, need)
@@ -312,17 +372,26 @@ def check_kernels(torch, tz, name, x, cr, lg, gt, g, constrained, need):
   np.testing.assert_allclose(o, r, rtol=FWD_RTOL, err_msg=f"{name}: forward")
   fwd_err = float(np.abs(o - r).max())
   bwd_err = 0.0
-  terms = tz._zinb_grads_elem(x, cr, lg, gt, constrained)
-  for field, a, b, t in zip(("theta", "logits", "gate"), grads, refs, terms):
+  params = (cr, lg, gt)
+  terms = tz._zinb_grads_elem(x, *(tz._widen(p) for p in params),
+                              constrained)
+  bf16_full = tz._write_dtype(params) == torch.bfloat16
+  for field, a, b, t, p in zip(("theta", "logits", "gate"), grads, refs,
+                               terms, params):
     if b is None:
       check(a is None, f"{name}: unneeded {field} gradient written")
       continue
-    check(a.shape == b.shape, f"{name}: {field} shape {tuple(a.shape)}")
-    atol = GRAD_TOL["atol"]
+    check(a.shape == b.shape and a.dtype == b.dtype == p.dtype,
+          f"{name}: {field} {tuple(a.shape)} {a.dtype}")
+    atol, rtol = GRAD_TOL["atol"], GRAD_TOL["rtol"]
     if b.shape[0] == 1 < x.shape[0]:  # per-gene: a sum over the rows
       atol = atol + SUM_ULPS * (g[:, None] * t).abs().sum(0).cpu().numpy()
-    a, b = a.cpu().numpy(), b.cpu().numpy()
-    bad = ~(np.abs(a - b) <= atol + GRAD_TOL["rtol"] * np.abs(b))
+    elif bf16_full:
+      check(torch.equal(a, a.to(torch.bfloat16).to(a.dtype)),
+            f"{name}: {field} written wider than bf16")
+      rtol = BF16_GRAD_RTOL
+    a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+    bad = ~(np.abs(a - b) <= atol + rtol * np.abs(b))
     check(not bad.any(), f"{name}: d{field} {bad.sum()} of {bad.size} "
           f"off, worst |Δ| {np.abs(a - b)[bad].max() if bad.any() else 0}")
     bwd_err = max(bwd_err, float(np.abs(a - b).max()))
@@ -340,10 +409,13 @@ def kernel_bounds(x, cr, lg, gt, need):
   over HBM_BYTES_PER_S and this data's operations (OPS, by the nonzero
   share) over F32_OPS_PER_S. Returns {"fwd"|"bwd": (µs, "bytes"|
   "operations")}."""
+  from sisua_tpu_torch.ops import zinb as tz
   b = x.shape[0]
-  reads = 4 * (x.numel() + cr.numel() + lg.numel() + gt.numel())
-  written = {"fwd": 4 * b, "bwd": 4 * sum(
-      p.numel() for p, n in zip((cr, lg, gt), need) if n)}
+  reads = sum(t.numel() * t.element_size() for t in (x, cr, lg, gt))
+  full = tz._write_dtype((cr, lg, gt)).itemsize
+  written = {"fwd": 4 * b, "bwd": sum(
+      p.numel() * (4 if p.shape[0] == 1 < b else full)
+      for p, n in zip((cr, lg, gt), need) if n)}
   read = {"fwd": reads, "bwd": reads + 4 * b}  # + the row cotangent
   nz = int((x > 0).sum())
   out = {}
@@ -356,43 +428,66 @@ def kernel_bounds(x, cr, lg, gt, need):
   return out
 
 
+def _kernel_case(torch, tz, name, x, cr, lg, gt, g, constrained, pg,
+                 results):
+  """Check, time and log one phase-3 case into ``results``."""
+  need = (True, True, name not in NB_GATE_CASES)  # no NB gate gradient
+  fwd_err, bwd_err = check_kernels(torch, tz, name, x, cr, lg, gt, g,
+                                   constrained, need)
+  t_fwd = _time_turns(torch, {
+      "plain": lambda: tz._rowsum_ref(x, cr, lg, gt, constrained),
+      "kernel": lambda: tz._fwd_launch(x, cr, lg, gt, constrained)})
+  t_bwd = _time_turns(torch, {
+      "plain": lambda: tz._grads_ref(x, cr, lg, gt, g, constrained, need),
+      "kernel": lambda: tz._bwd_launch(x, cr, lg, gt, g, constrained,
+                                       need)})
+  bounds = kernel_bounds(x, cr, lg, gt, need)
+  results[name] = dict(fwd_err=fwd_err, bwd_err=bwd_err, t_fwd=t_fwd,
+                       t_bwd=t_bwd, bounds=bounds)
+  big = float((cr > 1e6).float().mean()) if constrained else 0.0
+  nz = float((x > 0).float().mean())
+  shares = {k: bounds[k][0] / t["kernel"] for k, t in
+            (("fwd", t_fwd), ("bwd", t_bwd))}
+  log(f"[3 kernels] {name} {tuple(x.shape)} constrained={constrained} "
+      f"per_gene={pg} θ>1e6 {big:.4f} nonzero {nz:.4f}: fwd max|Δ| "
+      f"{fwd_err:.3e} kernel {t_fwd['kernel']:.1f} µs plain "
+      f"{t_fwd['plain']:.1f} µs bound {bounds['fwd'][0]:.1f} µs "
+      f"({bounds['fwd'][1]}) share {shares['fwd']:.1%} | bwd max|Δ| "
+      f"{bwd_err:.3e} kernel {t_bwd['kernel']:.1f} µs plain "
+      f"{t_bwd['plain']:.1f} µs bound {bounds['bwd'][0]:.1f} µs "
+      f"({bounds['bwd'][1]}) share {shares['bwd']:.1%}; both bitwise "
+      f"reproducible")
+
+
 def phase_kernels(torch):
+  """Phase 3: the float32 cases, then the bf16 modes (``BF16_CASES``) on
+  the same operands."""
   from sisua_tpu_torch.ops import zinb as tz
   gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-  results = {}
+  results, cases = {}, {}
   for name, rows, cols, constrained, pg in CASES:
     if name == "extreme":
       x, cr, lg, gt = _extreme_case(torch)
     else:
       x, cr, lg, gt = _case(torch, gen, name, rows, cols, constrained, pg)
     g = torch.randn((x.shape[0],), generator=gen, device=DEVICE)
-    need = (True, True, name not in NB_GATE_CASES)  # no NB gate gradient
-    fwd_err, bwd_err = check_kernels(torch, tz, name, x, cr, lg, gt, g,
-                                     constrained, need)
-    t_fwd = _time_turns(torch, {
-        "plain": lambda: tz._rowsum_ref(x, cr, lg, gt, constrained),
-        "kernel": lambda: tz._fwd_launch(x, cr, lg, gt, constrained)})
-    t_bwd = _time_turns(torch, {
-        "plain": lambda: tz._grads_ref(x, cr, lg, gt, g, constrained, need),
-        "kernel": lambda: tz._bwd_launch(x, cr, lg, gt, g, constrained,
-                                         need)})
-    bounds = kernel_bounds(x, cr, lg, gt, need)
-    results[name] = dict(fwd_err=fwd_err, bwd_err=bwd_err, t_fwd=t_fwd,
-                         t_bwd=t_bwd, bounds=bounds)
-    big = float((cr > 1e6).float().mean()) if constrained else 0.0
-    nz = float((x > 0).float().mean())
-    shares = {k: bounds[k][0] / t["kernel"] for k, t in
-              (("fwd", t_fwd), ("bwd", t_bwd))}
-    log(f"[3 kernels] {name} {tuple(x.shape)} constrained={constrained} "
-        f"per_gene={pg} θ>1e6 {big:.4f} nonzero {nz:.4f}: fwd max|Δ| "
-        f"{fwd_err:.3e} kernel {t_fwd['kernel']:.1f} µs plain "
-        f"{t_fwd['plain']:.1f} µs bound {bounds['fwd'][0]:.1f} µs "
-        f"({bounds['fwd'][1]}) share {shares['fwd']:.1%} | bwd max|Δ| "
-        f"{bwd_err:.3e} kernel {t_bwd['kernel']:.1f} µs plain "
-        f"{t_bwd['plain']:.1f} µs bound {bounds['bwd'][0]:.1f} µs "
-        f"({bounds['bwd'][1]}) share {shares['bwd']:.1%}; both bitwise "
-        f"reproducible")
-    del x, cr, lg, gt
+    _kernel_case(torch, tz, name, x, cr, lg, gt, g, constrained, pg,
+                 results)
+    cases[name] = (x, cr, lg, gt, g, constrained, pg)
+  for name, src, mode in BF16_CASES:
+    x, cr, lg, gt, g, constrained, pg = cases[src]
+    if mode == "operands":
+      cr, lg, gt = _to_bf16_case(torch, name, x, cr, lg, gt)
+      _kernel_case(torch, tz, name, x, cr, lg, gt, g, constrained, pg,
+                   results)
+      continue
+    os.environ["SISUA_TPU_BWD_WRITES"] = "bf16"
+    try:
+      _kernel_case(torch, tz, name, x, cr, lg, gt, g, constrained, pg,
+                   results)
+    finally:
+      os.environ.pop("SISUA_TPU_BWD_WRITES", None)
+  del cases
   return results
 
 
@@ -493,11 +588,28 @@ def _route_grads(torch, model, sd, batch, noise, mode):
     os.environ.pop("SISUA_TPU_FUSED_LIKELIHOOD", None)
 
 
-def _compare_routes(torch, phase, label, model, sd, batch, noise, expect):
+def _batchnormed_biases(module):
+  """The biases of the Dense layers a BatchNorm follows: BatchNorm takes
+  out any constant shift, so their gradient is zero but for rounding."""
+  names = dict(module.named_modules())
+  return {f"{owner}.dense{i}.bias" for owner, m in names.items()
+          for i in range(len(getattr(getattr(m, "conf", None), "units", ())))
+          if f"{owner}.bn{i}" in names}
+
+
+def _compare_routes(torch, phase, label, model, sd, batch, noise, expect,
+                    grad_bound=None, vanishing_floor=None):
   """Kernel route vs plain route of one step: each kernel launched
   ``expect`` times on the kernel route and never on the plain one; loss
-  within ROUTE_LOSS_RTOL; every parameter gradient within the bound.
-  Returns the kernel route's loss."""
+  within ROUTE_LOSS_RTOL; every parameter gradient's max|Δ| within
+  ``grad_bound`` (ROUTE_GRAD_BOUND unless given) of its max|g| plus 1e-3
+  times the largest gradient G. With ``vanishing_floor`` (a bf16 model,
+  whose rounding leaves noise where a gradient vanishes) the biases ahead
+  of a BatchNorm are held instead to max|g| ≤ vanishing_floor·G on both
+  routes. Returns the kernel route's loss."""
+  grad_bound = ROUTE_GRAD_BOUND if grad_bound is None else grad_bound
+  vanishing = (_batchnormed_biases(model.module)
+               if vanishing_floor is not None else set())
   from sisua_tpu_torch.ops import zinb as tz
   before = dict(tz.launches)
   lk, gk = _route_grads(torch, model, sd, batch, noise, "auto")
@@ -510,18 +622,29 @@ def _compare_routes(torch, phase, label, model, sd, batch, noise, expect):
   check(abs(lk - lp) <= ROUTE_LOSS_RTOL * abs(lp),
         f"{label}: loss kernel {lk} plain {lp}")
   scale = max(float(g.abs().max()) for g in gp.values())
-  worst, worst_key = 0.0, None
+  worst, worst_key, noise_max = 0.0, None, 0.0
+  for k in vanishing:
+    noise_max = max(noise_max, float(gp[k].abs().max()),
+                    float(gk[k].abs().max()))
+  check(noise_max <= (vanishing_floor or 0.0) * scale,
+        f"{label}: a bias ahead of a BatchNorm has gradient {noise_max:.2e}"
+        f" > {vanishing_floor}·G")
   for k, g in gp.items():
+    if k in vanishing:
+      continue
     bound = float(g.abs().max()) + 1e-3 * scale
     ratio = float((gk[k] - g).abs().max()) / bound
     if ratio > worst:
       worst, worst_key = ratio, k
-  check(worst <= ROUTE_GRAD_BOUND,
+  check(worst <= grad_bound,
         f"{label}: gradient {worst_key} off by {worst:.2e}")
   log(f"[{phase}] {label}: loss kernel {lk:.4f} plain {lp:.4f} "
       f"(rel {abs(lk - lp) / abs(lp):.2e}); worst gradient "
       f"max|Δ|/(max|g|+1e-3·G) {worst:.2e} at {worst_key} "
-      f"(bound {ROUTE_GRAD_BOUND}); kernel launches +{expect} each")
+      f"(bound {grad_bound})"
+      + (f"; the {len(vanishing)} biases ahead of a BatchNorm max|g| "
+         f"{noise_max / scale:.2e}·G (bound {vanishing_floor:.2g})"
+         if vanishing else "") + f"; kernel launches +{expect} each")
   return lk
 
 
@@ -1638,6 +1761,276 @@ def phase_last_zoo(torch, x, held, library, root, smi):
   return total
 
 
+# ------------------------------------------------------------------ phase 13
+# bf16 operands and writes: the route's gradients carry bf16's 2^-8
+# relative rounding of the three (B, D) gradient fields; a gradient that
+# vanishes (a bias ahead of a BatchNorm) is bf16 rounding noise on either
+# route, held below one bf16 rounding (2^-8) of the largest gradient
+BF16_ROUTE_GRAD_BOUND = 1e-2
+BF16_ROUTE_FLOOR = 2.0 ** -8
+# the A/B of the bf16 modes: SISUA_TPU_FWD_OPERANDS / SISUA_TPU_BWD_WRITES
+BF16_MODES = {"bf16 operands": {"SISUA_TPU_FWD_OPERANDS": "bf16"},
+              "f32 operands": {},
+              "f32 operands, bf16 writes": {"SISUA_TPU_BWD_WRITES": "bf16"}}
+SURFACE_EPOCHS = 4
+OTHER_OPTIMIZERS = ("adamw", "sgd", "rmsprop", "adamax", "adafactor", "lion")
+
+
+class _Env:
+  """Environment variables set for a block, then removed."""
+
+  def __init__(self, env):
+    self.env = env
+
+  def __enter__(self):
+    os.environ.update(self.env)
+
+  def __exit__(self, *exc):
+    for k in self.env:
+      os.environ.pop(k, None)
+
+
+def _bf16_scvi_fit(torch, x, held, mode):
+  """Phase 4's SCVI at ``compute_dtype='bfloat16'``, validated on the
+  held-out cells, in one of ``BF16_MODES`` from launch counts set to 0.
+  Returns (model, launches, (step ms, cells/s, peak GiB), fit s)."""
+  from sisua_tpu_torch.ops import zinb as tz
+  model = _scvi(torch, "full", compute_dtype="bfloat16")
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  with _Env(BF16_MODES[mode]):
+    tz.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(x, valid=held, epochs=EPOCHS, batch_size=BATCH,
+              learning_rate=1e-3, clipnorm=100.0, metrics_interval=WINDOW)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(tz.launches)
+  return model, launches, _steady(model.history, torch), fit_s
+
+
+def phase_bf16(torch, x, held, library, root, smi):
+  """Phase 13a, this slice's main path: SCVI 'zinbd', 'full' dispersion,
+  ``compute_dtype='bfloat16'`` with SISUA_TPU_FWD_OPERANDS=bf16, through
+  both kernels in their bf16 modes; then the A/B of the three modes.
+  Returns (the main path's launches, the A/B)."""
+  import numpy as np
+  from sisua_tpu_torch.ops import zinb as tz
+  mode = "bf16 operands"
+  model, launches, (step_ms, cells_s, peak), fit_s = _bf16_scvi_fit(
+      torch, x, held, mode)
+  h = model.history
+  steps = EPOCHS * (CELLS // BATCH)
+  val_batches = -(-HELD_OUT // BATCH)
+  losses = np.asarray(h["loss"])
+  check(len(losses) == EPOCHS and np.isfinite(losses).all(),
+        f"bf16 SCVI: losses {losses}")
+  first, last = losses[:WINDOW].mean(), losses[-WINDOW:].mean()
+  check(last < first, f"bf16 SCVI: last window loss {last} !< {first}")
+  check(all(p.dtype == torch.float32 for p in model.module.parameters()),
+        "bf16 SCVI: a parameter left float32")
+  windows = EPOCHS // WINDOW
+  check(launches == {"zinb_rowsum_fwd": steps + windows * val_batches,
+                     "zinb_rowsum_bwd": steps},
+        f"bf16 SCVI: launches {launches}, expected {steps} steps + "
+        f"{windows} × {val_batches} validation batches")
+  with _Env(BF16_MODES[mode]):
+    ev = model.evaluate(held, batch_size=BATCH)
+    check(tz.launches["zinb_rowsum_fwd"] - launches["zinb_rowsum_fwd"]
+          == val_batches, f"bf16 SCVI: evaluate launches {tz.launches}")
+    log(f"[13 bf16] SCVI compute_dtype='bfloat16', "
+        f"SISUA_TPU_FWD_OPERANDS=bf16: {steps} steps in {fit_s:.1f} s; "
+        f"loss first window {first:.2f} last window {last:.2f}; val_loss "
+        f"{h['val_loss'][0]:.2f} → {h['val_loss'][-1]:.2f}; evaluate loss "
+        f"{ev['loss']:.2f}; parameters float32; launches {launches} + "
+        f"{val_batches} forward (evaluate)")
+    rows = torch.arange(BATCH, device=DEVICE)
+    batch = {"inputs": [x[rows]], "library": library[rows],
+             "mask": torch.ones(BATCH, device=DEVICE)}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    noise = [torch.randn((BATCH, 16), generator=gen, device=DEVICE),
+             torch.randn((BATCH, 1), generator=gen, device=DEVICE)]
+    twin = _scvi(torch, "full", compute_dtype="bfloat16")
+    _compare_routes(torch, "13 bf16", "SCVI bf16 (kernels in their bf16 "
+                    "modes vs the distribution math in f32)", twin,
+                    _converted(twin, model), batch, noise, 1,
+                    grad_bound=BF16_ROUTE_GRAD_BOUND,
+                    vanishing_floor=BF16_ROUTE_FLOOR)
+    del twin
+    fwd = _zoo_round_trip(
+        torch, "SCVI bf16", model, [held], root, 1, phase="13 bf16",
+        check_loaded=lambda m: check(
+            m.compute_dtype == "bfloat16"
+            and m.module.MeanScale.compute_dtype == torch.bfloat16,
+            f"bf16 SCVI: load_model gave compute_dtype {m.compute_dtype}"))
+  # the path: the fit, its evaluate and the round trip's two evaluates
+  main = {"zinb_rowsum_fwd": launches["zinb_rowsum_fwd"] + val_batches + fwd,
+          "zinb_rowsum_bwd": launches["zinb_rowsum_bwd"]}
+  del model
+  # the A/B: each mode twice, in turns, the first run above included
+  ab = {mode: [(step_ms, cells_s, peak)]}
+  for m in ("f32 operands", "f32 operands, bf16 writes",
+            "f32 operands, bf16 writes", "f32 operands", "bf16 operands"):
+    model, _, numbers, _ = _bf16_scvi_fit(torch, x, held, m)
+    check(np.isfinite(model.history["loss"]).all(), f"{m}: non-finite loss")
+    ab.setdefault(m, []).append(numbers)
+    del model
+  for m, runs in ab.items():
+    log(f"[13 bf16] A/B {m}: steady step "
+        f"{' / '.join(f'{r[0]:.3f}' for r in runs)} ms, "
+        f"{' / '.join(f'{r[1]:.0f}' for r in runs)} cells/s, peak "
+        f"{' / '.join(f'{r[2]:.2f}' for r in runs)} GiB | {smi}")
+  return main, ab
+
+
+class _CallCounter:
+  """Counts a fit's callback calls (the port's TrainingCallback protocol)."""
+
+  def __init__(self):
+    self.counts = {"set_model": 0, "on_epoch_begin": 0, "on_epoch_end": 0,
+                   "on_train_end": 0}
+
+  def set_model(self, model):
+    self.counts["set_model"] += 1
+
+  def on_epoch_begin(self, epoch, logs):
+    self.counts["on_epoch_begin"] += 1
+
+  def on_epoch_end(self, epoch, logs):
+    self.counts["on_epoch_end"] += 1
+    logs["seen_by_callback"] = float(epoch)
+
+  def on_train_end(self, logs):
+    self.counts["on_train_end"] += 1
+
+
+def phase_fit_surface(torch, x, held, root, smi):
+  """Phase 13b: the rest of ``fit`` on phase 4's f32 SCVI at full width.
+  Returns the launches of its fits."""
+  import numpy as np
+  from sisua_tpu_torch import convert
+  from sisua_tpu_torch.ops import zinb as tz
+  from sisua_tpu_torch.train import Trainer
+  total = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+
+  def add():
+    for k in total:
+      total[k] += tz.launches[k]
+
+  steps = CELLS // BATCH
+  model = None
+  for name in OTHER_OPTIMIZERS:
+    model = _scvi(torch, "full")
+    before = {k: v.detach().clone() for k, v in
+              model.module.named_parameters()}
+    tz.reset_launches()
+    model.fit(x, epochs=SURFACE_EPOCHS, batch_size=BATCH, optimizer=name,
+              learning_rate=1e-3, metrics_interval=SURFACE_EPOCHS)
+    add()
+    losses = np.asarray(model.history["loss"])
+    moved = sum(not torch.equal(v, before[k]) for k, v in
+                model.module.named_parameters())
+    check(np.isfinite(losses).all() and moved == len(before),
+          f"{name}: losses {losses}, {moved} of {len(before)} moved")
+    check(tz.launches == {"zinb_rowsum_fwd": SURFACE_EPOCHS * steps,
+                          "zinb_rowsum_bwd": SURFACE_EPOCHS * steps},
+          f"{name}: launches {tz.launches}")
+    step_ms = float(np.median(model.history["epoch_time"])) / steps * 1e3
+    log(f"[13 surface] optimizer {name}: {SURFACE_EPOCHS} epochs, loss "
+        f"{losses[0]:.2f} → {losses[-1]:.2f}, every parameter moved; step "
+        f"{step_ms:.3f} ms | {smi}")
+  # fit_query on the last of them: the generative side bitwise frozen
+  query = held
+  params = dict(model.module.named_parameters())
+  frozen = {k for k in params if not convert.flax_param_path(
+      model.module, k)[0].startswith(("encoder", "latent_head"))}
+  before = {k: v.detach().clone() for k, v in params.items()}
+  tz.reset_launches()
+  model.fit_query(query, epochs=2, batch_size=BATCH)
+  add()
+  check(frozen and all(torch.equal(params[k], before[k]) for k in frozen),
+        "fit_query: a frozen tensor moved")
+  check(all(not torch.equal(params[k], before[k]) for k in params
+            if k not in frozen), "fit_query: a trainable tensor stayed")
+  log(f"[13 surface] fit_query on {HELD_OUT} query cells: "
+      f"{len(frozen)} frozen tensors ({sorted(model._last_freeze)}) bitwise "
+      f"unchanged, {len(params) - len(frozen)} trainable ones moved")
+  del model
+  # mc_samples: the distribution math in training, the kernels in evaluate
+  model = _scvi(torch, "full")
+  tz.reset_launches()
+  torch.cuda.reset_peak_memory_stats()
+  model.fit(x, epochs=1, batch_size=BATCH, mc_samples=3)
+  trained = dict(tz.launches)
+  model.evaluate(held, batch_size=BATCH)
+  add()
+  loss = model.history["loss"][-1]
+  check(np.isfinite(loss) and trained == {"zinb_rowsum_fwd": 0,
+                                          "zinb_rowsum_bwd": 0},
+        f"mc_samples=3: loss {loss}, training launched {trained}")
+  check(tz.launches["zinb_rowsum_fwd"] == -(-HELD_OUT // BATCH),
+        f"mc_samples=3: evaluate launched {tz.launches}")
+  log(f"[13 surface] mc_samples=3: {steps} steps, loss {loss:.2f}, step "
+      f"{model.history['epoch_time'][-1] / steps * 1e3:.3f} ms, peak "
+      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; no kernel in "
+      f"training (sample dims take the distribution math), "
+      f"{tz.launches['zinb_rowsum_fwd']} forward launches in evaluate")
+  del model
+  # callbacks, track_gradient_norms and checkpoint_path in one validated fit
+  path = os.path.join(root, "scvi_checkpoint")
+  counter = _CallCounter()
+  model = _scvi(torch, "full")
+  tz.reset_launches()
+  model.fit(x, valid=held, epochs=SURFACE_EPOCHS, batch_size=BATCH,
+            metrics_interval=2, callbacks=[counter], checkpoint_path=path,
+            track_gradient_norms=True)
+  add()
+  h = model.history
+  want = {"set_model": 1, "on_epoch_begin": SURFACE_EPOCHS,
+          "on_epoch_end": SURFACE_EPOCHS, "on_train_end": 1}
+  check(counter.counts == want, f"callbacks {counter.counts} != {want}")
+  check(h.get("seen_by_callback") == [float(e) for e in range(
+      SURFACE_EPOCHS)], f"callback metric {h.get('seen_by_callback')}")
+  norms = np.asarray(h["grad_norm"])
+  check(len(norms) == SURFACE_EPOCHS and np.isfinite(norms).all()
+        and (norms > 0).all(), f"grad_norm {norms}")
+  check(h["val_loss"][-1] < h["val_loss"][0],
+        f"val_loss {h['val_loss']}: the last window must be the best")
+  reloaded = _scvi(torch, "full").load_weights(path, raise_notfound=True)
+  sd = reloaded.module.state_dict()
+  check(all(torch.equal(sd[k], v) for k, v in
+            model.module.state_dict().items()),
+        "checkpoint_path: the file differs from the best (last) state")
+  log(f"[13 surface] callbacks {counter.counts} (a metric injected at "
+      f"epoch end is in the history); grad_norm per epoch "
+      f"{', '.join(f'{v:.1f}' for v in norms)}; checkpoint_path written at "
+      f"each new best reloads bitwise to the best state (val_loss "
+      f"{h['val_loss'][0]:.2f} → {h['val_loss'][-1]:.2f})")
+  del model, reloaded
+  # device_dtype: int16 storage halves the resident bytes, same bits
+  (x16,) = Trainer(device_dtype="int16").resident([x])
+  check(x16.dtype == torch.int16
+        and 2 * x16.numel() * x16.element_size()
+        == x.numel() * x.element_size(), "int16: bytes not halved")
+  del x16
+  hists = {}
+  for dd in ("float32", "int16"):
+    m = _scvi(torch, "full")
+    tz.reset_launches()
+    m.fit(x, epochs=2, batch_size=BATCH, device_dtype=dd)
+    add()
+    hists[dd] = np.asarray(m.history["loss"])
+    del m
+  check(np.allclose(hists["int16"], hists["float32"], rtol=1e-6, atol=0),
+        f"int16 history {hists['int16']} vs float32 {hists['float32']}")
+  log(f"[13 surface] device_dtype='int16': resident "
+      f"{x.numel() * 2 / 1e9:.2f} GB for {x.numel() * 4 / 1e9:.2f} GB "
+      f"float32; losses {hists['int16'].tolist()} vs float32 "
+      f"{hists['float32'].tolist()} "
+      f"({'bitwise equal' if np.array_equal(hists['int16'], hists['float32']) else 'within rtol 1e-6'})")
+  return total
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -1671,26 +2064,39 @@ def main():
                                        ckpt_root, smi)
     torch.cuda.empty_cache()
     last_launches = phase_last_zoo(torch, x, held, library, ckpt_root, smi)
+    torch.cuda.empty_cache()
+    bf16_launches, _ = phase_bf16(torch, x, held, library, ckpt_root, smi)
+    surface_launches = phase_fit_surface(torch, x, held, ckpt_root, smi)
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
   launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]
               + batch_launches[k] + multiome_launches[k] + last_launches[k]
+              + bf16_launches[k] + surface_launches[k]
               for k, v in launches.items()}
-  main_case = kern["main_full"]
+
+  def numbers(case, key, err, kind):
+    c = kern[case]
+    return {"max_abs_err": c[err], "ms": c[key]["kernel"] / 1e3,
+            "plain_ms": c[key]["plain"] / 1e3,
+            "bound_ms": c["bounds"][kind][0] / 1e3,
+            "bound_by": c["bounds"][kind][1]}
   kernels = []
   for name, line, key, err, kind in (
       ("zinb_rowsum_fwd", 172, "t_fwd", "fwd_err", "fwd"),
       ("zinb_rowsum_bwd", 339, "t_bwd", "bwd_err", "bwd")):
-    kernels.append({
-        "name": name, "route": "cuda",
-        "source": "sisua_tpu_torch/csrc/zinb.cu",
-        "replaces": f"sisua_tpu/ops/zinb_pallas.py:{line}",
-        "launches": launches[name], "max_abs_err": main_case[err],
-        "ms": main_case[key]["kernel"] / 1e3,
-        "plain_ms": main_case[key]["plain"] / 1e3,
-        "bound_ms": main_case["bounds"][kind][0] / 1e3,
-        "bound_by": main_case["bounds"][kind][1],
-        "library_ms": None})  # no single PyTorch call computes it
+    entry = {"name": name, "route": "cuda",
+             "source": "sisua_tpu_torch/csrc/zinb.cu",
+             "replaces": f"sisua_tpu/ops/zinb_pallas.py:{line}",
+             "launches": launches[name],
+             **numbers("main_full", key, err, kind),
+             "library_ms": None}  # no single PyTorch call computes it
+    # the bf16-operand mode (phase 13a's path), at 512 × 33,000 main_full
+    entry["bf16_operands"] = dict(launches=bf16_launches[name],
+                                  **numbers("main_full_bf16", key, err,
+                                            kind))
+    if kind == "bwd":  # float32 operands, bf16 gradient writes
+      entry["bf16_writes"] = numbers("main_full_writes", key, err, kind)
+    kernels.append(entry)
   print(json.dumps({"kernels": kernels}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,8 @@ by flax module names; the port's modules carry the same names, so a path
 maps to a ``state_dict`` key by joining with '.'. Leaf renames:
 
   flax Dense ``kernel`` (in, out)   ↔  ``weight`` (out, in), transposed
+  flax Conv ``kernel`` (k, in, out) ↔  ``weight`` (out, in, k): every
+                                       kernel's axes are reversed
   flax Dense ``bias``               ↔  ``bias``
   flax BatchNorm ``scale``/``bias`` ↔  ``weight``/``bias``
   batch_stats ``mean``/``var``      ↔  ``running_mean``/``running_var``
@@ -31,7 +33,7 @@ from torch import nn
 
 from .nn import BatchNorm
 
-__all__ = ["jax_to_torch", "torch_to_jax"]
+__all__ = ["jax_to_torch", "torch_to_jax", "flax_param_path"]
 
 
 def _flat(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -41,6 +43,12 @@ def _flat(tree: Mapping, prefix: Tuple[str, ...] = ()):
       yield from _flat(v, path)
     else:
       yield path, v
+
+
+def _reversed_axes(t: torch.Tensor) -> torch.Tensor:
+  """A kernel in the other package's layout: Dense (in, out) ↔ (out, in),
+  Conv (k, in, out) ↔ (out, in, k)."""
+  return t.permute(*range(t.ndim - 1, -1, -1))
 
 
 def _owner_is_batchnorm(module: nn.Module, owner: str) -> bool:
@@ -92,11 +100,23 @@ def jax_to_torch(module: nn.Module, params: Mapping,
       t = (torch.from_numpy(arr) if arr.flags.writeable
            else torch.tensor(arr)).to(device=ref.device, dtype=ref.dtype,
                                       copy=True)
-      out[key] = t.T.contiguous() if transpose else t
+      out[key] = _reversed_axes(t).contiguous() if transpose else t
   missing = sorted(set(target) - set(out))
   if missing:
     raise KeyError(f"torch state entries with no JAX leaf: {missing}")
   return out
+
+
+def flax_param_path(module: nn.Module, key: str) -> Tuple[str, ...]:
+  """The flax ``params`` path of one of ``module``'s parameters
+  (``state_dict`` key → ('decoder0', 'dense0', 'kernel')): the names
+  ``torch_to_jax`` writes it under. ``freeze`` prefixes match these."""
+  parts = key.split(".")
+  owner, leaf = parts[:-1], parts[-1]
+  if leaf == "weight":
+    leaf = ("scale" if _owner_is_batchnorm(module, ".".join(owner))
+            else "kernel")
+  return tuple(owner) + (leaf,)
 
 
 def torch_to_jax(module: nn.Module,
@@ -125,7 +145,7 @@ def torch_to_jax(module: nn.Module,
         if _owner_is_batchnorm(module, ".".join(owner)):
           leaf = "scale"
         else:
-          leaf, value = "kernel", value.T
+          leaf, value = "kernel", _reversed_axes(value)
     node = tree
     for p in owner:
       node = node.setdefault(p, {})

@@ -52,6 +52,27 @@
 // A per-gene (1, D) operand is a row stride of 0. Ragged edges are masked
 // here, so any B and D are taken (the TPU path needed B % 8 == 0).
 //
+// The bf16 modes of the TPU kernels (zinb_pallas.py, SISUA_TPU_FWD_OPERANDS
+// and _bwd_write_dtype), in the MIXED instantiations that the *_bf16 entry
+// points launch (the float32 entry points keep MIXED = false, so their code
+// is the float32 kernels' own):
+//   * bf16 operands: any (B, D) theta operand, logits or gate may be bf16
+//     (a bit each in `bf16_ops`); x and per-gene rows stay float32. A bf16
+//     operand fills 8 elements per 16 bytes, so its tile takes half of the
+//     operand's 512-byte slot of the ring: a lane copies its 4 columns as
+//     one 8-byte cp.async (rows 8-byte aligned), or with ordinary 2-byte
+//     loads where a row is not (cp.async has no 2-byte copy; the 10-protein
+//     head's rows start 20 bytes apart). Loads widen to f32 in registers
+//     (the bf16 bits in the high half of a float, as __bfloat162float); all
+//     arithmetic is the float32 kernels', element for element.
+//   * bf16 gradient writes (`bf16_out`): each (B, D) field is rounded to
+//     nearest even (__float2bfloat16_rn, as Tensor.to(torch.bfloat16)) and
+//     written as bf16: 2 bytes an element instead of 4. Per-gene (1, D)
+//     gradients are still ordered f32 chunk sums written as f32.
+// Bounds at 512 x 33,000 with bf16 (B, D) operands and writes: forward 10
+// bytes an element (50.4 us), backward 16 (80.7 us); f32 operands with bf16
+// writes: backward 22 (111.0 us).
+//
 // Numerics kept from the TPU kernel: the large-theta asymptotic branch above
 // theta = 1e6, the cancellation-free digamma difference, the constrained
 // theta handling, and stable log-sigmoid/softplus/logaddexp forms where exp
@@ -67,6 +88,7 @@
 // Each entry point launches on the given stream, does not synchronize and
 // returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,6 +137,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                :: "r"(s), "l"(src) : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -124,25 +152,91 @@ __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1) : "memory");
 }
 
+// Whether operand `op` (0 x, 1 theta operand, 2 logits, 3 gate) is bf16:
+// bit op - 1 of the call's mask; x is always float32.
+__device__ __forceinline__ bool is_bf16(unsigned bf, int op) {
+  return op > 0 && ((bf >> (op - 1)) & 1u);
+}
+
 // Copy one lane's kVec columns [c, c + kVec) of the four operand rows into
 // the stage; columns at or past D are not copied (and are masked later).
+// `src` are the rows' first elements, float or bf16 as `bf` says; a bf16
+// tile fills the first half of its operand's slot.
 template <bool VEC>
 __device__ __forceinline__ void issue_tile(float (*dst)[kTile],
-                                           const float* const src[4],
-                                           int64_t c, int64_t D, int lane) {
+                                           const void* const src[4],
+                                           int64_t c, int64_t D, int lane,
+                                           unsigned bf) {
 #pragma unroll
   for (int op = 0; op < 4; ++op) {
+    if (is_bf16(bf, op)) {
+      unsigned short* d =
+          reinterpret_cast<unsigned short*>(dst[op]) + lane * kVec;
+      const unsigned short* s =
+          static_cast<const unsigned short*>(src[op]) + c;
+      if (VEC) {
+        if (c < D) cp_async8(d, s);  // rows 8-byte aligned on this path
+      } else {
+        // no 2-byte cp.async: ordinary loads, which the warp barrier after
+        // the ring's wait makes visible to the warp like the copies
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          if (c + k < D) d[k] = __ldg(s + k);
+        }
+      }
+      continue;
+    }
     float* d = &dst[op][lane * kVec];
+    const float* s = static_cast<const float*>(src[op]) + c;
     if (VEC) {
-      if (c < D) cp_async16(d, src[op] + c);  // D % 4 == 0 on this path
+      if (c < D) cp_async16(d, s);  // D % 4 == 0 on this path
     } else {
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
-        if (c + k < D) cp_async4(d + k, src[op] + c + k);
+        if (c + k < D) cp_async4(d + k, s + k);
       }
     }
   }
   cp_async_commit();  // an empty group is fine: the ring counts groups
+}
+
+// The float value of a bf16's bits (exact: they are a float's high half)
+__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// A lane's kVec staged values of one operand, widened to float32
+__device__ __forceinline__ void stage_vals(const float* slot, bool bf16,
+                                           int i0, float (&v)[kVec]) {
+  if (bf16) {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        reinterpret_cast<const unsigned short*>(slot) + i0);
+    v[0] = bf16_bits_to_float(u.x & 0xffffu);
+    v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = bf16_bits_to_float(u.y & 0xffffu);
+    v[3] = __uint_as_float(u.y & 0xffff0000u);
+  } else {
+    const float4 f = *reinterpret_cast<const float4*>(slot + i0);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  }
+}
+
+// One staged value of one operand, widened to float32
+__device__ __forceinline__ float stage_val(const float* slot, bool bf16,
+                                           int e) {
+  return bf16 ? bf16_bits_to_float(
+                    reinterpret_cast<const unsigned short*>(slot)[e])
+              : slot[e];
+}
+
+// The row start of operand `op` in bytes: `base` + row * stride elements
+__device__ __forceinline__ const void* row_ptr(const void* base,
+                                               int64_t row, int64_t ld,
+                                               bool bf16) {
+  return static_cast<const char*>(base) + row * ld * (bf16 ? 2 : 4);
 }
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
@@ -276,12 +370,12 @@ __device__ __forceinline__ int enqueue(const bool (&nz)[kVec], int lane,
 template <bool CONSTRAINED>
 __device__ __forceinline__ void run_count_path_bwd(const float (*st)[kTile],
                                                    WarpSmem& w, int n,
-                                                   int lane) {
+                                                   int lane, bool bf16_cr) {
   for (int j = lane; j - lane < n; j += 32) {  // warp-uniform trip count
     if (j < n) {
       const int e = w.q.bwd.elem[j];
-      w.q.bwd.res[e] = count_term_bwd(st[0][e],
-                                      theta_of<CONSTRAINED>(st[1][e]));
+      w.q.bwd.res[e] = count_term_bwd(
+          st[0][e], theta_of<CONSTRAINED>(stage_val(st[1], bf16_cr, e)));
     }
   }
   __syncwarp();
@@ -302,24 +396,28 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Forward. Block (row, chunk): its 8 warps take the chunk's 128-column
 // tiles in turn (warp w: tiles w, w + 8, ...), each through its own ring.
 // The block's sum goes to out[row] when a row is one chunk, else to
-// partial[row, chunk] for row_chunk_sum_kernel.
-template <bool CONSTRAINED, bool VEC>
+// partial[row, chunk] for row_chunk_sum_kernel. MIXED: bf16 (B, D)
+// operands as `bf16_ops` says.
+template <bool CONSTRAINED, bool VEC, bool MIXED>
 __global__ void __launch_bounds__(kThreads)
 zinb_rowsum_fwd_kernel(const float* __restrict__ x,
-                       const float* __restrict__ cr,
-                       const float* __restrict__ lg,
-                       const float* __restrict__ gt,
+                       const void* __restrict__ cr,
+                       const void* __restrict__ lg,
+                       const void* __restrict__ gt,
                        float* __restrict__ out, float* __restrict__ partial,
                        int D, int64_t ld_cr, int64_t ld_lg, int64_t ld_gt,
-                       int tiles_per_chunk) {
+                       int tiles_per_chunk, unsigned bf16_ops) {
   __shared__ WarpSmem smem[kWarps];
   __shared__ float warp_sums[kWarps];
+  const unsigned bf = MIXED ? bf16_ops : 0u;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   WarpSmem& w = smem[warp];
   const int64_t row = blockIdx.x;
-  const float* const src[4] = {x + row * D, cr + row * ld_cr,
-                               lg + row * ld_lg, gt + row * ld_gt};
+  const void* const src[4] = {x + row * D,
+                              row_ptr(cr, row, ld_cr, is_bf16(bf, 1)),
+                              row_ptr(lg, row, ld_lg, is_bf16(bf, 2)),
+                              row_ptr(gt, row, ld_gt, is_bf16(bf, 3))};
   const int tiles = static_cast<int>((D + int64_t{kTile} - 1) / kTile);
   const int t0 = blockIdx.y * tiles_per_chunk + warp;
   const int t1 = min(tiles, static_cast<int>(blockIdx.y + 1) * tiles_per_chunk);
@@ -331,7 +429,8 @@ zinb_rowsum_fwd_kernel(const float* __restrict__ x,
   auto issue = [&](int stage, int t) {
     if (t < t1) {
       issue_tile<VEC>(w.stage[stage], src,
-                      static_cast<int64_t>(t) * kTile + lane * kVec, D, lane);
+                      static_cast<int64_t>(t) * kTile + lane * kVec, D, lane,
+                      bf);
     } else {
       cp_async_commit();  // an empty group keeps the count
     }
@@ -346,13 +445,11 @@ zinb_rowsum_fwd_kernel(const float* __restrict__ x,
     const float (*st)[kTile] = w.stage[s];
     const int64_t c = static_cast<int64_t>(t) * kTile + lane * kVec;
     const float4 xv = ld4(&st[0][lane * kVec]);
-    const float4 cv = ld4(&st[1][lane * kVec]);
-    const float4 lv = ld4(&st[2][lane * kVec]);
-    const float4 gv = ld4(&st[3][lane * kVec]);
     const float xs[kVec] = {xv.x, xv.y, xv.z, xv.w};
-    const float cs[kVec] = {cv.x, cv.y, cv.z, cv.w};
-    const float ls[kVec] = {lv.x, lv.y, lv.z, lv.w};
-    const float gs[kVec] = {gv.x, gv.y, gv.z, gv.w};
+    float cs[kVec], ls[kVec], gs[kVec];
+    stage_vals(st[1], is_bf16(bf, 1), lane * kVec, cs);
+    stage_vals(st[2], is_bf16(bf, 2), lane * kVec, ls);
+    stage_vals(st[3], is_bf16(bf, 3), lane * kVec, gs);
     bool nz[kVec];
     float rs[kVec];
 #pragma unroll
@@ -438,24 +535,67 @@ __device__ __forceinline__ void store_field(float* __restrict__ f,
   }
 }
 
+// The bf16 bits of v, rounded to nearest even
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// store_field for a bf16 (B, D) field: 8-byte streaming stores of a lane's
+// 4 rounded gradients (rows 8-byte aligned), else 2-byte ones
+template <bool VEC>
+__device__ __forceinline__ void store_field_bf16(
+    unsigned short* __restrict__ f, int64_t base, int64_t c, int64_t D,
+    const float (&v)[kVec]) {
+  if (VEC) {
+    if (c < D) {
+      uint2 u;
+      u.x = bf16_bits(v[0]) | (static_cast<unsigned>(bf16_bits(v[1])) << 16);
+      u.y = bf16_bits(v[2]) | (static_cast<unsigned>(bf16_bits(v[3])) << 16);
+      __stcs(reinterpret_cast<uint2*>(f + base + c), u);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      if (c + k < D) __stcs(f + base + c + k, bf16_bits(v[k]));
+    }
+  }
+}
+
+// One (B, D) gradient field's row: float32, or bf16 under `bf16_out`
+template <bool VEC>
+__device__ __forceinline__ void store_row(void* f, bool bf16_out,
+                                          int64_t base, int64_t c,
+                                          int64_t D,
+                                          const float (&v)[kVec]) {
+  if (bf16_out) {
+    store_field_bf16<VEC>(static_cast<unsigned short*>(f), base, c, D, v);
+  } else {
+    store_field<VEC>(static_cast<float*>(f), base, c, D, v);
+  }
+}
+
 // Backward. Block (column block, row chunk): warp w owns the 128-column
 // tile 8 * blockIdx.x + w and walks the chunk's rows in order through its
 // ring. Full (B, D) fields are written per row; a per-gene (1, D) field is
 // summed over the chunk's rows in registers and written to
-// partial[field, chunk, column] for column_sum_kernel.
-template <bool CONSTRAINED, bool VEC>
+// partial[field, chunk, column] for column_sum_kernel. MIXED: bf16 (B, D)
+// operands as `bf16_ops` says, and bf16 (B, D) fields under `bf16_out`.
+template <bool CONSTRAINED, bool VEC, bool MIXED>
 __global__ void __launch_bounds__(kThreads)
 zinb_rowsum_bwd_kernel(const float* __restrict__ x,
-                       const float* __restrict__ cr,
-                       const float* __restrict__ lg,
-                       const float* __restrict__ gt,
+                       const void* __restrict__ cr,
+                       const void* __restrict__ lg,
+                       const void* __restrict__ gt,
                        const float* __restrict__ gcot,
-                       float* __restrict__ d_cr, float* __restrict__ d_lg,
-                       float* __restrict__ d_gt,
+                       void* __restrict__ d_cr, void* __restrict__ d_lg,
+                       void* __restrict__ d_gt,
                        float* __restrict__ partial, int B, int D,
                        int64_t ld_cr, int64_t ld_lg, int64_t ld_gt,
-                       int rows_per_chunk) {
+                       int rows_per_chunk, unsigned bf16_ops,
+                       int bf16_out) {
   __shared__ WarpSmem smem[kWarps];
+  const unsigned bf = MIXED ? bf16_ops : 0u;
+  const bool bout = MIXED && bf16_out;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   WarpSmem& w = smem[warp];
@@ -465,7 +605,7 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
   const int row0 = blockIdx.y * rows_per_chunk;
   const int row1 = min(B, row0 + rows_per_chunk);
   const int64_t lds[4] = {D, ld_cr, ld_lg, ld_gt};
-  const float* const base[4] = {x, cr, lg, gt};
+  const void* const base[4] = {x, cr, lg, gt};
   // the ring: row row0 + i goes to stage i % kStages, kStages - 1 rows
   // ahead of the one computed
   auto issue_row = [&](int stage, int row) {
@@ -473,10 +613,12 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
       cp_async_commit();  // an empty group keeps the count
       return;
     }
-    const float* src[4];
+    const void* src[4];
 #pragma unroll
-    for (int op = 0; op < 4; ++op) src[op] = base[op] + row * lds[op];
-    issue_tile<VEC>(w.stage[stage], src, c, D, lane);
+    for (int op = 0; op < 4; ++op) {
+      src[op] = row_ptr(base[op], row, lds[op], is_bf16(bf, op));
+    }
+    issue_tile<VEC>(w.stage[stage], src, c, D, lane, bf);
   };
   float acc_cr[kVec] = {}, acc_lg[kVec] = {}, acc_gt[kVec] = {};
 #pragma unroll
@@ -488,13 +630,11 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
     __syncwarp();
     const float (*st)[kTile] = w.stage[s];
     const float4 xv = ld4(&st[0][lane * kVec]);
-    const float4 cv = ld4(&st[1][lane * kVec]);
-    const float4 lv = ld4(&st[2][lane * kVec]);
-    const float4 gv = ld4(&st[3][lane * kVec]);
     const float xs[kVec] = {xv.x, xv.y, xv.z, xv.w};
-    const float cs[kVec] = {cv.x, cv.y, cv.z, cv.w};
-    const float ls[kVec] = {lv.x, lv.y, lv.z, lv.w};
-    const float gs[kVec] = {gv.x, gv.y, gv.z, gv.w};
+    float cs[kVec], ls[kVec], gs[kVec];
+    stage_vals(st[1], is_bf16(bf, 1), lane * kVec, cs);
+    stage_vals(st[2], is_bf16(bf, 2), lane * kVec, ls);
+    stage_vals(st[3], is_bf16(bf, 3), lane * kVec, gs);
     bool nz[kVec];
     float dr[kVec], dl[kVec], dg[kVec], dr_dcr[kVec];
 #pragma unroll
@@ -528,7 +668,7 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
     const int n = enqueue(nz, lane, [&](int j, int k) {
       w.q.bwd.elem[j] = lane * kVec + k;
     });
-    run_count_path_bwd<CONSTRAINED>(st, w, n, lane);
+    run_count_path_bwd<CONSTRAINED>(st, w, n, lane, is_bf16(bf, 1));
     const float4 rv = ld4(&w.q.bwd.res[lane * kVec]);
     const float rs[kVec] = {rv.x, rv.y, rv.z, rv.w};
     const float gr = gcot[row];
@@ -544,7 +684,7 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
     const int64_t off = static_cast<int64_t>(row) * D;
     if (d_cr != nullptr) {
       if (ld_cr) {
-        store_field<VEC>(d_cr, off, c, D, a);
+        store_row<VEC>(d_cr, bout, off, c, D, a);
       } else {
 #pragma unroll
         for (int k = 0; k < kVec; ++k) acc_cr[k] += a[k];
@@ -552,7 +692,7 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
     }
     if (d_lg != nullptr) {
       if (ld_lg) {
-        store_field<VEC>(d_lg, off, c, D, b);
+        store_row<VEC>(d_lg, bout, off, c, D, b);
       } else {
 #pragma unroll
         for (int k = 0; k < kVec; ++k) acc_lg[k] += b[k];
@@ -560,7 +700,7 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
     }
     if (d_gt != nullptr) {
       if (ld_gt) {
-        store_field<VEC>(d_gt, off, c, D, g);
+        store_row<VEC>(d_gt, bout, off, c, D, g);
       } else {
 #pragma unroll
         for (int k = 0; k < kVec; ++k) acc_gt[k] += g[k];
@@ -592,6 +732,63 @@ column_sum_kernel(const float* __restrict__ partial, float* __restrict__ out,
   out[col] = s;
 }
 
+// Both kernels' launches, shared by the float32 and the bf16 entry points
+// (MIXED = false for the former: the float32 kernels' code as it was)
+template <bool MIXED>
+int launch_fwd(const float* x, const void* cr, const void* lg,
+               const void* gt, float* out, float* partial, int B, int D,
+               long long ld_cr, long long ld_lg, long long ld_gt, int vec,
+               int tiles_per_chunk, int n_chunks, int constrained,
+               unsigned bf16_ops, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(n_chunks));
+  auto kernel = constrained
+      ? (vec ? zinb_rowsum_fwd_kernel<true, true, MIXED>
+             : zinb_rowsum_fwd_kernel<true, false, MIXED>)
+      : (vec ? zinb_rowsum_fwd_kernel<false, true, MIXED>
+             : zinb_rowsum_fwd_kernel<false, false, MIXED>);
+  kernel<<<grid, kThreads, 0, s>>>(x, cr, lg, gt, out, partial, D, ld_cr,
+                                   ld_lg, ld_gt, tiles_per_chunk, bf16_ops);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
+  row_chunk_sum_kernel<<<(B + kSumThreads - 1) / kSumThreads, kSumThreads, 0,
+                         s>>>(partial, out, B, n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool MIXED>
+int launch_bwd(const float* x, const void* cr, const void* lg,
+               const void* gt, const float* gcot, void* d_cr, void* d_lg,
+               void* d_gt, float* partial, int B, int D, long long ld_cr,
+               long long ld_lg, long long ld_gt, int vec, int rows_per_chunk,
+               int n_chunks, int constrained, unsigned bf16_ops,
+               int bf16_out, cudaStream_t s) {
+  const int col_blocks = (D + kWarps * kTile - 1) / (kWarps * kTile);
+  const dim3 grid(static_cast<unsigned>(col_blocks),
+                  static_cast<unsigned>(n_chunks));
+  auto kernel = constrained
+      ? (vec ? zinb_rowsum_bwd_kernel<true, true, MIXED>
+             : zinb_rowsum_bwd_kernel<true, false, MIXED>)
+      : (vec ? zinb_rowsum_bwd_kernel<false, true, MIXED>
+             : zinb_rowsum_bwd_kernel<false, false, MIXED>);
+  kernel<<<grid, kThreads, 0, s>>>(x, cr, lg, gt, gcot, d_cr, d_lg, d_gt,
+                                   partial, B, D, ld_cr, ld_lg, ld_gt,
+                                   rows_per_chunk, bf16_ops, bf16_out);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t field = static_cast<int64_t>(n_chunks) * D;
+  const dim3 sum_grid(static_cast<unsigned>((D + kSumThreads - 1)
+                                            / kSumThreads));
+  void* outs[3] = {d_cr, d_lg, d_gt};
+  const long long lds[3] = {ld_cr, ld_lg, ld_gt};
+  for (int f = 0; f < 3; ++f) {
+    if (outs[f] != nullptr && lds[f] == 0) {  // per-gene: always float32
+      column_sum_kernel<<<sum_grid, kSumThreads, 0, s>>>(
+          partial + f * field, static_cast<float*>(outs[f]), n_chunks, D);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -606,20 +803,26 @@ int sisua_zinb_rowsum_fwd(const float* x, const float* cr, const float* lg,
                           int D, long long ld_cr, long long ld_lg,
                           long long ld_gt, int vec, int tiles_per_chunk,
                           int n_chunks, int constrained, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(n_chunks));
-  auto kernel = constrained
-      ? (vec ? zinb_rowsum_fwd_kernel<true, true>
-             : zinb_rowsum_fwd_kernel<true, false>)
-      : (vec ? zinb_rowsum_fwd_kernel<false, true>
-             : zinb_rowsum_fwd_kernel<false, false>);
-  kernel<<<grid, kThreads, 0, s>>>(x, cr, lg, gt, out, partial, D, ld_cr,
-                                   ld_lg, ld_gt, tiles_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
-  row_chunk_sum_kernel<<<(B + kSumThreads - 1) / kSumThreads, kSumThreads, 0,
-                         s>>>(partial, out, B, n_chunks);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(x, cr, lg, gt, out, partial, B, D, ld_cr, ld_lg,
+                           ld_gt, vec, tiles_per_chunk, n_chunks,
+                           constrained, 0u,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The forward with bf16 (B, D) operands: bit 0, 1, 2 of `bf16_ops` mark the
+// theta operand, the logits and the gate as bf16 (their pointers then point
+// at bf16 elements, strides still in elements). `vec` needs every bf16 row
+// start 8-byte aligned and every float32 one 16-byte aligned.
+int sisua_zinb_rowsum_fwd_bf16(const float* x, const void* cr,
+                               const void* lg, const void* gt, float* out,
+                               float* partial, int B, int D, long long ld_cr,
+                               long long ld_lg, long long ld_gt, int vec,
+                               int tiles_per_chunk, int n_chunks,
+                               int constrained, int bf16_ops, void* stream) {
+  return launch_fwd<true>(x, cr, lg, gt, out, partial, B, D, ld_cr, ld_lg,
+                          ld_gt, vec, tiles_per_chunk, n_chunks, constrained,
+                          static_cast<unsigned>(bf16_ops),
+                          static_cast<cudaStream_t>(stream));
 }
 
 // Gradient fields times the row cotangent gcot (B,). A null d_* skips that
@@ -632,32 +835,29 @@ int sisua_zinb_rowsum_bwd(const float* x, const float* cr, const float* lg,
                           int D, long long ld_cr, long long ld_lg,
                           long long ld_gt, int vec, int rows_per_chunk,
                           int n_chunks, int constrained, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int col_blocks = (D + kWarps * kTile - 1) / (kWarps * kTile);
-  const dim3 grid(static_cast<unsigned>(col_blocks),
-                  static_cast<unsigned>(n_chunks));
-  auto kernel = constrained
-      ? (vec ? zinb_rowsum_bwd_kernel<true, true>
-             : zinb_rowsum_bwd_kernel<true, false>)
-      : (vec ? zinb_rowsum_bwd_kernel<false, true>
-             : zinb_rowsum_bwd_kernel<false, false>);
-  kernel<<<grid, kThreads, 0, s>>>(x, cr, lg, gt, gcot, d_cr, d_lg, d_gt,
-                                   partial, B, D, ld_cr, ld_lg, ld_gt,
-                                   rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t field = static_cast<int64_t>(n_chunks) * D;
-  const dim3 sum_grid(static_cast<unsigned>((D + kSumThreads - 1)
-                                            / kSumThreads));
-  float* outs[3] = {d_cr, d_lg, d_gt};
-  const long long lds[3] = {ld_cr, ld_lg, ld_gt};
-  for (int f = 0; f < 3; ++f) {
-    if (outs[f] != nullptr && lds[f] == 0) {
-      column_sum_kernel<<<sum_grid, kSumThreads, 0, s>>>(
-          partial + f * field, outs[f], n_chunks, D);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<false>(x, cr, lg, gt, gcot, d_cr, d_lg, d_gt, partial, B,
+                           D, ld_cr, ld_lg, ld_gt, vec, rows_per_chunk,
+                           n_chunks, constrained, 0u, 0,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The backward with bf16 (B, D) operands (`bf16_ops` as in the forward)
+// and/or bf16 (B, D) gradient writes (`bf16_out`: d_* of a (B, D) field
+// then point at bf16 elements; per-gene fields stay float32). `vec` needs
+// the bf16 outputs' rows 8-byte aligned.
+int sisua_zinb_rowsum_bwd_bf16(const float* x, const void* cr,
+                               const void* lg, const void* gt,
+                               const float* gcot, void* d_cr, void* d_lg,
+                               void* d_gt, float* partial, int B, int D,
+                               long long ld_cr, long long ld_lg,
+                               long long ld_gt, int vec, int rows_per_chunk,
+                               int n_chunks, int constrained, int bf16_ops,
+                               int bf16_out, void* stream) {
+  return launch_bwd<true>(x, cr, lg, gt, gcot, d_cr, d_lg, d_gt, partial, B,
+                          D, ld_cr, ld_lg, ld_gt, vec, rows_per_chunk,
+                          n_chunks, constrained,
+                          static_cast<unsigned>(bf16_ops), bf16_out,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -46,7 +46,18 @@ def get_library_size(X):
 def int16_exact(values) -> bool:
   """True when every value is an integer with |v| < 32767, the condition
   for an exact int16 upload (port of ``sisua_tpu/ops/sparse.py``
-  ``int16_exact``): a full scan in chunks, never a sampled prefix."""
+  ``int16_exact``): a full scan in chunks, never a sampled prefix. A torch
+  tensor is scanned where it lies."""
+  if isinstance(values, torch.Tensor):
+    flat = values.reshape(-1)
+    for lo in range(0, flat.numel(), 1 << 24):
+      chunk = flat[lo:lo + (1 << 24)]
+      if not chunk.is_floating_point():
+        chunk = chunk.to(torch.float64)
+      if not bool(((chunk == torch.round(chunk))
+                   & (chunk < 32767) & (chunk > -32767)).all()):
+        return False
+    return True
   flat = np.asarray(values).reshape(-1)
   for lo in range(0, flat.size, 1 << 24):
     chunk = flat[lo:lo + (1 << 24)]

@@ -30,8 +30,14 @@ encoder and the rest are label targets. With batch-covariate conditioning
 (``n_batch`` > 0) the LAST matrix is the per-cell batch one-hot, appended
 to the encoder input (``_module_input``); ``_batch_onehot`` builds it from
 a container's ``obs[batch_key]``. Serving reads only the matrices the
-encoder consumes. Not ported yet: mixed precision,
-``differential_expression``, ``create_posterior`` and the mesh.
+encoder consumes. ``fit`` takes the JAX package's training surface:
+``optimizer`` (the seven optax optimizers), ``mc_samples``,
+``track_gradient_norms``, ``freeze`` (and ``fit_query``), ``callbacks``,
+``checkpoint_path``, ``device_dtype`` and ``profile_dir``; with
+``compute_dtype='bfloat16'`` the model trains in mixed precision. Not
+ported yet: ``differential_expression``, ``create_posterior``, the
+streaming and out-of-core loops and the mesh (``fit`` raises on their
+arguments).
 """
 
 from __future__ import annotations
@@ -55,10 +61,10 @@ from .. import convert
 from .. import dist as D
 from ..data.utils import get_library_size, int16_exact
 from ..interpolation import Interpolation, get_interpolation
-from ..nn import NetConf, parse_netconf
+from ..nn import NetConf, parse_netconf, resolve_dtype
 from ..rv import RVmeta, parse_rv
 from ..train import checkpoint as ckpt
-from ..train.trainer import Trainer
+from ..train.trainer import Trainer, TrainingCallback
 from .module import VAEModule, VAEOutput
 from .objective import compute_loss
 
@@ -194,12 +200,11 @@ class SingleCellModel:
     records), plus ``device``. ``prng`` names the JAX generator and is
     only recorded: the port draws from a ``torch.Generator``. ``gamma``
     (FactorVAE's TC weight) and ``batch_key`` are recorded for the
-    checkpoint. ``compute_dtype`` other than float32 raises (mixed
-    precision is not ported)."""
-    if compute_dtype not in (None, "float32"):
-      raise NotImplementedError(
-          f"compute_dtype={compute_dtype!r} is not ported yet (mixed "
-          "precision)")
+    checkpoint. ``compute_dtype='bfloat16'`` is mixed precision as in the
+    JAX package: the encoder and decoder MLPs and the heads' matmuls run
+    in bf16, while parameters, BatchNorm statistics and every log-prob
+    stay float32 (``nn.py``)."""
+    resolve_dtype(compute_dtype)  # raises on an unknown name
     outputs = tuple(parse_rv(o, f"output{i}")
                     for i, o in enumerate(_flatten(outputs)))
     if latents is None:
@@ -240,6 +245,7 @@ class SingleCellModel:
         self.outputs, self.latents, self.encoder, self.decoder,
         log_norm=self.log_norm, reduce_latent=reduce_latent,
         generator=init_gen, **module_kwargs).to(self.device)
+    self.module.set_compute_dtype(compute_dtype)
     self.aux = self._init_aux(init_gen)
     if self.aux is not None:
       self.aux.to(self.device)
@@ -248,6 +254,9 @@ class SingleCellModel:
     self.generator.manual_seed(self.seed)
     self.step = 0
     self.optimizer = None
+    self._last_freeze: Tuple[str, ...] = ()
+    self._train_mc_samples = 1
+    self._track_grad_norms = False
     self.trainer: Optional[Trainer] = None
     self._loaded_history: Dict[str, List[float]] = {}
     # a constant β round-trips as its value, a warm-up schedule whole
@@ -392,8 +401,12 @@ class SingleCellModel:
     ``_latent_masks``) in training and evaluation alike."""
     self.module.train(training)
     library = batch.get("library") if self.uses_library else None
+    # training-time MC (``mc_samples``): S reparameterized draws per cell,
+    # averaged over the leading sample dim by the ELBO
+    mc = self._train_mc_samples if training else 1
     out = self.module(self._masked_module_input(batch, training),
-                      library=library, generator=self.generator, noise=noise)
+                      library=library, generator=self.generator, noise=noise,
+                      sample_shape=(mc,) if mc > 1 else ())
     loss, metrics = compute_loss(
         out, self._loss_targets(batch), mask=batch.get("mask"), beta=beta,
         alpha=self.alpha, analytic=self.analytic,
@@ -449,10 +462,18 @@ class SingleCellModel:
 
   def _train_step(self, batch) -> Dict[str, torch.Tensor]:
     """One optimizer step; β is the schedule at the current step. Then the
-    aux step, on the updated parameters."""
+    aux step, on the updated parameters. Every parameter gets its gradient,
+    frozen ones too (the optimizer holds the trainable ones only); with
+    ``track_gradient_norms`` the pre-clip global norm over all of them is
+    the step's ``grad_norm``, as ``optax.global_norm(grads)``."""
     loss, metrics, _ = self._loss(batch, True, self.beta(self.step))
-    self.optimizer.zero_grad()
+    self.module.zero_grad(set_to_none=True)
     loss.backward()
+    if self._track_grad_norms:
+      grads = [p.grad for p in self.module.parameters()
+               if p.grad is not None]
+      metrics["grad_norm"] = torch.sqrt(
+          torch.stack([torch.sum(g * g) for g in grads]).sum())
     self.optimizer.step()
     self.step += 1
     return self._aux_step(batch, metrics)
@@ -605,6 +626,33 @@ class SingleCellModel:
       acc = vec if acc is None else acc + vec
     return {k: float(v) / n for k, v in zip(keys, acc.cpu().numpy())}
 
+  def _trainable(self, freeze: Tuple[str, ...]) -> List[nn.Parameter]:
+    """The parameters ``freeze`` leaves trainable: a parameter is frozen
+    when a component of its flax path (``convert.flax_param_path``) starts
+    with one of the prefixes, as the JAX ``fit`` builds its optax mask."""
+    named = list(self.module.named_parameters())
+    if not freeze:
+      return [p for _, p in named]
+    keep = [p for k, p in named
+            if not any(c.startswith(f) for f in freeze
+                       for c in convert.flax_param_path(self.module, k))]
+    if len(keep) == len(named):
+      raise ValueError(f"freeze={freeze} matched no parameters")
+    return keep
+
+  def _fit_optimizer(self, trainer: Trainer, freeze: Tuple[str, ...]):
+    """This call's optimizer over the trainable parameters. As the JAX
+    ``fit``, the transform is built from the call's arguments each time
+    while the state carries over; it starts afresh when the freeze set
+    (its structure) or the optimizer changes."""
+    opt = trainer.make_optimizer(self._trainable(freeze))
+    old = self.optimizer
+    if (old is not None and freeze == self._last_freeze
+        and getattr(old, "name", None) == opt.name):
+      opt.carry_state(old)
+    self.optimizer = opt
+    self._last_freeze = freeze
+
   def fit(self,
           train,
           valid=None,
@@ -617,35 +665,89 @@ class SingleCellModel:
           valid_freq: int = 500,
           patience: int = 20,
           min_delta: float = 1e-4,
+          track_gradient_norms: bool = False,
           terminate_on_nan: bool = True,
           allow_rollback: bool = True,
           max_iter: Optional[int] = None,
+          callbacks: Sequence[TrainingCallback] = (),
+          checkpoint_path: Optional[str] = None,
+          scan_steps: int = 1,
+          device_cache: bool = False,
+          device_dtype: str = "float32",
+          transfer_dtype: Optional[str] = None,
           metrics_interval: int = 1,
+          mesh=None,
+          hbm_budget_bytes: Optional[int] = None,
+          profile_dir: Optional[str] = None,
+          mc_samples: int = 1,
+          freeze: Sequence[str] = (),
           verbose: bool = False) -> "SingleCellModel":
     """Train on ``train`` and validate on ``valid`` (each one matrix or a
-    list ``[rna, adt, …]``). The device-resident loop validates once per
-    window of ``metrics_interval`` epochs, as the JAX package's
-    device-resident fit does; ``valid_freq`` (steps) belongs to its
-    streaming loop and is accepted for the same signature. Early stopping
+    list ``[rna, adt, …]``), with the JAX ``fit``'s arguments.
+
+    The port has one loop, the JAX package's device-resident one
+    (``Trainer``): it validates once per window of ``metrics_interval``
+    epochs; ``valid_freq`` (steps) and ``device_cache`` belong to the
+    streaming loop and are accepted for the same signature. Early stopping
     monitors ``val_loss`` (else ``loss``) with ``min_delta`` and
-    ``patience`` epochs (``Trainer``)."""
+    ``patience`` epochs.
+
+    ``optimizer``: 'adam', 'adamw', 'sgd', 'rmsprop', 'adamax',
+    'adafactor' or 'lion' (``train/optim.py``), after
+    ``clip_by_global_norm(clipnorm)``. ``mc_samples``: S reparameterized
+    draws per cell in training. ``track_gradient_norms``: ``grad_norm``
+    in the history (the pre-clip global norm over every parameter).
+    ``freeze=('decoder', 'output_head_rna', …)``: parameters with a flax
+    path component starting with one of these get no update; their
+    gradients are still computed and BatchNorm statistics still move.
+    ``callbacks``: ``TrainingCallback``s. ``checkpoint_path``: the weights
+    (``train/checkpoint.save_weights``, no metamodel) are written there at
+    each new best. ``device_dtype``: 'float32', 'int16' (exact) or
+    'bfloat16' (lossy) for the resident matrices. ``profile_dir``: a
+    ``torch.profiler`` chrome trace of the fit, ``trace.json``.
+
+    Arguments of loops the port does not have yet raise
+    ``NotImplementedError``: ``scan_steps`` > 1 (ROADMAP A5),
+    ``transfer_dtype`` and ``hbm_budget_bytes`` (A18), ``mesh`` (A21)."""
+    if int(scan_steps) > 1:
+      raise NotImplementedError("scan_steps > 1 is not ported yet "
+                                "(ROADMAP A5)")
+    if transfer_dtype is not None or hbm_budget_bytes is not None:
+      raise NotImplementedError("transfer_dtype and hbm_budget_bytes belong "
+                                "to the streaming and out-of-core loops, "
+                                "not ported yet (ROADMAP A18)")
+    if mesh is not None:
+      raise NotImplementedError("mesh training is not ported yet "
+                                "(ROADMAP A21)")
     if not self.is_semi_supervised:
       labels_percent = 0.0
-    xs, lib = self._device_data(train)
-    val = self._device_data(valid) if valid is not None else None
     trainer = Trainer(optimizer=optimizer, learning_rate=learning_rate,
                       clipnorm=clipnorm, patience=patience,
                       min_delta=min_delta,
                       terminate_on_nan=terminate_on_nan,
                       allow_rollback=allow_rollback, max_iter=max_iter,
-                      metrics_interval=metrics_interval, verbose=verbose)
-    if self.optimizer is None:
-      self.optimizer = trainer.make_optimizer(self.module.parameters())
+                      metrics_interval=metrics_interval,
+                      device_dtype=device_dtype, verbose=verbose)
+    xs, lib = self._device_data(train)
+    xs = trainer.resident(xs)
+    val = self._device_data(valid) if valid is not None else None
+    freeze = (freeze,) if isinstance(freeze, str) else tuple(freeze)
+    self._fit_optimizer(trainer, freeze)
     if self.aux is not None and self.aux_optimizer is None:
       self.aux_optimizer = self._make_aux_optimizer()
-    trainer.fit(self, xs, lib, epochs=epochs, batch_size=batch_size,
-                labels_percent=labels_percent, generator=self.generator,
-                valid=val)
+    self._train_mc_samples = max(1, int(mc_samples))
+    self._track_grad_norms = bool(track_gradient_norms)
+    ckpt_fn = None
+    if checkpoint_path is not None:
+      ckpt_fn = lambda m: m._save_checkpoint_weights(  # noqa: E731
+          checkpoint_path)
+    trace = (self._profile(profile_dir) if profile_dir is not None
+             else contextlib.nullcontext())
+    with trace:
+      trainer.fit(self, xs, lib, epochs=epochs, batch_size=batch_size,
+                  labels_percent=labels_percent, generator=self.generator,
+                  valid=val, callbacks=tuple(callbacks),
+                  checkpoint_fn=ckpt_fn)
     # one history across successive fit calls
     if self.trainer is None:
       self.trainer = trainer
@@ -653,6 +755,46 @@ class SingleCellModel:
       for k, v in trainer.history.items():
         self.trainer.history.setdefault(k, []).extend(v)
     return self
+
+  def fit_query(self, query, train_keys: Sequence[str] = ("encoder",
+                                                          "latent_head"),
+                **fit_kwargs) -> "SingleCellModel":
+    """scArches-style reference mapping (the JAX package's ``fit_query``):
+    adapt the inference network to ``query`` while the generative model
+    stays frozen. Every top-level parameter group whose flax name does not
+    start with one of ``train_keys`` is frozen. Accepts every ``fit``
+    argument."""
+    train_keys = tuple(train_keys)
+    params, _ = convert.torch_to_jax(self.module, values=())
+    frozen = tuple(sorted(str(k) for k in params
+                          if not str(k).startswith(train_keys)))
+    if not frozen or len(frozen) == len(params):
+      raise ValueError(f"train_keys={train_keys} must split the parameter "
+                       f"tree; top-level keys: {sorted(params)}")
+    return self.fit(query, freeze=frozen, **fit_kwargs)
+
+  def _save_checkpoint_weights(self, path: str,
+                               backend: str = "msgpack") -> None:
+    """The current weights in the JAX layout (``params.msgpack``, +
+    ``batch_stats.msgpack``, + ``aux_params.msgpack``), without the
+    metamodel: what the JAX ``fit`` writes to ``checkpoint_path``."""
+    params, batch_stats = convert.torch_to_jax(self.module)
+    aux = None if self.aux is None else convert.torch_to_jax(self.aux)[0]
+    ckpt.save_weights(path, params, batch_stats or None, aux_params=aux,
+                      backend=backend)
+
+  @contextlib.contextmanager
+  def _profile(self, profile_dir: str):
+    """A ``torch.profiler`` trace of the block (the card's kernels too on
+    CUDA), written to ``profile_dir/trace.json``: the counterpart of the
+    JAX package's ``profile_trace``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if self.device.type == "cuda":
+      acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+      yield prof
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
   # ---------------------------------------------------------------- evaluate
   def evaluate(self, data, batch_size: int = 256) -> Dict[str, float]:
@@ -1001,10 +1143,7 @@ class SingleCellModel:
     ``metamodel.json``, and ``history.json`` when there is a history. The
     optimizer states and the step are not saved (nor are they by the JAX
     package)."""
-    params, batch_stats = convert.torch_to_jax(self.module)
-    aux = None if self.aux is None else convert.torch_to_jax(self.aux)[0]
-    ckpt.save_weights(path, params, batch_stats or None, aux_params=aux,
-                      backend=backend)
+    self._save_checkpoint_weights(path, backend)
     ckpt.save_metamodel(path, type(self).__name__, self.dataset,
                         self.metadata, self._init_kwargs_for_save)
     hist = self.history

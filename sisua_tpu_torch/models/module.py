@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import dist as D
-from ..nn import DistributionDense, NetConf, dense
+from ..nn import DistributionDense, NetConf, dense, resolve_dtype
 from ..rv import RVmeta
 
 __all__ = ["VAEOutput", "VAEModule", "SCVIModule"]
@@ -100,6 +100,27 @@ class VAEModule(nn.Module):
       self.add_module(name, DistributionDense(self._output_in_dim(i), rv,
                                               generator))
       self.output_heads.append(getattr(self, name))
+
+  #: layers beside the base heads that project in the compute dtype (the
+  #: JAX module gives them ``dtype=compute_dtype``); every other Dense of a
+  #: topology stays float32 and widens a bf16 input, as flax promotes it
+  _compute_dtype_layers: Tuple[str, ...] = ()
+
+  def set_compute_dtype(self, compute_dtype: Optional[str]) -> None:
+    """The JAX module's ``compute_dtype`` ('bfloat16' or None): the latent
+    and output heads and ``_compute_dtype_layers`` project in it; the
+    encoder and decoder MLPs take theirs from their NetConfs. Parameter
+    shapes do not depend on it, so it is set after construction."""
+    dt = resolve_dtype(compute_dtype)
+    layers = [h for h in self.latent_heads + self.output_heads
+              if h is not None]
+    layers += [getattr(self, n) for n in self._compute_dtype_layers
+               if hasattr(self, n)]
+    for layer in layers:
+      if isinstance(layer, DistributionDense):
+        layer.set_compute_dtype(compute_dtype)
+      else:
+        layer.compute_dtype = dt
 
   def _main_dim(self) -> int:
     """Width of the module input without the batch block."""
@@ -231,8 +252,12 @@ class SCVIModule(VAEModule):
     θ = exp(px_r_single) row that is never broadcast to (B, D)
     (``NegativeBinomialDispLog``); gate logits are raw;
   * extra (semi-supervised) label heads decode from the shared hidden d
-    (``_label_heads``).
+    (``_label_heads``);
+  * MeanScale, DropoutLogits and Dispersion project in the compute dtype
+    and are cast back to float32 before the softmax and the likelihood.
   """
+
+  _compute_dtype_layers = ("MeanScale", "DropoutLogits", "Dispersion")
 
   def __init__(self, outputs, latents, encoder_confs, decoder_confs,
                log_norm: bool = True, reduce_latent: str = "first",
@@ -269,18 +294,20 @@ class SCVIModule(VAEModule):
     z, l = latent_samples
     l = torch.clamp(l, 0.0, self.clip_library)
     d = self.decoders[0](self._decoder_input(z, batch), generator)
-    log_scale = torch.clamp_min(F.log_softmax(self.MeanScale(d), dim=-1),
-                                _LOG_SCALE_FLOOR)
+    log_scale = torch.clamp_min(
+        F.log_softmax(self.MeanScale(d).to(torch.float32), dim=-1),
+        _LOG_SCALE_FLOOR)
     log_rate = l + log_scale
     if self.dispersion == "full":
-      nb = D.NegativeBinomialLog(log_loc=log_rate,
-                                 log_disp=self.Dispersion(d))
+      nb = D.NegativeBinomialLog(
+          log_loc=log_rate, log_disp=self.Dispersion(d).to(torch.float32))
     else:
       nb = D.NegativeBinomialDispLog(log_loc=log_rate,
                                      disp=torch.exp(self.px_r_single)[None])
     if self.zero_inflated:
       pX = D.Independent(D.ZeroInflated(
-          count_distribution=nb, gate_logits=self.DropoutLogits(d)), 1)
+          count_distribution=nb,
+          gate_logits=self.DropoutLogits(d).to(torch.float32)), 1)
     else:
       pX = D.Independent(nb, 1)
     return (pX,) + self._label_heads(d, z, generator)

@@ -69,7 +69,11 @@ def _observed(x: torch.Tensor) -> torch.Tensor:
 
 class MULTIVIModule(VAEModule):
   """Two-expert module; its input is concat(rna, atac) (then the batch
-  block). Submodules and parameters carry the flax names."""
+  block). Submodules and parameters carry the flax names. The experts and
+  the RNA and accessibility heads project in the compute dtype."""
+
+  _compute_dtype_layers = ("latent_head_z_rna", "latent_head_z_atac",
+                           "RnaScale", "RnaDropout", "AccessibilityScale")
 
   def __init__(self, outputs, latents, encoder_confs, decoder_confs,
                log_norm: bool = True, reduce_latent: str = "first",
@@ -159,17 +163,20 @@ class MULTIVIModule(VAEModule):
     l = torch.clamp(l, 0.0, self.clip_library)
     zb = self._decoder_input(z, batch)
     d_r = self.decoders[0](zb, generator)
-    log_scale = torch.clamp_min(F.log_softmax(self.RnaScale(d_r), dim=-1),
-                                _LOG_SCALE_FLOOR)
+    log_scale = torch.clamp_min(
+        F.log_softmax(self.RnaScale(d_r).to(torch.float32), dim=-1),
+        _LOG_SCALE_FLOOR)
     nb = D.NegativeBinomialDispLog(log_loc=l + log_scale,
                                    disp=torch.exp(self.px_r_single)[None])
     if self.outputs[0].is_zero_inflated:
       pX = D.Independent(D.ZeroInflated(
-          count_distribution=nb, gate_logits=self.RnaDropout(d_r)), 1)
+          count_distribution=nb,
+          gate_logits=self.RnaDropout(d_r).to(torch.float32)), 1)
     else:
       pX = D.Independent(nb, 1)
     d_a = self.decoders[1](zb, generator)
-    logits = _compose_logits(self.AccessibilityScale(d_a), depth_logit,
+    logits = _compose_logits(self.AccessibilityScale(d_a).to(torch.float32),
+                             depth_logit,
                              self.region_factor if region else None)
     return pX, self.output_heads[1](logits)
 

@@ -14,6 +14,17 @@ Routing (``SISUA_TPU_FUSED_LIKELIHOOD``, the JAX package's variable):
              every shape the kernels take. The JAX package's 4M-element
              gate (``_PALLAS_MIN_ELEMENTS``) was measured on a TPU and does
              not carry over; a threshold for the card is future work.
+
+bf16-operand mode (``SISUA_TPU_FWD_OPERANDS=bf16``, the JAX package's
+variable; default 'f32'): the full (B, D) float32 parameter fields are cast
+to bf16 before the fused op (half the bytes the kernels read, and bf16
+gradient writes); per-gene rows and the counts ``x`` are not. The cast
+happens exactly when the JAX package would cast, ``bf16_operands_ok(B)``
+(B a multiple of 16 under the default block): a parity choice, so the same
+batch gets the same rounding in both packages; the port's kernels mask
+ragged rows and would take any B. A step with MC sample dims
+(``mc_samples`` > 1) takes the distribution math in both packages: its
+parameters are not one (B, D) matrix.
 """
 
 from __future__ import annotations
@@ -79,10 +90,23 @@ def _fast_log_prob(dist: D.Distribution, x: torch.Tensor) -> torch.Tensor:
     constrained = False
   else:
     return dist.log_prob(x)
+  gate = base.gate_logits if zi else None
+  if (os.environ.get("SISUA_TPU_FWD_OPERANDS", "f32") == "bf16"
+      and zk.bf16_operands_ok(x.shape[0])):
+    r, logits, gate = (_bf16_field(a, x) for a in (r, logits, gate))
   if zi:
-    return zk.zinb_log_prob_rowsum(x, r, logits, base.gate_logits,
+    return zk.zinb_log_prob_rowsum(x, r, logits, gate,
                                    constrained=constrained)
   return zk.nb_log_prob_rowsum(x, r, logits, constrained=constrained)
+
+
+def _bf16_field(a, x: torch.Tensor):
+  """A full (B, D) float32 parameter field as bf16 (the bf16-operand
+  mode); a per-gene row, a scalar or None as it is."""
+  if (isinstance(a, torch.Tensor) and a.shape == x.shape
+      and a.dtype == torch.float32):
+    return a.to(torch.bfloat16)
+  return a
 
 
 def _kl_term(q: D.Distribution, prior: Optional[D.Distribution],

@@ -11,6 +11,16 @@ differences handled here:
 * ``BatchNorm`` reproduces flax's ``nn.BatchNorm(momentum=0.9)`` exactly,
   not ``nn.BatchNorm1d``: see its docstring.
 * dropout masks come from an explicit ``torch.Generator``.
+* mixed precision (``compute_dtype='bfloat16'``) follows flax's
+  ``dtype=bf16`` rules: parameters stay float32 and are cast per call; a
+  Dense or Conv casts its input, kernel and bias to the compute dtype and
+  rounds the product before the bias is added (two roundings, as
+  ``lax.dot_general`` then ``y += bias``); a layer without a compute dtype
+  promotes a bf16 input to float32, as flax's ``promote_dtype`` does;
+  BatchNorm reduces its statistics in float32 and rounds only its output.
+* ``use_conv``: flax's NWC ``nn.Conv`` (stride 2, 'SAME' padding) on the
+  features as a 1-D sequence of one channel, with torch's NCW ``conv1d``
+  inside and flax's (W, C) order kept in the final flatten.
 """
 
 from __future__ import annotations
@@ -25,8 +35,8 @@ from torch import nn
 
 from .rv import RVmeta
 
-__all__ = ["NetConf", "MLP", "BatchNorm", "DistributionDense",
-           "parse_netconf", "dense"]
+__all__ = ["NetConf", "MLP", "BatchNorm", "Conv1d", "Dense",
+           "DistributionDense", "parse_netconf", "dense", "resolve_dtype"]
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -60,14 +70,7 @@ class NetConf:
   name: Optional[str] = None
 
   def __post_init__(self):
-    # the JAX fields, so a JAX metamodel.json rebuilds this config; the
-    # convolutional trunk and mixed precision are not ported yet
-    if self.use_conv:
-      raise NotImplementedError("NetConf.use_conv is not ported yet")
-    if self.compute_dtype not in (None, "float32"):
-      raise NotImplementedError(
-          f"NetConf.compute_dtype={self.compute_dtype!r} is not ported yet "
-          "(mixed precision)")
+    resolve_dtype(self.compute_dtype)  # raises on an unknown name
     u = self.units
     if isinstance(u, int):
       u = (u,) * max(1, int(self.nlayers))
@@ -105,27 +108,102 @@ def parse_netconf(x, default_name: str = "net") -> NetConf:
   raise TypeError(f"Cannot parse NetConf from {x!r}")
 
 
+_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+  """The compute dtype of a ``compute_dtype`` name: None for float32 (the
+  exact path), ``torch.bfloat16`` for 'bfloat16'."""
+  if name not in _DTYPES:
+    raise ValueError(f"compute_dtype must be None, 'float32' or "
+                     f"'bfloat16', got {name!r}")
+  return _DTYPES[name]
+
+
 # flax's lecun_normal: variance_scaling(1, 'fan_in', 'truncated_normal');
 # the constant is the std of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
 
 
-def dense(in_dim: int, out_dim: int,
-          generator: Optional[torch.Generator] = None) -> nn.Linear:
-  """``nn.Linear`` initialized like flax ``nn.Dense``: the kernel from a
-  normal truncated to ±2 std by the inverse CDF (one uniform draw per
-  weight, so SCScope's 33,000 × 33,000 imputer draws in seconds; torch's
-  ``trunc_normal_`` rejects and redraws over the whole tensor), zero bias.
-  nn.Linear's own initialization is skipped."""
-  lin = torch.nn.utils.skip_init(nn.Linear, in_dim, out_dim)
-  std = math.sqrt(1.0 / in_dim) / _TRUNC_STD
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   generator: Optional[torch.Generator]) -> None:
+  """flax's lecun_normal in place: a normal truncated to ±2 std by the
+  inverse CDF (one uniform draw per weight, so SCScope's 33,000 × 33,000
+  imputer draws in seconds; torch's ``trunc_normal_`` rejects and redraws
+  over the whole tensor)."""
+  std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
   edge = math.erf(2.0 / math.sqrt(2.0))  # 2Φ(2) − 1
   with torch.no_grad():
-    lin.weight.uniform_(-edge, edge, generator=generator)
-    lin.weight.erfinv_().mul_(std * math.sqrt(2.0))
-    lin.weight.clamp_(-2.0 * std, 2.0 * std)
+    w.uniform_(-edge, edge, generator=generator)
+    w.erfinv_().mul_(std * math.sqrt(2.0))
+    w.clamp_(-2.0 * std, 2.0 * std)
+
+
+def _compute_dtype_of(layer, x: torch.Tensor) -> torch.dtype:
+  """A layer's compute dtype, else flax's promotion of its input and
+  parameters (a bf16 input to a float32 layer computes in float32)."""
+  return layer.compute_dtype or torch.promote_types(x.dtype,
+                                                    layer.weight.dtype)
+
+
+class Dense(nn.Linear):
+  """flax ``nn.Dense(dtype=compute_dtype)`` over an ``nn.Linear``'s
+  parameters: float32 parameters cast per call (module docstring)."""
+
+  compute_dtype: Optional[torch.dtype] = None
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    dt = _compute_dtype_of(self, x)
+    return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def dense(in_dim: int, out_dim: int,
+          generator: Optional[torch.Generator] = None,
+          compute_dtype: Optional[str] = None) -> Dense:
+  """``Dense`` initialized like flax ``nn.Dense``: a lecun_normal kernel,
+  zero bias; nn.Linear's own initialization is skipped."""
+  lin = torch.nn.utils.skip_init(Dense, in_dim, out_dim)
+  lin.compute_dtype = resolve_dtype(compute_dtype)
+  _lecun_normal_(lin.weight, in_dim, generator)
+  with torch.no_grad():
     lin.bias.zero_()
   return lin
+
+
+def same_padding(n: int, k: int, stride: int) -> Tuple[int, int]:
+  """flax/lax 'SAME' padding of a width-``n`` axis: the output has
+  ⌈n / stride⌉ positions; the low side gets half the total, rounded down."""
+  out = -(-n // stride)
+  total = max((out - 1) * stride + k - n, 0)
+  return total // 2, total - total // 2
+
+
+class Conv1d(nn.Module):
+  """flax ``nn.Conv(features, kernel_size=(k,), strides=(2,))`` with its
+  default 'SAME' padding, on NWC inputs (…, W, C) → (…, ⌈W/2⌉, features).
+  ``weight`` is torch's (out, in, k); flax's kernel is (k, in, out)
+  (``convert.py`` reverses the axes)."""
+
+  stride = 2
+
+  def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+               generator: Optional[torch.Generator] = None,
+               compute_dtype: Optional[str] = None):
+    super().__init__()
+    self.kernel_size = int(kernel_size)
+    self.compute_dtype = resolve_dtype(compute_dtype)
+    self.weight = nn.Parameter(torch.empty(out_ch, in_ch, self.kernel_size))
+    self.bias = nn.Parameter(torch.zeros(out_ch))
+    _lecun_normal_(self.weight, in_ch * self.kernel_size, generator)
+
+  def forward(self, h: torch.Tensor) -> torch.Tensor:
+    dt = _compute_dtype_of(self, h)
+    lead, (w, c) = h.shape[:-2], h.shape[-2:]
+    x = h.reshape(-1, w, c).transpose(1, 2).to(dt)   # NWC → NCW
+    x = F.pad(x, same_padding(w, self.kernel_size, self.stride))
+    y = F.conv1d(x, self.weight.to(dt), stride=self.stride)
+    y = y.transpose(1, 2) + self.bias.to(dt)           # NCW → NWC
+    return y.reshape(*lead, *y.shape[-2:])
 
 
 class BatchNorm(nn.Module):
@@ -152,6 +230,10 @@ class BatchNorm(nn.Module):
     self.register_buffer("running_var", torch.ones(features))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
+    # flax's dtype=bf16: the statistics and the normalization run in
+    # float32 on the widened input; only the output is rounded
+    out_dtype = x.dtype
+    x = x.to(torch.float32)
     if self.training:
       axes = tuple(range(x.ndim - 1))
       mean = x.mean(dim=axes)
@@ -163,67 +245,98 @@ class BatchNorm(nn.Module):
     else:
       mean, var = self.running_mean, self.running_var
     mul = torch.rsqrt(var + self.epsilon) * self.weight
-    return (x - mean) * mul + self.bias
+    return ((x - mean) * mul + self.bias).to(out_dtype)
 
 
 def _dropout(x: torch.Tensor, rate: float,
              generator: Optional[torch.Generator]) -> torch.Tensor:
-  """flax ``nn.Dropout``: keep with prob 1−rate, scale kept by 1/(1−rate);
-  the mask is drawn from ``generator``."""
+  """flax ``nn.Dropout``: keep with prob 1−rate, scale kept by 1/(1−rate)
+  in x's dtype; the mask is drawn in float32 from ``generator`` (the same
+  masks at every compute dtype)."""
   keep_prob = 1.0 - rate
   keep = torch.rand(x.shape, generator=generator, device=x.device,
-                    dtype=x.dtype) < keep_prob
+                    dtype=torch.float32) < keep_prob
   return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class MLP(nn.Module):
-  """Dense stack with optional batchnorm / dropout / input dropout.
+  """Dense stack with optional batchnorm / dropout / input dropout, or with
+  ``use_conv`` a stack of stride-2 ``Conv1d`` layers over the features as a
+  1-D sequence (flattened at the end in flax's (W, C) order).
   ``units=()`` is the identity (LDVAE's linear decoder): no parameters,
-  ``out_dim`` the input width, input dropout still applied."""
+  ``out_dim`` the input width, input dropout still applied. With a compute
+  dtype the input is cast to it first and the output stays in it."""
 
   def __init__(self, in_dim: int, conf: NetConf,
                generator: Optional[torch.Generator] = None):
     super().__init__()
     self.conf = conf
     self.act = _ACTIVATIONS[conf.activation]
-    self.out_dim = conf.units[-1] if conf.units else in_dim
-    d = in_dim
+    self.compute_dtype = resolve_dtype(conf.compute_dtype)
+    d, width = in_dim, in_dim
     for i, u in enumerate(conf.units):
-      self.add_module(f"dense{i}", dense(d, u, generator))
+      if conf.use_conv:
+        self.add_module(f"conv{i}", Conv1d(1 if i == 0 else d, u,
+                                           conf.kernel_size, generator,
+                                           conf.compute_dtype))
+        width = -(-width // Conv1d.stride)
+      else:
+        self.add_module(f"dense{i}", dense(d, u, generator,
+                                           conf.compute_dtype))
       if conf.batchnorm:
         self.add_module(f"bn{i}", BatchNorm(u))
       d = u
+    if not conf.units:
+      self.out_dim = in_dim
+    else:
+      self.out_dim = width * d if conf.use_conv else d
 
   def forward(self, x: torch.Tensor,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     c = self.conf
+    if self.compute_dtype is not None:
+      x = x.to(self.compute_dtype)
     if self.training and c.input_dropout > 0:
       x = _dropout(x, c.input_dropout, generator)
+    layer = "conv" if c.use_conv else "dense"
+    if c.use_conv:
+      x = x[..., None]  # NWC, one channel
     for i in range(len(c.units)):
-      x = getattr(self, f"dense{i}")(x)
+      x = getattr(self, f"{layer}{i}")(x)
       if c.batchnorm:
         x = getattr(self, f"bn{i}")(x)
       x = self.act(x)
       if self.training and c.dropout > 0:
         x = _dropout(x, c.dropout, generator)
+    if c.use_conv:
+      x = x.reshape(*x.shape[:-2], -1)
     return x
 
 
 class DistributionDense(nn.Module):
   """Dense projection hidden → raw params → Distribution. With
   ``rv.projection=False`` the input is already-constrained flat
-  parameters, only packaged, and the module holds no parameters."""
+  parameters, only packaged, and the module holds no parameters. The
+  projection runs in the compute dtype; its raw parameters are cast back
+  to float32 before the distribution, so log-prob math stays float32."""
 
   def __init__(self, in_dim: int, rv: RVmeta,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               compute_dtype: Optional[str] = None):
     super().__init__()
     self.rv = rv
     if rv.projection:
       self.add_module(f"{rv.name or 'rv'}_params",
-                      dense(in_dim, rv.n_params, generator))
+                      dense(in_dim, rv.n_params, generator, compute_dtype))
+
+  def set_compute_dtype(self, compute_dtype: Optional[str]) -> None:
+    if self.rv.projection:
+      getattr(self, f"{self.rv.name or 'rv'}_params").compute_dtype = \
+          resolve_dtype(compute_dtype)
 
   def forward(self, h: torch.Tensor):
     if not self.rv.projection:
-      return self.rv.create_distribution(h, constrained=True)
+      return self.rv.create_distribution(h.to(torch.float32),
+                                         constrained=True)
     return self.rv.create_distribution(
-        getattr(self, f"{self.rv.name or 'rv'}_params")(h))
+        getattr(self, f"{self.rv.name or 'rv'}_params")(h).to(torch.float32))

@@ -99,6 +99,12 @@ _SIGNATURES: Dict[str, tuple] = {
                               _I, _I, _I, _I, _P),
     "sisua_zinb_rowsum_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _L, _L, _L, _I, _I, _I, _I, _P),
+    # the bf16 modes: + the bf16-operand mask (+ the bf16-write flag)
+    "sisua_zinb_rowsum_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _L,
+                                   _L, _I, _I, _I, _I, _I, _P),
+    "sisua_zinb_rowsum_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                                   _P),
 }
 
 

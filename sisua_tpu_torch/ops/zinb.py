@@ -31,21 +31,35 @@ Each kernel has its plain PyTorch version beside it (``_rowsum_ref``;
 ``_zinb_grads_elem`` + ``_unbroadcast``), ported one to one from the JAX
 module, and a launch counter (``launches``). Dispatch is by the tensor's
 device alone: CPU tensors take the plain version; a CUDA tensor launches
-the kernel or raises — nothing falls back. Gradients are written in f32
-(the TPU's bf16 write default was a TPU measurement), and the wrappers
-raise on non-f32 operands.
+the kernel or raises — nothing falls back.
+
+The TPU kernels' two bf16 modes (``*_bf16`` entry points of the library):
+  * bf16 operands: a (B, D) θ operand, logits or gate may be bf16 (the
+    objective casts them under ``SISUA_TPU_FWD_OPERANDS=bf16``); ``x`` and
+    per-gene rows stay float32 (a bf16 per-gene row is widened here, its
+    gradient reduced in f32 and cast back). The math is float32 on the
+    widened values, and every gradient comes back in its primal's dtype.
+  * bf16 gradient writes: with any bf16 operand every (B, D) field is
+    written bf16, as JAX's ``_zinb_bwd``; with float32 operands
+    ``SISUA_TPU_BWD_WRITES=bf16`` selects them and the field is widened
+    back to float32 for autograd. The port's default stays 'f32': the JAX
+    package's 'bf16' default was set by a TPU A/B, and no card measurement
+    has decided it yet.
+The plain versions take the same inputs and round where the kernels do.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+import os
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 __all__ = ["zinb_log_prob_rowsum", "nb_log_prob_rowsum",
            "zinbd_log_prob_rowsum", "nbd_log_prob_rowsum",
-           "kernels_available", "launches", "reset_launches"]
+           "kernels_available", "bf16_operands_ok", "launches",
+           "reset_launches"]
 
 _EXP_CLIP = 15.0
 
@@ -71,6 +85,41 @@ launches = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
 def reset_launches() -> None:
   for k in launches:
     launches[k] = 0
+
+
+def bf16_operands_ok(b: int) -> bool:
+  """Whether the JAX package would run a batch of ``b`` rows in its
+  bf16-operand mode (``zinb_pallas.bf16_operands_ok``): its Pallas tiles
+  need a 16-row block (``SISUA_TPU_BLOCK_B`` when it divides the batch and
+  is a multiple of 16). The port's kernels mask ragged rows and take any
+  ``b``; the objective asks this so that the same batch gets the same
+  rounding in both packages."""
+  bb = int(os.environ.get("SISUA_TPU_BLOCK_B", 8))
+  bb = bb if bb > 0 and b % bb == 0 else 8
+  if bb % 16:
+    bb = 16
+  return b % bb == 0
+
+
+def _bf16_writes() -> bool:
+  """``SISUA_TPU_BWD_WRITES=bf16``: bf16 (B, D) gradient writes for
+  float32 operands ('f32', the port's default, otherwise)."""
+  return os.environ.get("SISUA_TPU_BWD_WRITES", "f32") == "bf16"
+
+
+def _write_dtype(params) -> torch.dtype:
+  """The dtype the (B, D) gradient fields are written in: bf16 when any
+  operand is bf16 (JAX's ``_zinb_bwd``), else the SISUA_TPU_BWD_WRITES
+  policy."""
+  if any(p.dtype == torch.bfloat16 for p in params) or _bf16_writes():
+    return torch.bfloat16
+  return torch.float32
+
+
+def _widen(a: torch.Tensor) -> torch.Tensor:
+  """A bf16 operand as float32 (what the kernels do in registers); any
+  other dtype as it is."""
+  return a.to(torch.float32) if a.dtype == torch.bfloat16 else a
 
 
 def kernels_available(t: torch.Tensor) -> bool:
@@ -114,7 +163,9 @@ def _zinb_elem(x, count_raw, logits, gate, constrained: bool):
 
 
 def _rowsum_ref(x, count_raw, logits, gate, constrained: bool):
-  return torch.sum(_zinb_elem(x, count_raw, logits, gate, constrained), -1)
+  """Plain forward; bf16 operands are widened first (float32 math)."""
+  return torch.sum(_zinb_elem(x, _widen(count_raw), _widen(logits),
+                              _widen(gate), constrained), -1)
 
 
 def _digamma_diff(r, x):
@@ -185,10 +236,23 @@ def _unbroadcast(grad, shape):
 
 
 def _grads_ref(x, count_raw, logits, gate, g, constrained: bool, need):
-  fields = _zinb_grads_elem(x, count_raw, logits, gate, constrained)
+  """Plain backward: float32 math on widened bf16 operands; a (B, D) field
+  is rounded to the write dtype (``_write_dtype``) as the kernel writes
+  it, and every gradient comes back in its primal's dtype."""
+  params = (count_raw, logits, gate)
+  fields = _zinb_grads_elem(x, *(_widen(p) for p in params), constrained)
+  bf16_full = _write_dtype(params) == torch.bfloat16
   gb = g.unsqueeze(-1)  # per-row cotangent → per element
-  return tuple(_unbroadcast(gb * d, p.shape).to(p.dtype) if n else None
-               for d, p, n in zip(fields, (count_raw, logits, gate), need))
+  out = []
+  for d, p, n in zip(fields, params, need):
+    if not n:
+      out.append(None)
+      continue
+    grad = _unbroadcast(gb * d, p.shape)
+    if bf16_full and tuple(p.shape) == tuple(x.shape):
+      grad = grad.to(torch.bfloat16)
+    out.append(grad.to(p.dtype))
+  return tuple(out)
 
 
 # --------------------------------------------------------------------------
@@ -202,10 +266,24 @@ def _check_operands(x, params):
       raise ValueError(f"the CUDA kernel needs CUDA tensors, got {t.device}")
     if t.device != dev:
       raise ValueError(f"operands on {t.device} and {dev}")
-    if t.dtype != torch.float32:
-      raise TypeError(f"the CUDA kernel takes float32 operands, got "
-                      f"{t.dtype}")
+    if t.dtype != torch.float32 and (t is x or t.dtype != torch.bfloat16):
+      raise TypeError(f"the CUDA kernel takes a float32 x and float32 or "
+                      f"bfloat16 parameters, got {t.dtype}")
   return _row_strides(x, params)
+
+
+def _kernel_operands(x, params):
+  """The operands as the kernels read them: a bf16 per-gene (1, D) row
+  (B > 1) widened to float32, since per-gene rows stay float32."""
+  b = x.shape[0]
+  return [_widen(p) if p.dim() == 2 and p.shape[0] == 1 < b else p
+          for p in params]
+
+
+def _bf16_mask(params) -> int:
+  """Bit i set where operand i (θ operand, logits, gate) is bf16."""
+  return sum(1 << i for i, p in enumerate(params)
+             if p.dtype == torch.bfloat16)
 
 
 def _row_strides(x, params):
@@ -264,14 +342,19 @@ class _Plan(NamedTuple):
   bwd_chunks: int  # backward: row chunks, grid (ceil(D / 1024), bwd_chunks)
 
 
-def _launch_plan(b: int, d: int, lds, ptrs, n_sm: int) -> _Plan:
+def _launch_plan(b: int, d: int, lds, ptrs, n_sm: int,
+                 itemsizes: Optional[Sequence[int]] = None) -> _Plan:
   """Grid, chunking and copy width of both kernels for a (b, d) call.
 
-  ``lds`` are the parameters' row strides (``_row_strides``), ``ptrs`` the
-  addresses of every operand and output, ``n_sm`` the card's SM count. The
-  16-byte path needs every row start 16-byte aligned: d and each stride a
-  multiple of 4 floats and each pointer a multiple of 16 bytes."""
-  vec = (d % 4 == 0 and not any(p % 16 for p in ptrs)
+  ``lds`` are the parameters' row strides in elements (``_row_strides``),
+  ``ptrs`` the addresses of every operand and output, ``itemsizes`` their
+  bytes per element (4 each when not given), ``n_sm`` the card's SM
+  count. The wide path copies a lane's 4 columns at once: 16 bytes of a
+  float32 row, 8 of a bf16 one. So every row start must be aligned to 4
+  elements: d and each stride a multiple of 4, and each pointer a
+  multiple of 4 × its itemsize in bytes."""
+  sizes = [4] * len(ptrs) if itemsizes is None else list(itemsizes)
+  vec = (d % 4 == 0 and not any(p % (4 * n) for p, n in zip(ptrs, sizes))
          and not any(ld % 4 for ld in lds))
   return _Plan(vec, *_grids(b, d, n_sm))
 
@@ -293,9 +376,9 @@ def _grids(b: int, d: int, n_sm: int):
   return per_chunk, -(-tiles // per_chunk), rows, -(-b // rows)
 
 
-def _scratch(shape, dev):
-  """An uninitialised float32 output or scratch buffer on ``dev``."""
-  return torch.empty(shape, device=dev, dtype=torch.float32)
+def _scratch(shape, dev, dtype=torch.float32):
+  """An uninitialised output or scratch buffer on ``dev``."""
+  return torch.empty(shape, device=dev, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -312,41 +395,66 @@ def _launch(dev, name: str, fn, *args):
 def _fwd_launch(x, count_raw, logits, gate, constrained: bool):
   from . import _build
   b, d, lds = _check_operands(x, (count_raw, logits, gate))
-  ptrs = [t.data_ptr() for t in (x, count_raw, logits, gate)]
-  plan = _launch_plan(b, d, lds, ptrs, _sm_count(x.device))
+  params = _kernel_operands(x, (count_raw, logits, gate))
+  mask = _bf16_mask(params)
+  ptrs = [t.data_ptr() for t in (x, *params)]
+  plan = _launch_plan(b, d, lds, ptrs, _sm_count(x.device),
+                      [t.element_size() for t in (x, *params)])
   lib = _build.load()
   out = _scratch((b,), x.device)
   partial = (None if plan.fwd_chunks == 1 else
              _scratch((b, plan.fwd_chunks), x.device))
-  _launch(x.device, "zinb_rowsum_fwd", lib.sisua_zinb_rowsum_fwd, *ptrs,
-          out.data_ptr(), _ptr(partial), b, d, *lds, int(plan.vec),
+  args = (*ptrs, out.data_ptr(), _ptr(partial), b, d, *lds, int(plan.vec),
           plan.fwd_tiles, plan.fwd_chunks, int(constrained))
+  if mask:
+    _launch(x.device, "zinb_rowsum_fwd", lib.sisua_zinb_rowsum_fwd_bf16,
+            *args, mask)
+  else:
+    _launch(x.device, "zinb_rowsum_fwd", lib.sisua_zinb_rowsum_fwd, *args)
   launches["zinb_rowsum_fwd"] += 1
   return out
 
 
 def _bwd_launch(x, count_raw, logits, gate, g, constrained: bool, need):
+  """The three gradient fields, each in its primal's dtype (None where
+  not needed). A (B, D) field is written in ``_write_dtype``; with bf16
+  writes for a float32 primal it is widened afterwards."""
   from . import _build
-  b, d, lds = _check_operands(x, (count_raw, logits, gate))
+  primals = (count_raw, logits, gate)
+  b, d, lds = _check_operands(x, primals)
+  params = _kernel_operands(x, primals)
+  mask = _bf16_mask(params)
   g = g.contiguous()
   if g.dtype != torch.float32 or tuple(g.shape) != (b,):
     raise ValueError(f"cotangent must be float32 ({b},), got {g.dtype} "
                      f"{tuple(g.shape)}")
-  outs = [_scratch((b if ld else 1, d), x.device) if n else None
-          for ld, n in zip(lds, need)]
-  ptrs = [t.data_ptr() for t in (x, count_raw, logits, gate)]
+  full = _write_dtype(primals)
+
+  def field(ld):  # per-gene fields are f32 sums
+    if ld and full == torch.bfloat16:
+      return _scratch((b, d), x.device, torch.bfloat16)
+    return _scratch((b, d) if ld else (1, d), x.device)
+  outs = [field(ld) if n else None for ld, n in zip(lds, need)]
+  ptrs = [t.data_ptr() for t in (x, *params)]
   out_ptrs = [_ptr(o) for o in outs]
-  plan = _launch_plan(b, d, lds, ptrs + [p for p in out_ptrs if p],
-                      _sm_count(x.device))
+  plan = _launch_plan(
+      b, d, lds, ptrs + [p for p in out_ptrs if p], _sm_count(x.device),
+      [t.element_size() for t in (x, *params)]
+      + [o.element_size() for o in outs if o is not None])
   lib = _build.load()
   partial = None
   if any(n and ld == 0 for ld, n in zip(lds, need)):
     partial = _scratch((3, plan.bwd_chunks, d), x.device)
-  _launch(x.device, "zinb_rowsum_bwd", lib.sisua_zinb_rowsum_bwd, *ptrs,
-          g.data_ptr(), *out_ptrs, _ptr(partial), b, d, *lds,
+  args = (*ptrs, g.data_ptr(), *out_ptrs, _ptr(partial), b, d, *lds,
           int(plan.vec), plan.bwd_rows, plan.bwd_chunks, int(constrained))
+  if mask or full == torch.bfloat16:
+    _launch(x.device, "zinb_rowsum_bwd", lib.sisua_zinb_rowsum_bwd_bf16,
+            *args, mask, int(full == torch.bfloat16))
+  else:
+    _launch(x.device, "zinb_rowsum_bwd", lib.sisua_zinb_rowsum_bwd, *args)
   launches["zinb_rowsum_bwd"] += 1
-  return tuple(outs)
+  return tuple(None if o is None else o.to(p.dtype)
+               for o, p in zip(outs, primals))
 
 
 def _launches_kernel(x: torch.Tensor) -> bool:

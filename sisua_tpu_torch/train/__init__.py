@@ -3,8 +3,10 @@
 
 from .checkpoint import (decode_spec, encode_spec, load_metamodel,
                          load_weights, save_metamodel, save_weights)
-from .trainer import ClippedAdam, Trainer, clip_by_global_norm_
+from .trainer import (ClippedAdam, ClippedOptimizer, Trainer, TrainingCallback,
+                      clip_by_global_norm_)
 
-__all__ = ["Trainer", "ClippedAdam", "clip_by_global_norm_", "save_weights",
+__all__ = ["Trainer", "TrainingCallback", "ClippedOptimizer", "ClippedAdam",
+           "clip_by_global_norm_", "save_weights",
            "load_weights", "save_metamodel", "load_metamodel", "encode_spec",
            "decode_spec"]

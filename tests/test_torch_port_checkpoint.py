@@ -5,7 +5,8 @@ SISUA, MISA, DCA, SCALE, SCALAR, FVAE and SemiFVAE (with FactorVAE's
 discriminator in ``aux_params.msgpack``), LDVAE, TotalVI (``mask_protein``,
 ``n_batch``) and SCANVI (its classifier and hierarchy nets), what
 ``metamodel.json`` carries (β schedules, ``NetConf``'s
-JAX-only fields, dataset, metadata, history), the refusals, and that the
+JAX-only fields, dataset, metadata, history), bf16 and ``use_conv``
+checkpoints, the refusals, and that the
 port imports none of JAX, flax, msgpack, pandas or ``sisua_tpu``.
 
 Weights are random (perturbed off their init, batch stats and aux
@@ -459,19 +460,61 @@ def test_netconf_jax_only_fields_round_trip(tmp_path):
       tckpt.encode_spec(tm.encoder[0])))) == tm.encoder[0]
 
 
-def test_unported_precision_and_conv_raise(tmp_path):
-  with pytest.raises(NotImplementedError, match="mixed precision"):
-    T.VAE(TRV(G, "zinb", name="rna"), compute_dtype="bfloat16",
-          device="cpu")
-  with pytest.raises(NotImplementedError, match="use_conv"):
-    TNetConf(use_conv=True)
-  with pytest.raises(NotImplementedError, match="compute_dtype"):
-    TNetConf(compute_dtype="bfloat16")
-  jm = J.VAE(JRV(G, "zinb", name="rna"), compute_dtype="bfloat16",
-             **NETS)
-  jm.save_weights(str(tmp_path))
-  with pytest.raises(NotImplementedError):
-    T.load_model(str(tmp_path), device="cpu")
+def _perturbed_jax(jm):
+  """``jm`` initialized, its weights and batch stats moved off the init."""
+  jm._ensure_initialized()
+  rng = np.random.default_rng(2)
+  jm._state = jm._state.replace(
+      params=_perturbed(jm.params, 1),
+      batch_stats=jax.tree_util.tree_map_with_path(
+          lambda p, a: (rng.uniform(0.5, 1.5, a.shape) if p[-1].key == "var"
+                        else np.asarray(a) + rng.normal(0, 0.2, a.shape)
+                        ).astype(np.float32),
+          jax.device_get(jm.batch_stats)))
+  return jm
+
+
+def _round_trips_byte_for_byte(jm, tmp_path):
+  jm.save_weights(str(tmp_path / "jax"))
+  tm = T.load_model(str(tmp_path / "jax"), device="cpu")
+  _assert_same_leaves(jm, tm)
+  tm.save_weights(str(tmp_path / "port"))
+  J.load_model(str(tmp_path / "port")).save_weights(str(tmp_path / "jax2"))
+  for a, b in (("jax", "port"), ("port", "jax2")):
+    for f in ("params.msgpack", "batch_stats.msgpack"):
+      assert (tmp_path / a / f).read_bytes() == (tmp_path / b / f).read_bytes()
+  meta = [json.loads((tmp_path / d / "metamodel.json").read_text())
+          for d in ("jax", "port")]
+  assert meta[0] == meta[1]
+  return tm
+
+
+def test_bf16_checkpoint_round_trips(tmp_path):
+  """A JAX checkpoint saved with ``compute_dtype='bfloat16'`` loads in the
+  port with its compute dtype (float32 parameters, as flax keeps them)
+  and saves back byte for byte, both ways."""
+  jm = _perturbed_jax(J.VAE(JRV(G, "zinb", name="rna"),
+                            compute_dtype="bfloat16", **NETS))
+  tm = _round_trips_byte_for_byte(jm, tmp_path)
+  assert tm.compute_dtype == "bfloat16"
+  assert all(e.compute_dtype == "bfloat16" for e in tm.encoder + tm.decoder)
+  assert all(p.dtype == torch.float32 for p in tm.module.parameters())
+  assert J.load_model(str(tmp_path / "port")).compute_dtype == "bfloat16"
+
+
+def test_use_conv_checkpoint_round_trips(tmp_path):
+  """A JAX ``use_conv`` encoder (flax ``conv{i}`` kernels (k, in, out), the
+  port's (out, in, k)) loads in the port, serves the JAX forward and loss
+  at the same draws, and saves back byte for byte."""
+  enc = dict(units=(6, 4), batchnorm=True, use_conv=True, kernel_size=3,
+             name="encoder")
+  jm = _perturbed_jax(J.VAE(JRV(G, "zinb", name="rna"),
+                            encoder=JNetConf(**enc),
+                            decoder=NETS["decoder"]))
+  tm = _round_trips_byte_for_byte(jm, tmp_path)
+  assert tm.encoder[0] == TNetConf(**enc)
+  assert tuple(tm.module.encoder0.conv0.weight.shape) == (6, 1, 3)
+  _assert_same_forward(jm, tm, _x())
 
 
 def test_history_json_read_back(tmp_path):

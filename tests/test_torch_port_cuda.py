@@ -227,6 +227,144 @@ def test_head_views_match_plain(dev, posterior, width, vec):
   assert (grads[2] is None) == (posterior == "nb")
 
 
+# ------------------------------------------------------------- bf16 modes
+BF16_RTOL = 7.9e-3  # 1 bf16 ulp: kernel and plain round the same f32 value
+
+
+def _compare_bf16(ops, constrained, need=(True, True, True),
+                  elem_ulps=False):
+  """A bf16 case against the plain version: forward as ``_compare``;
+  a (B, D) gradient comes back in its primal's dtype, bf16-valued when the
+  writes are bf16, within 1 bf16 ulp of the plain version's; per-gene
+  gradients float32 at ``_compare``'s tolerances. Run twice for the same
+  bits. Returns the kernels' gradients."""
+  x, cr, lg, gt, ct = ops
+  out = tz._fwd_launch(x, cr, lg, gt, constrained)
+  grads = tz._bwd_launch(x, cr, lg, gt, ct, constrained, need)
+  torch.cuda.synchronize()
+  ref = tz._rowsum_ref(x, cr, lg, gt, constrained)
+  o, r = out.cpu().numpy(), ref.cpu().numpy()
+  atol = 0.0
+  if elem_ulps:
+    elem = tz._zinb_elem(x, *(tz._widen(t) for t in (cr, lg, gt)),
+                         constrained)
+    atol = SUM_ULPS * (elem.abs() + 1.0).sum(-1).cpu().numpy()
+  assert (np.abs(o - r) <= atol + FWD["rtol"] * np.abs(r)).all()
+  refs = tz._grads_ref(x, cr, lg, gt, ct, constrained, need)
+  terms = tz._zinb_grads_elem(x, *(tz._widen(t) for t in (cr, lg, gt)),
+                              constrained)
+  bf16_writes = tz._write_dtype((cr, lg, gt)) == torch.bfloat16
+  for a, b, t, p in zip(grads, refs, terms, (cr, lg, gt)):
+    if b is None:
+      assert a is None
+      continue
+    assert a.shape == b.shape and a.dtype == b.dtype == p.dtype
+    if b.shape[0] == 1 < x.shape[0]:  # per-gene: an f32 sum over the rows
+      atol = GRAD["atol"] + SUM_ULPS * (ct[:, None] * t).abs().sum(0)
+      bad = (a - b).abs() > atol + GRAD["rtol"] * b.abs()
+    else:
+      if bf16_writes:
+        assert torch.equal(a, a.to(torch.bfloat16).to(a.dtype))
+      a, b = a.float(), b.float()
+      bad = (a - b).abs() > GRAD["atol"] + BF16_RTOL * b.abs()
+    assert not bad.any(), f"{int(bad.sum())} gradients off"
+  assert torch.equal(out, tz._fwd_launch(x, cr, lg, gt, constrained))
+  twice = tz._bwd_launch(x, cr, lg, gt, ct, constrained, need)
+  assert all(u is None or torch.equal(u, v) for u, v in zip(grads, twice))
+  return grads
+
+
+def _as_bf16(ops, per_gene):
+  """The (B, D) parameters of ``ops`` as bf16; x, per-gene rows and the
+  cotangent stay float32."""
+  x, cr, lg, gt, ct = ops
+  params = [p if pg else p.to(torch.bfloat16)
+            for p, pg in zip((cr, lg, gt), per_gene)]
+  return [x, *params, ct]
+
+
+@pytest.mark.parametrize("shape", [(130, 1001), (256, 4096)],
+                         ids=["ragged_ordinary_loads", "aligned_8byte"])
+@pytest.mark.parametrize("layout", ["BD", "gene_theta", "gene_theta_gate"])
+@pytest.mark.parametrize("constrained", [False, True],
+                         ids=["logtheta", "theta"])
+def test_bf16_operands_match_plain(dev, constrained, layout, shape):
+  """bf16 (B, D) operands beside float32 per-gene rows: 8-byte cp.async
+  copies where rows are 8-byte aligned, ordinary 2-byte loads where the
+  width is odd; bf16 gradients."""
+  per_gene = LAYOUTS[layout]
+  ops = _as_bf16(_sparse_operands(dev, 60, *shape, "7pct", constrained,
+                                  per_gene), per_gene)
+  b, d, lds = tz._row_strides(ops[0], ops[1:4])
+  vec = tz._launch_plan(b, d, lds, [t.data_ptr() for t in ops[:4]],
+                        tz._sm_count(dev),
+                        [t.element_size() for t in ops[:4]]).vec
+  assert vec == (shape[1] % 4 == 0)
+  _compare_bf16(ops, constrained, elem_ulps=True)
+
+
+def test_bf16_protein_head_views(dev):
+  """The 10-protein NB head in bf16: three 20-byte column chunks of one
+  (B, 30) bf16 matrix, rows 4-byte aligned only (ordinary loads), with the
+  −1e30 float32 gate row."""
+  rng = np.random.default_rng(61)
+  x = torch.tensor(rng.poisson(8.0, (512, 10)).astype(np.float32),
+                   device=dev)
+  head = torch.tensor(rng.normal(0, 1, (512, 30)).astype(np.float32),
+                      device=dev).to(torch.bfloat16)
+  r, lg, _ = torch.chunk(head, 3, dim=-1)
+  r = torch.exp(r.float()).to(torch.bfloat16)
+  gate = torch.full((1, 10), tz._NB_GATE, device=dev)
+  ct = torch.tensor(rng.normal(0, 1, 512).astype(np.float32), device=dev)
+  assert lg.stride() == (30, 1) and lg.data_ptr() % 8 == 4
+  _compare_bf16([x, r.contiguous(), lg, gate, ct], True,
+                need=(True, True, False), elem_ulps=True)
+
+
+def test_bf16_writes_for_f32_operands(dev, monkeypatch):
+  """``SISUA_TPU_BWD_WRITES=bf16`` with float32 operands: the (B, D)
+  fields are written bf16 and widened, the per-gene one stays an f32
+  sum."""
+  monkeypatch.setenv("SISUA_TPU_BWD_WRITES", "bf16")
+  ops = _sparse_operands(dev, 62, 512, 4096, "7pct", False,
+                         (True, False, False))
+  grads = _compare_bf16(ops, False)
+  assert all(g.dtype == torch.float32 for g in grads)
+
+
+def test_bf16_autograd_through_the_objective(dev, monkeypatch):
+  """SCVI's 'full' head under ``SISUA_TPU_FWD_OPERANDS=bf16`` at B = 512:
+  the operands reach the kernels as bf16, the leaves get float32
+  gradients within bf16 rounding of the float32 route's."""
+  from sisua_tpu_torch import dist as TD
+  from sisua_tpu_torch.models import objective as tobj
+  rng = np.random.default_rng(63)
+  x = torch.tensor(rng.poisson(1.0, (512, 2048)).astype(np.float32),
+                   device=dev)
+  leaves = [torch.tensor(rng.normal(m, 1, (512, 2048)).astype(np.float32),
+                         device=dev) for m in (0.3, 0.5, -1.0)]
+  out = {}
+  for mode in ("f32", "bf16"):
+    monkeypatch.setenv("SISUA_TPU_FWD_OPERANDS", mode)
+    ts = [t.clone().requires_grad_() for t in leaves]
+    d = TD.Independent(TD.ZeroInflated(
+        count_distribution=TD.NegativeBinomialLog(log_loc=ts[0],
+                                                  log_disp=ts[1]),
+        gate_logits=ts[2]), 1)
+    tz.reset_launches()
+    lp = tobj._fast_log_prob(d, x)
+    lp.sum().backward()
+    assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1}
+    out[mode] = (lp.detach(), [t.grad for t in ts])
+  lp32, g32 = out["f32"]
+  lp16, g16 = out["bf16"]
+  assert not torch.equal(lp32, lp16)
+  assert ((lp16 - lp32).abs() <= 1e-2 * lp32.abs()).all()
+  for a, b in zip(g16, g32):
+    assert a.dtype == torch.float32
+    assert float((a - b).norm()) <= 2e-2 * float(b.norm())
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
   x, cr, lg, gt, _ = _operands(dev, 4, 8, 16, False, (False,) * 3)
   with pytest.raises(TypeError, match="float32"):

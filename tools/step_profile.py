@@ -7,8 +7,12 @@ at 512 × 33,000, on one CUDA card.
 MODEL is one of SISUA, FVAE, SCALAR, SCALE, LDVAE, phase 10's
 scvi_batch (SCVI at n_batch = 4 with an 'nb' label head), totalvi and
 scanvi, phase 11's peakvi and multivi (on 108,377 peaks with mosaic
-cells), and phase 12's autozi and scscope (its 33,000 × 33,000 imputer)
-(default: all), built as ``chip_smoke.py`` builds it. For each:
+cells), phase 12's autozi and scscope (its 33,000 × 33,000 imputer), and
+phase 4's and phase 13's SCVI: scvi (float32), scvi_bf16
+(``compute_dtype='bfloat16'``, SISUA_TPU_FWD_OPERANDS=bf16),
+scvi_bf16_f32_operands and scvi_bf16_writes (f32 operands,
+SISUA_TPU_BWD_WRITES=bf16) (default: all), built as ``chip_smoke.py``
+builds it. For each:
 one warm-up epoch of 8 steps through ``fit``, then STEPS steps of
 ``_train_step`` on fixed batches:
   * wall ms per step (host clock around the steps, ending in a
@@ -67,8 +71,13 @@ PHASE10 = {"scvi_batch": "SCVI_batch", "totalvi": "TotalVI",
            "scanvi": "SCANVI"}
 PHASE11 = {"peakvi": "PEAKVI", "multivi": "MULTIVI"}
 PHASE12 = {"autozi": "AUTOZI", "scscope": "SCScope"}
+# phase 4's and phase 13's SCVI: compute dtype and chip_smoke.BF16_MODES
+SCVI = {"scvi": (None, "f32 operands"),
+        "scvi_bf16": ("bfloat16", "bf16 operands"),
+        "scvi_bf16_f32_operands": ("bfloat16", "f32 operands"),
+        "scvi_bf16_writes": ("bfloat16", "f32 operands, bf16 writes")}
 ALL = ["SISUA", "FVAE", "SCALAR", "SCALE", "LDVAE", *PHASE10, *PHASE11,
-       *PHASE12]
+       *PHASE12, *SCVI]
 
 
 def _model(cs, name):
@@ -82,6 +91,8 @@ def _model(cs, name):
     return cs._multiome_model(PHASE11[name])
   if name in PHASE12:
     return cs._phase12_model(PHASE12[name])
+  if name in SCVI:
+    return cs._scvi(None, "full", compute_dtype=SCVI[name][0])
   return cs._zoo_model(name)
 
 
@@ -174,7 +185,8 @@ def main(argv):
     data[4], data[5] = x.clone(), cs._atac(torch, gen, n)
     cs._mosaic(torch, gen, data[4], data[5])
   for name in argv or ALL:
-    profile(torch, cs, name, data)
+    with cs._Env(cs.BF16_MODES[SCVI[name][1]] if name in SCVI else {}):
+      profile(torch, cs, name, data)
   os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
   with open(os.path.join(ROOT, "chiprun_out", "step_profile.txt"), "w") as f:
     f.write("\n".join(_LINES) + "\n")
