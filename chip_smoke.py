@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``sisua_tpu_torch/csrc`` and
-drives the port's two paths at full transcriptome width (33,000 genes)
+Builds the hand-written CUDA kernels from ``sisua_tpu_torch/csrc`` (and
+the host gathers of ``sisua_tpu_torch/native``) and drives the port's
+paths at full transcriptome width (33,000 genes)
 through the entry points a user calls, ``fit`` and ``evaluate``: SCVI
 training with the ZINB likelihood in its 'full' dispersion form (in
 float32, and in mixed precision through the kernels' bf16 modes), and
@@ -144,12 +145,40 @@ before the final line:
      fit (call counts, a metric injected into the history, the file
      reloading bitwise to the best state); ``device_dtype='int16'``
      (resident bytes halved, the losses of the float32 fit).
-Before the last line it prints the kernels' JSON summary (launches of the
-phase 4 and phase 6 fits, of phase 8 and of phases 9 to 13's fits and
-round trips; time, plain time and bound at 512 × 33,000 'main_full', and
-under ``bf16_operands`` / ``bf16_writes`` the bf16 modes' at the same
-shape with phase 13a's launches); the last line is ``{"ok": true,
-"device": {...}}``. Imports nothing of JAX.
+ 14. the probe kernels and the host data path. (a) ``elemwise_probe`` and
+     ``lgamma_probe`` (csrc/probe.cu) at 1024 × 33,000 on the TPU probe's
+     operands made on the card: each against its plain version (rtol 1e-4
+     plus 1e-6·Σ|element|; n_fma 64 and 256 on a multiplier in (0, 1),
+     since a chain over θ overflows), twice for the same bits, a NaN
+     planted in c (and b) reaching its row; then ``ops/probe.run_probe``
+     from launch counts of 0: 32 back-to-back launches per variant in 3
+     passes, one line each (µs, GB/s, bound, share) and the derived FMA
+     costs. (b) SCVI ('full', phase 4's nets) out of core on 65,536 cells
+     made on the card in 8,192-row slices as a host CSR (~6.6% nonzero),
+     ``device_cache=True, hbm_budget_bytes=2**31``, batch 512, 3 epochs:
+     the plan must be 1,536 rows × 43 chunks with 8 resident, all sparse
+     (int16 storage: 3,584 × 19, 7 resident); losses finite and falling,
+     both kernels once a step; steady ms a step, cells/s, seconds an
+     epoch waited for streamed chunks; peak memory within the budget plus
+     the model's footprint (a two-epoch resident fit of it on 1,024
+     cells); the plan for 1,000,000 cells under the card's default
+     budget. (c) phase 4's
+     8,192 counts out of core at 2**30 from the dense host array and from
+     its CSR: losses within rtol 1e-6. (d) the default streaming ``fit``
+     on the 65,536-cell CSR, one epoch validated every 64 steps, float32
+     and int16 transfers: ms a step, cells/s, and the device's idle share
+     over 32 streamed steps under ``torch.profiler``. (e) ``predict_mean``
+     of the held-out cells as CSR (triplets densified on the card) equal
+     to the dense call bitwise.
+Earlier phases train through ``fit(device_cache=True)``, the loop they
+were written for. Before the last line it prints the kernels' JSON summary
+(launches of the phase 4 and phase 6 fits, of phase 8 and of phases 9 to
+14's fits and round trips and phase 14a's probe run; time, plain time and
+bound at 512 × 33,000 'main_full', and under ``bf16_operands`` /
+``bf16_writes`` the bf16 modes' at the same shape with phase 13a's
+launches; the probes' at 1024 × 33,000, ``sol_mem`` and ``lg_lgammaf``);
+the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
+JAX.
 """
 
 import json
@@ -161,6 +190,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -190,9 +220,12 @@ EVAL_RTOL = 1e-6      # evaluate of the reloaded model vs the trained one
 BOUND_SLACK = 5e-3    # Jensen / importance-weighted bounds, relative
 BF16_RTOL = 1e-2      # bf16-fetched means vs float32
 MC = 10               # MC draws of the serving phase
-# the kernels of csrc/zinb.cu, as the ptxas report names them
+# the kernels of csrc/zinb.cu and csrc/probe.cu, as the ptxas report
+# names them
 KERNEL_NAMES = ("zinb_rowsum_fwd_kernel", "row_chunk_sum_kernel",
-                "zinb_rowsum_bwd_kernel", "column_sum_kernel")
+                "zinb_rowsum_bwd_kernel", "column_sum_kernel",
+                "probe_rowsum_kernel")
+PROBE_KINDS = ("fma", "lanczos", "stirling", "lgammaf")
 # the card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -228,13 +261,21 @@ def phase_device(torch):
 
 
 def phase_build():
+  """The CUDA kernels (one nvcc per source, all at once) and, beside them,
+  the host gathers with g++; both must load."""
+  from concurrent.futures import ThreadPoolExecutor
+  from sisua_tpu_torch import native
   from sisua_tpu_torch.ops import _build
   fresh = not _build.library_path().is_file()
   t0 = time.perf_counter()
-  lib = _build.build()
-  _build.load()
+  with ThreadPoolExecutor(max_workers=1) as pool:
+    gather = pool.submit(native.load)
+    lib = _build.build()
+    _build.load()
+    gather.result()
   dt = time.perf_counter() - t0
-  log(f"[2 build] {'built' if fresh else 'reused'} {lib.name} in {dt:.2f} s")
+  log(f"[2 build] {'built' if fresh else 'reused'} {lib.name} in {dt:.2f} s; "
+      f"host gathers {native.library_path().name} loaded")
   report = lib.with_suffix(".log")
   if report.is_file():  # one line per kernel: registers and spills
     name, spills = None, ""
@@ -242,9 +283,13 @@ def phase_build():
       if "Compiling entry function" in line:
         name = next((k for k in KERNEL_NAMES if k in line), line)
         flags = re.search(r"ILb([01])ELb([01])E(?:Lb([01])E)?", line)
+        probe = re.search(r"ILi(\d)ELi(\d+)ELb([01])E", line)
         if flags:
           name += f"<constrained={flags[1]},vec={flags[2]}"
           name += f",mixed={flags[3]}>" if flags[3] else ">"
+        elif probe:
+          name += (f"<{PROBE_KINDS[int(probe[1])]},n_fma={probe[2]},"
+                   f"vec={probe[3]}>")
       elif "spill" in line:
         spills = line.strip()
       elif "registers" in line and name:
@@ -537,7 +582,7 @@ def phase_fit(torch, x, held):
   tz.reset_launches()
   t0 = time.perf_counter()
   model.fit(x, epochs=EPOCHS, batch_size=BATCH, learning_rate=1e-3,
-            clipnorm=100.0, metrics_interval=WINDOW)
+            clipnorm=100.0, metrics_interval=WINDOW, device_cache=True)
   fit_s = time.perf_counter() - t0
   steps = EPOCHS * (CELLS // BATCH)
   fit_launches = dict(tz.launches)
@@ -693,7 +738,7 @@ def phase_sisua(torch, x, held):
   t0 = time.perf_counter()
   model.fit([x, y], valid=[held, held_y], epochs=EPOCHS, batch_size=BATCH,
             learning_rate=1e-3, labels_percent=LABELS_PERCENT,
-            metrics_interval=WINDOW)
+            metrics_interval=WINDOW, device_cache=True)
   fit_s = time.perf_counter() - t0
   fit_launches = dict(tz.launches)
   steps = EPOCHS * (CELLS // BATCH)
@@ -1037,7 +1082,8 @@ def _zoo_fit(torch, name, data, smi):
   tz.reset_launches()
   t0 = time.perf_counter()
   model.fit(data, epochs=EPOCHS, batch_size=BATCH, learning_rate=1e-3,
-            labels_percent=LABELS_PERCENT, metrics_interval=WINDOW)
+            labels_percent=LABELS_PERCENT, metrics_interval=WINDOW,
+            device_cache=True)
   fit_s = time.perf_counter() - t0
   launches = dict(tz.launches)
   steps = EPOCHS * (CELLS // BATCH)
@@ -1234,7 +1280,7 @@ def _phase10_fit(torch, name, data, valid, smi):
   t0 = time.perf_counter()
   model.fit(data, valid=valid, epochs=EPOCHS, batch_size=BATCH,
             learning_rate=1e-3, labels_percent=labels,
-            metrics_interval=WINDOW)
+            metrics_interval=WINDOW, device_cache=True)
   fit_s = time.perf_counter() - t0
   launches = dict(tz.launches)
   steps = EPOCHS * (CELLS // BATCH)
@@ -1376,7 +1422,7 @@ def _multiome_fit(torch, name, data, valid, smi):
   tz.reset_launches()
   t0 = time.perf_counter()
   model.fit(data, valid=valid, epochs=EPOCHS, batch_size=BATCH,
-            learning_rate=1e-3, metrics_interval=WINDOW)
+            learning_rate=1e-3, metrics_interval=WINDOW, device_cache=True)
   fit_s = time.perf_counter() - t0
   launches = dict(tz.launches)
   steps = EPOCHS * (CELLS // BATCH)
@@ -1557,7 +1603,7 @@ def _phase12_fit(torch, name, x, held, smi):
   t0 = time.perf_counter()
   lr = SCSCOPE_LR if name == "SCScope" else 1e-3
   model.fit(x, valid=held, epochs=EPOCHS, batch_size=BATCH,
-            learning_rate=lr, metrics_interval=WINDOW)
+            learning_rate=lr, metrics_interval=WINDOW, device_cache=True)
   fit_s = time.perf_counter() - t0
   launches = dict(tz.launches)
   steps = EPOCHS * (CELLS // BATCH)
@@ -1802,7 +1848,8 @@ def _bf16_scvi_fit(torch, x, held, mode):
     tz.reset_launches()
     t0 = time.perf_counter()
     model.fit(x, valid=held, epochs=EPOCHS, batch_size=BATCH,
-              learning_rate=1e-3, clipnorm=100.0, metrics_interval=WINDOW)
+              learning_rate=1e-3, clipnorm=100.0, metrics_interval=WINDOW,
+              device_cache=True)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = dict(tz.launches)
@@ -1925,7 +1972,8 @@ def phase_fit_surface(torch, x, held, root, smi):
               model.module.named_parameters()}
     tz.reset_launches()
     model.fit(x, epochs=SURFACE_EPOCHS, batch_size=BATCH, optimizer=name,
-              learning_rate=1e-3, metrics_interval=SURFACE_EPOCHS)
+              learning_rate=1e-3, metrics_interval=SURFACE_EPOCHS,
+              device_cache=True)
     add()
     losses = np.asarray(model.history["loss"])
     moved = sum(not torch.equal(v, before[k]) for k, v in
@@ -1946,7 +1994,7 @@ def phase_fit_surface(torch, x, held, root, smi):
       model.module, k)[0].startswith(("encoder", "latent_head"))}
   before = {k: v.detach().clone() for k, v in params.items()}
   tz.reset_launches()
-  model.fit_query(query, epochs=2, batch_size=BATCH)
+  model.fit_query(query, epochs=2, batch_size=BATCH, device_cache=True)
   add()
   check(frozen and all(torch.equal(params[k], before[k]) for k in frozen),
         "fit_query: a frozen tensor moved")
@@ -1960,7 +2008,7 @@ def phase_fit_surface(torch, x, held, root, smi):
   model = _scvi(torch, "full")
   tz.reset_launches()
   torch.cuda.reset_peak_memory_stats()
-  model.fit(x, epochs=1, batch_size=BATCH, mc_samples=3)
+  model.fit(x, epochs=1, batch_size=BATCH, mc_samples=3, device_cache=True)
   trained = dict(tz.launches)
   model.evaluate(held, batch_size=BATCH)
   add()
@@ -1983,7 +2031,7 @@ def phase_fit_surface(torch, x, held, root, smi):
   tz.reset_launches()
   model.fit(x, valid=held, epochs=SURFACE_EPOCHS, batch_size=BATCH,
             metrics_interval=2, callbacks=[counter], checkpoint_path=path,
-            track_gradient_norms=True)
+            track_gradient_norms=True, device_cache=True)
   add()
   h = model.history
   want = {"set_model": 1, "on_epoch_begin": SURFACE_EPOCHS,
@@ -2017,7 +2065,7 @@ def phase_fit_surface(torch, x, held, root, smi):
   for dd in ("float32", "int16"):
     m = _scvi(torch, "full")
     tz.reset_launches()
-    m.fit(x, epochs=2, batch_size=BATCH, device_dtype=dd)
+    m.fit(x, epochs=2, batch_size=BATCH, device_dtype=dd, device_cache=True)
     add()
     hists[dd] = np.asarray(m.history["loss"])
     del m
@@ -2029,6 +2077,370 @@ def phase_fit_surface(torch, x, held, root, smi):
       f"{hists['float32'].tolist()} "
       f"({'bitwise equal' if np.array_equal(hists['int16'], hists['float32']) else 'within rtol 1e-6'})")
   return total
+
+
+# phase 14: the probe kernels and the host data path
+PROBE_ROWS = 1024        # benchmarks/kernel_probe.py's B (its D is GENES)
+PROBE_REPS, PROBE_LAUNCHES = 3, 32
+OOC_CELLS = 65_536
+OOC_SLICE = 8192         # rows made on the card at a time
+OOC_EPOCHS = 3
+OOC_BUDGET = 2 ** 31
+# what _plan_out_of_core must give for 65,536 × 33,000 under OOC_BUDGET
+OOC_PLANS = {"float32": {"chunk_rows": 1536, "n_chunks": 43,
+                         "n_resident": 8},
+             "int16": {"chunk_rows": 3584, "n_chunks": 19,
+                       "n_resident": 7}}
+SPARSE_BUDGET = 2 ** 30
+SPARSE_EPOCHS = 2
+STREAM_VALID_FREQ = 64
+PROFILE_STEPS = 32       # streamed steps under torch.profiler
+ATLAS_CELLS = 1_000_000  # planned, not trained
+
+
+def _probe_check(name, got, ref, elems):
+  """A probe kernel's row sums against its plain version: FWD_RTOL plus
+  SUM_ULPS of the row's Σ|element| (the two sum in another order, and the
+  kernel fuses the multiply-adds that the plain version rounds twice).
+  Returns max|Δ|."""
+  import numpy as np
+  g, r = got.double().cpu().numpy(), ref.double().cpu().numpy()
+  e = elems.abs().sum(-1).double().cpu().numpy()
+  err = np.abs(g - r)
+  check(np.isfinite(g).all(), f"{name}: row sums not finite")
+  check(bool((err <= FWD_RTOL * np.abs(r) + SUM_ULPS * e).all()),
+        f"{name}: max|Δ| {err.max():.3e} against its plain version")
+  return float(err.max())
+
+
+def phase_probes(torch):
+  """Phase 14a: both probe kernels against their plain versions at
+  1024 × 33,000, then ``ops/probe.run_probe`` from launch counts of 0.
+  Returns (the kernels-line numbers of both kernels, the ZINB launches of
+  the run)."""
+  from sisua_tpu_torch.ops import probe as P
+  from sisua_tpu_torch.ops import zinb as tz
+  x, a, b, c = ops = P.probe_operands(PROBE_ROWS, GENES,
+                                      torch.device(DEVICE), SEED)
+  # a 64- or 256-long chain over θ = exp(0.5·N) overflows to inf and NaN
+  # in both versions, which would compare nothing: a in (0, 1) instead
+  ua = torch.rand(x.shape, device=DEVICE,
+                  generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+  errs = {"elemwise_probe": 0.0, "lgamma_probe": 0.0}
+  for n in P.N_FMA:
+    aa = a if n == 1 else ua
+    got = P.elemwise_probe(x, aa, b, c, n)
+    acc = x
+    for _ in range(n):
+      acc = acc * aa + b
+    errs["elemwise_probe"] = max(errs["elemwise_probe"], _probe_check(
+        f"elemwise n_fma={n}", got, P.elemwise_probe_ref(x, aa, b, c, n),
+        acc))
+    check(torch.equal(got, P.elemwise_probe(x, aa, b, c, n)),
+          f"elemwise n_fma={n}: not bitwise reproducible")
+    del acc
+  for w in P.LGAMMA:
+    got = P.lgamma_probe(x, a, b, c, w)
+    errs["lgamma_probe"] = max(errs["lgamma_probe"], _probe_check(
+        f"lgamma {w}", got, P.lgamma_probe_ref(x, a, b, c, w),
+        torch.lgamma(x + a + 1.0)))
+    check(torch.equal(got, P.lgamma_probe(x, a, b, c, w)),
+          f"lgamma {w}: not bitwise reproducible")
+  # every stream is read: a NaN planted in c (and in b) reaches its row
+  c2, b2 = c.clone(), b.clone()
+  c2[5, GENES - 1] = float("nan")
+  b2[7, 0] = float("nan")
+  nan_rows = lambda t: torch.isnan(t).nonzero().flatten().tolist()  # noqa
+  check(nan_rows(P.elemwise_probe(x, a, b, c2, 1)) == [5]
+        and nan_rows(P.lgamma_probe(x, a, b2, c2, "lgammaf")) == [5, 7],
+        "a probe does not read every operand")
+  del c2, b2, ua
+  log(f"[14a probes] {PROBE_ROWS} × {GENES}: elemwise n_fma {P.N_FMA} "
+      f"max|Δ| {errs['elemwise_probe']:.3e}, lgamma {P.LGAMMA} max|Δ| "
+      f"{errs['lgamma_probe']:.3e} against the plain versions (rtol "
+      f"{FWD_RTOL} + {SUM_ULPS}·Σ|elem|); bitwise reproducible; a NaN in "
+      f"c or b reaches its row (all four streams read)")
+  # kernel against plain version in turns (comparison launches: not
+  # counted below)
+  t_el = _time_turns(torch, {
+      "plain": lambda: P.elemwise_probe_ref(x, a, b, c, 1),
+      "kernel": lambda: P.elemwise_probe(x, a, b, c, 1)}, reps=5, rounds=2)
+  t_lg = _time_turns(torch, {
+      "plain": lambda: P.lgamma_probe_ref(x, a, b, c, "lgammaf"),
+      "kernel": lambda: P.lgamma_probe(x, a, b, c, "lgammaf")}, reps=5,
+      rounds=2)
+  P.reset_launches()
+  tz.reset_launches()
+  rows = P.run_probe(PROBE_ROWS, GENES, reps=PROBE_REPS,
+                     launches=PROBE_LAUNCHES, ops=ops,
+                     hbm_bytes_per_s=HBM_BYTES_PER_S,
+                     f32_ops_per_s=F32_OPS_PER_S)
+  launches = dict(P.launches)
+  zinb_launches = dict(tz.launches)
+  check(all(v > 0 for v in launches.values()),
+        f"probe path launched {launches}")
+  for r in rows[:-1]:
+    log(f"[14a probes] {r['variant']}: {r['ms'] * 1e3:.1f} µs (passes "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in r['ms_passes'])}), "
+        f"{r['gb_per_s']:.0f} GB/s, {r['gelem_per_s']:.1f} Gelem/s; bound "
+        f"{r['bound_ms'] * 1e3:.1f} µs ({r['bound_by']}; bytes "
+        f"{r['bytes_bound_ms'] * 1e3:.1f}, operations "
+        f"{r['ops_bound_ms'] * 1e3:.1f}), share {r['share']:.1%}")
+  log(f"[14a probes] derived: {json.dumps(rows[-1])}")
+  log(f"[14a probes] plain versions: elemwise n_fma 1 "
+      f"{t_el['plain']:.1f} µs (kernel {t_el['kernel']:.1f}), lgammaf "
+      f"{t_lg['plain']:.1f} µs (kernel {t_lg['kernel']:.1f}); launches "
+      f"{launches}, ZINB {zinb_launches}")
+  by = {r["variant"]: r for r in rows}
+  result = {}
+  for name, variant, t in (("elemwise_probe", "sol_mem", t_el),
+                           ("lgamma_probe", "lg_lgammaf", t_lg)):
+    r = by[variant]
+    result[name] = {"launches": launches[name], "max_abs_err": errs[name],
+                    "ms": r["ms"], "plain_ms": t["plain"] / 1e3,
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+  return result, zinb_launches
+
+
+def _host_csr(torch, parts, n_cols):
+  """Card tensors, row blocks of one matrix, as one host scipy CSR matrix
+  (int32 indices: every count here has fewer than 2^31 nonzeros)."""
+  import numpy as np
+  import scipy.sparse as sp
+  data, indices, indptr, nnz = [], [], [np.zeros(1, np.int64)], 0
+  rows = 0
+  for t in parts:
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+      warnings.simplefilter("ignore", UserWarning)
+      c = t.to_sparse_csr()
+    indptr.append(c.crow_indices()[1:].cpu().numpy() + nnz)
+    indices.append(c.col_indices().to(torch.int32).cpu().numpy())
+    data.append(c.values().cpu().numpy())
+    nnz += data[-1].size
+    rows += t.shape[0]
+    del c
+  check(nnz < 2 ** 31, f"{nnz} nonzeros overflow int32 indices")
+  return sp.csr_matrix((np.concatenate(data), np.concatenate(indices),
+                        np.concatenate(indptr).astype(np.int32)),
+                       shape=(rows, n_cols))
+
+
+def _ooc_fit(torch, data, dd, budget, epochs, base):
+  """An SCVI ('full', phase 4's nets) fit out of core from launch counts
+  of 0; returns (model, launches, seconds, peak bytes above ``base``)."""
+  from sisua_tpu_torch.ops import zinb as tz
+  model = _scvi(torch, "full")
+  torch.cuda.reset_peak_memory_stats()
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  model.fit(data, epochs=epochs, batch_size=BATCH, learning_rate=1e-3,
+            device_cache=True, hbm_budget_bytes=budget, device_dtype=dd)
+  torch.cuda.synchronize()
+  return (model, dict(tz.launches), time.perf_counter() - t0,
+          torch.cuda.max_memory_allocated() - base)
+
+
+def phase_out_of_core(torch, x, smi):
+  """Phase 14b/c: SCVI out of core at 33,000 genes. Returns (the 65,536-cell
+  CSR, the trained float32 model, the ZINB launches)."""
+  import numpy as np
+  import scipy.sparse as sp
+  from sisua_tpu_torch.data import DataFeeder
+  from sisua_tpu_torch.train import Trainer
+  total = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+  t0 = time.perf_counter()
+  big = _host_csr(torch, (_counts(torch, gen, OOC_SLICE, GENES)
+                          for _ in range(OOC_CELLS // OOC_SLICE)), GENES)
+  dense_gb = OOC_CELLS * GENES * 4 / 1e9
+  log(f"[14b out of core] {OOC_CELLS} × {GENES} counts made on the card in "
+      f"{OOC_SLICE}-row slices → host CSR, {big.nnz:,} nonzeros "
+      f"({big.nnz / (OOC_CELLS * GENES):.2%}; {dense_gb:.2f} GB dense f32) "
+      f"in {time.perf_counter() - t0:.1f} s")
+  trained = None
+  for dd, plan_ref in OOC_PLANS.items():
+    # the model's own footprint (parameters, optimizer state, the best
+    # state's snapshot, a step's activations): a resident fit of the same
+    # model and device_dtype on 1,024 of the cells for two epochs (the
+    # second runs beside a snapshot), less their resident bytes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    itemsize = 4 if dd == "float32" else 2
+    _, _, _, footprint = _ooc_fit(torch, big[:2 * BATCH], dd, None, 2,
+                                  base + 2 * BATCH * GENES * itemsize)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    model, launches, fit_s, peak = _ooc_fit(torch, big, dd, OOC_BUDGET,
+                                            OOC_EPOCHS, base)
+    reserved = torch.cuda.max_memory_reserved() - reserved
+    for k in total:
+      total[k] += launches[k]
+    plan = model.trainer._oc_plan
+    check({k: plan[k] for k in plan_ref} == plan_ref
+          and plan["sparse_sources"] == [True],
+          f"{dd}: plan {plan} != {plan_ref}, all sparse")
+    R, S, K = plan["chunk_rows"], plan["n_chunks"], plan["n_resident"]
+    steps_epoch = S * (R // BATCH)
+    h = model.history
+    losses = np.asarray(h["loss"])
+    check(len(losses) == OOC_EPOCHS and np.isfinite(losses).all()
+          and losses[-1] < losses[0], f"{dd}: losses {losses}")
+    check(model.step == OOC_EPOCHS * steps_epoch
+          and launches == {"zinb_rowsum_fwd": model.step,
+                           "zinb_rowsum_bwd": model.step},
+          f"{dd}: {model.step} steps, launches {launches}")
+    check(peak <= OOC_BUDGET + footprint,
+          f"{dd}: peak {peak / 2**30:.3f} GiB > budget "
+          f"{OOC_BUDGET / 2**30:.3f} + footprint {footprint / 2**30:.3f}")
+    waits = model.trainer._oc_wait_s
+    log(f"[14b out of core] device_dtype={dd}: plan {R} rows × {S} chunks, "
+        f"{K} resident, {S - K} streamed (sparse upload) each epoch, as "
+        f"expected; {model.step} steps in {fit_s:.1f} s; losses "
+        f"{[round(float(v), 2) for v in losses]}; steady "
+        f"{h['epoch_time'][-1] / steps_epoch * 1e3:.3f} ms a step, "
+        f"{h['cells_per_sec'][-1]:.0f} cells/s (last epoch; epochs "
+        f"{', '.join(f'{t:.2f}' for t in h['epoch_time'])} s); waited for "
+        f"streamed chunks {', '.join(f'{w:.3f}' for w in waits)} s an epoch; "
+        f"peak {peak / 2**30:.3f} GiB ≤ budget {OOC_BUDGET / 2**30:.0f} + "
+        f"footprint {footprint / 2**30:.3f} GiB (a resident fit of the model "
+        f"on {2 * BATCH} cells, data excluded; the allocator's reserve grew "
+        f"{reserved / 2**30:.3f} GiB); launches {launches}")
+    if dd == "float32":
+      trained = model
+    del model
+    torch.cuda.empty_cache()
+  atlas = DataFeeder([sp.csr_matrix((ATLAS_CELLS, GENES), dtype=np.float32)],
+                     batch_size=BATCH)
+  tr = Trainer(device_cache=True, device=torch.device(DEVICE))
+  log(f"[14b out of core] scale cut: {OOC_CELLS} cells trained; "
+      f"{ATLAS_CELLS:,} × {GENES} f32 ({ATLAS_CELLS * GENES * 4 / 1e9:.0f} GB "
+      f"dense) under the card's default budget "
+      f"({tr._device_budget() / 1e9:.1f} GB) would plan "
+      f"{tr._plan_out_of_core(atlas)} (not trained)")
+  # 14c: dense host rows and their CSR, the same seed: the same losses
+  xh = x.cpu().numpy()
+  hists, plans = {}, {}
+  for kind, data in (("dense", xh), ("csr", _host_csr(torch, [x], GENES))):
+    base = torch.cuda.memory_allocated()
+    model, launches, _, _ = _ooc_fit(torch, data, "float32", SPARSE_BUDGET,
+                                     SPARSE_EPOCHS, base)
+    for k in total:
+      total[k] += launches[k]
+    hists[kind] = np.asarray(model.history["loss"])
+    plans[kind] = model.trainer._oc_plan
+    del model
+  check(plans["dense"]["sparse_sources"] == [False]
+        and plans["csr"]["sparse_sources"] == [True],
+        f"sparse = dense: plans {plans}")
+  check(np.allclose(hists["csr"], hists["dense"], rtol=1e-6, atol=0),
+        f"sparse upload {hists['csr']} vs dense {hists['dense']}")
+  del xh
+  same = np.array_equal(hists["csr"], hists["dense"])
+  log(f"[14c sparse = dense] {CELLS} × {GENES} out of core at "
+      f"{SPARSE_BUDGET / 2**30:.0f} GiB (plan {plans['csr']}): CSR losses "
+      f"{hists['csr'].tolist()} vs dense {hists['dense'].tolist()} "
+      f"({'bitwise equal' if same else 'within rtol 1e-6'})")
+  return big, trained, total
+
+
+def _union_us(ranges) -> float:
+  """Length of the union of time intervals, µs (tools/step_profile.py)."""
+  total, end = 0.0, None
+  for r in sorted(ranges, key=lambda r: r.start):
+    if end is None or r.start > end:
+      total += r.end - r.start
+      end = r.end
+    elif r.end > end:
+      total += r.end - end
+      end = r.end
+  return total
+
+
+def phase_streaming(torch, big, held, smi):
+  """Phase 14d: the default ``fit`` (streaming) on the 65,536-cell CSR,
+  validated every STREAM_VALID_FREQ steps on the held-out cells; float32
+  and int16 transfers; the device's idle share over PROFILE_STEPS
+  streamed steps under ``torch.profiler``. Returns the ZINB launches."""
+  import numpy as np
+  from torch.profiler import ProfilerActivity, profile
+  from sisua_tpu_torch.ops import zinb as tz
+  total = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+  held_csr = _host_csr(torch, [held], GENES)
+  steps = OOC_CELLS // BATCH
+  n_val = max(1, steps // STREAM_VALID_FREQ)  # else once at the epoch's end
+  ms = {}
+  for td in (None, "int16"):
+    model = _scvi(torch, "full")
+    tz.reset_launches()
+    model.fit(big, valid=held_csr, epochs=1, batch_size=BATCH,
+              learning_rate=1e-3, valid_freq=STREAM_VALID_FREQ,
+              transfer_dtype=td)
+    torch.cuda.synchronize()
+    for k in total:
+      total[k] += tz.launches[k]
+    h = model.history
+    val_batches = -(-HELD_OUT // BATCH)
+    check(model.step == steps and np.isfinite(h["loss"]).all()
+          and np.isfinite(h["val_loss"]).all(),
+          f"streaming {td}: {model.step} steps, {h['loss']}")
+    check(tz.launches == {"zinb_rowsum_fwd": steps + n_val * val_batches,
+                          "zinb_rowsum_bwd": steps},
+          f"streaming {td}: launches {tz.launches}")
+    ms[td] = h["epoch_time"][0] / steps * 1e3
+    log(f"[14d streaming] transfer_dtype={td}: {steps} steps in "
+        f"{h['epoch_time'][0]:.2f} s, {ms[td]:.3f} ms a step, "
+        f"{h['cells_per_sec'][0]:.0f} cells/s, validated {n_val}× on "
+        f"{HELD_OUT} held-out cells (val_loss {h['val_loss'][0]:.2f}); "
+        f"launches {dict(tz.launches)}")
+    del model
+  model = _scvi(torch, "full")
+  tz.reset_launches()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               acc_events=True) as prof:
+    model.fit(big, epochs=1, batch_size=BATCH, max_iter=PROFILE_STEPS)
+    torch.cuda.synchronize()
+  for k in total:
+    total[k] += tz.launches[k]
+  dev = [e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA]
+  ops = [e for e in dev if not (e.is_user_annotation or "#" in e.name)]
+  busy = _union_us([e.time_range for e in ops]) / 1e3 / PROFILE_STEPS
+  copies = sum(e.time_range.elapsed_us() for e in ops
+               if "Memcpy" in e.name) / 1e3 / PROFILE_STEPS
+  log(f"[14d streaming] device busy {busy:.3f} ms a step over "
+      f"{PROFILE_STEPS} streamed steps (host→device copies {copies:.3f} ms "
+      f"of it), idle {1 - busy / ms[None]:.1%} of the unprofiled "
+      f"{ms[None]:.3f} ms step; {len(ops) / PROFILE_STEPS:.0f} device "
+      f"operations a step")
+  del model
+  return total
+
+
+def phase_sparse_serving(torch, model, held):
+  """Phase 14e: ``predict_mean`` of the held-out cells as CSR (triplets
+  uploaded, densified on the card) equals the dense call bitwise under the
+  same generator state."""
+  import numpy as np
+  from sisua_tpu_torch.models import base
+  held_np = held.cpu().numpy()
+  held_csr = _host_csr(torch, [held], GENES)
+  calls = []
+  real = base.csr_row_triplets
+  base.csr_row_triplets = lambda *a, **k: calls.append(1) or real(*a, **k)
+  try:
+    state = model.generator.get_state()
+    xd, zd = model.predict_mean(held_np, batch_size=BATCH, input_dtype=None)
+    model.generator.set_state(state)
+    xs, zs = model.predict_mean(held_csr, batch_size=BATCH,
+                                input_dtype=None)
+  finally:
+    base.csr_row_triplets = real
+  check(calls and np.array_equal(xs[0], xd[0])
+        and np.array_equal(zs[0], zd[0]),
+        "sparse serving differs from dense serving")
+  log(f"[14e sparse serving] predict_mean of {HELD_OUT} held-out cells: "
+      f"CSR (triplets, {held_csr.nnz:,} nonzeros) bitwise equal to dense")
 
 
 def main():
@@ -2067,11 +2479,18 @@ def main():
     torch.cuda.empty_cache()
     bf16_launches, _ = phase_bf16(torch, x, held, library, ckpt_root, smi)
     surface_launches = phase_fit_surface(torch, x, held, ckpt_root, smi)
+    torch.cuda.empty_cache()
+    probes, probe_launches = phase_probes(torch)
+    big, ooc_model, ooc_launches = phase_out_of_core(torch, x, smi)
+    stream_launches = phase_streaming(torch, big, held, smi)
+    phase_sparse_serving(torch, ooc_model, held)
+    del big, ooc_model
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
   launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]
               + batch_launches[k] + multiome_launches[k] + last_launches[k]
-              + bf16_launches[k] + surface_launches[k]
+              + bf16_launches[k] + surface_launches[k] + probe_launches[k]
+              + ooc_launches[k] + stream_launches[k]
               for k, v in launches.items()}
 
   def numbers(case, key, err, kind):
@@ -2097,6 +2516,12 @@ def main():
     if kind == "bwd":  # float32 operands, bf16 gradient writes
       entry["bf16_writes"] = numbers("main_full_writes", key, err, kind)
     kernels.append(entry)
+  for name, line in (("elemwise_probe", 83), ("lgamma_probe", 131)):
+    kernels.append({"name": name, "route": "cuda",
+                    "source": "sisua_tpu_torch/csrc/probe.cu",
+                    "replaces": f"benchmarks/kernel_probe.py:{line}",
+                    **probes[name],
+                    "library_ms": None})  # no single PyTorch call computes it
   print(json.dumps({"kernels": kernels}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,19 +25,22 @@ permutation and the semi-supervised mask, its Adam state and a step
 counter. Parameters are initialized on the CPU from the seed and then
 moved, so the initial weights do not depend on the device. Data is one
 matrix or a list ``[rna, adt, …]`` (one per output; numpy, scipy or
-tensor); training makes it device-resident once, the first feeds the
-encoder and the rest are label targets. With batch-covariate conditioning
+tensor) or a ``DataFeeder``; the first feeds the encoder and the rest are
+label targets. With batch-covariate conditioning
 (``n_batch`` > 0) the LAST matrix is the per-cell batch one-hot, appended
 to the encoder input (``_module_input``); ``_batch_onehot`` builds it from
 a container's ``obs[batch_key]``. Serving reads only the matrices the
 encoder consumes. ``fit`` takes the JAX package's training surface:
 ``optimizer`` (the seven optax optimizers), ``mc_samples``,
 ``track_gradient_norms``, ``freeze`` (and ``fit_query``), ``callbacks``,
-``checkpoint_path``, ``device_dtype`` and ``profile_dir``; with
-``compute_dtype='bfloat16'`` the model trains in mixed precision. Not
-ported yet: ``differential_expression``, ``create_posterior``, the
-streaming and out-of-core loops and the mesh (``fit`` raises on their
-arguments).
+``checkpoint_path``, ``device_dtype``, ``transfer_dtype``,
+``hbm_budget_bytes`` and ``profile_dir``, and its three loops (streaming,
+device-resident, out of core: ``train/trainer.py``); with
+``compute_dtype='bfloat16'`` the model trains in mixed precision. Serving
+uploads a CSR matrix as triplets where they are clearly smaller than its
+dense block. Not ported yet: ``differential_expression``,
+``create_posterior``, ``scan_steps`` > 1 and the mesh (``fit`` raises on
+their arguments).
 """
 
 from __future__ import annotations
@@ -55,13 +58,16 @@ from typing import (Dict, Iterator, List, Optional, Sequence, Tuple,
 
 import numpy as np
 import torch
+from scipy import sparse
 from torch import nn
 
 from .. import convert
 from .. import dist as D
+from ..data.feeder import DataFeeder
 from ..data.utils import get_library_size, int16_exact
 from ..interpolation import Interpolation, get_interpolation
 from ..nn import NetConf, parse_netconf, resolve_dtype
+from ..ops.sparse import col_dtype_for, csr_row_triplets, densify, worthwhile
 from ..rv import RVmeta, parse_rv
 from ..train import checkpoint as ckpt
 from ..train.trainer import Trainer, TrainingCallback
@@ -653,6 +659,21 @@ class SingleCellModel:
     self.optimizer = opt
     self._last_freeze = freeze
 
+  def _to_feeder(self, data, batch_size: int, labels_percent: float,
+                 shuffle: bool = True) -> DataFeeder:
+    """One matrix or a list of them (numpy, scipy sparse or tensor), or a
+    ``DataFeeder`` as it is → ``DataFeeder`` (the JAX ``_to_feeder``; the
+    port takes no ``SingleCellOMIC``). With batch conditioning the LAST
+    matrix must be the batch one-hot. The library stats are the first
+    matrix's, when the model uses them."""
+    if isinstance(data, DataFeeder):
+      return data
+    mats, library = self._sources(data)
+    if isinstance(library, torch.Tensor):
+      library = library.cpu().numpy()
+    return DataFeeder(mats, library=library, labels_percent=labels_percent,
+                      batch_size=batch_size, shuffle=shuffle)
+
   def fit(self,
           train,
           valid=None,
@@ -683,14 +704,24 @@ class SingleCellModel:
           freeze: Sequence[str] = (),
           verbose: bool = False) -> "SingleCellModel":
     """Train on ``train`` and validate on ``valid`` (each one matrix or a
-    list ``[rna, adt, …]``), with the JAX ``fit``'s arguments.
+    list ``[rna, adt, …]``, numpy, scipy sparse or tensor, or a
+    ``DataFeeder``), with the JAX ``fit``'s arguments and loops
+    (``train/trainer.py``):
 
-    The port has one loop, the JAX package's device-resident one
-    (``Trainer``): it validates once per window of ``metrics_interval``
-    epochs; ``valid_freq`` (steps) and ``device_cache`` belong to the
-    streaming loop and are accepted for the same signature. Early stopping
-    monitors ``val_loss`` (else ``loss``) with ``min_delta`` and
-    ``patience`` epochs.
+    * ``device_cache=False`` (the default) streams: every step's batch is
+      gathered on the host and uploaded (``transfer_dtype='int16'`` or
+      'auto' halves the upload of integral counts); validation every
+      ``valid_freq`` steps, else at each epoch's end.
+    * ``device_cache=True`` keeps the data on the device when its dense
+      bytes fit the budget (half of the card's memory, or
+      ``hbm_budget_bytes``): one fetch and one validation per window of
+      ``metrics_interval`` epochs. Larger data trains out of core: equal
+      random chunks, as many resident as fit, the rest uploaded each
+      epoch while the previous one trains, a CSR source as triplets.
+      ``device_dtype``: 'float32', 'int16' (exact) or 'bfloat16' (lossy)
+      for the data kept on the device.
+    Early stopping monitors ``val_loss`` (else ``loss``) with ``min_delta``
+    and ``patience`` epochs.
 
     ``optimizer``: 'adam', 'adamw', 'sgd', 'rmsprop', 'adamax',
     'adafactor' or 'lion' (``train/optim.py``), after
@@ -702,35 +733,39 @@ class SingleCellModel:
     gradients are still computed and BatchNorm statistics still move.
     ``callbacks``: ``TrainingCallback``s. ``checkpoint_path``: the weights
     (``train/checkpoint.save_weights``, no metamodel) are written there at
-    each new best. ``device_dtype``: 'float32', 'int16' (exact) or
-    'bfloat16' (lossy) for the resident matrices. ``profile_dir``: a
-    ``torch.profiler`` chrome trace of the fit, ``trace.json``.
+    each new best. ``profile_dir``: a ``torch.profiler`` chrome trace of
+    the fit, ``trace.json``.
 
-    Arguments of loops the port does not have yet raise
-    ``NotImplementedError``: ``scan_steps`` > 1 (ROADMAP A5),
-    ``transfer_dtype`` and ``hbm_budget_bytes`` (A18), ``mesh`` (A21)."""
+    Not ported yet, and raising ``NotImplementedError``: ``scan_steps`` >
+    1 (ROADMAP A5) and ``mesh`` (A21)."""
     if int(scan_steps) > 1:
       raise NotImplementedError("scan_steps > 1 is not ported yet "
                                 "(ROADMAP A5)")
-    if transfer_dtype is not None or hbm_budget_bytes is not None:
-      raise NotImplementedError("transfer_dtype and hbm_budget_bytes belong "
-                                "to the streaming and out-of-core loops, "
-                                "not ported yet (ROADMAP A18)")
     if mesh is not None:
       raise NotImplementedError("mesh training is not ported yet "
                                 "(ROADMAP A21)")
     if not self.is_semi_supervised:
       labels_percent = 0.0
+    train_feeder = self._to_feeder(train, batch_size, labels_percent)
+    if train_feeder.n_inputs < len(self.outputs):
+      raise ValueError(f"{train_feeder.n_inputs} data matrices for "
+                       f"{len(self.outputs)} outputs: give one per output, "
+                       "[rna, adt, …]")
+    valid_feeder = (self._to_feeder(valid, batch_size, 1.0, shuffle=False)
+                    if valid is not None else None)
+    if transfer_dtype and not device_cache:
+      train_feeder.set_transfer_dtype(transfer_dtype)
+      if valid_feeder is not None:
+        valid_feeder.set_transfer_dtype(transfer_dtype)
     trainer = Trainer(optimizer=optimizer, learning_rate=learning_rate,
-                      clipnorm=clipnorm, patience=patience,
-                      min_delta=min_delta,
+                      clipnorm=clipnorm, valid_freq=valid_freq,
+                      patience=patience, min_delta=min_delta,
                       terminate_on_nan=terminate_on_nan,
                       allow_rollback=allow_rollback, max_iter=max_iter,
+                      device_cache=device_cache, device_dtype=device_dtype,
                       metrics_interval=metrics_interval,
-                      device_dtype=device_dtype, verbose=verbose)
-    xs, lib = self._device_data(train)
-    xs = trainer.resident(xs)
-    val = self._device_data(valid) if valid is not None else None
+                      hbm_budget_bytes=hbm_budget_bytes, device=self.device,
+                      verbose=verbose)
     freeze = (freeze,) if isinstance(freeze, str) else tuple(freeze)
     self._fit_optimizer(trainer, freeze)
     if self.aux is not None and self.aux_optimizer is None:
@@ -744,10 +779,8 @@ class SingleCellModel:
     trace = (self._profile(profile_dir) if profile_dir is not None
              else contextlib.nullcontext())
     with trace:
-      trainer.fit(self, xs, lib, epochs=epochs, batch_size=batch_size,
-                  labels_percent=labels_percent, generator=self.generator,
-                  valid=val, callbacks=tuple(callbacks),
-                  checkpoint_fn=ckpt_fn)
+      trainer.fit(self, train_feeder, valid_feeder, epochs=epochs,
+                  callbacks=tuple(callbacks), checkpoint_fn=ckpt_fn)
     # one history across successive fit calls
     if self.trainer is None:
       self.trainer = trainer
@@ -890,6 +923,37 @@ class SingleCellModel:
     buf[:n] = a[:n]
     return torch.from_numpy(buf).to(self.device).view(k, B, d)
 
+  def _sparse_or_dense_batches(self, mat, k: int, B: int, n: int,
+                               dtype: torch.dtype = torch.float32,
+                               rows: Optional[np.ndarray] = None
+                               ) -> torch.Tensor:
+    """(k, B, d) device batches of one serving matrix. A scipy sparse
+    matrix whose triplets are clearly smaller than the dense block
+    uploads them, (vals, cols, rowlen), and is densified on the device
+    (``ops/sparse.py``); everything else takes ``_pad_to_batches``. The
+    padded nonzero count is bucketed (≤ 12.5% slack), as in the JAX
+    package. ``rows`` restricts to a serving chunk."""
+    if not sparse.issparse(mat):
+      return self._pad_to_batches(mat, k, B, n, dtype, rows)
+    csr = mat.tocsr()
+    indptr, d = csr.indptr, int(mat.shape[1])
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    take = None if rows is None else np.ascontiguousarray(rows[:n], np.int64)
+    nnz = (int(indptr[-1]) if take is None
+           else int((indptr[take + 1] - indptr[take]).sum()))
+    if not worthwhile(nnz, k * B, d, itemsize, itemsize):
+      return self._pad_to_batches(mat, k, B, n, dtype, rows)
+    step = max(8, 1 << (max(nnz.bit_length(), 4) - 4))
+    cap = -(-max(8, nnz) // step) * step
+    vals, cols, rowlen = csr_row_triplets(
+        indptr, csr.indices, csr.data, rows=take, cap=cap, n_rows=k * B,
+        val_dtype=_NUMPY_DTYPES[dtype], col_dtype=col_dtype_for(d))
+    if cols.dtype == np.uint16:
+      cols = cols.view(np.int16)  # see ops/sparse.column_ids
+    return densify(torch.from_numpy(vals), torch.from_numpy(cols),
+                   torch.from_numpy(rowlen), d, dtype,
+                   self.device).view(k, B, d)
+
   def _upload_dtype(self, mats, input_dtype: Optional[str]) -> torch.dtype:
     """int16 for ``input_dtype='auto'`` when every value of every encoder
     matrix is an integer below 32,767 in magnitude (exact, half the bytes
@@ -920,7 +984,8 @@ class SingleCellModel:
     n = int(mats[0].shape[0]) if n_valid is None else int(n_valid)
     B = int(batch_size)
     k = -(-n // B) if rows is None else len(rows) // B
-    xs = [self._pad_to_batches(m, k, B, n, dtype, rows) for m in mats]
+    xs = [self._sparse_or_dense_batches(m, k, B, n, dtype, rows)
+          for m in mats]
     xb = self._module_input([x.reshape(k * B, -1) for x in xs])
     lib_b = (self._pad_to_batches(library, k, B, n, rows=rows)
              if library is not None else None)

@@ -359,7 +359,8 @@ def test_scvi_label_head_fit_with_batch_on_cpu():
   w0 = m.module.decoder0.dense0.weight[:, -NB:].detach().clone()
   tz.reset_launches()
   m.fit([a[:160] for a in data], valid=[a[160:] for a in data], epochs=4,
-        batch_size=32, learning_rate=3e-3, metrics_interval=2)
+        batch_size=32, learning_rate=3e-3, metrics_interval=2,
+        device_cache=True)
   h = m.history
   assert len(h["loss"]) == 4 and len(h["val_loss"]) == 2
   assert np.isfinite(h["loss"]).all() and h["loss"][-1] < h["loss"][0]

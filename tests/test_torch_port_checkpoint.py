@@ -524,7 +524,8 @@ def test_history_json_read_back(tmp_path):
   tm = T.load_model(str(tmp_path / "jax"), device="cpu")
   assert tm.history == {"loss": [3.5, 2.25], "val_loss": [4.0]}
   x = _x(64)
-  tm.fit(x, epochs=2, batch_size=32)  # a fitted model keeps its own
+  # a fitted model keeps its own
+  tm.fit(x, epochs=2, batch_size=32, device_cache=True)
   assert len(tm.history["loss"]) == 2
   tm.save_weights(str(tmp_path / "port"))
   fitted = tm.history

@@ -387,7 +387,7 @@ def test_scvi_fit_goes_through_kernels(dev):
   m = SCVI(RVmeta(300, "zinbd", name="rna"), device="cuda",
            latents=RVmeta(4, "diag", name="latents"))
   tz.reset_launches()
-  m.fit(x, epochs=2, batch_size=32)
+  m.fit(x, epochs=2, batch_size=32, device_cache=True)
   assert tz.launches == {"zinb_rowsum_fwd": 16, "zinb_rowsum_bwd": 16}
   assert np.isfinite(m.history["loss"]).all()
   ev = m.evaluate(x[:100], batch_size=64)
@@ -441,7 +441,7 @@ def test_sisua_fit_goes_through_kernels(dev):
             device="cuda", alpha=10.0, latents=RVmeta(4, "diag", name="z"))
   tz.reset_launches()
   m.fit([x[:256], y[:256]], valid=[x[256:], y[256:]], epochs=2,
-        batch_size=32, labels_percent=0.1)
+        batch_size=32, labels_percent=0.1, device_cache=True)
   # 2 epochs × 8 steps; 2 validations × 2 batches of the 64 held-out cells
   assert tz.launches == {"zinb_rowsum_fwd": 2 * (16 + 4),
                          "zinb_rowsum_bwd": 2 * 16}
@@ -467,7 +467,7 @@ def test_models_fit_with_valid_on_card(dev, model):
   m = getattr(T, model)(outs if len(outs) > 1 else outs[0], device="cuda")
   tz.reset_launches()
   m.fit([a[:128] for a in data], valid=[a[128:] for a in data], epochs=2,
-        batch_size=32)
+        batch_size=32, device_cache=True)
   # 2 epochs × 4 steps; 2 validations of one 32-row batch
   assert tz.launches == {"zinb_rowsum_fwd": 8 + 2, "zinb_rowsum_bwd": 8}
   assert np.isfinite(m.history["loss"]).all()
@@ -518,7 +518,7 @@ def test_checkpoint_round_trip_serves_on_card(dev, tmp_path):
   y = rng.poisson(5.0, (192, 10)).astype(np.float32)
   m = SISUA([RVmeta(300, "zinb", name="rna"), RVmeta(10, "nb", name="adt")],
             device="cuda", latents=RVmeta(4, "diag", name="latents"))
-  m.fit([x[:128], y[:128]], epochs=2, batch_size=32)
+  m.fit([x[:128], y[:128]], epochs=2, batch_size=32, device_cache=True)
   m.save_weights(str(tmp_path))
   m2 = load_model(str(tmp_path), device="cuda")
   assert m2.device == torch.device("cuda", torch.cuda.current_device())
@@ -933,3 +933,108 @@ def test_chunked_leaf_round_trip_on_card(dev, tmp_path):
     back = mp.unpackb(f.read())["Imputation"]["kernel"]
   assert back.shape == (n, n) and back.flags.writeable
   assert torch.equal(torch.from_numpy(back).to(dev), w)
+
+
+# ------------------------------------- probe kernels and the host data path
+PROBE_SHAPES = [(64, 2048), (130, 1001)]  # aligned rows; ragged, 4-byte
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES, ids=["aligned", "ragged"])
+@pytest.mark.parametrize("n_fma", [1, 64, 256])
+def test_elemwise_probe_kernel(dev, n_fma, shape):
+  """Row sums against the plain version: rtol 1e-4 plus 1e-6 of the row's
+  Σ|element| (sum order; the kernel fuses each multiply-add). A long
+  chain takes a in (0, 1) so it stays finite. Twice: the same bits."""
+  from sisua_tpu_torch.ops import probe as P
+  x, a, b, c = P.probe_operands(*shape, dev, seed=n_fma)
+  if n_fma > 1:
+    a = torch.rand(shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(3))
+  got = P.elemwise_probe(x, a, b, c, n_fma)
+  ref = P.elemwise_probe_ref(x, a, b, c, n_fma)
+  acc = x
+  for _ in range(n_fma):
+    acc = acc * a + b
+  atol = 1e-6 * acc.abs().sum(-1)
+  assert torch.all((got - ref).abs() <= atol + 1e-4 * ref.abs())
+  assert torch.equal(got, P.elemwise_probe(x, a, b, c, n_fma))
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES, ids=["aligned", "ragged"])
+@pytest.mark.parametrize("which", ["lanczos", "stirling", "lgammaf"])
+def test_lgamma_probe_kernel(dev, which, shape):
+  from sisua_tpu_torch.ops import probe as P
+  x, a, b, c = P.probe_operands(*shape, dev, seed=5)
+  got = P.lgamma_probe(x, a, b, c, which)
+  ref = P.lgamma_probe_ref(x, a, b, c, which)
+  atol = 1e-6 * torch.lgamma(x + a + 1.0).abs().sum(-1)
+  assert torch.all((got - ref).abs() <= atol + 1e-4 * ref.abs())
+  assert torch.equal(got, P.lgamma_probe(x, a, b, c, which))
+
+
+def test_probes_read_every_operand(dev):
+  """A NaN planted in an operand the TPU probe never reads reaches its
+  row: the kernels move all 16 bytes of an element."""
+  from sisua_tpu_torch.ops import probe as P
+  x, a, b, c = P.probe_operands(16, 1000, dev)
+  c[3, 999] = float("nan")
+  b[9, 0] = float("nan")
+  nan = lambda t: torch.isnan(t).nonzero().flatten().tolist()  # noqa: E731
+  assert nan(P.elemwise_probe(x, a, b, c, 1)) == [3, 9]
+  assert nan(P.lgamma_probe(x, a, b, c, "lanczos")) == [3, 9]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16,
+                                   torch.bfloat16])
+def test_densify_on_the_card(dev, dtype):
+  """Pinned host triplets densified on the card, in pieces, equal the CPU
+  densify; duplicates accumulate (int16 in int16, bf16 in bf16)."""
+  import scipy.sparse as sp
+  from sisua_tpu_torch.ops import sparse as S
+  rng = np.random.default_rng(0)
+  m = sp.random(300, 5000, density=0.07, format="csr", random_state=1,
+                data_rvs=lambda n: rng.integers(1, 9, n)).astype(np.float32)
+  rows = rng.permutation(300)[:256]
+  nnz = int(np.diff(m.indptr)[rows].sum())
+  vals, cols, rowlen = S.csr_row_triplets(
+      m.indptr.astype(np.int64), m.indices.astype(np.int64), m.data, rows,
+      nnz + 100, 256, np.float32, np.uint16)
+  vals[nnz:nnz + 2] = [1.0, 2.0]  # two adds into (last row, column 0)
+  host = [torch.from_numpy(vals).to(dtype), torch.from_numpy(
+      cols.view(np.int16)), torch.from_numpy(rowlen)]
+  ref = S.densify(*host, 5000, dtype)
+  got = S.densify(*(t.pin_memory() for t in host), 5000, dtype, dev,
+                  piece=4096)
+  assert got.dtype == dtype and torch.equal(got.cpu(), ref)
+  assert float(ref[-1, 0]) == float(m[rows[-1], 0]) + 3.0
+
+
+def test_streaming_and_out_of_core_fits_on_the_card(dev):
+  """SCVI at 2,000 genes on the card: streaming with int16 transfers
+  trains bitwise like float32 transfers; out of core, the CSR matrix's
+  triplet upload trains like its dense rows (rtol 1e-6)."""
+  import scipy.sparse as sp
+  from sisua_tpu_torch.models import SCVI, RVmeta
+
+  def model():
+    return SCVI(RVmeta(2000, "zinbd", name="rna"), device=dev, seed=0,
+                latents=RVmeta(8, "diag", name="latents"),
+                encoder={"units": [32]}, decoder={"units": [32]})
+  x = np.random.default_rng(2).poisson(0.3, (4096, 2000)).astype(np.float32)
+  xs = sp.csr_matrix(x)
+  runs = {}
+  for td in (None, "int16"):
+    m = model()
+    m.fit(xs, valid=x[:512], epochs=2, batch_size=256, valid_freq=8,
+          transfer_dtype=td)
+    runs[td] = m.history["loss"]
+  assert runs[None] == runs["int16"] and np.isfinite(runs[None]).all()
+  budget = 1 << 24  # 256-row chunks: 16, 6 resident
+  hists = {}
+  for name, data in (("dense", x), ("csr", xs)):
+    m = model()
+    m.fit(data, epochs=2, batch_size=256, device_cache=True,
+          hbm_budget_bytes=budget)
+    assert m.trainer._oc_plan["sparse_sources"] == [name == "csr"]
+    hists[name] = m.history["loss"]
+  np.testing.assert_allclose(hists["csr"], hists["dense"], rtol=1e-6)

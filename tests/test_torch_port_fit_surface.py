@@ -325,19 +325,20 @@ def test_freeze_state_lives_while_the_freeze_set_does():
   as it does in JAX."""
   tm = _port_model("vae")
   x = _counts(64)
-  tm.fit(x, epochs=1, batch_size=32, freeze=("decoder",))
+  tm.fit(x, epochs=1, batch_size=32, freeze=("decoder",), device_cache=True)
   n_trainable = sum(1 for k, _ in tm.module.named_parameters()
                     if not k.startswith("decoder"))
   state = tm.optimizer.state_dict()["state"]
   assert len(state) == n_trainable
   assert all(int(s["step"]) == 2 for s in state.values())
-  tm.fit(x, epochs=1, batch_size=32, freeze=("decoder",))
+  tm.fit(x, epochs=1, batch_size=32, freeze=("decoder",), device_cache=True)
   assert all(int(s["step"]) == 4
              for s in tm.optimizer.state_dict()["state"].values())
   tm._fit_optimizer(Trainer(), ("encoder",))
   assert tm.optimizer.state_dict()["state"] == {}
   with pytest.raises(ValueError, match="matched no parameters"):
-    tm.fit(x, epochs=1, batch_size=32, freeze=("nothing_here",))
+    tm.fit(x, epochs=1, batch_size=32, freeze=("nothing_here",),
+           device_cache=True)
   jm = _jax_model("vae")
   with pytest.raises(AssertionError, match="matched no parameters"):
     jm.fit(x, epochs=1, batch_size=32, device_cache=True,
@@ -455,7 +456,7 @@ def test_callbacks_follow_jax_order_and_land_in_history():
   jcb, tcb = _JaxRecorder(), _PortRecorder()
   kw = dict(epochs=5, batch_size=32, metrics_interval=2)
   jm.fit(x, valid=x, callbacks=[jcb], device_cache=True, **kw)
-  tm.fit(x, valid=x, callbacks=[tcb], **kw)
+  tm.fit(x, valid=x, callbacks=[tcb], **kw, device_cache=True)
   assert tcb.calls == jcb.calls
   for k in ("begun", "ended"):
     assert tm.history[k] == list(jm.history[k]) and len(tm.history[k]) == 5
@@ -479,7 +480,7 @@ def test_checkpoint_path_holds_the_rolled_back_best(tmp_path, monkeypatch):
   losses_by_epoch = list(losses)
   tm._train_step = step
   tm.fit(_counts(64), epochs=6, batch_size=32, patience=2,
-         checkpoint_path=str(tmp_path))
+         checkpoint_path=str(tmp_path), device_cache=True)
   assert writes == [2, 4] and tm.step == 4 and len(tm.history["loss"]) == 4
   fresh = _port_model("vae")
   fresh.load_weights(str(tmp_path), raise_notfound=True)
@@ -500,7 +501,7 @@ def test_track_gradient_norms_averages_the_step_norms():
     return m
   tm._train_step = step
   tm.fit(_counts(96), epochs=2, batch_size=32, track_gradient_norms=True,
-         clipnorm=1.0)
+         clipnorm=1.0, device_cache=True)
   np.testing.assert_allclose(tm.history["grad_norm"],
                              [np.mean(norms[:3]), np.mean(norms[3:])],
                              rtol=1e-6)
@@ -516,7 +517,7 @@ def test_device_dtype_storage():
   fits = {}
   for dd in ("float32", "int16"):
     tm = _port_model("vae")
-    tm.fit(x, epochs=2, batch_size=32, device_dtype=dd)
+    tm.fit(x, epochs=2, batch_size=32, device_dtype=dd, device_cache=True)
     fits[dd] = tm
   assert fits["int16"].history["loss"] == fits["float32"].history["loss"]
   for k, v in fits["int16"].module.state_dict().items():
@@ -527,7 +528,7 @@ def test_device_dtype_storage():
   frac = x + 0.5
   with pytest.raises(ValueError) as port_err:
     _port_model("vae").fit(frac, epochs=1, batch_size=32,
-                           device_dtype="int16")
+                           device_dtype="int16", device_cache=True)
   with pytest.raises(ValueError) as jax_err:
     _jax_model("vae").fit(frac, epochs=1, batch_size=32, device_cache=True,
                           device_dtype="int16")
@@ -536,26 +537,25 @@ def test_device_dtype_storage():
   (bf,) = Trainer(device_dtype="bfloat16").resident([torch.tensor(y)])
   assert torch.equal(bf, torch.tensor(y).to(torch.bfloat16))
   a, b = _port_model("vae"), _port_model("vae")
-  a.fit(y, epochs=1, batch_size=32, device_dtype="bfloat16")
-  b.fit(bf.float().numpy(), epochs=1, batch_size=32)
+  a.fit(y, epochs=1, batch_size=32, device_dtype="bfloat16", device_cache=True)
+  b.fit(bf.float().numpy(), epochs=1, batch_size=32, device_cache=True)
   assert a.history["loss"] == b.history["loss"]
 
 
 def test_profile_dir_writes_a_trace(tmp_path):
   tm = _port_model("vae_plain")
-  tm.fit(_counts(32), epochs=1, batch_size=32, profile_dir=str(tmp_path))
+  tm.fit(_counts(32), epochs=1, batch_size=32, profile_dir=str(tmp_path),
+         device_cache=True)
   assert (tmp_path / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("kw", [dict(scan_steps=4),
-                                dict(transfer_dtype="int16"),
-                                dict(hbm_budget_bytes=1 << 20),
-                                dict(mesh=object())],
-                         ids=["scan_steps", "transfer_dtype", "hbm_budget",
-                              "mesh"])
+@pytest.mark.parametrize("kw", [dict(scan_steps=4), dict(mesh=object())],
+                         ids=["scan_steps", "mesh"])
 def test_later_items_raise(kw):
   """Arguments of loops the port does not have name their ROADMAP item
-  instead of being ignored."""
+  instead of being ignored (``transfer_dtype`` and ``hbm_budget_bytes``
+  work since the streaming and out-of-core loops came:
+  ``tests/test_torch_port_out_of_core.py``)."""
   with pytest.raises(NotImplementedError, match="ROADMAP A"):
     _port_model("vae_plain").fit(_counts(32), epochs=1, batch_size=32, **kw)
 
@@ -567,12 +567,13 @@ def test_a_second_fit_takes_its_own_learning_rate():
   call's optimizer, rate and all)."""
   tm = _port_model("vae_plain")
   x = _counts(64)
-  tm.fit(x, epochs=1, batch_size=32, learning_rate=1e-2)
+  tm.fit(x, epochs=1, batch_size=32, learning_rate=1e-2, device_cache=True)
   after = {k: v.detach().clone() for k, v in tm.module.named_parameters()}
-  tm.fit(x, epochs=1, batch_size=32, learning_rate=0.0)
+  tm.fit(x, epochs=1, batch_size=32, learning_rate=0.0, device_cache=True)
   for k, v in tm.module.named_parameters():
     assert torch.equal(v, after[k]), k
   assert tm.step == 4
   assert isinstance(tm.optimizer, ClippedOptimizer)
-  tm.fit(x, epochs=1, batch_size=32, optimizer="sgd", learning_rate=0.0)
+  tm.fit(x, epochs=1, batch_size=32, optimizer="sgd", learning_rate=0.0,
+         device_cache=True)
   assert tm.optimizer.name == "sgd"

@@ -292,7 +292,7 @@ def test_sisua_fit_with_valid_on_cpu():
   tz.reset_launches()
   m.fit([x[:256], y[:256]], valid=[x[256:], torch.tensor(y[256:])],
         epochs=6, batch_size=32, learning_rate=3e-3, labels_percent=0.1,
-        metrics_interval=2)
+        metrics_interval=2, device_cache=True)
   h = m.history
   assert len(h["loss"]) == 6 and m.step == 6 * 8
   assert {"llk_x", "llk_x1", "klqp_z", "val_loss", "val_llk_x1"} <= set(h)
@@ -302,7 +302,7 @@ def test_sisua_fit_with_valid_on_cpu():
   assert np.isfinite(list(ev.values())).all() and "llk_x1" in ev
   assert tz.launches == {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
   with pytest.raises(ValueError, match="one per output"):
-    m.fit(x, epochs=1)
+    m.fit(x, epochs=1, device_cache=True)
   with pytest.raises(ValueError, match="rows"):
     m.evaluate([x, y[:10]])
 
@@ -314,7 +314,8 @@ def test_models_fit_with_valid_on_cpu(name):
   xs, _ = _data(name, seed=3, n=192)
   m = _models(name, False, TRV, T, device="cpu")
   m.fit([a[:160] for a in xs], valid=[a[160:] for a in xs], epochs=4,
-        batch_size=32, learning_rate=3e-3, metrics_interval=2)
+        batch_size=32, learning_rate=3e-3, metrics_interval=2,
+        device_cache=True)
   h = m.history
   assert len(h["loss"]) == 4 and len(h["val_loss"]) == 2
   assert np.isfinite(h["loss"]).all() and h["loss"][-1] < h["loss"][0]
@@ -347,7 +348,7 @@ def _scripted_fit(train, valid=None, **fit_kw):
   m._evaluate = lambda *a, **k: {"loss": float(next(vals))}
   x = np.ones((N_ROWS, 4), np.float32)
   m.fit(x, valid=x if valid is not None else None, epochs=len(train),
-        batch_size=N_ROWS // STEPS, **fit_kw)
+        batch_size=N_ROWS // STEPS, **fit_kw, device_cache=True)
   return m, float(first.detach().flatten()[0]) / STEPS
 
 

@@ -667,7 +667,8 @@ def test_fit_on_cpu(name):
   m = _build(name, TRV, T, device="cpu")
   tz.reset_launches()
   m.fit([a[:160] for a in data], valid=[a[160:] for a in data], epochs=4,
-        batch_size=32, learning_rate=3e-3, metrics_interval=2)
+        batch_size=32, learning_rate=3e-3, metrics_interval=2,
+        device_cache=True)
   h = m.history
   assert len(h["loss"]) == 4 and len(h["val_loss"]) == 2
   assert np.isfinite(h["loss"]).all() and h["loss"][-1] < h["loss"][0]

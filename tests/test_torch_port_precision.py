@@ -495,7 +495,7 @@ def test_bf16_fit_predict_and_checkpoint_round_trip(tmp_path):
   byte."""
   b = _batch("scvi", n=64)
   tm = _build("scvi", TRV, T, compute_dtype="bfloat16", device="cpu")
-  tm.fit(b["inputs"][0], epochs=2, batch_size=32)
+  tm.fit(b["inputs"][0], epochs=2, batch_size=32, device_cache=True)
   assert np.isfinite(tm.history["loss"]).all()
   assert all(p.dtype == torch.float32 for p in tm.module.parameters())
   xm, zm = tm.predict_mean(b["inputs"][0], batch_size=32)

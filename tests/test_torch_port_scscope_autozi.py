@@ -528,8 +528,10 @@ def test_autozi_n_total_cells_is_stale_on_refit(monkeypatch):
   seen = []
   for m in (jm, tm):
     m._n_total_cells = None
-    m.fit([np.zeros((40, G), np.float32), x[1][:1].repeat(40, 0)])
-    m.fit([np.zeros((60, G), np.float32), x[1][:1].repeat(60, 0)])
+    m.fit([np.zeros((40, G), np.float32), x[1][:1].repeat(40, 0)],
+          device_cache=True)
+    m.fit([np.zeros((60, G), np.float32), x[1][:1].repeat(60, 0)],
+          device_cache=True)
     seen.append((m._n_total_cells, m._init_kwargs_for_save["n_total_cells"]))
   assert seen[0] == seen[1] == (40, 40)
 

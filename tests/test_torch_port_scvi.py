@@ -259,7 +259,8 @@ def test_fit_on_cpu_loss_falls_and_history():
   x, _ = _data(seed=2, n=256)
   m = _small_model()
   tz.reset_launches()
-  m.fit(x, epochs=6, batch_size=32, learning_rate=3e-3, metrics_interval=2)
+  m.fit(x, epochs=6, batch_size=32, learning_rate=3e-3, metrics_interval=2,
+        device_cache=True)
   h = m.history
   assert len(h["loss"]) == 6 and m.step == 6 * 8
   assert {"loss", "elbo", "llk_x", "klqp_z", "klqp_z1", "beta",
@@ -270,7 +271,7 @@ def test_fit_on_cpu_loss_falls_and_history():
   assert np.isfinite(list(ev.values())).all() and "llk_x" in ev
   assert tz.launches == {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
   # a second fit continues the step count and the history
-  m.fit(torch.tensor(x), epochs=1, batch_size=32)
+  m.fit(torch.tensor(x), epochs=1, batch_size=32, device_cache=True)
   assert len(m.history["loss"]) == 7 and m.step == 7 * 8
 
 
@@ -287,7 +288,7 @@ def test_fit_nan_stops_and_rolls_back():
     return real(batch)
 
   m._train_step = poisoned
-  m.fit(x, epochs=8, batch_size=32)
+  m.fit(x, epochs=8, batch_size=32, device_cache=True)
   assert len(m.history["loss"]) == 4 and not np.isfinite(
       m.history["loss"][-1])
   assert all(torch.isfinite(p).all() for p in m.module.parameters())
@@ -297,7 +298,8 @@ def test_fit_nan_stops_and_rolls_back():
 def test_fit_max_iter_stops_at_window_boundary():
   x, _ = _data(seed=4, n=128)
   m = _small_model()
-  m.fit(x, epochs=10, batch_size=32, max_iter=5, metrics_interval=2)
+  m.fit(x, epochs=10, batch_size=32, max_iter=5, metrics_interval=2,
+        device_cache=True)
   assert m.step == 8 and len(m.history["loss"]) == 2
 
 

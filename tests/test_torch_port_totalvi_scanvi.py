@@ -322,7 +322,8 @@ def test_totalvi_low_budget_warning():
   jm, tm = _pair("totalvi_mask")
   data = _data("totalvi_mask", n=64)
   with pytest.warns(UserWarning, match="mask_renorm"):
-    tm.fit(data, epochs=1, batch_size=32, labels_percent=0.05)
+    tm.fit(data, epochs=1, batch_size=32, labels_percent=0.05,
+           device_cache=True)
   assert tm.is_semi_supervised and tm.mask_protein
   _, unmasked = _pair("totalvi")
   assert not unmasked.is_semi_supervised
@@ -499,7 +500,7 @@ def test_fit_with_valid_on_cpu(name):
   tz.reset_launches()
   m.fit([a[:160] for a in data], valid=[a[160:] for a in data], epochs=4,
         batch_size=32, learning_rate=3e-3, metrics_interval=2,
-        labels_percent=0.5)
+        labels_percent=0.5, device_cache=True)
   h = m.history
   assert len(h["loss"]) == 4 and len(h["val_loss"]) == 2
   assert np.isfinite(h["loss"]).all() and h["loss"][-1] < h["loss"][0]

@@ -243,11 +243,17 @@ def test_cpu_uses_plain_version_and_cuda_path_raises():
 def test_build_command_targets_hopper(tmp_path):
   """The kernels build with nvcc for sm_90a into the git-ignored build/
   directory, under a name keyed by the sources, with FMA contraction on
-  (the kernels pass the card's tolerances with it) and the ptxas report."""
-  cmd = _build.nvcc_command(tmp_path / "lib.so")
-  assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-  assert "--fmad=false" not in cmd and "-v" in cmd
-  assert cmd[-1].endswith("csrc/zinb.cu")
+  (the kernels pass the card's tolerances with it) and the ptxas report:
+  one compile per source (zinb.cu and probe.cu), then one link."""
+  compiles, link = _build.nvcc_commands(tmp_path / "lib.so")
+  assert [c[-1].rsplit("/", 1)[-1] for c in compiles] == ["zinb.cu",
+                                                          "probe.cu"]
+  for cmd in compiles:
+    assert cmd[-1].startswith(str(_build._CSRC))
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
+    assert "--fmad=false" not in cmd and "-v" in cmd
+  assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
+  assert link[link.index("-o") + 1] == str(tmp_path / "lib.so")
   path = _build.library_path()
   assert path.parent.parent.name == "build"
   assert path.name.startswith("libsisua_kernels_") and path.suffix == ".so"

@@ -476,7 +476,7 @@ def test_zoo_fit_with_valid_on_cpu(name):
   tz.reset_launches()
   m.fit([a[:160] for a in data], valid=[a[160:] for a in data], epochs=4,
         batch_size=32, learning_rate=3e-3, metrics_interval=2,
-        labels_percent=0.5)
+        labels_percent=0.5, device_cache=True)
   h = m.history
   assert len(h["loss"]) == 4 and len(h["val_loss"]) == 2
   assert np.isfinite(h["loss"]).all() and h["loss"][-1] < h["loss"][0]
@@ -502,7 +502,7 @@ def test_fvae_rollback_restores_the_discriminator():
                  copy.deepcopy(m.module.state_dict())))
     return {"loss": next(vals)}
   m._evaluate = scripted
-  m.fit(x, valid=x, epochs=4, batch_size=16, patience=2)
+  m.fit(x, valid=x, epochs=4, batch_size=16, patience=2, device_cache=True)
   assert len(m.history["loss"]) == 4 and m.step == 2 * 4
   aux, opt, module = seen[1]
   assert all(torch.equal(v, aux[k]) for k, v in m.aux.state_dict().items())

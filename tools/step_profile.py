@@ -113,7 +113,8 @@ def profile(torch, cs, name, data):
   n = 8 * cs.BATCH
   model.fit(_inputs(cs, name, data, slice(0, n)), epochs=1,
             batch_size=cs.BATCH, labels_percent=cs.LABELS_PERCENT,
-            learning_rate=cs.SCSCOPE_LR if name == "scscope" else 1e-3)
+            learning_rate=cs.SCSCOPE_LR if name == "scscope" else 1e-3,
+            device_cache=True)
   batches = []
   for i in range(STEPS):
     rows = slice(i * cs.BATCH, (i + 1) * cs.BATCH)
