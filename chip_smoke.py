@@ -170,13 +170,38 @@ before the final line:
      over 32 streamed steps under ``torch.profiler``. (e) ``predict_mean``
      of the held-out cells as CSR (triplets densified on the card) equal
      to the dense call bitwise.
+ 15. the vmapped ensemble (``train/ensemble.py``) and ``scan_steps``.
+     (e) runs first, on phase 14b's CSR: the streamed fit with
+     ``scan_steps=4`` on 127 batches (124 steps, a multiple of 4) against
+     k = 1 stopped at the same step: the same loss (rtol 1e-4), ms a step
+     of each. (a) both kernels with 4 members in one launch at
+     4 × 512 × 33,000 (``MEMBER_CASES``: x shared through a member stride
+     of 0 or per member, θ (B, D) or per gene, float32 and bf16
+     operands) against their plain versions over the member axis with
+     phase 3's tolerances, twice for the same bits, and one member
+     bitwise equal to the (B, D) launch; µs per call beside the bound
+     (a shared x counted once). (b) one fleet step of 4 SCVI members
+     (phase 4's nets, 'zinbd', full dispersion) against 4 single-model
+     steps on the same batch, noise and dropout masks (loss rtol 1e-4,
+     gradients within phase 7's bound, parameters within 2·lr); then a
+     ``VmapEnsemble`` of 4 members, shared batches, 4 epochs in windows
+     of 2, from launch counts of 0: each kernel once per fleet step,
+     every member's loss finite and falling, members different; steady
+     ms a fleet step beside phase 4's single-model step, cells/s summed
+     over members, the device's idle share over one profiled epoch, peak
+     memory. (c) one window with ``shared_batches=False``. (d)
+     ``fit_hyper_vmap`` at the JAX defaults (learning rates 1e-4, 3e-4,
+     1e-3, 3e-3), 2 epochs: every trial finite, the best served with
+     ``predict_mean`` on the held-out cells.
 Earlier phases train through ``fit(device_cache=True)``, the loop they
 were written for. Before the last line it prints the kernels' JSON summary
 (launches of the phase 4 and phase 6 fits, of phase 8 and of phases 9 to
-14's fits and round trips and phase 14a's probe run; time, plain time and
+15's fits and round trips and phase 14a's probe run; time, plain time and
 bound at 512 × 33,000 'main_full', and under ``bf16_operands`` /
 ``bf16_writes`` the bf16 modes' at the same shape with phase 13a's
-launches; the probes' at 1024 × 33,000, ``sol_mem`` and ``lg_lgammaf``);
+launches, under ``members`` the 4-member launch's at 15a's
+'fleet_full_shared' with phase 15b–d's launches; the probes' at
+1024 × 33,000, ``sol_mem`` and ``lg_lgammaf``);
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX.
 """
@@ -234,6 +259,7 @@ F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 # comparison, exp, log and log1p as one, an lgammaf as 20
 OPS = {"fwd": (30, 95), "bwd": (55, 110)}  # (zero count, nonzero count)
 IW_SAMPLES, IW_BATCH, IW_CELLS = 100, 32, 256
+PHASE4 = {}  # phase 4's steady single-model step ms, beside phase 15's fleet
 
 
 def log(msg):
@@ -536,13 +562,13 @@ def phase_kernels(torch):
   return results
 
 
-def _scvi(torch, dispersion, **kw):
+def _scvi(torch, dispersion, seed=SEED, **kw):
   from sisua_tpu_torch.models import SCVI, RVmeta
   return SCVI(RVmeta(GENES, "zinbd", name="rna"),
               latents=RVmeta(16, "diag", name="latents"),
               encoder={"units": [128, 128], "batchnorm": True},
               decoder={"units": [128, 128], "batchnorm": True},
-              dispersion=dispersion, device=DEVICE, seed=SEED, **kw)
+              dispersion=dispersion, device=DEVICE, seed=seed, **kw)
 
 
 def phase_data(torch):
@@ -597,6 +623,7 @@ def phase_fit(torch, x, held):
                          "zinb_rowsum_bwd": steps},
         f"launches {fit_launches} != {steps} steps")
   step_ms, cells_s, peak = _steady(h, torch)
+  PHASE4["step_ms"] = step_ms
   log(f"[4 fit] {steps} steps in {fit_s:.1f} s; loss first window "
       f"{first:.2f} last window {last:.2f}; steady step {step_ms:.3f} ms, "
       f"{cells_s:.0f} cells/s (last window); peak memory "
@@ -2443,6 +2470,377 @@ def phase_sparse_serving(torch, model, held):
       f"CSR (triplets, {held_csr.nnz:,} nonzeros) bitwise equal to dense")
 
 
+FLEET = 4                # members of phase 15's ensembles
+FLEET_EPOCHS = 4
+FLEET_WINDOW = 2         # metrics_interval of the fleet's fit
+FLEET_LR, FLEET_CLIP = 1e-3, 100.0
+HYPER_LRS = (1e-4, 3e-4, 1e-3, 3e-3)  # fit_hyper_vmap's defaults
+HYPER_EPOCHS = 2
+SCAN_K = 4
+# phase-15a cases: name, x shared by the members, per-gene θ, bf16 operands
+MEMBER_CASES = (
+    ("fleet_full_shared", True, False, False),
+    ("fleet_full_member", False, False, False),
+    ("fleet_gene_shared", True, True, False),
+    ("fleet_full_shared_bf16", True, False, True),
+)
+
+
+def _member_case(torch, gen, x_shared, per_gene, bf16):
+  """FLEET members' operands at 512 × 33,000: x (1 or FLEET, B, D), θ
+  per element as log θ ('full') or per gene as θ ('single'), logits and
+  gate per element, the row cotangents (FLEET, B)."""
+  m = FLEET
+  x = torch.stack([_counts(torch, gen, BATCH, GENES)
+                   for _ in range(1 if x_shared else m)])
+  rows = 1 if per_gene else BATCH
+  cr = torch.randn((m, rows, GENES), generator=gen, device=DEVICE)
+  if per_gene:
+    cr = torch.exp(0.5 + 0.7 * cr)
+  lg = torch.randn((m, BATCH, GENES), generator=gen, device=DEVICE) - 2.0
+  gt = torch.randn((m, BATCH, GENES), generator=gen, device=DEVICE) - 1.0
+  if bf16:
+    lg, gt = lg.to(torch.bfloat16), gt.to(torch.bfloat16)
+    if not per_gene:
+      cr = cr.to(torch.bfloat16)
+  g = torch.randn((m, BATCH), generator=gen, device=DEVICE)
+  return x, cr, lg, gt, g, per_gene
+
+
+def member_bounds(x, cr, lg, gt, need):
+  """``kernel_bounds`` for a member-batched call: every operand's bytes
+  read once (a shared x once for all members), each member's outputs
+  written once, and the operations of every member's elements."""
+  from sisua_tpu_torch.ops import zinb as tz
+  m, b, d = lg.shape
+  reads = sum(t.numel() * t.element_size() for t in (x, cr, lg, gt))
+  full = tz._write_dtype((cr, lg, gt)).itemsize
+  written = {"fwd": 4 * m * b, "bwd": sum(
+      p.numel() * (4 if p.shape[1] == 1 else full)
+      for p, n in zip((cr, lg, gt), need) if n)}
+  read = {"fwd": reads, "bwd": reads + 4 * m * b}
+  nz = int((x > 0).sum()) * (m // x.shape[0])
+  out = {}
+  for k, (ops_zero, ops_count) in OPS.items():
+    t_bytes = (read[k] + written[k]) / HBM_BYTES_PER_S * 1e6
+    t_ops = ((m * b * d - nz) * ops_zero + nz * ops_count) \
+        / F32_OPS_PER_S * 1e6
+    out[k] = ((t_bytes, "bytes") if t_bytes >= t_ops
+              else (t_ops, "operations"))
+  return out
+
+
+def _check_members(torch, tz, name, x, cr, lg, gt, g, constrained):
+  """One member-batched case against the plain versions over the member
+  axis (phase 3's tolerances, a bf16-written field within 1 bf16 ulp),
+  run twice for the same bits. Returns (forward, gradient) max|Δ|."""
+  import numpy as np
+  m, need = FLEET, (True, True, True)
+  out = tz._fwd_launch(x, cr, lg, gt, constrained, members=m)
+  grads = tz._bwd_launch(x, cr, lg, gt, g, constrained, need, members=m)
+  torch.cuda.synchronize()
+  xm = x.expand(m, -1, -1)
+  o = out.cpu().numpy()
+  r = tz._rowsum_ref(xm, cr, lg, gt, constrained).cpu().numpy()
+  check(out.shape == (m, BATCH) and np.isfinite(o).all(),
+        f"{name}: forward {tuple(out.shape)} not finite")
+  np.testing.assert_allclose(o, r, rtol=FWD_RTOL, err_msg=f"{name}: fwd")
+  params = (cr, lg, gt)
+  refs = tz._grads_ref(xm, cr, lg, gt, g, constrained, need)
+  terms = tz._zinb_grads_elem(xm, *(tz._widen(p) for p in params),
+                              constrained)
+  bf16_full = tz._write_dtype(params) == torch.bfloat16
+  bwd_err = 0.0
+  for field, a, b, t, p in zip(("theta", "logits", "gate"), grads, refs,
+                               terms, params):
+    check(a.shape == b.shape == p.shape and a.dtype == p.dtype,
+          f"{name}: {field} {tuple(a.shape)} {a.dtype}")
+    atol, rtol = GRAD_TOL["atol"], GRAD_TOL["rtol"]
+    if p.shape[1] == 1:  # per-gene: a sum over each member's rows
+      atol = atol + SUM_ULPS * (g[..., None] * t).abs().sum(
+          1, keepdim=True).cpu().numpy()
+    elif bf16_full:
+      check(torch.equal(a, a.to(torch.bfloat16).to(a.dtype)),
+            f"{name}: {field} written wider than bf16")
+      rtol = BF16_GRAD_RTOL
+    a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+    bad = ~(np.abs(a - b) <= atol + rtol * np.abs(b))
+    check(not bad.any(), f"{name}: d{field} {bad.sum()} of {bad.size} off")
+    bwd_err = max(bwd_err, float(np.abs(a - b).max()))
+  del refs, terms
+  check(torch.equal(out, tz._fwd_launch(x, cr, lg, gt, constrained,
+                                        members=m)),
+        f"{name}: forward not bitwise reproducible")
+  twice = tz._bwd_launch(x, cr, lg, gt, g, constrained, need, members=m)
+  check(all(torch.equal(u, v) for u, v in zip(grads, twice)),
+        f"{name}: backward not bitwise reproducible")
+  # one member in the member-batched launch: the (B, D) launch's bits
+  one = [t[:1] for t in (x, cr, lg, gt, g)]
+  check(torch.equal(tz._fwd_launch(*one[:4], constrained, members=1)[0],
+                    tz._fwd_launch(*(t[0] for t in one[:4]), constrained)),
+        f"{name}: M = 1 forward differs from the (B, D) launch")
+  got = tz._bwd_launch(*one, constrained, need, members=1)
+  ref1 = tz._bwd_launch(*(t[0] for t in one), constrained, need)
+  check(all(torch.equal(u[0], v) for u, v in zip(got, ref1)),
+        f"{name}: M = 1 backward differs from the (B, D) launch")
+  return float(np.abs(o - r).max()), bwd_err
+
+
+def phase_member_kernels(torch):
+  """Phase 15a: both kernels with FLEET members in one launch, against
+  their plain versions; µs per call beside the bound."""
+  from sisua_tpu_torch.ops import zinb as tz
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+  results = {}
+  for name, x_shared, per_gene, bf16 in MEMBER_CASES:
+    x, cr, lg, gt, g, constrained = _member_case(torch, gen, x_shared,
+                                                 per_gene, bf16)
+    need = (True, True, True)
+    fwd_err, bwd_err = _check_members(torch, tz, name, x, cr, lg, gt, g,
+                                      constrained)
+    xm = x.expand(FLEET, -1, -1)
+    t_fwd = _time_turns(torch, {
+        "plain": lambda: tz._rowsum_ref(xm, cr, lg, gt, constrained),
+        "kernel": lambda: tz._fwd_launch(x, cr, lg, gt, constrained,
+                                         members=FLEET)}, reps=5, rounds=2)
+    t_bwd = _time_turns(torch, {
+        "plain": lambda: tz._grads_ref(xm, cr, lg, gt, g, constrained,
+                                       need),
+        "kernel": lambda: tz._bwd_launch(x, cr, lg, gt, g, constrained,
+                                         need, members=FLEET)},
+        reps=5, rounds=2)
+    bounds = member_bounds(x, cr, lg, gt, need)
+    results[name] = dict(fwd_err=fwd_err, bwd_err=bwd_err, t_fwd=t_fwd,
+                         t_bwd=t_bwd, bounds=bounds)
+    log(f"[15a members] {name} {FLEET} × {BATCH} × {GENES} x "
+        f"{'shared' if x_shared else 'per member'} θ "
+        f"{'per gene' if per_gene else '(B, D)'}"
+        f"{' bf16 operands' if bf16 else ''}: fwd max|Δ| {fwd_err:.3e} "
+        f"kernel {t_fwd['kernel']:.1f} µs plain {t_fwd['plain']:.1f} µs "
+        f"bound {bounds['fwd'][0]:.1f} µs ({bounds['fwd'][1]}) share "
+        f"{bounds['fwd'][0] / t_fwd['kernel']:.1%} | bwd max|Δ| "
+        f"{bwd_err:.3e} kernel {t_bwd['kernel']:.1f} µs plain "
+        f"{t_bwd['plain']:.1f} µs bound {bounds['bwd'][0]:.1f} µs "
+        f"({bounds['bwd'][1]}) share "
+        f"{bounds['bwd'][0] / t_bwd['kernel']:.1%}; bitwise reproducible; "
+        f"M = 1 bitwise equal to the (B, D) launch")
+    del x, cr, lg, gt, g, xm
+  torch.cuda.empty_cache()
+  return results
+
+
+def _fleet_against_singles(torch, x, library):
+  """Phase 15b's first check: one fleet step against FLEET single-model
+  steps (each its own ClippedAdam) on one batch with the same noise and
+  dropout masks. Loss rtol ROUTE_LOSS_RTOL; gradients within phase 7's
+  bound; parameters after the step within 2·lr (Adam's first step moves
+  an element by at most lr, and by ±lr wherever the gradient is rounding
+  noise: the biases ahead of a BatchNorm)."""
+  import numpy as np
+  from sisua_tpu_torch.nn import DropoutMasks
+  from sisua_tpu_torch.ops import zinb as tz
+  from sisua_tpu_torch.train import ClippedAdam, VmapEnsemble
+  make = lambda s: _scvi(torch, "full", seed=SEED + s)  # noqa: E731
+  ens = VmapEnsemble(make, n_models=FLEET)
+  ens._stacked = ens._stack_states()
+  batch = {"inputs": [x[:BATCH]], "mask": torch.ones(BATCH, device=DEVICE),
+           "library": library[:BATCH]}
+  plan = ens._draw_plan(batch)
+  step_fn = ens._make_step(True, True, plan)
+  noise, masks = ens._draws(plan)
+  tz.reset_launches()
+  loss, _, grads = ens._train_step(step_fn, batch, noise, masks, FLEET_LR,
+                                   FLEET_CLIP)
+  torch.cuda.synchronize()
+  check(tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1},
+        f"fleet step launches {tz.launches}")
+  worst_loss = worst_grad = worst_p = 0.0
+  off = total = 0
+  for i, m in enumerate(ens.models):
+    m.optimizer = ClippedAdam(m.module.parameters(), FLEET_LR, FLEET_CLIP)
+    li, _, _ = m._loss(batch, True, m.beta(m.step),
+                       noise=[n[i] for n in noise],
+                       masks=DropoutMasks([k[i] for k in masks]))
+    m.module.zero_grad(set_to_none=True)
+    li.backward()
+    gi = {k: p.grad.detach().clone() for k, p in m.module.named_parameters()}
+    m.optimizer.step()
+    li = float(li.detach())
+    worst_loss = max(worst_loss, abs(float(loss[i]) - li) / abs(li))
+    scale = max(float(g.abs().max()) for g in gi.values())
+    for k, g in gi.items():
+      bound = float(g.abs().max()) + 1e-3 * scale
+      worst_grad = max(worst_grad,
+                       float((grads[k][i] - g).abs().max()) / bound)
+    for k, p in m.module.named_parameters():
+      d = (ens._stacked["params"][k][i] - p.detach()).abs()
+      worst_p = max(worst_p, float(d.max()))
+      off += int((d > 1e-2 * FLEET_LR).sum())
+      total += d.numel()
+  check(worst_loss <= ROUTE_LOSS_RTOL, f"fleet loss off by {worst_loss}")
+  check(worst_grad <= ROUTE_GRAD_BOUND,
+        f"fleet gradient off by {worst_grad:.2e} of max|g| + 1e-3·G")
+  check(worst_p <= 2 * FLEET_LR * (1 + 1e-6),
+        f"fleet parameter off by {worst_p:.3e} > 2·lr")
+  log(f"[15b fleet] one fleet step vs {FLEET} single SCVI steps (one "
+      f"launch of each kernel for the fleet): loss rel {worst_loss:.2e} "
+      f"(bound {ROUTE_LOSS_RTOL}); worst gradient max|Δ|/(max|g|+1e-3·G) "
+      f"{worst_grad:.2e} (bound {ROUTE_GRAD_BOUND}); parameters after the "
+      f"step max|Δ| {worst_p / FLEET_LR:.3f}·lr (bound 2·lr), "
+      f"{off} of {total} elements beyond 1e-2·lr")
+  del ens, grads
+
+
+def phase_fleet(torch, x, held, library, smi):
+  """Phase 15b–d: VmapEnsemble and fit_hyper_vmap at 33,000 genes on
+  phase 4's counts. Returns the main path's ZINB launches."""
+  import numpy as np
+  from torch.profiler import ProfilerActivity, profile
+  from sisua_tpu_torch.models.hyper_params import fit_hyper_vmap
+  from sisua_tpu_torch.ops import zinb as tz
+  from sisua_tpu_torch.train import VmapEnsemble
+  total = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+  _fleet_against_singles(torch, x, library)
+  torch.cuda.empty_cache()
+  steps_epoch = CELLS // BATCH
+  make = lambda s: _scvi(torch, "full", seed=SEED + s)  # noqa: E731
+  ens = VmapEnsemble(make, n_models=FLEET)
+  torch.cuda.reset_peak_memory_stats()
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  ens.fit(x, epochs=FLEET_EPOCHS, batch_size=BATCH, learning_rate=FLEET_LR,
+          clipnorm=FLEET_CLIP, metrics_interval=FLEET_WINDOW)
+  torch.cuda.synchronize()
+  fit_s = time.perf_counter() - t0
+  steps = FLEET_EPOCHS * steps_epoch
+  check(tz.launches == {"zinb_rowsum_fwd": steps, "zinb_rowsum_bwd": steps},
+        f"fleet launches {tz.launches} != {steps} fleet steps")
+  for k in total:
+    total[k] += tz.launches[k]
+  loss = ens.history["loss"]
+  check(loss.shape == (FLEET_EPOCHS, FLEET) and np.isfinite(loss).all()
+        and (loss[-1] < loss[0]).all(), f"fleet losses {loss}")
+  check(len(np.unique(loss[-1])) == FLEET, f"members alike: {loss[-1]}")
+  epoch_s = float(np.median(ens.history["epoch_time"][-FLEET_WINDOW:]))
+  step_ms = epoch_s / steps_epoch * 1e3
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  tz.reset_launches()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               acc_events=True) as prof:
+    ens.fit(x, epochs=1, batch_size=BATCH, learning_rate=FLEET_LR,
+            clipnorm=FLEET_CLIP)
+    torch.cuda.synchronize()
+  for k in total:
+    total[k] += tz.launches[k]
+  dev = [e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA]
+  ops = [e for e in dev if not (e.is_user_annotation or "#" in e.name)]
+  busy = _union_us([e.time_range for e in ops]) / 1e3 / steps_epoch
+  log(f"[15b fleet] VmapEnsemble of {FLEET} SCVI ('zinbd', full "
+      f"dispersion, phase 4's nets) on {CELLS} × {GENES}, batch {BATCH}, "
+      f"shared batches, {FLEET_EPOCHS} epochs in windows of "
+      f"{FLEET_WINDOW}: {steps} fleet steps in {fit_s:.1f} s; losses first "
+      f"epoch {[round(float(v), 2) for v in loss[0]]} last "
+      f"{[round(float(v), 2) for v in loss[-1]]}; steady {step_ms:.3f} ms a "
+      f"fleet "
+      f"step ({PHASE4.get('step_ms', float('nan')):.3f} ms a single-model "
+      f"step in phase 4), {FLEET * CELLS / epoch_s:.0f} cells/s summed over "
+      f"members; device busy {busy:.3f} ms a step, idle "
+      f"{1 - busy / step_ms:.1%} (one profiled epoch, "
+      f"{len(ops) / steps_epoch:.0f} device operations a step); peak "
+      f"memory {peak:.2f} GiB; launches {steps} each, once per fleet step")
+  # 15c: one window with each member's own batches
+  tz.reset_launches()
+  ens.fit(x, epochs=FLEET_WINDOW, batch_size=BATCH, learning_rate=FLEET_LR,
+          clipnorm=FLEET_CLIP, shared_batches=False,
+          metrics_interval=FLEET_WINDOW)
+  torch.cuda.synchronize()
+  n = FLEET_WINDOW * steps_epoch
+  check(tz.launches == {"zinb_rowsum_fwd": n, "zinb_rowsum_bwd": n}
+        and np.isfinite(ens.history["loss"]).all(),
+        f"own batches: launches {tz.launches}, {ens.history['loss']}")
+  for k in total:
+    total[k] += tz.launches[k]
+  log(f"[15c fleet] one window of {FLEET_WINDOW} epochs with "
+      f"shared_batches=False: losses "
+      f"{[round(float(v), 2) for v in ens.history['loss'][-1]]}, "
+      f"{float(np.median(ens.history['epoch_time'])) / steps_epoch * 1e3:.3f}"
+      f" ms a fleet step; launches {n} each")
+  del ens
+  torch.cuda.empty_cache()
+  # 15d: the on-card hyper-parameter search
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  res = fit_hyper_vmap(lambda s: _scvi(torch, "full", seed=s), x,
+                       learning_rates=HYPER_LRS, epochs=HYPER_EPOCHS,
+                       batch_size=BATCH)
+  torch.cuda.synchronize()
+  hyper_s = time.perf_counter() - t0
+  n = HYPER_EPOCHS * steps_epoch
+  check(tz.launches == {"zinb_rowsum_fwd": n, "zinb_rowsum_bwd": n},
+        f"fit_hyper_vmap launches {tz.launches}")
+  for k in total:
+    total[k] += tz.launches[k]
+  check(len(res["trials"]) == len(HYPER_LRS)
+        and all(np.isfinite(t["loss"]) for t in res["trials"]),
+        f"trials {res['trials']}")
+  best_i = int(np.argmin([t["loss"] for t in res["trials"]]))
+  best = res["ensemble"].extract(best_i)
+  t0 = time.perf_counter()
+  xm, zm = best.predict_mean(held, batch_size=BATCH)
+  serve_s = time.perf_counter() - t0
+  check(xm[0].shape == (HELD_OUT, GENES) and np.isfinite(xm[0]).all()
+        and np.isfinite(zm[0]).all(), "the best trial's predict_mean")
+  trials = [(t["config"]["learning_rate"], round(t["loss"], 2))
+            for t in res["trials"]]
+  log(f"[15d hyper] fit_hyper_vmap over lr {HYPER_LRS}, {HYPER_EPOCHS} "
+      f"epochs: {hyper_s:.1f} s; trials {trials}"
+      f"; best {res['best']}; its predict_mean of {HELD_OUT} held-out cells "
+      f"finite in {serve_s:.2f} s; launches {n} each")
+  del res, best
+  torch.cuda.empty_cache()
+  return total
+
+
+def phase_scan_steps(torch, big):
+  """Phase 15e: the streamed fit of phase 14d with ``scan_steps`` = 4 on
+  all but one batch of the CSR cells (127 batches: 124 steps), against
+  k = 1 stopped at the same step: the same batches and noise give the
+  same loss (rtol ROUTE_LOSS_RTOL); ms a step of each."""
+  import numpy as np
+  from sisua_tpu_torch.ops import zinb as tz
+  data = big[:OOC_CELLS - BATCH]
+  batches = data.shape[0] // BATCH
+  steps = SCAN_K * (batches // SCAN_K)
+  runs = {}
+  for k in (1, SCAN_K):
+    model = _scvi(torch, "full")
+    tz.reset_launches()
+    model.fit(data, epochs=1, batch_size=BATCH, learning_rate=1e-3,
+              scan_steps=k, max_iter=steps)
+    torch.cuda.synchronize()
+    check(model.step == steps and tz.launches == {
+        "zinb_rowsum_fwd": steps, "zinb_rowsum_bwd": steps},
+        f"scan_steps={k}: {model.step} steps, launches {tz.launches}")
+    runs[k] = (float(model.history["loss"][0]),
+               model.history["epoch_time"][0] / steps * 1e3,
+               {n: p.detach().clone()
+                for n, p in model.module.named_parameters()})
+    del model
+  (l1, ms1, p1), (lk, msk, pk) = runs[1], runs[SCAN_K]
+  check(np.isfinite(lk) and abs(lk - l1) <= ROUTE_LOSS_RTOL * abs(l1),
+        f"scan_steps loss {lk} vs {l1}")
+  same = ("parameters bitwise equal"
+          if all(torch.equal(p1[n], pk[n]) for n in p1)
+          else f"rel {abs(lk - l1) / abs(l1):.2e}")
+  log(f"[15e scan_steps] streamed SCVI on {data.shape[0]} CSR cells "
+      f"({batches} batches): scan_steps={SCAN_K} runs {steps} steps (a "
+      f"multiple of {SCAN_K}), loss {lk:.4f} vs k = 1 {l1:.4f} over the "
+      f"same {steps} steps ({same}); {msk:.3f} ms a step at k = {SCAN_K}, "
+      f"{ms1:.3f} at k = 1")
+  return {"zinb_rowsum_fwd": 2 * steps, "zinb_rowsum_bwd": 2 * steps}
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2484,17 +2882,23 @@ def main():
     big, ooc_model, ooc_launches = phase_out_of_core(torch, x, smi)
     stream_launches = phase_streaming(torch, big, held, smi)
     phase_sparse_serving(torch, ooc_model, held)
-    del big, ooc_model
+    del ooc_model
+    scan_launches = phase_scan_steps(torch, big)
+    del big
+    torch.cuda.empty_cache()
+    members = phase_member_kernels(torch)
+    fleet_launches = phase_fleet(torch, x, held, library, smi)
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
   launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]
               + batch_launches[k] + multiome_launches[k] + last_launches[k]
               + bf16_launches[k] + surface_launches[k] + probe_launches[k]
-              + ooc_launches[k] + stream_launches[k]
+              + ooc_launches[k] + stream_launches[k] + scan_launches[k]
+              + fleet_launches[k]
               for k, v in launches.items()}
 
-  def numbers(case, key, err, kind):
-    c = kern[case]
+  def numbers(case, key, err, kind, results=kern):
+    c = results[case]
     return {"max_abs_err": c[err], "ms": c[key]["kernel"] / 1e3,
             "plain_ms": c[key]["plain"] / 1e3,
             "bound_ms": c["bounds"][kind][0] / 1e3,
@@ -2515,6 +2919,10 @@ def main():
                                             kind))
     if kind == "bwd":  # float32 operands, bf16 gradient writes
       entry["bf16_writes"] = numbers("main_full_writes", key, err, kind)
+    # FLEET members in one launch (phase 15b's fleet path), x shared
+    entry["members"] = dict(count=FLEET, launches=fleet_launches[name],
+                            **numbers("fleet_full_shared", key, err, kind,
+                                      members))
     kernels.append(entry)
   for name, line in (("elemwise_probe", 83), ("lgamma_probe", 131)):
     kernels.append({"name": name, "route": "cuda",

@@ -6,17 +6,52 @@ module layout and names (``dist``, ``rv``, ``nn``, ``ops``, ``models``,
 ``torch`` and never ``jax``, ``flax``, ``optax`` or ``pandas``, and nothing
 from ``sisua_tpu``.
 
-The fused ZINB/NB log-likelihood kernels (forward and backward) are CUDA
-C++ in ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use and bound
-with ``ctypes`` (``ops/_build.py``). On CPU tensors every kernel wrapper
-runs its plain PyTorch version instead.
+The Pallas kernels of the JAX package are CUDA C++ in ``csrc/`` (the fused
+ZINB/NB log-likelihood forward and backward, with a member axis for
+vmapped ensembles, and the speed-of-light probes), built with ``nvcc`` for
+``sm_90a`` at first use and bound with ``ctypes`` (``ops/_build.py``). On
+CPU tensors every kernel wrapper runs its plain PyTorch version instead.
 
-Port state: training (``fit`` with validation and early stopping),
-``evaluate`` and serving (``predict``, ``predict_mean``,
-``get_normalized_expression``, ``compute_llk``, ``marginal_log_prob``) of
-SCVI and of the paper's VAE, SISUA, MISA and DeepCountAutoencoder
-(``models``), with checkpoints the JAX package reads and writes
-(``train/checkpoint.py``, ``models.load_model``).
+Port state: every model of the JAX zoo, ``fit`` with its streaming,
+device-resident and out-of-core loops (validation, early stopping, the
+seven optimizers, mixed precision, ``scan_steps``), ``evaluate`` and
+serving, checkpoints either package reads, the vmapped ensemble
+(``train.VmapEnsemble``) and the on-card hyper-parameter search
+(``models.hyper_params.fit_hyper_vmap``). Top-level names resolve lazily,
+as in the JAX package: ``sisua_tpu_torch.SCVI``, ``.get_model``,
+``.load_model``, ``.Trainer``, ``.DataFeeder``, ``.VmapEnsemble``.
 """
 
 __version__ = "0.1.0"
+
+_SUBMODULES = ("data", "models", "train", "dist", "nn", "rv", "ops",
+               "interpolation", "convert", "native")
+
+
+def __getattr__(name):
+  """Lazy top-level re-exports from ``models``, ``data`` and ``train``;
+  submodule names resolve directly first."""
+  import importlib
+  if name in _SUBMODULES:
+    return importlib.import_module(f".{name}", __name__)
+  if name.startswith("__"):
+    raise AttributeError(name)
+  for module in ("models", "data", "train"):
+    mod = importlib.import_module(f".{module}", __name__)
+    if hasattr(mod, name):
+      return getattr(mod, name)
+  raise AttributeError(f"module 'sisua_tpu_torch' has no attribute {name!r}")
+
+
+# the JAX package's top-level names that the port has (a static list, so
+# dir() does not import the models)
+_TOP_LEVEL_NAMES = (
+    "MISA", "SCALE", "SCALAR", "SCVI", "SISUA", "VAE", "TotalVI",
+    "DeepCountAutoencoder", "SCScope", "FVAE", "SemiFVAE", "AUTOZI", "SOLO",
+    "CellAssign", "NetConf", "RVmeta", "SingleCellModel", "get_model",
+    "load_model", "Trainer", "VmapEnsemble", "DataFeeder",
+)
+
+
+def __dir__():
+  return sorted(set(_SUBMODULES) | set(_TOP_LEVEL_NAMES) | {"__version__"})

@@ -21,6 +21,12 @@ Both directions raise on any leaf left over on either side, so a topology
 drift between the packages cannot pass silently. Inputs and outputs are
 nested dicts of numpy arrays (``jax.device_get`` of a flax tree, or
 ``flax.core.unfreeze``); nothing here imports JAX.
+
+Stacked trees (``jax_to_torch_stacked`` / ``torch_to_jax_stacked``): the
+JAX ``VmapEnsemble`` stacks its members' ``TrainState``s on a leading
+member axis, optax's Adam moments included; the port's ensemble keeps the
+same stacked parameters, buffers and Adam state as dicts keyed like the
+``state_dict`` (``train/ensemble.py``). Each member converts as above.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from torch import nn
 
 from .nn import BatchNorm
 
-__all__ = ["jax_to_torch", "torch_to_jax", "flax_param_path"]
+__all__ = ["jax_to_torch", "torch_to_jax", "flax_param_path",
+           "jax_to_torch_stacked", "torch_to_jax_stacked"]
 
 
 def _flat(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -75,11 +82,15 @@ def _torch_key(module: nn.Module, path: Tuple[str, ...], collection: str
 
 
 def jax_to_torch(module: nn.Module, params: Mapping,
-                 batch_stats: Optional[Mapping] = None
-                 ) -> Dict[str, torch.Tensor]:
+                 batch_stats: Optional[Mapping] = None,
+                 params_only: bool = False) -> Dict[str, torch.Tensor]:
   """A ``state_dict`` for ``module`` from flax ``params`` (+
-  ``batch_stats``). Raises on unmatched leaves or shapes, either side."""
+  ``batch_stats``); ``params_only``: the parameters' entries alone (a tree
+  shaped like ``params``, e.g. Adam's moments). Raises on unmatched leaves
+  or shapes, either side."""
   target = module.state_dict()
+  if params_only:
+    target = dict(module.named_parameters())
   out: Dict[str, torch.Tensor] = {}
   for collection, tree in (("params", params),
                            ("batch_stats", batch_stats or {})):
@@ -120,17 +131,21 @@ def flax_param_path(module: nn.Module, key: str) -> Tuple[str, ...]:
 
 
 def torch_to_jax(module: nn.Module,
-                 values: Tuple[str, ...] = ("params", "batch_stats")
+                 values: Tuple[str, ...] = ("params", "batch_stats"),
+                 state: Optional[Mapping[str, torch.Tensor]] = None
                  ) -> Tuple[Dict, Dict]:
   """(params, batch_stats) nested dicts of numpy arrays in the flax
-  layout, the inverse of ``jax_to_torch``. A kernel is transposed where
-  the module lives, before its one copy to the host. A collection left
-  out of ``values`` gets each leaf as a zero-stride array of its shape
-  and dtype (a template that copies nothing)."""
+  layout, the inverse of ``jax_to_torch``, of ``module``'s state or of
+  ``state`` (entries keyed like it; parameters alone give an empty
+  batch_stats). A kernel is transposed where the module lives, before its
+  one copy to the host. A collection left out of ``values`` gets each
+  leaf as a zero-stride array of its shape and dtype (a template that
+  copies nothing)."""
   params: Dict = {}
   batch_stats: Dict = {}
   buffers = {k for k, _ in module.named_buffers()}
-  for key, value in module.state_dict().items():
+  for key, value in (module.state_dict() if state is None
+                     else state).items():
     parts = key.split(".")
     owner, leaf = parts[:-1], parts[-1]
     value = value.detach()
@@ -156,3 +171,71 @@ def torch_to_jax(module: nn.Module,
           np.zeros((), torch.empty((), dtype=value.dtype).numpy().dtype),
           tuple(value.shape))
   return params, batch_stats
+
+
+def _member(tree: Mapping, i: int) -> Dict:
+  """Member ``i`` of a stacked nested dict."""
+  return {k: _member(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+          for k, v in tree.items()}
+
+
+def _stacked(trees) -> Dict:
+  """Nested dicts of the same structure, stacked leaf by leaf."""
+  return {k: _stacked([t[k] for t in trees]) if isinstance(v, Mapping)
+          else np.stack([t[k] for t in trees])
+          for k, v in trees[0].items()}
+
+
+def jax_to_torch_stacked(module: nn.Module, params: Mapping,
+                         batch_stats: Optional[Mapping] = None,
+                         mu: Optional[Mapping] = None,
+                         nu: Optional[Mapping] = None
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
+  """A JAX stacked tree (every leaf with a leading member axis: flax
+  ``params``, ``batch_stats``, and Adam's ``mu`` / ``nu`` shaped like
+  ``params``) → {'params', 'buffers', 'mu', 'nu'} of the port's ensemble,
+  each a dict of (M, …) tensors on ``module``'s device keyed like its
+  ``state_dict``. Moments left out are zeros (a fresh Adam state)."""
+  first = params
+  while isinstance(first, Mapping):
+    first = next(iter(first.values()))
+  n = int(np.shape(first)[0])
+  names = [k for k, _ in module.named_parameters()]
+
+  def stack(states):
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+  full = stack([jax_to_torch(module, _member(params, i),
+                             None if batch_stats is None
+                             else _member(batch_stats, i))
+                for i in range(n)])
+  out = {"params": {k: full[k] for k in names},
+         "buffers": {k: v for k, v in full.items() if k not in names}}
+  for name, tree in (("mu", mu), ("nu", nu)):
+    out[name] = ({k: torch.zeros_like(v) for k, v in out["params"].items()}
+                 if tree is None else
+                 stack([jax_to_torch(module, _member(tree, i),
+                                     params_only=True) for i in range(n)]))
+  return out
+
+
+def torch_to_jax_stacked(module: nn.Module,
+                         stacked: Mapping[str, Mapping[str, torch.Tensor]]
+                         ) -> Dict[str, Dict]:
+  """The inverse of ``jax_to_torch_stacked``: {'params', 'batch_stats',
+  'mu', 'nu'} nested dicts of numpy arrays in the flax layout, every leaf
+  with the member axis first."""
+  n = int(next(iter(stacked["params"].values())).shape[0])
+
+  def member(d, i):
+    return {k: v[i] for k, v in d.items()}
+  out: Dict[str, Dict] = {}
+  per = [torch_to_jax(module, state={**member(stacked["params"], i),
+                                     **member(stacked["buffers"], i)})
+         for i in range(n)]
+  out["params"] = _stacked([p for p, _ in per])
+  out["batch_stats"] = _stacked([b for _, b in per]) if per[0][1] else {}
+  for name in ("mu", "nu"):
+    out[name] = _stacked([torch_to_jax(module,
+                                       state=member(stacked[name], i))[0]
+                          for i in range(n)])
+  return out

@@ -52,6 +52,16 @@
 // A per-gene (1, D) operand is a row stride of 0. Ragged edges are masked
 // here, so any B and D are taken (the TPU path needed B % 8 == 0).
 //
+// The member axis (jax.vmap of the TPU kernels: Pallas's batching rule adds
+// a grid axis over the vmapped members). M problems of the same (B, D) run
+// in one launch as grid z; each operand has a member stride in elements, 0
+// for an operand the members share (the shared counts of an ensemble, read
+// once from HBM and then mostly from L2). Outputs are member-major: out
+// (M, B), (B, D) fields (M, B, D), per-gene fields (M, 1, D), each member's
+// per-gene partials its own (3, chunks, D) slab summed by column_sum_kernel
+// with grid y over members. With M = 1 every member offset is 0, so the
+// addresses, the plan and the bits are those of the launch without the axis.
+//
 // The bf16 modes of the TPU kernels (zinb_pallas.py, SISUA_TPU_FWD_OPERANDS
 // and _bwd_write_dtype), in the MIXED instantiations that the *_bf16 entry
 // points launch (the float32 entry points keep MIXED = false, so their code
@@ -272,7 +282,7 @@ __device__ __forceinline__ void run_count_path_bwd(const float (*st)[kTile],
   __syncwarp();
 }
 
-// Forward. Block (row, chunk): its 8 warps take the chunk's 128-column
+// Forward. Block (row, chunk, member): its 8 warps take the chunk's 128-column
 // tiles in turn (warp w: tiles w, w + 8, ...), each through its own ring.
 // The block's sum goes to out[row] when a row is one chunk, else to
 // partial[row, chunk] for row_chunk_sum_kernel. MIXED: bf16 (B, D)
@@ -285,18 +295,25 @@ zinb_rowsum_fwd_kernel(const float* __restrict__ x,
                        const void* __restrict__ gt,
                        float* __restrict__ out, float* __restrict__ partial,
                        int D, int64_t ld_cr, int64_t ld_lg, int64_t ld_gt,
-                       int tiles_per_chunk, unsigned bf16_ops) {
+                       int64_t ms_x, int64_t ms_cr, int64_t ms_lg,
+                       int64_t ms_gt, int tiles_per_chunk, unsigned bf16_ops) {
   __shared__ WarpSmem smem[kWarps];
   __shared__ float warp_sums[kWarps];
   const unsigned bf = MIXED ? bf16_ops : 0u;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   WarpSmem& w = smem[warp];
+  const int64_t member = blockIdx.z;
   const int64_t row = blockIdx.x;
-  const void* const src[4] = {x + row * D,
-                              row_ptr(cr, row, ld_cr, is_bf16(bf, 1)),
-                              row_ptr(lg, row, ld_lg, is_bf16(bf, 2)),
-                              row_ptr(gt, row, ld_gt, is_bf16(bf, 3))};
+  const int64_t out_row = member * gridDim.x + row;  // row of out, partial
+  const void* const src[4] = {
+      x + member * ms_x + row * D,
+      row_ptr(row_ptr(cr, member, ms_cr, is_bf16(bf, 1)), row, ld_cr,
+              is_bf16(bf, 1)),
+      row_ptr(row_ptr(lg, member, ms_lg, is_bf16(bf, 2)), row, ld_lg,
+              is_bf16(bf, 2)),
+      row_ptr(row_ptr(gt, member, ms_gt, is_bf16(bf, 3)), row, ld_gt,
+              is_bf16(bf, 3))};
   const int tiles = static_cast<int>((D + int64_t{kTile} - 1) / kTile);
   const int t0 = blockIdx.y * tiles_per_chunk + warp;
   const int t1 = min(tiles, static_cast<int>(blockIdx.y + 1) * tiles_per_chunk);
@@ -372,9 +389,9 @@ zinb_rowsum_fwd_kernel(const float* __restrict__ x,
     acc = warp_sum(lane < kWarps ? warp_sums[lane] : 0.0f);
     if (lane == 0) {
       if (gridDim.y == 1) {
-        out[row] = acc;
+        out[out_row] = acc;
       } else {
-        partial[row * gridDim.y + blockIdx.y] = acc;
+        partial[out_row * gridDim.y + blockIdx.y] = acc;
       }
     }
   }
@@ -440,7 +457,7 @@ __device__ __forceinline__ void store_row(void* f, bool bf16_out,
   }
 }
 
-// Backward. Block (column block, row chunk): warp w owns the 128-column
+// Backward. Block (column block, row chunk, member): warp w owns the 128-column
 // tile 8 * blockIdx.x + w and walks the chunk's rows in order through its
 // ring. Full (B, D) fields are written per row; a per-gene (1, D) field is
 // summed over the chunk's rows in registers and written to
@@ -457,7 +474,8 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
                        void* __restrict__ d_gt,
                        float* __restrict__ partial, int B, int D,
                        int64_t ld_cr, int64_t ld_lg, int64_t ld_gt,
-                       int rows_per_chunk, unsigned bf16_ops,
+                       int64_t ms_x, int64_t ms_cr, int64_t ms_lg,
+                       int64_t ms_gt, int rows_per_chunk, unsigned bf16_ops,
                        int bf16_out) {
   __shared__ WarpSmem smem[kWarps];
   const unsigned bf = MIXED ? bf16_ops : 0u;
@@ -470,8 +488,13 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
   if (c - lane * kVec >= D) return;  // the whole warp is past the last tile
   const int row0 = blockIdx.y * rows_per_chunk;
   const int row1 = min(B, row0 + rows_per_chunk);
+  const int64_t member = blockIdx.z;
   const int64_t lds[4] = {D, ld_cr, ld_lg, ld_gt};
-  const void* const base[4] = {x, cr, lg, gt};
+  const void* const base[4] = {
+      x + member * ms_x, row_ptr(cr, member, ms_cr, is_bf16(bf, 1)),
+      row_ptr(lg, member, ms_lg, is_bf16(bf, 2)),
+      row_ptr(gt, member, ms_gt, is_bf16(bf, 3))};
+  const float* const gm = gcot + member * B;
   // the ring: row row0 + i goes to stage i % kStages, kStages - 1 rows
   // ahead of the one computed
   auto issue_row = [&](int stage, int row) {
@@ -537,7 +560,7 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
     run_count_path_bwd<CONSTRAINED>(st, w, n, lane, is_bf16(bf, 1));
     const float4 rv = ld4(&w.q.bwd.res[lane * kVec]);
     const float rs[kVec] = {rv.x, rv.y, rv.z, rv.w};
-    const float gr = gcot[row];
+    const float gr = gm[row];
     float a[kVec], b[kVec], g[kVec];
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
@@ -547,7 +570,7 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
       g[k] = dg[k] * gr;
     }
     __syncwarp();  // every lane is done with stage s before it is refilled
-    const int64_t off = static_cast<int64_t>(row) * D;
+    const int64_t off = (member * B + row) * D;
     if (d_cr != nullptr) {
       if (ld_cr) {
         store_row<VEC>(d_cr, bout, off, c, D, a);
@@ -573,9 +596,10 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
       }
     }
   }
-  // per-gene fields: this chunk's sums, one (chunks, D) slab per field
-  const int64_t p = static_cast<int64_t>(blockIdx.y) * D;
+  // per-gene fields: this chunk's sums, one (chunks, D) slab per field,
+  // three slabs per member
   const int64_t field = static_cast<int64_t>(gridDim.y) * D;
+  const int64_t p = member * 3 * field + static_cast<int64_t>(blockIdx.y) * D;
   if (d_cr != nullptr && !ld_cr) store_field<false>(partial, p, c, D, acc_cr);
   if (d_lg != nullptr && !ld_lg) {
     store_field<false>(partial, field + p, c, D, acc_lg);
@@ -585,12 +609,15 @@ zinb_rowsum_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-// out[j] = sum over chunks c, in order, of partial[c, j]
+// out[m, j] = sum over chunks c, in order, of partial[m, c, j]; member m
+// is blockIdx.y, its slab starts `member_stride` floats after the last
 __global__ void __launch_bounds__(kSumThreads)
 column_sum_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                  int n_chunks, int D) {
+                  int n_chunks, int D, int64_t member_stride) {
   const int col = blockIdx.x * kSumThreads + threadIdx.x;
   if (col >= D) return;
+  partial += blockIdx.y * member_stride;
+  out += static_cast<int64_t>(blockIdx.y) * D;
   float s = 0.0f;
   for (int c = 0; c < n_chunks; ++c) {
     s += partial[static_cast<int64_t>(c) * D + col];
@@ -602,54 +629,63 @@ column_sum_kernel(const float* __restrict__ partial, float* __restrict__ out,
 // (MIXED = false for the former: the float32 kernels' code as it was)
 template <bool MIXED>
 int launch_fwd(const float* x, const void* cr, const void* lg,
-               const void* gt, float* out, float* partial, int B, int D,
-               long long ld_cr, long long ld_lg, long long ld_gt, int vec,
-               int tiles_per_chunk, int n_chunks, int constrained,
-               unsigned bf16_ops, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(n_chunks));
+               const void* gt, float* out, float* partial, int M, int B,
+               int D, long long ms_x, long long ms_cr, long long ms_lg,
+               long long ms_gt, long long ld_cr, long long ld_lg,
+               long long ld_gt, int vec, int tiles_per_chunk, int n_chunks,
+               int constrained, unsigned bf16_ops, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(n_chunks),
+                  static_cast<unsigned>(M));
   auto kernel = constrained
       ? (vec ? zinb_rowsum_fwd_kernel<true, true, MIXED>
              : zinb_rowsum_fwd_kernel<true, false, MIXED>)
       : (vec ? zinb_rowsum_fwd_kernel<false, true, MIXED>
              : zinb_rowsum_fwd_kernel<false, false, MIXED>);
   kernel<<<grid, kThreads, 0, s>>>(x, cr, lg, gt, out, partial, D, ld_cr,
-                                   ld_lg, ld_gt, tiles_per_chunk, bf16_ops);
+                                   ld_lg, ld_gt, ms_x, ms_cr, ms_lg, ms_gt,
+                                   tiles_per_chunk, bf16_ops);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
-  row_chunk_sum_kernel<<<(B + kSumThreads - 1) / kSumThreads, kSumThreads, 0,
-                         s>>>(partial, out, B, n_chunks);
+  const int rows = M * B;  // the members' rows follow each other
+  row_chunk_sum_kernel<<<(rows + kSumThreads - 1) / kSumThreads, kSumThreads,
+                         0, s>>>(partial, out, rows, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool MIXED>
 int launch_bwd(const float* x, const void* cr, const void* lg,
                const void* gt, const float* gcot, void* d_cr, void* d_lg,
-               void* d_gt, float* partial, int B, int D, long long ld_cr,
-               long long ld_lg, long long ld_gt, int vec, int rows_per_chunk,
-               int n_chunks, int constrained, unsigned bf16_ops,
-               int bf16_out, cudaStream_t s) {
+               void* d_gt, float* partial, int M, int B, int D,
+               long long ms_x, long long ms_cr, long long ms_lg,
+               long long ms_gt, long long ld_cr, long long ld_lg,
+               long long ld_gt, int vec, int rows_per_chunk, int n_chunks,
+               int constrained, unsigned bf16_ops, int bf16_out,
+               cudaStream_t s) {
   const int col_blocks = (D + kWarps * kTile - 1) / (kWarps * kTile);
   const dim3 grid(static_cast<unsigned>(col_blocks),
-                  static_cast<unsigned>(n_chunks));
+                  static_cast<unsigned>(n_chunks), static_cast<unsigned>(M));
   auto kernel = constrained
       ? (vec ? zinb_rowsum_bwd_kernel<true, true, MIXED>
              : zinb_rowsum_bwd_kernel<true, false, MIXED>)
       : (vec ? zinb_rowsum_bwd_kernel<false, true, MIXED>
              : zinb_rowsum_bwd_kernel<false, false, MIXED>);
   kernel<<<grid, kThreads, 0, s>>>(x, cr, lg, gt, gcot, d_cr, d_lg, d_gt,
-                                   partial, B, D, ld_cr, ld_lg, ld_gt,
-                                   rows_per_chunk, bf16_ops, bf16_out);
+                                   partial, B, D, ld_cr, ld_lg, ld_gt, ms_x,
+                                   ms_cr, ms_lg, ms_gt, rows_per_chunk,
+                                   bf16_ops, bf16_out);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t field = static_cast<int64_t>(n_chunks) * D;
   const dim3 sum_grid(static_cast<unsigned>((D + kSumThreads - 1)
-                                            / kSumThreads));
+                                            / kSumThreads),
+                      static_cast<unsigned>(M));
   void* outs[3] = {d_cr, d_lg, d_gt};
   const long long lds[3] = {ld_cr, ld_lg, ld_gt};
   for (int f = 0; f < 3; ++f) {
     if (outs[f] != nullptr && lds[f] == 0) {  // per-gene: always float32
       column_sum_kernel<<<sum_grid, kSumThreads, 0, s>>>(
-          partial + f * field, static_cast<float*>(outs[f]), n_chunks, D);
+          partial + f * field, static_cast<float*>(outs[f]), n_chunks, D,
+          3 * field);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -659,19 +695,24 @@ int launch_bwd(const float* x, const void* cr, const void* lg,
 
 extern "C" {
 
-// out[b] = sum_j zinb_elem(x[b, j], cr[b, j], lg[b, j], gt[b, j]).
-// x is (B, D) row-major; each parameter has its own row stride (0: per
-// gene). The launch plan (ops/zinb.py::_launch_plan) gives `vec` (16-byte
-// copies), the 128-column tiles per chunk and the chunk count; with more
-// than one chunk, `partial` holds B * n_chunks floats.
+// out[m, b] = sum_j zinb_elem(x[m, b, j], cr[m, b, j], lg[m, b, j],
+// gt[m, b, j]) for M members. Each member's x is (B, D) row-major; each
+// parameter has its own row stride (0: per gene); each operand its member
+// stride (0: shared by the members). The launch plan
+// (ops/zinb.py::_launch_plan) gives `vec` (16-byte copies), the 128-column
+// tiles per chunk and the chunk count; with more than one chunk, `partial`
+// holds M * B * n_chunks floats. M = 1 with member strides 0 is one (B, D)
+// problem.
 int sisua_zinb_rowsum_fwd(const float* x, const float* cr, const float* lg,
-                          const float* gt, float* out, float* partial, int B,
-                          int D, long long ld_cr, long long ld_lg,
-                          long long ld_gt, int vec, int tiles_per_chunk,
-                          int n_chunks, int constrained, void* stream) {
-  return launch_fwd<false>(x, cr, lg, gt, out, partial, B, D, ld_cr, ld_lg,
-                           ld_gt, vec, tiles_per_chunk, n_chunks,
-                           constrained, 0u,
+                          const float* gt, float* out, float* partial, int M,
+                          int B, int D, long long ms_x, long long ms_cr,
+                          long long ms_lg, long long ms_gt, long long ld_cr,
+                          long long ld_lg, long long ld_gt, int vec,
+                          int tiles_per_chunk, int n_chunks, int constrained,
+                          void* stream) {
+  return launch_fwd<false>(x, cr, lg, gt, out, partial, M, B, D, ms_x, ms_cr,
+                           ms_lg, ms_gt, ld_cr, ld_lg, ld_gt, vec,
+                           tiles_per_chunk, n_chunks, constrained, 0u,
                            static_cast<cudaStream_t>(stream));
 }
 
@@ -681,30 +722,37 @@ int sisua_zinb_rowsum_fwd(const float* x, const float* cr, const float* lg,
 // start 8-byte aligned and every float32 one 16-byte aligned.
 int sisua_zinb_rowsum_fwd_bf16(const float* x, const void* cr,
                                const void* lg, const void* gt, float* out,
-                               float* partial, int B, int D, long long ld_cr,
-                               long long ld_lg, long long ld_gt, int vec,
-                               int tiles_per_chunk, int n_chunks,
-                               int constrained, int bf16_ops, void* stream) {
-  return launch_fwd<true>(x, cr, lg, gt, out, partial, B, D, ld_cr, ld_lg,
-                          ld_gt, vec, tiles_per_chunk, n_chunks, constrained,
+                               float* partial, int M, int B, int D,
+                               long long ms_x, long long ms_cr,
+                               long long ms_lg, long long ms_gt,
+                               long long ld_cr, long long ld_lg,
+                               long long ld_gt, int vec, int tiles_per_chunk,
+                               int n_chunks, int constrained, int bf16_ops,
+                               void* stream) {
+  return launch_fwd<true>(x, cr, lg, gt, out, partial, M, B, D, ms_x, ms_cr,
+                          ms_lg, ms_gt, ld_cr, ld_lg, ld_gt, vec,
+                          tiles_per_chunk, n_chunks, constrained,
                           static_cast<unsigned>(bf16_ops),
                           static_cast<cudaStream_t>(stream));
 }
 
-// Gradient fields times the row cotangent gcot (B,). A null d_* skips that
-// field. A field whose operand has row stride 0 is the (1, D) sum over rows;
-// then `partial` must hold 3 * n_chunks * D floats, n_chunks =
-// ceil(B / rows_per_chunk) (the launch plan gives both).
+// Gradient fields times the row cotangent gcot (M, B). A null d_* skips
+// that field. A field whose operand has row stride 0 is each member's
+// (1, D) sum over rows, written (M, 1, D); then `partial` must hold
+// M * 3 * n_chunks * D floats, n_chunks = ceil(B / rows_per_chunk) (the
+// launch plan gives both). (B, D) fields are written (M, B, D).
 int sisua_zinb_rowsum_bwd(const float* x, const float* cr, const float* lg,
                           const float* gt, const float* gcot, float* d_cr,
-                          float* d_lg, float* d_gt, float* partial, int B,
-                          int D, long long ld_cr, long long ld_lg,
-                          long long ld_gt, int vec, int rows_per_chunk,
-                          int n_chunks, int constrained, void* stream) {
-  return launch_bwd<false>(x, cr, lg, gt, gcot, d_cr, d_lg, d_gt, partial, B,
-                           D, ld_cr, ld_lg, ld_gt, vec, rows_per_chunk,
-                           n_chunks, constrained, 0u, 0,
-                           static_cast<cudaStream_t>(stream));
+                          float* d_lg, float* d_gt, float* partial, int M,
+                          int B, int D, long long ms_x, long long ms_cr,
+                          long long ms_lg, long long ms_gt, long long ld_cr,
+                          long long ld_lg, long long ld_gt, int vec,
+                          int rows_per_chunk, int n_chunks, int constrained,
+                          void* stream) {
+  return launch_bwd<false>(x, cr, lg, gt, gcot, d_cr, d_lg, d_gt, partial, M,
+                           B, D, ms_x, ms_cr, ms_lg, ms_gt, ld_cr, ld_lg,
+                           ld_gt, vec, rows_per_chunk, n_chunks, constrained,
+                           0u, 0, static_cast<cudaStream_t>(stream));
 }
 
 // The backward with bf16 (B, D) operands (`bf16_ops` as in the forward)
@@ -714,14 +762,16 @@ int sisua_zinb_rowsum_bwd(const float* x, const float* cr, const float* lg,
 int sisua_zinb_rowsum_bwd_bf16(const float* x, const void* cr,
                                const void* lg, const void* gt,
                                const float* gcot, void* d_cr, void* d_lg,
-                               void* d_gt, float* partial, int B, int D,
+                               void* d_gt, float* partial, int M, int B,
+                               int D, long long ms_x, long long ms_cr,
+                               long long ms_lg, long long ms_gt,
                                long long ld_cr, long long ld_lg,
                                long long ld_gt, int vec, int rows_per_chunk,
                                int n_chunks, int constrained, int bf16_ops,
                                int bf16_out, void* stream) {
-  return launch_bwd<true>(x, cr, lg, gt, gcot, d_cr, d_lg, d_gt, partial, B,
-                          D, ld_cr, ld_lg, ld_gt, vec, rows_per_chunk,
-                          n_chunks, constrained,
+  return launch_bwd<true>(x, cr, lg, gt, gcot, d_cr, d_lg, d_gt, partial, M,
+                          B, D, ms_x, ms_cr, ms_lg, ms_gt, ld_cr, ld_lg,
+                          ld_gt, vec, rows_per_chunk, n_chunks, constrained,
                           static_cast<unsigned>(bf16_ops), bf16_out,
                           static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
 """sisua_tpu_torch.dist — the port's distributions (counterpart of
 ``sisua_tpu.dist``)."""
 
-from .base import (Distribution, Independent, NoAnalyticKL, kl_divergence,
-                   register_kl, tree_map)
+from .base import (Distribution, Independent, NoAnalyticKL,
+                   concat_distributions, kl_divergence, mc_kl_divergence,
+                   register_kl, stack_distributions, tree_map)
 from .continuous import (Gamma, LogNormal, MultivariateNormalDiag,
                          MultivariateNormalTriL, NonzeroMaskedDeterministic,
                          Normal, VectorDeterministic)
@@ -14,6 +15,7 @@ from .mixture import MixtureSameFamily
 
 __all__ = [
     "Distribution", "Independent", "NoAnalyticKL", "kl_divergence",
+    "mc_kl_divergence", "concat_distributions", "stack_distributions",
     "register_kl", "tree_map", "MultivariateNormalDiag",
     "MultivariateNormalTriL", "Normal",
     "VectorDeterministic", "NonzeroMaskedDeterministic", "Gamma", "LogNormal",

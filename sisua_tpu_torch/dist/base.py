@@ -9,12 +9,13 @@ flows through them. Shape semantics follow TFP as in the reference:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["Distribution", "Independent", "NoAnalyticKL", "kl_divergence",
-           "register_kl", "tree_map"]
+           "register_kl", "tree_map", "mc_kl_divergence",
+           "concat_distributions", "stack_distributions"]
 
 Tensor = torch.Tensor
 
@@ -142,3 +143,44 @@ def kl_divergence(p: Distribution, q: Distribution) -> Tensor:
         return fn(p, q)
   raise NoAnalyticKL(
       f"No analytic KL for {type(p).__name__} ‖ {type(q).__name__}")
+
+
+def mc_kl_divergence(p: Distribution, q: Distribution,
+                     generator: Optional[torch.Generator] = None,
+                     n_samples: int = 1) -> Tensor:
+  """Monte-Carlo KL(p ‖ q) = E_p[log p − log q] over ``n_samples`` draws of
+  p (the JAX package's ``key`` is a generator here)."""
+  z = p.sample((n_samples,), generator=generator)
+  return torch.mean(p.log_prob(z) - q.log_prob(z), dim=0)
+
+
+def _structure(d: Distribution):
+  """What ``jax.tree_util.tree_structure`` compares: the types, the
+  fields, and every field that is not a tensor."""
+  return (type(d), tuple(
+      (k, _structure(v) if isinstance(v, Distribution)
+       else None if isinstance(v, Tensor) else v)
+      for k, v in vars(d).items()))
+
+
+def _tree_join(dists: Sequence[Distribution], join: Callable) -> Distribution:
+  if len(dists) == 1:
+    return dists[0]
+  first = _structure(dists[0])
+  for d in dists[1:]:
+    if _structure(d) != first:
+      raise ValueError("All distributions must share the same structure; "
+                       f"got {type(dists[0]).__name__} vs "
+                       f"{type(d).__name__}")
+  return tree_map(lambda *leaves: join(leaves), *dists)
+
+
+def concat_distributions(dists: Sequence[Distribution], axis: int = 0
+                         ) -> Distribution:
+  """Per-minibatch distributions merged along a batch axis."""
+  return _tree_join(dists, lambda ls: torch.cat(ls, dim=axis))
+
+
+def stack_distributions(dists: Sequence[Distribution], axis: int = 0
+                        ) -> Distribution:
+  return _tree_join(dists, lambda ls: torch.stack(ls, dim=axis))

@@ -10,7 +10,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
-__all__ = ["Interpolation", "const", "get_interpolation"]
+__all__ = ["Interpolation", "const", "linear", "exp", "cosine", "cyclical",
+           "get_interpolation"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +51,26 @@ class Interpolation:
 
 def const(vmax: float = 1.0) -> Interpolation:
   return Interpolation("const", vmax, vmax)
+
+
+def linear(vmin: float = 0.0, vmax: float = 1.0, norm: float = 1.0,
+           delay_in: float = 0.0, cyclical: bool = False) -> Interpolation:
+  return Interpolation("linear", vmin, vmax, norm, delay_in, cyclical)
+
+
+def exp(vmin: float = 0.0, vmax: float = 1.0, norm: float = 1.0,
+        delay_in: float = 0.0, cyclical: bool = False) -> Interpolation:
+  return Interpolation("exp", vmin, vmax, norm, delay_in, cyclical)
+
+
+def cosine(vmin: float = 0.0, vmax: float = 1.0, norm: float = 1.0,
+           delay_in: float = 0.0, cyclical: bool = False) -> Interpolation:
+  return Interpolation("cosine", vmin, vmax, norm, delay_in, cyclical)
+
+
+def cyclical(kind: str = "linear", vmin: float = 0.0, vmax: float = 1.0,
+             norm: float = 1.0, delay_in: float = 0.0) -> Interpolation:
+  return Interpolation(kind, vmin, vmax, norm, delay_in, cyclical=True)
 
 
 def get_interpolation(x) -> Interpolation:

@@ -15,6 +15,8 @@ from typing import List, Type, Union
 
 import torch
 
+from .. import interpolation
+from ..interpolation import Interpolation
 from ..nn import NetConf
 from ..rv import RVmeta
 from ..train.checkpoint import load_metamodel
@@ -25,15 +27,15 @@ from .dca import DeepCountAutoencoder
 from .fvae import FVAE, SemiFVAE
 from .ldvae import LDVAE
 from .module import SCVIModule, VAEModule, VAEOutput
-from .multivi import MULTIVI
+from .multivi import MULTIVI, MULTIVIModule
 from .objective import compute_loss, elbo_terms
-from .peakvi import PEAKVI
+from .peakvi import PEAKVI, PEAKVIModule
 from .scale import SCALAR, SCALE
-from .scanvi import SCANVI
+from .scanvi import SCANVI, SCANVIModule
 from .scscope import SCScope, SCScopeModule
 from .scvi import SCVI
 from .solo import SOLO
-from .totalvi import TotalVI
+from .totalvi import TotalVI, TotalVIModule
 from .vae import MISA, SISUA, VAE
 
 __all__ = ["SingleCellModel", "VAE", "SISUA", "MISA", "DeepCountAutoencoder",
@@ -41,8 +43,9 @@ __all__ = ["SingleCellModel", "VAE", "SISUA", "MISA", "DeepCountAutoencoder",
            "SCANVI", "PEAKVI", "MULTIVI", "SCScope", "AUTOZI", "SOLO",
            "CellAssign", "get_model", "get_all_models", "load_model",
            "SCVIModule", "VAEModule", "VAEOutput", "SCScopeModule",
-           "AUTOZIModule", "compute_loss", "elbo_terms", "NetConf",
-           "RVmeta"]
+           "AUTOZIModule", "TotalVIModule", "SCANVIModule", "PEAKVIModule",
+           "MULTIVIModule", "compute_loss", "elbo_terms", "NetConf",
+           "RVmeta", "Interpolation", "interpolation"]
 
 
 _PORTED = (VAE, SISUA, MISA, DeepCountAutoencoder, SCVI, LDVAE, SCALE,

@@ -66,7 +66,7 @@ from .. import dist as D
 from ..data.feeder import DataFeeder
 from ..data.utils import get_library_size, int16_exact
 from ..interpolation import Interpolation, get_interpolation
-from ..nn import NetConf, parse_netconf, resolve_dtype
+from ..nn import DropoutMasks, NetConf, parse_netconf, resolve_dtype
 from ..ops.sparse import col_dtype_for, csr_row_triplets, densify, worthwhile
 from ..rv import RVmeta, parse_rv
 from ..train import checkpoint as ckpt
@@ -397,22 +397,26 @@ class SingleCellModel:
     return np.eye(nb, dtype=np.float32)[codes]
 
   def _loss(self, batch, training: bool, beta: float,
-            noise: Optional[Sequence[Optional[torch.Tensor]]] = None
+            noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+            masks: Optional[DropoutMasks] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], VAEOutput]:
     """−ELBO of one batch {inputs: [x, …], library?, mask?}, plus the
     ``_extra_loss`` term when there is one. The module is put in train or
     eval mode (BatchNorm batch vs running stats, dropout); in train mode
     BatchNorm updates its running stats. The mask gates the label heads
     only in training; the missing-modality gates (``_output_masks``,
-    ``_latent_masks``) in training and evaluation alike."""
+    ``_latent_masks``) in training and evaluation alike. ``masks`` gives
+    the dropout masks in place of the model's generator (the ensemble's
+    step under ``torch.func.vmap``), ``beta`` may be a tensor there."""
     self.module.train(training)
     library = batch.get("library") if self.uses_library else None
     # training-time MC (``mc_samples``): S reparameterized draws per cell,
     # averaged over the leading sample dim by the ELBO
     mc = self._train_mc_samples if training else 1
     out = self.module(self._masked_module_input(batch, training),
-                      library=library, generator=self.generator, noise=noise,
-                      sample_shape=(mc,) if mc > 1 else ())
+                      library=library,
+                      generator=self.generator if masks is None else masks,
+                      noise=noise, sample_shape=(mc,) if mc > 1 else ())
     loss, metrics = compute_loss(
         out, self._loss_targets(batch), mask=batch.get("mask"), beta=beta,
         alpha=self.alpha, analytic=self.analytic,
@@ -736,11 +740,11 @@ class SingleCellModel:
     each new best. ``profile_dir``: a ``torch.profiler`` chrome trace of
     the fit, ``trace.json``.
 
-    Not ported yet, and raising ``NotImplementedError``: ``scan_steps`` >
-    1 (ROADMAP A5) and ``mesh`` (A21)."""
-    if int(scan_steps) > 1:
-      raise NotImplementedError("scan_steps > 1 is not ported yet "
-                                "(ROADMAP A5)")
+    ``scan_steps=k``: the streaming loop uploads k batches as one chunk
+    and runs their k steps from it (``Trainer``).
+
+    Not ported yet, and raising ``NotImplementedError``: ``mesh`` (ROADMAP
+    A21)."""
     if mesh is not None:
       raise NotImplementedError("mesh training is not ported yet "
                                 "(ROADMAP A21)")
@@ -765,7 +769,7 @@ class SingleCellModel:
                       device_cache=device_cache, device_dtype=device_dtype,
                       metrics_interval=metrics_interval,
                       hbm_budget_bytes=hbm_budget_bytes, device=self.device,
-                      verbose=verbose)
+                      scan_steps=scan_steps, verbose=verbose)
     freeze = (freeze,) if isinstance(freeze, str) else tuple(freeze)
     self._fit_optimizer(trainer, freeze)
     if self.aux is not None and self.aux_optimizer is None:

@@ -175,7 +175,7 @@ def elbo_terms(out: VAEOutput,
 def compute_loss(out: VAEOutput,
                  targets: Sequence[torch.Tensor],
                  mask: Optional[torch.Tensor] = None,
-                 beta: float = 1.0,
+                 beta=1.0,
                  alpha: float = 1.0,
                  analytic: bool = True,
                  mask_outputs: bool = False,
@@ -196,5 +196,6 @@ def compute_loss(out: VAEOutput,
   metrics = {k: v.mean() for k, v in {**llk, **kl}.items()}
   metrics["loss"] = loss
   metrics["elbo"] = elbo.mean()
-  metrics["beta"] = torch.full((), float(beta), device=loss.device)
+  metrics["beta"] = (beta.to(loss.dtype) if isinstance(beta, torch.Tensor)
+                     else torch.full((), float(beta), device=loss.device))
   return loss, metrics

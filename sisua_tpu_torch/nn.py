@@ -10,7 +10,10 @@ differences handled here:
   bias, drawn from an explicit generator.
 * ``BatchNorm`` reproduces flax's ``nn.BatchNorm(momentum=0.9)`` exactly,
   not ``nn.BatchNorm1d``: see its docstring.
-* dropout masks come from an explicit ``torch.Generator``.
+* dropout masks come from an explicit ``torch.Generator``, or are given
+  (``DropoutMasks`` in the generator's place: ``torch.func.vmap`` cannot
+  draw from a generator, so an ensemble draws each member's masks outside
+  the transform and feeds them in).
 * mixed precision (``compute_dtype='bfloat16'``) follows flax's
   ``dtype=bf16`` rules: parameters stay float32 and are cast per call; a
   Dense or Conv casts its input, kernel and bias to the compute dtype and
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +39,8 @@ from torch import nn
 from .rv import RVmeta
 
 __all__ = ["NetConf", "MLP", "BatchNorm", "Conv1d", "Dense",
-           "DistributionDense", "parse_netconf", "dense", "resolve_dtype"]
+           "DistributionDense", "DropoutMasks", "parse_netconf", "dense",
+           "resolve_dtype"]
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -248,14 +252,37 @@ class BatchNorm(nn.Module):
     return ((x - mean) * mul + self.bias).to(out_dtype)
 
 
-def _dropout(x: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+class DropoutMasks:
+  """Dropout keep-masks given to a forward in place of its generator, taken
+  in the order its dropout layers ask for them. ``specs`` records each
+  request's (shape, keep probability); without masks every element is
+  kept (a forward run once to learn which masks to draw)."""
+
+  def __init__(self, masks: Optional[Sequence[torch.Tensor]] = None):
+    self.masks = None if masks is None else list(masks)
+    self.specs = []
+
+  def keep(self, x: torch.Tensor, keep_prob: float) -> torch.Tensor:
+    i = len(self.specs)
+    self.specs.append((tuple(x.shape), keep_prob))
+    if self.masks is None:
+      return torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    if i >= len(self.masks):
+      raise ValueError(f"the forward asked for dropout mask {i + 1} of "
+                       f"{len(self.masks)} given")
+    return self.masks[i]
+
+
+def _dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
   """flax ``nn.Dropout``: keep with prob 1−rate, scale kept by 1/(1−rate)
   in x's dtype; the mask is drawn in float32 from ``generator`` (the same
-  masks at every compute dtype)."""
+  masks at every compute dtype), or is the next of ``DropoutMasks``."""
   keep_prob = 1.0 - rate
-  keep = torch.rand(x.shape, generator=generator, device=x.device,
-                    dtype=torch.float32) < keep_prob
+  if isinstance(generator, DropoutMasks):
+    keep = generator.keep(x, keep_prob)
+  else:
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < keep_prob
   return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

@@ -115,16 +115,24 @@ _L = ctypes.c_longlong
 
 # C signatures of the entry points of csrc/zinb.cu and csrc/probe.cu
 _SIGNATURES: Dict[str, tuple] = {
-    "sisua_zinb_rowsum_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L,
-                              _I, _I, _I, _I, _P),
+    # x, θ operand, logits, gate, out, partial; M, B, D; member strides
+    # (x, θ, logits, gate); row strides (θ, logits, gate); vec, tiles per
+    # chunk, chunks, constrained; stream
+    "sisua_zinb_rowsum_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L,
+                              _L, _L, _L, _L, _L, _I, _I, _I, _I, _P),
+    # x, θ operand, logits, gate, cotangent, three fields, partial; M, B, D;
+    # member strides; row strides; vec, rows per chunk, chunks,
+    # constrained; stream
     "sisua_zinb_rowsum_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _L, _L, _L, _I, _I, _I, _I, _P),
+                              _I, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I,
+                              _I, _P),
     # the bf16 modes: + the bf16-operand mask (+ the bf16-write flag)
-    "sisua_zinb_rowsum_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _L,
-                                   _L, _I, _I, _I, _I, _I, _P),
+    "sisua_zinb_rowsum_fwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
+                                   _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,
+                                   _I, _P),
     "sisua_zinb_rowsum_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _I, _L, _L, _L, _I, _I, _I, _I, _I, _I,
-                                   _P),
+                                   _I, _I, _L, _L, _L, _L, _L, _L, _L, _I,
+                                   _I, _I, _I, _I, _I, _P),
     # csrc/probe.cu: x, a, b, c, out, partial, B, D, vec, tiles per chunk,
     # chunks, n_fma or the lgamma variant, stream
     "sisua_elemwise_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

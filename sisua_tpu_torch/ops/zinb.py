@@ -46,6 +46,15 @@ The TPU kernels' two bf16 modes (``*_bf16`` entry points of the library):
     package's 'bf16' default was set by a TPU A/B, and no card measurement
     has decided it yet.
 The plain versions take the same inputs and round where the kernels do.
+
+The member axis (``jax.vmap`` of the TPU kernels: Pallas's batching rule
+adds a grid axis). Under ``torch.func.vmap`` the ``vmap`` rules of
+``_ZinbRowsum`` and of its backward, an operator of its own so that
+``vmap(grad(…))`` batches it too, hand all M members to one launch of each
+kernel (``members=M``: grid z, a member stride per operand, 0 for an
+operand the members share, such as an ensemble's shared counts). The
+plain versions broadcast over the same axis. One member gives the bits of
+the launch without the axis.
 """
 
 from __future__ import annotations
@@ -259,7 +268,7 @@ def _grads_ref(x, count_raw, logits, gate, g, constrained: bool, need):
 # CUDA launches
 # --------------------------------------------------------------------------
 def _check_operands(x, params):
-  """Validate what the kernels take; returns (B, D, row strides)."""
+  """Validate the devices and dtypes the kernels take."""
   dev = x.device
   for t in (x, *params):
     if not t.is_cuda:
@@ -269,14 +278,13 @@ def _check_operands(x, params):
     if t.dtype != torch.float32 and (t is x or t.dtype != torch.bfloat16):
       raise TypeError(f"the CUDA kernel takes a float32 x and float32 or "
                       f"bfloat16 parameters, got {t.dtype}")
-  return _row_strides(x, params)
 
 
 def _kernel_operands(x, params):
-  """The operands as the kernels read them: a bf16 per-gene (1, D) row
+  """The operands as the kernels read them: a bf16 per-gene (…, 1, D) row
   (B > 1) widened to float32, since per-gene rows stay float32."""
-  b = x.shape[0]
-  return [_widen(p) if p.dim() == 2 and p.shape[0] == 1 < b else p
+  b = x.shape[-2]
+  return [_widen(p) if p.dim() >= 2 and p.shape[-2] == 1 < b else p
           for p in params]
 
 
@@ -324,6 +332,18 @@ def _row_strides(x, params):
   return b, d, lds
 
 
+def _member_strides(ops, m: int):
+  """Member strides in elements of member-batched operands: each has a
+  leading axis of ``m``, or of 1 when the members share it (stride 0)."""
+  for t in ops:
+    if t.dim() != 3 or t.shape[0] not in (1, m):
+      raise ValueError(f"member-batched operand of shape {tuple(t.shape)}: "
+                       f"expected a leading axis of {m} or 1")
+  if m >= 2 ** 16:
+    raise ValueError(f"{m} members exceed the launch's grid z (65,535)")
+  return [t.stride(0) if t.shape[0] > 1 else 0 for t in ops]
+
+
 def _ptr(t):
   return None if t is None else t.data_ptr()
 
@@ -337,41 +357,44 @@ class _Plan(NamedTuple):
   """How ``csrc/zinb.cu`` is launched for one call (``_launch_plan``)."""
   vec: bool        # 16-byte cp.async copies; else 4-byte (unaligned rows)
   fwd_tiles: int   # forward: 128-column tiles per chunk of a row
-  fwd_chunks: int  # forward: chunks per row, grid (B, fwd_chunks)
+  fwd_chunks: int  # forward: chunks per row, grid (B, fwd_chunks, M)
   bwd_rows: int    # backward: rows each block walks
-  bwd_chunks: int  # backward: row chunks, grid (ceil(D / 1024), bwd_chunks)
+  bwd_chunks: int  # backward: row chunks, grid (ceil(D / 1024), bwd_chunks, M)
 
 
 def _launch_plan(b: int, d: int, lds, ptrs, n_sm: int,
-                 itemsizes: Optional[Sequence[int]] = None) -> _Plan:
-  """Grid, chunking and copy width of both kernels for a (b, d) call.
+                 itemsizes: Optional[Sequence[int]] = None,
+                 m: int = 1) -> _Plan:
+  """Grid, chunking and copy width of both kernels for ``m`` (b, d)
+  problems in one call.
 
   ``lds`` are the parameters' row strides in elements (``_row_strides``),
-  ``ptrs`` the addresses of every operand and output, ``itemsizes`` their
-  bytes per element (4 each when not given), ``n_sm`` the card's SM
-  count. The wide path copies a lane's 4 columns at once: 16 bytes of a
-  float32 row, 8 of a bf16 one. So every row start must be aligned to 4
-  elements: d and each stride a multiple of 4, and each pointer a
-  multiple of 4 × its itemsize in bytes."""
+  and the member strides of a member-batched call; ``ptrs`` the addresses
+  of every operand and output, ``itemsizes`` their bytes per element (4
+  each when not given), ``n_sm`` the card's SM count. The wide path copies
+  a lane's 4 columns at once: 16 bytes of a float32 row, 8 of a bf16 one.
+  So every row start must be aligned to 4 elements: d and each stride a
+  multiple of 4, and each pointer a multiple of 4 × its itemsize in
+  bytes."""
   sizes = [4] * len(ptrs) if itemsizes is None else list(itemsizes)
   vec = (d % 4 == 0 and not any(p % (4 * n) for p, n in zip(ptrs, sizes))
          and not any(ld % 4 for ld in lds))
-  return _Plan(vec, *_grids(b, d, n_sm))
+  return _Plan(vec, *_grids(b, d, n_sm, m))
 
 
 @functools.lru_cache(maxsize=4096)
-def _grids(b: int, d: int, n_sm: int):
+def _grids(b: int, d: int, n_sm: int, m: int = 1):
   """The grids of ``_launch_plan``, aiming at ``_BLOCKS_PER_SM`` blocks per
-  SM: the forward splits rows into column chunks only while the batch
-  alone leaves the card short; the backward splits rows into chunks of at
-  least ``_BWD_MIN_ROWS`` rows. Both grid y dimensions stay within CUDA's
-  65,535."""
+  SM over the m·b rows of every member: the forward splits rows into column
+  chunks only while the rows alone leave the card short; the backward
+  splits each member's rows into chunks of at least ``_BWD_MIN_ROWS``
+  rows. Both grid y dimensions stay within CUDA's 65,535."""
   target = _BLOCKS_PER_SM * n_sm
   tiles = -(-d // _TILE)
   col_blocks = -(-tiles // _WARPS)
-  chunks = min(-(-target // b), col_blocks, _MAX_GRID_Y)
+  chunks = min(-(-target // (m * b)), col_blocks, _MAX_GRID_Y)
   per_chunk = _WARPS * -(-(-(-tiles // chunks)) // _WARPS)
-  rows = max(_BWD_MIN_ROWS, -(-b // max(1, target // col_blocks)),
+  rows = max(_BWD_MIN_ROWS, -(-b // max(1, target // (col_blocks * m))),
              -(-b // _MAX_GRID_Y))
   return per_chunk, -(-tiles // per_chunk), rows, -(-b // rows)
 
@@ -392,20 +415,39 @@ def _launch(dev, name: str, fn, *args):
     _raise_on(fn(*args, torch.cuda.current_stream(dev).cuda_stream), name)
 
 
-def _fwd_launch(x, count_raw, logits, gate, constrained: bool):
+def _layout(x, params, members: int):
+  """(B, D, row strides, member strides) of a call. A (B, D) call
+  (``members`` = 0) reads its tensors as they are, without a view (the
+  host time of a launch matters: a step is host-bound); its member
+  strides are 0."""
+  if not members:
+    return (*_row_strides(x, params), [0] * (1 + len(params)))
+  b, d, lds = _row_strides(x[0], [p[0] for p in params])
+  return b, d, lds, _member_strides((x, *params), members)
+
+
+def _fwd_launch(x, count_raw, logits, gate, constrained: bool,
+                members: int = 0):
+  """The forward kernel. ``members`` = 0: one (B, D) problem → (B,).
+  ``members`` = M: every operand has a leading member axis, of M or of 1
+  for an operand the members share (read through a member stride of 0),
+  → (M, B), in one launch."""
   from . import _build
-  b, d, lds = _check_operands(x, (count_raw, logits, gate))
-  params = _kernel_operands(x, (count_raw, logits, gate))
+  params = (count_raw, logits, gate)
+  _check_operands(x, params)
+  m = max(1, members)
+  params = _kernel_operands(x, params)
+  b, d, lds, mss = _layout(x, params, members)
   mask = _bf16_mask(params)
   ptrs = [t.data_ptr() for t in (x, *params)]
-  plan = _launch_plan(b, d, lds, ptrs, _sm_count(x.device),
-                      [t.element_size() for t in (x, *params)])
+  plan = _launch_plan(b, d, lds + mss, ptrs, _sm_count(x.device),
+                      [t.element_size() for t in (x, *params)], m)
   lib = _build.load()
-  out = _scratch((b,), x.device)
+  out = _scratch((m, b) if members else (b,), x.device)
   partial = (None if plan.fwd_chunks == 1 else
-             _scratch((b, plan.fwd_chunks), x.device))
-  args = (*ptrs, out.data_ptr(), _ptr(partial), b, d, *lds, int(plan.vec),
-          plan.fwd_tiles, plan.fwd_chunks, int(constrained))
+             _scratch((m * b, plan.fwd_chunks), x.device))
+  args = (*ptrs, out.data_ptr(), _ptr(partial), m, b, d, *mss, *lds,
+          int(plan.vec), plan.fwd_tiles, plan.fwd_chunks, int(constrained))
   if mask:
     _launch(x.device, "zinb_rowsum_fwd", lib.sisua_zinb_rowsum_fwd_bf16,
             *args, mask)
@@ -415,38 +457,48 @@ def _fwd_launch(x, count_raw, logits, gate, constrained: bool):
   return out
 
 
-def _bwd_launch(x, count_raw, logits, gate, g, constrained: bool, need):
+def _bwd_launch(x, count_raw, logits, gate, g, constrained: bool, need,
+                members: int = 0):
   """The three gradient fields, each in its primal's dtype (None where
   not needed). A (B, D) field is written in ``_write_dtype``; with bf16
-  writes for a float32 primal it is widened afterwards."""
+  writes for a float32 primal it is widened afterwards. ``members`` as in
+  ``_fwd_launch``: then ``g`` is (M, B) and every field has the member
+  axis, (M, B, D) or per-gene (M, 1, D), shared operands included."""
   from . import _build
   primals = (count_raw, logits, gate)
-  b, d, lds = _check_operands(x, primals)
+  _check_operands(x, primals)
+  m = max(1, members)
   params = _kernel_operands(x, primals)
+  b, d, lds, mss = _layout(x, params, members)
   mask = _bf16_mask(params)
   g = g.contiguous()
-  if g.dtype != torch.float32 or tuple(g.shape) != (b,):
-    raise ValueError(f"cotangent must be float32 ({b},), got {g.dtype} "
-                     f"{tuple(g.shape)}")
+  if g.dtype != torch.float32 or g.numel() != m * b \
+      or g.shape[-1:] != (b,):
+    raise ValueError(f"cotangent must be float32 with {m} × {b} rows, got "
+                     f"{g.dtype} {tuple(g.shape)}")
   full = _write_dtype(primals)
+
+  lead = (m,) if members else ()
 
   def field(ld):  # per-gene fields are f32 sums
     if ld and full == torch.bfloat16:
-      return _scratch((b, d), x.device, torch.bfloat16)
-    return _scratch((b, d) if ld else (1, d), x.device)
+      return _scratch((*lead, b, d), x.device, torch.bfloat16)
+    return _scratch((*lead, b, d) if ld else (*lead, 1, d), x.device)
   outs = [field(ld) if n else None for ld, n in zip(lds, need)]
   ptrs = [t.data_ptr() for t in (x, *params)]
   out_ptrs = [_ptr(o) for o in outs]
   plan = _launch_plan(
-      b, d, lds, ptrs + [p for p in out_ptrs if p], _sm_count(x.device),
+      b, d, lds + mss, ptrs + [p for p in out_ptrs if p],
+      _sm_count(x.device),
       [t.element_size() for t in (x, *params)]
-      + [o.element_size() for o in outs if o is not None])
+      + [o.element_size() for o in outs if o is not None], m)
   lib = _build.load()
   partial = None
   if any(n and ld == 0 for ld, n in zip(lds, need)):
-    partial = _scratch((3, plan.bwd_chunks, d), x.device)
-  args = (*ptrs, g.data_ptr(), *out_ptrs, _ptr(partial), b, d, *lds,
-          int(plan.vec), plan.bwd_rows, plan.bwd_chunks, int(constrained))
+    partial = _scratch((*lead, 3, plan.bwd_chunks, d), x.device)
+  args = (*ptrs, g.data_ptr(), *out_ptrs, _ptr(partial), m, b, d, *mss,
+          *lds, int(plan.vec), plan.bwd_rows, plan.bwd_chunks,
+          int(constrained))
   if mask or full == torch.bfloat16:
     _launch(x.device, "zinb_rowsum_bwd", lib.sisua_zinb_rowsum_bwd_bf16,
             *args, mask, int(full == torch.bfloat16))
@@ -463,30 +515,90 @@ def _launches_kernel(x: torch.Tensor) -> bool:
   return x.device.type != "cpu"
 
 
+def _vmapped(m: int, in_dims, tensors):
+  """``torch.func.vmap``'s operands with the member axis first, or a
+  leading axis of 1 where an operand is not batched (the members share
+  it). Rows keep a unit column stride, as the kernels read them."""
+  out = []
+  for t, d in zip(tensors, in_dims):
+    t = t.unsqueeze(0) if d is None else t.movedim(d, 0)
+    out.append(t.contiguous() if t.stride(-1) != 1 else t)
+  x = out[0]
+  if not x[0].is_contiguous():
+    out[0] = x.contiguous()
+  return out
+
+
+class _ZinbRowsumBwd(torch.autograd.Function):
+  """The backward of ``_ZinbRowsum`` as an operator of its own, so that
+  ``torch.func.vmap(torch.func.grad(…))`` batches it through ``vmap``
+  below: one member-batched launch for all members."""
+
+  @staticmethod
+  def forward(x, count_raw, logits, gate, g, constrained, need):
+    if _launches_kernel(x):
+      return _bwd_launch(x, count_raw, logits, gate, g, constrained, need)
+    return _grads_ref(x, count_raw, logits, gate, g, constrained, need)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    pass
+
+  @staticmethod
+  def backward(ctx, *grads):
+    raise NotImplementedError("the fused ZINB row sum has no second "
+                              "derivative")
+
+  @staticmethod
+  def vmap(info, in_dims, x, count_raw, logits, gate, g, constrained,
+           need):
+    m = info.batch_size
+    x, cr, lg, gt, g = _vmapped(m, in_dims[:5], (x, count_raw, logits, gate,
+                                                 g))
+    if _launches_kernel(x):
+      grads = _bwd_launch(x, cr, lg, gt, g.expand(m, -1), constrained,
+                          need, members=m)
+    else:  # every field per member, shared primals included
+      grads = _grads_ref(*(t.expand(m, *t.shape[1:])
+                           for t in (x, cr, lg, gt, g)), constrained, need)
+    return grads, tuple(None if gr is None else 0 for gr in grads)
+
+
 class _ZinbRowsum(torch.autograd.Function):
   """Row-summed ZINB log-pmf with the analytic backward (the JAX
   ``_zinb_rowsum`` custom VJP). CPU tensors: plain versions; CUDA tensors:
-  the two kernels."""
+  the two kernels. Under ``torch.func.vmap`` the members go onto one
+  launch of each kernel (``vmap``), as Pallas's batching rule puts them on
+  the TPU kernel's grid."""
 
   @staticmethod
-  def forward(ctx, x, count_raw, logits, gate, constrained):
+  def forward(x, count_raw, logits, gate, constrained):
+    if _launches_kernel(x):
+      return _fwd_launch(x, count_raw, logits, gate, constrained)
+    return _rowsum_ref(x, count_raw, logits, gate, constrained)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    x, count_raw, logits, gate, constrained = inputs
     ctx.constrained = bool(constrained)
     ctx.save_for_backward(x, count_raw, logits, gate)
-    if _launches_kernel(x):
-      return _fwd_launch(x, count_raw, logits, gate, ctx.constrained)
-    return _rowsum_ref(x, count_raw, logits, gate, ctx.constrained)
 
   @staticmethod
   def backward(ctx, g):
     x, count_raw, logits, gate = ctx.saved_tensors
     need = tuple(ctx.needs_input_grad[1:4])
-    if _launches_kernel(x):
-      grads = _bwd_launch(x, count_raw, logits, gate, g, ctx.constrained,
-                          need)
-    else:
-      grads = _grads_ref(x, count_raw, logits, gate, g, ctx.constrained,
-                         need)
+    grads = _ZinbRowsumBwd.apply(x, count_raw, logits, gate, g,
+                                 ctx.constrained, need)
     return (None, *grads, None)
+
+  @staticmethod
+  def vmap(info, in_dims, x, count_raw, logits, gate, constrained):
+    m = info.batch_size
+    ops = _vmapped(m, in_dims[:4], (x, count_raw, logits, gate))
+    if _launches_kernel(ops[0]):
+      return _fwd_launch(*ops, bool(constrained), members=m), 0
+    out = _rowsum_ref(*ops, bool(constrained))
+    return out.expand(m, *out.shape[1:]), 0
 
 
 def _norm_param(p, x):

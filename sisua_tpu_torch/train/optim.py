@@ -22,6 +22,11 @@ Each holds its state per parameter in a list aligned with ``params`` plus
 the step count, with ``state_dict`` / ``load_state_dict`` so a rollback
 snapshot restores it. A parameter without a gradient is updated as one
 with a zero gradient, as optax sees every leaf.
+
+``clipped_adam_step_`` is the functional, member-stacked form of
+``optax.chain(clip_by_global_norm(clipnorm), adam(lr))`` (and of
+``inject_hyperparams(adam)`` with one rate per member) that the ensemble
+(``train/ensemble.py``) applies to every member at once.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-__all__ = ["OPTIMIZERS", "make_inner_optimizer"]
+__all__ = ["OPTIMIZERS", "make_inner_optimizer", "clipped_adam_step_"]
 
 
 class _OptaxLike:
@@ -192,3 +197,52 @@ def make_inner_optimizer(name: str, params, learning_rate: float):
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
                             eps=1e-8)
   return OPTIMIZERS[name](params, learning_rate)
+
+
+def _per_member(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+  """An (M,) tensor shaped to broadcast over ``like``'s member axis."""
+  return v.reshape(-1, *([1] * (like.dim() - 1)))
+
+
+def _member_global_norms(grads) -> torch.Tensor:
+  """optax ``global_norm`` of each member: every tensor of ``grads`` has
+  the member axis first; returns (M,)."""
+  sums = [torch.sum(g * g, dim=tuple(range(1, g.dim()))) for g in grads]
+  return torch.sqrt(torch.stack(sums).sum(0))
+
+
+@torch.no_grad()
+def clipped_adam_step_(params, grads, mu, nu, count: torch.Tensor, lr,
+                       clipnorm: float, b1: float = 0.9, b2: float = 0.999,
+                       eps: float = 1e-8) -> torch.Tensor:
+  """One step of ``optax.chain(clip_by_global_norm(clipnorm), adam(lr))``
+  on stacked members, in place: ``params``, ``grads``, ``mu`` and ``nu``
+  are aligned lists of tensors with the member axis first, ``count`` the
+  (M,) step counts, ``lr`` a float or an (M,) tensor of rates (optax's
+  ``inject_hyperparams``). The clip's global norm is each member's own
+  (no clip when ``clipnorm`` is 0). optax's arithmetic, element for
+  element: μ = (1−b1)·g + b1·μ, ν = (1−b2)·g² + b2·ν, then
+  −lr · μ̂ / (√ν̂ + eps) with bias corrections 1 − bᵗ. Returns the
+  pre-clip norms (M,)."""
+  norms = _member_global_norms(grads)
+  if clipnorm > 0:
+    keep = norms < clipnorm
+    grads = [torch.where(_per_member(keep, g), g,
+                         g / _per_member(norms, g) * clipnorm)
+             for g in grads]
+  torch._foreach_mul_(mu, b1)
+  torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+  sq = torch._foreach_mul(grads, grads)
+  torch._foreach_mul_(sq, 1.0 - b2)
+  torch._foreach_mul_(nu, b2)
+  torch._foreach_add_(nu, sq)
+  count += 1
+  t = count.to(torch.float32)
+  bc1 = 1.0 - torch.pow(b1, t)
+  bc2 = 1.0 - torch.pow(b2, t)
+  neg_lr = -(lr if isinstance(lr, torch.Tensor) else torch.full_like(t, lr))
+  for p, m, v in zip(params, mu, nu):
+    u = (m / _per_member(bc1, m)) / (torch.sqrt(v / _per_member(bc2, v))
+                                     + eps)
+    p.add_(u * _per_member(neg_lr, u))
+  return norms

@@ -11,6 +11,12 @@ streaming loop, ``_fit_device_cached``, ``_fit_out_of_core`` and
     Validation runs every ``valid_freq`` steps (their mean lands on the
     epoch), else once at the end of the epoch; metrics are summed on the
     device and fetched once per epoch; ``max_iter`` stops at the step.
+    ``scan_steps`` = k > 1 (when an epoch holds at least k batches): k
+    batches are gathered and uploaded as one (k, B, D) chunk
+    (``DataFeeder.iter_chunks``) and their k steps run from it; an epoch's
+    steps round down to a multiple of k, and validation and ``max_iter``
+    are checked once per chunk, across its k steps (the JAX loop's
+    ``lax.scan`` over a chunk).
   * ``device_cache=True`` and the dense data within ``_device_budget()``:
     the **device-resident** loop. The matrices live on the device for the
     run (``device_dtype`` 'int16', exact for integral counts below 32,767
@@ -306,9 +312,11 @@ class Trainer:
                metrics_interval: int = 1,
                hbm_budget_bytes: Optional[int] = None,
                device: Optional[torch.device] = None,
+               scan_steps: int = 1,
                verbose: bool = False):
     """``device``: the card whose memory sets ``_device_budget`` (None:
-    no card)."""
+    no card). ``scan_steps``: steps per uploaded chunk of the streaming
+    loop (the resident and out-of-core loops ignore it, as JAX's do)."""
     if optimizer != "adam" and optimizer not in OPTIMIZERS:
       raise ValueError(f"unknown optimizer {optimizer!r}; one of "
                        f"{sorted(['adam', *OPTIMIZERS])}")
@@ -329,6 +337,7 @@ class Trainer:
     self.metrics_interval = max(1, int(metrics_interval))
     self.hbm_budget_bytes = hbm_budget_bytes
     self.device = None if device is None else torch.device(device)
+    self.scan_steps = max(1, int(scan_steps))
     self.verbose = bool(verbose)
     self.history: Dict[str, List[float]] = {}
     self._eval_cache = None
@@ -380,6 +389,8 @@ class Trainer:
                      callbacks, checkpoint_fn):
     """Per-step batches from the feeder (JAX ``Trainer.fit``'s own loop)."""
     transfer = _Transfer(model.device)
+    chunk = self.scan_steps
+    use_scan = chunk > 1 and train_feeder.n_chunks(chunk) >= 1
 
     def upload(batch):
       def put():
@@ -390,6 +401,13 @@ class Trainer:
           out["library"] = transfer.upload(batch["library"])
         return out
       return transfer.put(put)
+
+    def steps_of(item):
+      """The batches of one uploaded item: itself, or a chunk's k."""
+      if not use_scan:
+        return [item]
+      return [{key: ([x[j] for x in v] if key == "inputs" else v[j])
+               for key, v in item.items()} for j in range(chunk)]
 
     best = _Best(model)
     stop = False
@@ -402,18 +420,19 @@ class Trainer:
       n_examples = n_steps = 0
       val_metrics: Dict[str, list] = {}
       train_feeder.set_epoch(epoch)
-      batches = _prefetch_iter(map(upload, iter(train_feeder)))
+      batches = _prefetch_iter(map(upload, train_feeder.iter_chunks(chunk)
+                                   if use_scan else iter(train_feeder)))
       try:
         for item in batches:
-          batch = transfer.take(item, _batch_tensors)
           prev = model.step
-          metrics = model._train_step(batch)
-          if keys is None:
-            keys = sorted(metrics)
-          acc = _accumulate(acc, metrics, keys)
-          n_examples += batch["inputs"][0].shape[0]
-          n_steps += 1
-          # periodic validation, valid_freq in steps
+          for batch in steps_of(transfer.take(item, _batch_tensors)):
+            metrics = model._train_step(batch)
+            if keys is None:
+              keys = sorted(metrics)
+            acc = _accumulate(acc, metrics, keys)
+            n_examples += batch["inputs"][0].shape[0]
+            n_steps += 1
+          # periodic validation, valid_freq in steps, once per chunk
           if (valid_feeder is not None and self.valid_freq > 0
               and prev // self.valid_freq != model.step // self.valid_freq):
             for k, v in self.evaluate(model, valid_feeder).items():

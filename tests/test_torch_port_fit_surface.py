@@ -555,9 +555,16 @@ def test_later_items_raise(kw):
   """Arguments of loops the port does not have name their ROADMAP item
   instead of being ignored (``transfer_dtype`` and ``hbm_budget_bytes``
   work since the streaming and out-of-core loops came:
-  ``tests/test_torch_port_out_of_core.py``)."""
+  ``tests/test_torch_port_out_of_core.py``). ``scan_steps`` (A5a) is
+  ported now: it trains, in whole chunks of 4 steps
+  (``tests/test_torch_port_scan_steps.py`` holds it to JAX)."""
+  model = _port_model("vae_plain")
+  if "scan_steps" in kw:
+    model.fit(_counts(160), epochs=1, batch_size=32, **kw)
+    assert model.step == 4 and np.isfinite(model.history["loss"]).all()
+    return
   with pytest.raises(NotImplementedError, match="ROADMAP A"):
-    _port_model("vae_plain").fit(_counts(32), epochs=1, batch_size=32, **kw)
+    model.fit(_counts(32), epochs=1, batch_size=32, **kw)
 
 
 def test_a_second_fit_takes_its_own_learning_rate():

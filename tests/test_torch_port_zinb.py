@@ -457,12 +457,13 @@ def test_launches_pass_the_plan_and_its_scratch(per_gene, monkeypatch):
   _, _, lds = tz._row_strides(tt[0], tt[1:4])
   plan = _plan_for(tt[0], tt[1:4])
   fwd, bwd = calls
-  assert fwd[6:] == (b, d, *lds, int(plan.vec), plan.fwd_tiles,
-                     plan.fwd_chunks, 0)
+  # one member, member strides 0: the (B, D) launch
+  assert fwd[6:] == (1, b, d, 0, 0, 0, 0, *lds, int(plan.vec),
+                     plan.fwd_tiles, plan.fwd_chunks, 0)
   assert plan.fwd_chunks == 5 and plan.vec
   assert made[fwd[5]] == (b, plan.fwd_chunks)
-  assert bwd[9:] == (b, d, *lds, int(plan.vec), plan.bwd_rows,
-                     plan.bwd_chunks, 0)
+  assert bwd[9:] == (1, b, d, 0, 0, 0, 0, *lds, int(plan.vec),
+                     plan.bwd_rows, plan.bwd_chunks, 0)
   if any(per_gene):
     assert made[bwd[8]] == (3, plan.bwd_chunks, d)
   else:

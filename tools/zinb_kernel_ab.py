@@ -11,7 +11,8 @@ directory, or a copy built with other compiler flags. Its
 its own library into ``OTHER_ROOT/build/kernels``. Then:
 
   1. every phase-3 case of ``chip_smoke.py``: each version against the
-     plain version at phase 3's tolerances, twice for the same bits, then
+     plain version at phase 3's tolerances, twice for the same bits,
+     whether this version's outputs equal the other's bit for bit, then
      µs per call of the other version and of this one in turns (other,
      this, this, other; ROUNDS times), beside the case's bound;
   2. main_full operands (512 × 33,000) at nonzero shares 0, 0.5%, 7% and
@@ -154,6 +155,15 @@ def main(others):
         for tz in (mine[0], tz_o):
           cs.check_kernels(torch, tz, label, xs, cr, lg, gt, g, constrained,
                            need)
+        outs = [(tz._fwd_launch(xs, cr, lg, gt, constrained),
+                 tz._bwd_launch(xs, cr, lg, gt, g, constrained, need))
+                for tz in (mine[0], tz_o)]
+        same = torch.equal(outs[0][0], outs[1][0]) and all(
+            (a is None and b is None) or torch.equal(a, b)
+            for a, b in zip(outs[0][1], outs[1][1]))
+        log(f"[bits] {label}: this version's forward and gradients "
+            f"{'equal' if same else 'DIFFER from'} {other}'s bit for bit")
+        del outs
         for kind in ("fwd", "bwd"):
           if kind == "fwd":
             fns = {"plain": lambda t=tz_o: t._fwd_launch(xs, cr, lg, gt,
