@@ -193,13 +193,38 @@ before the final line:
      ``fit_hyper_vmap`` at the JAX defaults (learning rates 1e-4, 3e-4,
      1e-3, 3e-3), 2 epochs: every trial finite, the best served with
      ``predict_mean`` on the held-out cells.
+ 16. the analysis path on fitted models (``sisua_tpu_torch.analysis``,
+     ``differential_expression``, ``ops/knn_mi.py``). (a) SISUA at phase
+     6's configuration for 4 epochs of one window each, with
+     ``NegativeLogLikelihood`` and ``ImputationError`` (every epoch) and
+     ``CorrelationScores`` (every second) on the 1,024 held-out cells,
+     ten genes named after the marker genes of the ten proteins: each
+     key at its epochs and finite; both kernels twice a step and the
+     forward once per head per served NLL batch, its 2 draws as members;
+     the NLL's kernel route against the distribution math on the same
+     draws (rtol 1e-4); ``med``/``mean`` equal to numpy on the fetched
+     imputed mean; the callbacks' seconds an epoch beside the step ms.
+     (b) phase 4's SCVI fit (16 epochs) on a copy of the counts in 4 groups
+     of 2,048 cells, 200 genes of each group's own redrawn as Poisson(0.5)
+     and ×4 in its cells; ``differential_expression`` one-vs-rest at the
+     JAX defaults and group0 in 'vanilla' mode: ≥ 150 of each group's 200
+     genes in its top 200 ``lfc_median``, Spearman against the empirical
+     log2 fold change > 0.5, the card's float64 statistics equal to the
+     numpy statements on the same draws (rtol 1e-10 of each value or of
+     the terms it is a difference of, ``proba_*`` exact);
+     seconds per group for draws and statistics, peak memory. (c)
+     ``knn_mutual_information`` on the card of the SISUA's imputed mean
+     of the 2,000 most variable genes of (a)'s held-out imputation
+     against the 10 proteins over 4,096 cells: finite, ≥ 0, 64 genes
+     equal to the CPU on the same operands (atol 1e-5 nats), peak memory
+     within its 2 GiB budget; seconds.
 Earlier phases train through ``fit(device_cache=True)``, the loop they
 were written for. Before the last line it prints the kernels' JSON summary
 (launches of the phase 4 and phase 6 fits, of phase 8 and of phases 9 to
-15's fits and round trips and phase 14a's probe run; time, plain time and
-bound at 512 × 33,000 'main_full', and under ``bf16_operands`` /
-``bf16_writes`` the bf16 modes' at the same shape with phase 13a's
-launches, under ``members`` the 4-member launch's at 15a's
+16's fits, round trips and served NLL batches and phase 14a's probe run;
+time, plain time and bound at 512 × 33,000 'main_full', and under
+``bf16_operands`` / ``bf16_writes`` the bf16 modes' at the same shape
+with phase 13a's launches, under ``members`` the 4-member launch's at 15a's
 'fleet_full_shared' with phase 15b–d's launches; the probes' at
 1024 × 33,000, ``sol_mem`` and ``lg_lgammaf``);
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -259,6 +284,7 @@ F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 # comparison, exp, log and log1p as one, an lgammaf as 20
 OPS = {"fwd": (30, 95), "bwd": (55, 110)}  # (zero count, nonzero count)
 IW_SAMPLES, IW_BATCH, IW_CELLS = 100, 32, 256
+NLL_RTOL = 1e-4       # phase 16a: the NLL's kernel route vs plain route
 PHASE4 = {}  # phase 4's steady single-model step ms, beside phase 15's fleet
 
 
@@ -785,6 +811,7 @@ def phase_sisua(torch, x, held):
         f"launches {fit_launches}: expected 2 × ({steps} steps + "
         f"{val_batches} validation batches) forward, 2 × {steps} backward")
   step_ms, cells_s, peak = _steady(h, torch)
+  PHASE6["step_ms"] = step_ms
   log(f"[6 sisua] {steps} steps in {fit_s:.1f} s; loss first window "
       f"{first:.2f} last window {last:.2f}; llk_x1 {h['llk_x1'][-1]:.2f}; "
       f"val_loss {h['val_loss'][0]:.2f} → {h['val_loss'][-1]:.2f}; steady "
@@ -2841,6 +2868,420 @@ def phase_scan_steps(torch, big):
   return {"zinb_rowsum_fwd": 2 * steps, "zinb_rowsum_bwd": 2 * steps}
 
 
+# phase 16: the analysis path on a fitted model
+ANALYSIS_EPOCHS = 4
+CB_BATCH = 256           # the callbacks' serving batch (the JAX default)
+CB_DRAWS = 2             # their MC draws (sisua_tpu/analysis/sc_metrics.py)
+DE_GROUPS = 4            # 4 × 2,048 cells
+DE_PLANTED = 200         # genes scaled in each group's cells
+DE_BASE = 0.5            # their rate outside the group
+DE_FOLD = 4.0
+DE_HITS = 150            # planted genes among a group's top 200 lfc_median
+DE_SPEARMAN = 0.5        # tests/test_de.py:42
+DE_CHECK_GENES = 4096    # columns held against the numpy statistics
+MI_GENES = 2000
+MI_CELLS = 4096
+MI_CPU_GENES = 64
+MI_ATOL = 1e-5           # nats
+MI_BUDGET = 2 << 30      # knn_mutual_information's mem_budget_bytes default
+PHASE6 = {}              # phase 6's steady SISUA step ms, beside phase 16a
+
+
+def _marker_names():
+  """33,000 gene names with the marker genes of the first 10 proteins of
+  the marker table first, and those 10 protein names."""
+  from sisua_tpu_torch.data import MARKER_ADT_GENE, MARKER_ADTS
+  prots = MARKER_ADTS[:PROTEINS]
+  genes = [MARKER_ADT_GENE[p] for p in prots]
+  check(len(set(genes)) == PROTEINS, f"marker genes {genes}")
+  return genes + [f"Gene{i:05d}" for i in range(PROTEINS, GENES)], prots
+
+
+def _timed_callbacks(torch, cbs):
+  """Each callback's ``on_epoch_end`` timed (synchronized) into
+  ``seconds[name]``, and a recorder of the metric keys each epoch logs."""
+  from sisua_tpu_torch.train import TrainingCallback
+  seconds = {cb.name: [] for cb in cbs}
+  for cb in cbs:
+    def timed(epoch, logs, run=cb.on_epoch_end, name=cb.name):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      run(epoch, logs)
+      torch.cuda.synchronize()
+      seconds[name].append(time.perf_counter() - t0)
+    cb.on_epoch_end = timed
+
+  class Keys(TrainingCallback):
+    def __init__(self):
+      self.seen = []
+
+    def on_epoch_end(self, epoch, logs):
+      self.seen.append((epoch, sorted(k for k in logs if k.split("_")[0]
+                                      in seconds)))
+  return seconds, Keys()
+
+
+def _nll_routes(torch, model, cb):
+  """``nllk``/``nllk1`` of one pass over the callback's corrupted data,
+  the kernel route (``mc_row_log_prob``: one member-axis forward launch
+  per head per batch) and the plain route (the distribution math) on the
+  same draws; rows the per-cell max relative difference."""
+  import math
+  import numpy as np
+  from sisua_tpu_torch.analysis.sc_metrics import _rows
+  from sisua_tpu_torch.models.objective import mc_row_log_prob
+  from sisua_tpu_torch.ops import zinb as tz
+  y_true = cb._targets(model.device)
+  lse = lambda lp: torch.logsumexp(lp, 0) - math.log(lp.shape[0])  # noqa
+  kern, plain = [[], []], [[], []]
+  before = tz.launches["zinb_rowsum_fwd"]
+  with torch.no_grad():
+    for out, lo, nv in model._served_batches(cb._prepare(), (CB_DRAWS,),
+                                             CB_BATCH):
+      b = out.outputs[0].batch_shape[-1]
+      for i, (dist, y) in enumerate(zip(out.outputs, y_true)):
+        yb = _rows(y, lo, nv, b)
+        kern[i].append(lse(mc_row_log_prob(dist, yb))[:nv])
+        plain[i].append(lse(dist.log_prob(yb))[:nv])
+  torch.cuda.synchronize()
+  launched = tz.launches["zinb_rowsum_fwd"] - before
+  res = []
+  for k, p in zip(kern, plain):
+    k, p = torch.cat(k).cpu().numpy(), torch.cat(p).cpu().numpy()
+    res.append((-float(k.mean()), -float(p.mean()),
+                float(np.max(np.abs(k - p) / np.abs(p)))))
+  return res, launched
+
+
+def phase_callbacks(torch, x, held, y, held_y):
+  """Phase 16a: SISUA at phase 6's configuration for ANALYSIS_EPOCHS
+  epochs with the three metric callbacks on the held-out cells. Returns
+  the ZINB launches, the model and the ImputationError callback."""
+  import numpy as np
+  from sisua_tpu_torch.analysis import (CorrelationScores, ImputationError,
+                                        NegativeLogLikelihood)
+  from sisua_tpu_torch.models import SISUA
+  from sisua_tpu_torch.ops import zinb as tz
+  genes, prots = _marker_names()
+  data = [held, held_y]
+  nll = NegativeLogLikelihood(data=data, freq=1)
+  imp = ImputationError(data=data, freq=1)
+  corr = CorrelationScores(data=data, var_names=[genes, prots], freq=2)
+  seconds, keys = _timed_callbacks(torch, [nll, imp, corr])
+  model = SISUA(_sisua_outputs(), alpha=ALPHA, device=DEVICE, seed=SEED)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  model.fit([x, y], epochs=ANALYSIS_EPOCHS, batch_size=BATCH,
+            learning_rate=1e-3, labels_percent=LABELS_PERCENT,
+            metrics_interval=1, device_cache=True,
+            callbacks=[nll, imp, corr, keys])
+  torch.cuda.synchronize()
+  fit_s = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  steps = ANALYSIS_EPOCHS * (CELLS // BATCH)
+  served = ANALYSIS_EPOCHS * -(-HELD_OUT // CB_BATCH)  # NLL batches
+  launches = dict(tz.launches)
+  check(launches == {"zinb_rowsum_fwd": 2 * (steps + served),
+                     "zinb_rowsum_bwd": 2 * steps},
+        f"launches {launches}: expected 2 × ({steps} steps + {served} "
+        f"served NLL batches, the draws as members) forward, 2 × {steps} "
+        f"backward")
+  want = {e: sorted(
+      [f"NegativeLogLikelihood_{k}" for k in ("nllk", "nllk1")]
+      + [f"ImputationError_{k}" for k in ("med", "mean")]
+      + ([f"CorrelationScores_{k}" for k in ("pearson", "spearman")]
+         if e % 2 == 0 else [])) for e in range(ANALYSIS_EPOCHS)}
+  check(keys.seen == sorted(want.items()),
+        f"metric keys by epoch {keys.seen}")
+  h = model.history
+  for k in {k for _, ks in keys.seen for k in ks}:
+    check(np.isfinite(h[k]).all(), f"{k} {h[k]}")
+  # the NLL's kernel route against the plain route on the same draws
+  ((nk, npl, nrow), (ak, apl, arow)), routed = _nll_routes(torch, model,
+                                                           nll)
+  check(routed == 2 * -(-HELD_OUT // CB_BATCH),
+        f"NLL kernel route: {routed} forward launches")
+  check(abs(nk - npl) <= NLL_RTOL * abs(npl)
+        and abs(ak - apl) <= NLL_RTOL * abs(apl),
+        f"nllk kernel {nk} plain {npl}; nllk1 kernel {ak} plain {apl}")
+  # med/mean from the fetched imputed mean, recomputed with numpy
+  org = held.cpu().numpy()
+  cor = imp._prepare()[0]
+  t1 = time.perf_counter()
+  med = float(np.median(np.abs(org - imp.imputed)))
+  mask = (org != cor).any(axis=1)
+  mean = float(np.mean(np.median(np.abs(org[mask] - imp.imputed[mask]),
+                                 axis=1)))
+  host_s = time.perf_counter() - t1
+  card_med, card_mean = h["ImputationError_med"][-1], \
+      h["ImputationError_mean"][-1]
+  check(card_med == med and abs(card_mean - mean) <= 1e-5 * abs(mean),
+        f"ImputationError med {card_med} vs numpy {med}, mean {card_mean} "
+        f"vs {mean}")
+  step_ms = float(np.median(h["epoch_time"][1:])) / (CELLS // BATCH) * 1e3
+  per_epoch = [round(sum(s[e] for s in seconds.values()), 3)
+               for e in range(ANALYSIS_EPOCHS)]
+  log(f"[16a callbacks] SISUA (phase 6's configuration) {ANALYSIS_EPOCHS} "
+      f"epochs in {fit_s:.1f} s with NegativeLogLikelihood(freq=1), "
+      f"ImputationError(freq=1), CorrelationScores(freq=2) on the "
+      f"{HELD_OUT} held-out cells ({CB_DRAWS} draws, batch {CB_BATCH}): "
+      f"keys at epochs {[(e, len(k)) for e, k in keys.seen]}; last epoch "
+      f"nllk {h['NegativeLogLikelihood_nllk'][-1]:.3f} nllk1 "
+      f"{h['NegativeLogLikelihood_nllk1'][-1]:.3f} med {card_med:.4f} mean "
+      f"{card_mean:.4f} spearman "
+      f"{h['CorrelationScores_spearman'][-1]:.4f} pearson "
+      f"{h['CorrelationScores_pearson'][-1]:.4f}")
+  log(f"[16a callbacks] steady step {step_ms:.3f} ms (epochs 2–4; phase 6: "
+      f"{PHASE6.get('step_ms', float('nan')):.3f} ms), callbacks "
+      f"{per_epoch} s an epoch, outside the epoch timing (NLL "
+      f"{[round(s, 3) for s in seconds[nll.name]]}, ImputationError "
+      f"{[round(s, 3) for s in seconds[imp.name]]}, CorrelationScores "
+      f"{[round(s, 3) for s in seconds[corr.name]]}); peak memory "
+      f"{peak:.2f} GiB; launches {launches}")
+  log(f"[16a callbacks] nllk kernel route {nk:.6f} plain {npl:.6f} (rel "
+      f"{abs(nk - npl) / abs(npl):.2e}, worst cell {nrow:.2e}), nllk1 "
+      f"{ak:.6f} / {apl:.6f} (rel {abs(ak - apl) / abs(apl):.2e}, worst "
+      f"cell {arow:.2e}) on the same draws (rtol {NLL_RTOL}); med/mean "
+      f"equal to numpy on the fetched {imp.imputed.shape} imputed mean "
+      f"({host_s:.2f} s on the host)")
+  return launches, model, imp
+
+
+def _planted(torch, x):
+  """A copy of phase 4's counts in DE_GROUPS groups of contiguous cells.
+  DE_PLANTED genes of each group are redrawn as Poisson(DE_BASE) in every
+  cell, scaled ×DE_FOLD in the group's own cells."""
+  import numpy as np
+  gen = torch.Generator(device="cpu").manual_seed(SEED + 16)
+  genes = torch.randperm(GENES, generator=gen)[:DE_GROUPS * DE_PLANTED]
+  planted = genes.view(DE_GROUPS, DE_PLANTED).numpy()
+  xd = x.clone()
+  per = CELLS // DE_GROUPS
+  gdev = torch.Generator(device=xd.device).manual_seed(SEED + 16)
+  for g in range(DE_GROUPS):
+    rate = torch.full((CELLS, DE_PLANTED), DE_BASE, device=xd.device)
+    rate[g * per:(g + 1) * per] *= DE_FOLD
+    xd[:, torch.as_tensor(planted[g], device=xd.device)] = torch.poisson(
+        rate, generator=gdev)
+  labels = np.repeat([f"group{g}" for g in range(DE_GROUPS)], per)
+  return xd, labels, planted
+
+
+def phase_de(torch, x):
+  """Phase 16b: phase 4's SCVI fit (16 epochs in two windows of 8; 8
+  left a group unresolved) on planted groups, then
+  ``differential_expression`` one-vs-rest at the JAX defaults and once in
+  'vanilla' mode. Returns the ZINB launches of its fit."""
+  import numpy as np
+  from scipy import stats
+  from sisua_tpu_torch.models import base
+  from sisua_tpu_torch.ops import zinb as tz
+  xd, labels, planted = _planted(torch, x)
+  rng = np.random.default_rng(SEED + 17)
+  rest = np.setdiff1d(np.arange(GENES), planted.reshape(-1))
+  cols = np.sort(np.concatenate([planted.reshape(-1), rng.choice(
+      rest, DE_CHECK_GENES - planted.size, replace=False)]))
+  idx = torch.as_tensor(cols, device=DEVICE)
+  model = _scvi(torch, "full")
+  tz.reset_launches()
+  model.fit(xd, epochs=EPOCHS, batch_size=BATCH, learning_rate=1e-3,
+            clipnorm=100.0, metrics_interval=WINDOW, device_cache=True)
+  launches = dict(tz.launches)
+  losses = np.asarray(model.history["loss"])
+  check(np.isfinite(losses).all(), f"planted SCVI losses {losses}")
+  # time the draws and the statistics apart; keep the first group's draws
+  # and pairs at the checked columns for the numpy statistics
+  timing = {"draws": [], "stats": []}
+  kept = []
+  draws, stats_fn = model._normalized_draws, base._de_stats_torch
+
+  def timed_draws(*a, **kw):
+    t0 = time.perf_counter()
+    out = list(draws(*a, **kw))
+    torch.cuda.synchronize()
+    timing["draws"].append(time.perf_counter() - t0)
+    return iter(out)
+
+  def timed_stats(s1, s2, i1, i2, mode, delta):
+    t0 = time.perf_counter()
+    out = stats_fn(s1, s2, i1, i2, mode, delta)
+    timing["stats"].append(time.perf_counter() - t0)
+    if not kept:
+      kept.append((s1[:, idx], s2[:, idx], i1, i2, mode, delta,
+                   {k: v[cols] for k, v in out.items()}))
+    return out
+  model._normalized_draws = timed_draws
+  base._de_stats_torch = timed_stats
+  try:
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    de = model.differential_expression(xd, labels)
+    de_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    _check_de_stats(kept.pop())
+    t0 = time.perf_counter()
+    van = model.differential_expression(xd, labels, group1="group0",
+                                        mode="vanilla")
+    van_s = time.perf_counter() - t0
+    _check_de_stats(kept.pop())
+  finally:
+    base._de_stats_torch = stats_fn
+    del model._normalized_draws
+  n = GENES
+  check(len(de["group1"]) == DE_GROUPS * n
+        and list(dict.fromkeys(de["group1"])) == list(dict.fromkeys(labels)),
+        "one-vs-rest levels")
+  for k in ("scale1", "scale2", "proba_de", "bayes_factor", "lfc_mean",
+            "lfc_median", "lfc_std"):
+    check(np.isfinite(de[k]).all(), f"DE {k} not finite")
+  check(((de["proba_de"] >= 0) & (de["proba_de"] <= 1)).all()
+        and ((van["proba_m1"] >= 0) & (van["proba_m1"] <= 1)).all()
+        and np.isfinite(van["bayes_factor"]).all(), "DE probabilities")
+  xh = xd.cpu().numpy()
+  hits, rho_planted, rho_all = [], [], []
+  union = planted.reshape(-1)
+  for g in range(DE_GROUPS):
+    med = de["lfc_median"][g * n:(g + 1) * n]
+    top = np.argsort(-med)[:DE_PLANTED]
+    hits.append(len(np.intersect1d(top, planted[g])))
+    m1 = labels == f"group{g}"
+    emp = np.log2(xh[m1].mean(0) + 1.0) - np.log2(xh[~m1].mean(0) + 1.0)
+    rho_planted.append(stats.spearmanr(emp[union], med[union]).statistic)
+    rho_all.append(stats.spearmanr(emp, med).statistic)
+  check(min(hits) >= DE_HITS, f"planted genes in each group's top "
+        f"{DE_PLANTED}: {hits} (need {DE_HITS})")
+  check(min(rho_all) > DE_SPEARMAN, f"Spearman against the empirical "
+        f"lfc {rho_all}")
+  log(f"[16b de] SCVI (phase 4's nets) {EPOCHS} epochs on {CELLS} × "
+      f"{GENES} counts in {DE_GROUPS} groups, {DE_PLANTED} genes each at "
+      f"Poisson({DE_BASE:g}) ×{DE_FOLD:g} in the group: loss "
+      f"{losses[0]:.2f} → {losses[-1]:.2f}; "
+      f"differential_expression one-vs-rest (sample_shape (25,), n_pairs "
+      f"5000, max_cells 256) in {de_s:.2f} s: draws "
+      f"{[round(s, 3) for s in timing['draws'][:2 * DE_GROUPS]]} s, "
+      f"statistics {[round(s, 3) for s in timing['stats'][:DE_GROUPS]]} s "
+      f"per group; peak {peak:.2f} GiB above the resident "
+      f"{base_mem / 2**30:.2f} GiB; vanilla group0 vs rest {van_s:.2f} s")
+  log(f"[16b de] planted genes in each group's top {DE_PLANTED} "
+      f"lfc_median: {hits} (need ≥ {DE_HITS}); Spearman against the "
+      f"empirical log2 fold change over all {GENES} genes "
+      f"{[round(float(r), 4) for r in rho_all]} (need > {DE_SPEARMAN}), "
+      f"over the {len(union)} planted genes "
+      f"{[round(float(r), 4) for r in rho_planted]}")
+  del xd
+  return launches
+
+
+def _de_scale(want, k):
+  """What a statistic's error is relative to: its value, or the size of
+  the terms it is a difference or a signed sum of, where that is larger
+  (a value near 0 keeps their rounding): the pairs' RMS lfc for the lfc
+  mean and median (each lfc a difference of two log2 of ~−15), both
+  logarithms for the Bayes factor."""
+  import numpy as np
+  w = np.abs(want[k])
+  if k in ("lfc_mean", "lfc_median"):
+    return np.maximum(w, np.hypot(want["lfc_mean"], want["lfc_std"]))
+  if k == "bayes_factor":
+    p = want.get("proba_de", want.get("proba_m1"))
+    return np.maximum(w, np.abs(np.log(p + 1e-10))
+                      + np.abs(np.log1p(1e-10 - p)))
+  return w
+
+
+def _check_de_stats(kept):
+  """One group's statistics on the card against the numpy statements on
+  the same draws, fetched at the checked columns (each gene's statistics
+  are its own): rtol 1e-10 of ``_de_scale``, proba_* exact."""
+  import numpy as np
+  from sisua_tpu_torch.models import base
+  s1, s2, i1, i2, mode, delta, got = kept
+  t0 = time.perf_counter()
+  want = base._de_stats_numpy(s1.cpu().numpy(), s2.cpu().numpy(), i1, i2,
+                              mode, delta)
+  host_s = time.perf_counter() - t0
+  worst = 0.0
+  for k, w in want.items():
+    if k.startswith("proba"):
+      check(np.array_equal(got[k], w), f"DE {mode} {k}: card != numpy")
+      continue
+    err = np.abs(got[k] - w) / np.maximum(_de_scale(want, k), 1e-300)
+    worst = max(worst, float(err.max()))
+    check(err.max() <= 1e-10, f"DE {mode} {k}: rel {err.max():.2e}")
+  log(f"[16b de] {mode}: the card's statistics against numpy on the same "
+      f"float64 draws ({s1.shape[0]} and {s2.shape[0]} draw rows) at "
+      f"{s1.shape[1]} genes (the planted and a seeded sample): proba "
+      f"exact, worst rel {worst:.2e} (bound 1e-10; n_pairs {len(i1)}"
+      + (", even: lfc_median averages two middle values"
+         if mode == "change" else "") + f"); numpy {host_s:.2f} s")
+
+
+def phase_knn_mi(torch, model, imp, x, y):
+  """Phase 16c: the gene × protein kNN mutual information on the card, on
+  the SISUA model's imputed mean of the MI_GENES most variable genes of
+  phase 16a's held-out imputation, over MI_CELLS training cells."""
+  import numpy as np
+  from sisua_tpu_torch.analysis.posterior import _dist_mean, _unwrap_imputed
+  from sisua_tpu_torch.ops import knn_mi
+  cols = np.sort(np.argsort(-imp.imputed.var(axis=0))[:MI_GENES])
+  idx = torch.as_tensor(cols, device=DEVICE)
+  with torch.no_grad():
+    parts = [_dist_mean(_unwrap_imputed(out.outputs[0]))[:nv][:, idx]
+             for out, _, nv in model._served_batches(
+                 [x[:MI_CELLS], y[:MI_CELLS]], (), BATCH)]
+  X = torch.cat(parts)
+  Y = y[:MI_CELLS]
+  torch.cuda.synchronize()
+  base_mem = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  mi = knn_mi.knn_mutual_information(X, Y, device=DEVICE)
+  torch.cuda.synchronize()
+  card_s = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated() - base_mem
+  check(mi.shape == (MI_GENES, PROTEINS) and np.isfinite(mi).all()
+        and (mi >= 0).all(), f"MI {mi.shape}, min {mi.min()}")
+  check(peak <= MI_BUDGET, f"MI peak {peak / 2**30:.2f} GiB > budget")
+  # the same jittered operands on the CPU, for MI_CPU_GENES of the genes
+  Xh, Yh = knn_mi._host64(X), knn_mi._host64(Y)
+  rng = np.random.RandomState(8)
+  Xs, Ys = knn_mi._prep(Xh, rng, 1e-5), knn_mi._prep(Yh, rng, 1e-5)
+  sel = np.sort(np.random.default_rng(SEED + 18).choice(
+      MI_GENES, MI_CPU_GENES, replace=False))
+  qblock = min(MI_CELLS, 2048)  # the defaults of knn_mutual_information
+  chunk = max(1, min(MI_GENES, MI_BUDGET // (16 * qblock * MI_CELLS)))
+  t0 = time.perf_counter()
+  cpu = knn_mi._mi_prepared(Xs[:, sel], Ys, 3, min(chunk, MI_CPU_GENES),
+                            qblock, torch.device("cpu"))
+  cpu_s = time.perf_counter() - t0
+  err = float(np.abs(mi[sel] - cpu).max())
+  check(err <= MI_ATOL, f"MI card vs CPU max |Δ| {err:.2e} nats")
+  log(f"[16c knn_mi] knn_mutual_information of {MI_GENES} imputed genes × "
+      f"{PROTEINS} proteins over {MI_CELLS} cells on the card in "
+      f"{card_s:.2f} s (chunk {chunk} genes × qblock {qblock} cells, "
+      f"{-(-MI_GENES // chunk)} chunks), peak "
+      f"{peak / 2**30:.2f} GiB above the resident (budget "
+      f"{MI_BUDGET / 2**30:.0f} GiB); MI max {mi.max():.4f} nats, mean "
+      f"{mi.mean():.4f}; the CPU on {MI_CPU_GENES} of the genes in "
+      f"{cpu_s:.1f} s: max |Δ| {err:.2e} nats (atol {MI_ATOL})")
+
+
+def phase_analysis(torch, x, held, y, held_y):
+  """Phase 16: the metric callbacks, differential expression and the kNN
+  mutual information. Returns the ZINB launches of 16a and 16b."""
+  launches, model, imp = phase_callbacks(torch, x, held, y, held_y)
+  phase_knn_mi(torch, model, imp, x, y)
+  del model
+  torch.cuda.empty_cache()
+  de_launches = phase_de(torch, x)
+  torch.cuda.empty_cache()
+  return {k: v + de_launches[k] for k, v in launches.items()}
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2888,13 +3329,14 @@ def main():
     torch.cuda.empty_cache()
     members = phase_member_kernels(torch)
     fleet_launches = phase_fleet(torch, x, held, library, smi)
+    analysis_launches = phase_analysis(torch, x, held, y, held_y)
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
   launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]
               + batch_launches[k] + multiome_launches[k] + last_launches[k]
               + bf16_launches[k] + surface_launches[k] + probe_launches[k]
               + ooc_launches[k] + stream_launches[k] + scan_launches[k]
-              + fleet_launches[k]
+              + fleet_launches[k] + analysis_launches[k]
               for k, v in launches.items()}
 
   def numbers(case, key, err, kind, results=kern):

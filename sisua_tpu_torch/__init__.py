@@ -2,9 +2,9 @@
 
 The JAX package ``sisua_tpu`` stays the reference; this package mirrors its
 module layout and names (``dist``, ``rv``, ``nn``, ``ops``, ``models``,
-``train``, ``data``) so each counterpart is found by path. It imports
-``torch`` and never ``jax``, ``flax``, ``optax`` or ``pandas``, and nothing
-from ``sisua_tpu``.
+``train``, ``data``, ``analysis``) so each counterpart is found by path. It
+imports ``torch`` and never ``jax``, ``flax``, ``optax`` or ``pandas``, and
+nothing from ``sisua_tpu``.
 
 The Pallas kernels of the JAX package are CUDA C++ in ``csrc/`` (the fused
 ZINB/NB log-likelihood forward and backward, with a member axis for
@@ -17,15 +17,19 @@ device-resident and out-of-core loops (validation, early stopping, the
 seven optimizers, mixed precision, ``scan_steps``), ``evaluate`` and
 serving, checkpoints either package reads, the vmapped ensemble
 (``train.VmapEnsemble``) and the on-card hyper-parameter search
-(``models.hyper_params.fit_hyper_vmap``). Top-level names resolve lazily,
-as in the JAX package: ``sisua_tpu_torch.SCVI``, ``.get_model``,
-``.load_model``, ``.Trainer``, ``.DataFeeder``, ``.VmapEnsemble``.
+(``models.hyper_params.fit_hyper_vmap``), and what a user runs on a
+fitted model (``analysis``: the training-time metric callbacks, the
+imputation and marker-correlation scores; ``differential_expression``;
+``ops.knn_mi``, the gene × protein mutual information on the card).
+Top-level names resolve lazily, as in the JAX package:
+``sisua_tpu_torch.SCVI``, ``.get_model``, ``.load_model``, ``.Trainer``,
+``.DataFeeder``, ``.VmapEnsemble``.
 """
 
 __version__ = "0.1.0"
 
 _SUBMODULES = ("data", "models", "train", "dist", "nn", "rv", "ops",
-               "interpolation", "convert", "native")
+               "interpolation", "convert", "native", "analysis")
 
 
 def __getattr__(name):
@@ -50,6 +54,7 @@ _TOP_LEVEL_NAMES = (
     "DeepCountAutoencoder", "SCScope", "FVAE", "SemiFVAE", "AUTOZI", "SOLO",
     "CellAssign", "NetConf", "RVmeta", "SingleCellModel", "get_model",
     "load_model", "Trainer", "VmapEnsemble", "DataFeeder",
+    "MARKER_ADT_GENE", "MARKER_ADTS", "standardize_protein_name",
 )
 
 

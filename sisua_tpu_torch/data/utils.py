@@ -1,6 +1,8 @@
-"""Library-size statistics (port of ``sisua_tpu/data/utils.py``
-``get_library_size``), for numpy arrays, scipy sparse matrices and torch
-tensors, with no pandas."""
+"""Host data helpers (port of ``sisua_tpu/data/utils.py``), with no
+pandas: ``get_library_size`` for numpy arrays, scipy sparse matrices and
+torch tensors; ``apply_artificial_corruption``, the scVI count dropout
+behind every imputation score, bitwise the JAX package's for the same
+input and seed; ``standardize_protein_name``."""
 
 from __future__ import annotations
 
@@ -8,8 +10,10 @@ import warnings
 
 import numpy as np
 import torch
+from scipy import sparse
 
-__all__ = ["get_library_size", "int16_exact"]
+__all__ = ["get_library_size", "int16_exact", "apply_artificial_corruption",
+           "standardize_protein_name"]
 
 # rows per float64 row-sum pass over a tensor: at most 2^25 elements, so the
 # float64 copy a pass makes stays ≤ 256 MiB whatever the matrix's size
@@ -66,3 +70,75 @@ def int16_exact(values) -> bool:
         or np.any(chunk != np.round(chunk))):
       return False
   return True
+
+
+def apply_artificial_corruption(x,
+                                dropout: float = 0.0,
+                                distribution: str = "binomial",
+                                retain_rate: float = 0.2,
+                                copy: bool = False,
+                                seed: int = 8):
+  """Corrupt ``dropout`` of the nonzero counts of ``x`` (n_cells, n_genes),
+  a numpy array or scipy sparse matrix (scVI protocol): each picked count
+  n becomes Binomial(n, retain_rate) ('binomial'), or n·Bernoulli(
+  retain_rate) ('uniform'). numpy's ``RandomState(seed)`` draws in the JAX
+  package's order (``choice`` over the nonzeros, then ``binomial``), so
+  the result is bitwise its. A sparse result is CSR without explicit
+  zeros."""
+  distribution = str(distribution).lower()
+  dropout = float(dropout)
+  if not 0.0 <= dropout < 1.0:
+    raise ValueError(f"dropout must be in [0, 1), given: {dropout}")
+  rand = np.random.RandomState(seed=seed)
+  if dropout <= 0.0:
+    return x.copy() if copy else x
+  corrupted_x = x.copy() if copy else x
+  is_sparse = sparse.issparse(x)
+  if is_sparse:
+    xcoo = x.tocoo()
+    i, j, vals = xcoo.row, xcoo.col, xcoo.data
+  else:
+    i, j = np.nonzero(x)
+    vals = np.asarray(x[i, j]).ravel()
+  n_pick = int(np.floor(dropout * len(i)))
+  ix = rand.choice(len(i), size=n_pick, replace=False)
+  i, j, vals = i[ix], j[ix], vals[ix]
+  if distribution == "uniform":
+    corrupted = vals * rand.binomial(n=np.ones(n_pick, np.int32),
+                                     p=retain_rate)
+  elif distribution == "binomial":
+    corrupted = rand.binomial(n=vals.astype(np.int64), p=retain_rate)
+  else:
+    raise ValueError("Only support 'uniform' and 'binomial' corruption, "
+                     f"given: '{distribution}'")
+  if is_sparse:
+    corrupted_x = corrupted_x.tolil()
+    corrupted_x[i, j] = corrupted
+    corrupted_x = corrupted_x.tocsr()
+    corrupted_x.eliminate_zeros()
+  else:
+    corrupted_x[i, j] = corrupted
+  return corrupted_x
+
+
+_PROTEIN_ALIASES = {
+    "PD-L1;CD274": "CD274", "PECAM;CD31": "CD31", "CD26;Adenosine": "CD26",
+    "CD366;tim3": "CD366", "MHCII;HLA-DR": "MHCII",
+    "IL7Ralpha;CD127": "CD127", "PD-1": "PD-1", "PD1": "PD1",
+    "B220;CD45R": "CD45R", "Ox40;CD134": "CD134", "CD8a": "CD8",
+    "CD8A": "CD8", "CD4 T cells": "CD4", "CD8 T cells": "CD8",
+}
+
+
+def standardize_protein_name(name):
+  """Strip TotalSeq suffixes and map known aliases; a sequence gives a
+  list."""
+  if isinstance(name, (tuple, list, np.ndarray)):
+    return [standardize_protein_name(i) for i in name]
+  if not isinstance(name, str):
+    raise TypeError("Protein name must be a string")
+  for sep in ("-", "_"):
+    for suffix in ("TotalSeqB", "control", "TotalSeqC", "TotalSeqA"):
+      name = name.replace(f"{sep}{suffix}", "")
+  name = name.strip()
+  return _PROTEIN_ALIASES.get(name, name)

@@ -38,9 +38,9 @@ encoder consumes. ``fit`` takes the JAX package's training surface:
 device-resident, out of core: ``train/trainer.py``); with
 ``compute_dtype='bfloat16'`` the model trains in mixed precision. Serving
 uploads a CSR matrix as triplets where they are clearly smaller than its
-dense block. Not ported yet: ``differential_expression``,
-``create_posterior``, ``scan_steps`` > 1 and the mesh (``fit`` raises on
-their arguments).
+dense block. ``differential_expression`` draws its scales on the device
+and computes its statistics there in float64. Not ported yet:
+``create_posterior`` and the mesh (``fit`` raises on its argument).
 """
 
 from __future__ import annotations
@@ -165,6 +165,78 @@ def _to_host(dists) -> Tuple:
 
 def _one_or_tuple(xs):
   return xs if len(xs) > 1 else xs[0]
+
+
+def _take_rows(data, idx: np.ndarray):
+  """The rows ``idx`` of one matrix or of each in a list (numpy, scipy or
+  tensor, a tensor gathered where it lies)."""
+  def take(m):
+    if isinstance(m, torch.Tensor):
+      return m.index_select(0, torch.as_tensor(idx, device=m.device))
+    return m[idx]
+  if isinstance(data, (tuple, list)):
+    return [take(m) for m in data]
+  return take(data)
+
+
+_DE_EPS = 1e-10
+
+
+def _de_stats_numpy(s1: np.ndarray, s2: np.ndarray, i1: np.ndarray,
+                    i2: np.ndarray, mode: str, delta: float
+                    ) -> Dict[str, np.ndarray]:
+  """The JAX package's DE statistics, statement for statement: (S·m, d)
+  float64 draws of each group and the pair indices."""
+  a, b = s1[i1], s2[i2]
+  eps = _DE_EPS
+  out = {"scale1": s1.mean(0), "scale2": s2.mean(0)}
+  if mode == "vanilla":
+    p = (a > b).mean(0)
+    out["proba_m1"] = p
+    out["bayes_factor"] = np.log(p + eps) - np.log1p(eps - p)
+  else:
+    lfc = np.log2(a + eps) - np.log2(b + eps)
+    p = (np.abs(lfc) > float(delta)).mean(0)
+    out.update(proba_de=p,
+               bayes_factor=np.log(p + eps) - np.log1p(eps - p),
+               lfc_mean=lfc.mean(0), lfc_median=np.median(lfc, 0),
+               lfc_std=lfc.std(0))
+  return out
+
+
+def _pair_share(hits: torch.Tensor) -> torch.Tensor:
+  """The share of pairs per gene, divided as numpy's mean divides: on the
+  card, torch's mean and a division by a Python number multiply by 1/n,
+  an ulp off; a tensor divisor divides."""
+  count = torch.sum(hits, 0, dtype=torch.float64)
+  return count / torch.full_like(count, hits.shape[0])
+
+
+def _de_stats_torch(s1: torch.Tensor, s2: torch.Tensor, i1: np.ndarray,
+                    i2: np.ndarray, mode: str, delta: float
+                    ) -> Dict[str, np.ndarray]:
+  """``_de_stats_numpy`` in float64 on the draws' device; only the
+  per-gene results are fetched. The median of an even count is the mean
+  of the two middle values, as ``np.median``'s."""
+  from ..analysis.imputation import _median
+  dev = s1.device
+  a = s1.index_select(0, torch.as_tensor(i1, device=dev))
+  b = s2.index_select(0, torch.as_tensor(i2, device=dev))
+  eps = _DE_EPS
+  out = {"scale1": s1.mean(0), "scale2": s2.mean(0)}
+  if mode == "vanilla":
+    p = _pair_share(a > b)
+    out["proba_m1"] = p
+    out["bayes_factor"] = torch.log(p + eps) - torch.log1p(eps - p)
+  else:
+    lfc = torch.log2(a + eps) - torch.log2(b + eps)
+    del a, b
+    p = _pair_share(torch.abs(lfc) > float(delta))
+    out.update(proba_de=p,
+               bayes_factor=torch.log(p + eps) - torch.log1p(eps - p),
+               lfc_mean=lfc.mean(0), lfc_median=_median(lfc, 0),
+               lfc_std=lfc.std(0, correction=0))
+  return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def _state_copy(module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -1103,6 +1175,39 @@ class SingleCellModel:
                          for i in range(len(parts[0]))]
     return cat(parts_x), cat(parts_z)
 
+  def _served_batches(self, inputs, sample_shape: Tuple[int, ...] = (),
+                      batch_size: int = 256) -> Iterator:
+    """Eval-mode forwards of every serving batch, on the device, in row
+    order: ``(out, lo, n_valid)``, the batch's first row and its rows
+    that are data (the rest is padding). Callers hold ``no_grad``."""
+    mats, library = self._serving_inputs(inputs)
+    sample_shape = _as_shape(sample_shape)
+    for xb, lib_b, k, B, n, rows in self._chunk_batches(mats, library,
+                                                        batch_size):
+      start = 0 if rows is None else int(rows[0])
+      for i in range(k):
+        out = self._serve(xb[i], None if lib_b is None else lib_b[i],
+                          sample_shape)
+        yield out, start + i * B, min(B, n - i * B)
+
+  def _normalized_draws(self, inputs, sample_shape: Tuple[int, ...],
+                        batch_size: int, output_index: int,
+                        reduce_mc: bool) -> Iterator[torch.Tensor]:
+    """``get_normalized_expression`` per serving batch, left on the
+    device: (b, d), or (S, b, d) with ``reduce_mc=False``. Callers hold
+    ``no_grad``."""
+    sample_shape = _as_shape(sample_shape)
+    mc_axes = tuple(range(len(sample_shape)))
+    reduce_mc = bool(reduce_mc) or not mc_axes
+    S = math.prod(sample_shape)
+    for out, _, nv in self._served_batches(inputs, sample_shape, batch_size):
+      m = out.outputs[int(output_index)].mean()
+      scale = m / torch.sum(m, dim=-1, keepdim=True)
+      if reduce_mc:
+        yield (scale.mean(dim=mc_axes) if mc_axes else scale)[:nv]
+      else:  # MC dims flattened → (S, B, d)
+        yield scale.reshape((S,) + scale.shape[len(mc_axes):])[:, :nv]
+
   def get_normalized_expression(self, inputs,
                                 sample_shape: Tuple[int, ...] = (),
                                 batch_size: int = 256,
@@ -1113,31 +1218,95 @@ class SingleCellModel:
     mean as row proportions, MC-averaged on the device → (n, d). For SCVI
     this is ``px_scale``. ``reduce_mc=False`` returns the per-draw scales
     (S, n, d), S = prod(sample_shape)."""
-    mats, library = self._serving_inputs(inputs, mesh)
-    sample_shape = _as_shape(sample_shape)
-    mc_axes = tuple(range(len(sample_shape)))
-    idx = int(output_index)
-    reduce_mc = bool(reduce_mc) or not mc_axes
-    S = math.prod(sample_shape)
-    parts = []
+    if mesh is not None:
+      raise NotImplementedError("mesh serving is not ported yet")
+    axis = 0 if reduce_mc or not _as_shape(sample_shape) else 1
     with torch.no_grad():
-      for xb, lib_b, k, _, n, _ in self._chunk_batches(mats, library,
-                                                       batch_size):
-        scales = []
-        for i in range(k):
-          out = self._serve(xb[i], None if lib_b is None else lib_b[i],
-                            sample_shape)
-          m = out.outputs[idx].mean()
-          scale = m / torch.sum(m, dim=-1, keepdim=True)
-          if reduce_mc:
-            scales.append(scale.mean(dim=mc_axes) if mc_axes else scale)
-          else:  # MC dims flattened → (S, B, d)
-            scales.append(scale.reshape((S,) + scale.shape[len(mc_axes):]))
-        ax = 0 if reduce_mc else 1
-        parts.append(torch.cat(scales, ax).narrow(ax, 0, n).cpu().numpy())
-    if len(parts) == 1:
-      return parts[0]
-    return np.concatenate(parts, 0 if reduce_mc else 1)
+      return np.concatenate(
+          [t.cpu().numpy() for t in self._normalized_draws(
+              inputs, sample_shape, batch_size, output_index, reduce_mc)],
+          axis)
+
+  def differential_expression(self, inputs, labels, group1=None,
+                              group2=None, mode: str = "change",
+                              delta: float = 0.25,
+                              sample_shape: Tuple[int, ...] = (25,),
+                              n_pairs: int = 5000, max_cells: int = 256,
+                              batch_size: int = 256, output_index: int = 0,
+                              seed: int = 0,
+                              var_names: Optional[Sequence[str]] = None
+                              ) -> Dict[str, np.ndarray]:
+    """Bayesian differential expression between cell groups (the JAX
+    package's ``differential_expression``; scvi-tools' surface).
+
+    Posterior scales are drawn per cell (``get_normalized_expression``
+    with ``reduce_mc=False``, left on the device), then ``n_pairs`` random
+    cross-group draw pairs estimate, per gene:
+
+      * ``mode='vanilla'``: ``proba_m1 = P(s1 > s2)`` and its Bayes factor
+        ``log(p + eps) − log1p(eps − p)``;
+      * ``mode='change'`` (default): ``lfc = log2(s1) − log2(s2)`` with
+        ``proba_de = P(|lfc| > delta)``, its Bayes factor, and the lfc's
+        mean, median and std (ddof 0).
+
+    ``labels``: one label per cell of ``inputs`` (compared as ``str``).
+    ``group2=None`` compares against all other cells; ``group1=None`` runs
+    one-vs-rest for every level in order of first appearance and stacks
+    the results, with a ``group1`` column. ``max_cells`` caps each group's
+    subsample. numpy's ``RandomState(seed)`` draws the subsamples (group
+    1's, then group 2's) and then the pairs, as in the JAX package.
+    Returns ``{column: array}`` in the JAX DataFrame's column order, with
+    ``gene`` from ``var_names`` when given. The statistics are float64 on
+    the device; on the CPU they are the JAX package's numpy statements."""
+    labels = np.asarray([str(v) for v in np.asarray(labels)])
+    n = int(_flatten(inputs)[0].shape[0])
+    if len(labels) != n:
+      raise ValueError(f"{len(labels)} labels for {n} cells")
+    kw = dict(group2=group2, mode=mode, delta=delta,
+              sample_shape=sample_shape, n_pairs=n_pairs,
+              max_cells=max_cells, batch_size=batch_size,
+              output_index=output_index, seed=seed, var_names=var_names)
+    if group1 is None:
+      levels = list(dict.fromkeys(labels))  # first appearance (pd.unique)
+      parts = [self.differential_expression(inputs, labels, group1=lvl,
+                                            **kw) for lvl in levels]
+      out = {"group1": np.concatenate([np.full(len(p["scale1"]), lvl)
+                                       for lvl, p in zip(levels, parts)])}
+      out.update({k: np.concatenate([p[k] for p in parts])
+                  for k in parts[0]})
+      return out
+    rng = np.random.RandomState(seed)
+    m1 = labels == str(group1)
+    m2 = (labels == str(group2)) if group2 is not None else ~m1
+    if not m1.any() or not m2.any():
+      raise ValueError(f"empty group: |{group1}|={int(m1.sum())}, "
+                       f"|{group2 or 'rest'}|={int(m2.sum())}")
+    if mode not in ("vanilla", "change"):
+      raise ValueError(f"mode must be 'vanilla' or 'change', got {mode!r}")
+
+    def scales(mask):
+      idx = np.flatnonzero(mask)
+      if len(idx) > int(max_cells):
+        idx = rng.choice(idx, int(max_cells), replace=False)
+      with torch.no_grad():
+        s = torch.cat(list(self._normalized_draws(
+            _take_rows(inputs, np.sort(idx)), sample_shape, batch_size,
+            output_index, reduce_mc=False)), 1)
+      return s.to(torch.float64).reshape(-1, s.shape[-1])  # (S·m, d)
+
+    s1, s2 = scales(m1), scales(m2)
+    i1 = rng.randint(0, len(s1), int(n_pairs))
+    i2 = rng.randint(0, len(s2), int(n_pairs))
+    if s1.device.type == "cpu":
+      out = _de_stats_numpy(s1.numpy(), s2.numpy(), i1, i2, mode, delta)
+    else:
+      out = _de_stats_torch(s1, s2, i1, i2, mode, delta)
+    if var_names is not None:
+      if len(var_names) != len(out["scale1"]):
+        raise ValueError(f"{len(var_names)} var_names for "
+                         f"{len(out['scale1'])} genes")
+      out = {"gene": np.asarray(var_names, str), **out}
+    return out
 
   def compute_llk(self, inputs, targets: Dict[str, Sequence],
                   sample_shape: Tuple[int, ...] = (),

@@ -38,7 +38,8 @@ from .. import dist as D
 from ..ops import zinb as zk
 from .module import VAEOutput
 
-__all__ = ["elbo_terms", "compute_loss", "route_fused_likelihood"]
+__all__ = ["elbo_terms", "compute_loss", "route_fused_likelihood",
+           "mc_row_log_prob"]
 
 
 def _mode() -> str:
@@ -56,18 +57,16 @@ def route_fused_likelihood(x: torch.Tensor,
   return zk.kernels_available(x)
 
 
-def _fast_log_prob(dist: D.Distribution, x: torch.Tensor) -> torch.Tensor:
-  """Row-summed log-prob, through the fused op for the four NB kinds
-  (logits / disp / displog / loglog, with or without zero-inflation: the
-  'zinb'/'nb' heads are 'logits'); everything else takes the distribution
-  math, a ``MixtureSameFamily`` head ('mixnb') too, since it is not
+def _fused_operands(dist: D.Distribution):
+  """``(zero_inflated, r, logits, gate, constrained)``: the fused op's
+  operands for the four NB kinds (logits / disp / displog / loglog, with
+  or without zero-inflation: the 'zinb'/'nb' heads are 'logits') under
+  ``Independent`` over genes; None for every other distribution, a
+  ``MixtureSameFamily`` head ('mixnb') too, since it is not
   ``Independent``."""
   if not (isinstance(dist, D.Independent)
-          and dist.reinterpreted_batch_ndims == 1
-          and x.ndim == 2
-          and len(dist.batch_shape) == 1  # no MC sample dims in the params
-          and route_fused_likelihood(x)):
-    return dist.log_prob(x)
+          and dist.reinterpreted_batch_ndims == 1):
+    return None
   base = dist.base
   zi = isinstance(base, D.ZeroInflated)
   count = base.count_distribution if zi else base
@@ -89,15 +88,63 @@ def _fast_log_prob(dist: D.Distribution, x: torch.Tensor) -> torch.Tensor:
     logits = count.log_loc - r
     constrained = False
   else:
-    return dist.log_prob(x)
-  gate = base.gate_logits if zi else None
-  if (os.environ.get("SISUA_TPU_FWD_OPERANDS", "f32") == "bf16"
-      and zk.bf16_operands_ok(x.shape[0])):
-    r, logits, gate = (_bf16_field(a, x) for a in (r, logits, gate))
+    return None
+  return zi, r, logits, base.gate_logits if zi else None, constrained
+
+
+def _fused(x, zi, r, logits, gate, constrained):
   if zi:
     return zk.zinb_log_prob_rowsum(x, r, logits, gate,
                                    constrained=constrained)
   return zk.nb_log_prob_rowsum(x, r, logits, constrained=constrained)
+
+
+def _fast_log_prob(dist: D.Distribution, x: torch.Tensor) -> torch.Tensor:
+  """Row-summed log-prob, through the fused op for the four NB kinds
+  (``_fused_operands``); everything else takes the distribution math."""
+  ops = None
+  if (x.ndim == 2
+      and len(dist.batch_shape) == 1  # no MC sample dims in the params
+      and route_fused_likelihood(x)):
+    ops = _fused_operands(dist)
+  if ops is None:
+    return dist.log_prob(x)
+  zi, r, logits, gate, constrained = ops
+  if (os.environ.get("SISUA_TPU_FWD_OPERANDS", "f32") == "bf16"
+      and zk.bf16_operands_ok(x.shape[0])):
+    r, logits, gate = (_bf16_field(a, x) for a in (r, logits, gate))
+  return _fused(x, zi, r, logits, gate, constrained)
+
+
+def mc_row_log_prob(dist: D.Distribution, x: torch.Tensor) -> torch.Tensor:
+  """Row-summed log-prob of ``x`` (B, D) under ``dist`` of batch shape
+  (S…, B), S… the MC sample dims of a served forward → (S…, B). The four
+  NB kinds always take the fused op, whatever the routing variable: the
+  S draws are its member axis (``torch.func.vmap``, one launch of the
+  forward kernel for all of them on the card, x shared at member stride
+  0; the plain version on the CPU). A parameter without the sample dims
+  (a per-gene θ) is shared by the draws. Everything else, and an ``x``
+  that is not (B, D), takes the distribution math."""
+  ops = _fused_operands(dist) if x.ndim == 2 else None
+  if ops is None:
+    return dist.log_prob(x)
+  zi, r, logits, gate, constrained = ops
+  mc = tuple(dist.batch_shape[:-1])
+  if not mc:
+    return _fused(x, zi, r, logits, gate, constrained)
+  params, dims = [], []
+  for p in (r, logits, gate):
+    if isinstance(p, torch.Tensor) and p.ndim > 2:  # has the sample dims
+      rows = tuple(p.shape[-2:])
+      params.append(p.expand(mc + rows).reshape((-1,) + rows))
+      dims.append(0)
+    else:
+      params.append(p)
+      dims.append(None)
+  out = torch.func.vmap(
+      lambda cr, lg, gt: _fused(x, zi, cr, lg, gt, constrained),
+      in_dims=tuple(dims))(*params)
+  return out.reshape(mc + tuple(out.shape[1:]))
 
 
 def _bf16_field(a, x: torch.Tensor):

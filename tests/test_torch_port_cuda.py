@@ -1131,3 +1131,94 @@ def test_vmap_ensemble_on_the_card(dev):
   assert tz.launches == {"zinb_rowsum_fwd": steps, "zinb_rowsum_bwd": steps}
   loss = ens.history["loss"]
   assert np.isfinite(loss).all() and (loss[-1] < loss[0]).all()
+
+
+# ------------------------------------------------------------- analysis
+def test_knn_mutual_information_card_equals_cpu(dev):
+  """The same jittered float32 operands on the card and on the CPU count
+  the same neighbours: atol 1e-5 nats, including a padded last chunk
+  and query block."""
+  from sisua_tpu_torch.ops.knn_mi import knn_mutual_information
+  rng = np.random.default_rng(8)
+  z = rng.gamma(2.0, 1.0, (600, 2))
+  X = rng.poisson(z @ rng.uniform(0.3, 2.0, (2, 21))).astype(np.float32)
+  Y = rng.poisson(z @ rng.uniform(0.3, 2.0, (2, 4))).astype(np.float32)
+  for kw in (dict(), dict(chunk=4, qblock=256)):
+    card = knn_mutual_information(X, Y, device=dev, **kw)
+    cpu = knn_mutual_information(X, Y, device="cpu", **kw)
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5)
+    assert (card >= 0).all() and card.max() > 0.05
+
+
+@pytest.mark.parametrize("n_pairs", [5000, 4999])
+@pytest.mark.parametrize("mode", ["change", "vanilla"])
+def test_de_statistics_on_the_card_equal_numpy(dev, mode, n_pairs):
+  """float64 statistics on the card against the JAX package's numpy
+  statements on the same draws: rtol 1e-10 (of the pairs' RMS lfc for the
+  lfc mean and median, of the two logarithms for the Bayes factor, where
+  larger than the value), ``proba_*`` exact; an even ``n_pairs`` takes
+  the mean of the two middle values as ``np.median``."""
+  from sisua_tpu_torch.models import base
+  rng = np.random.default_rng(n_pairs)
+  s1 = rng.dirichlet(np.ones(3000), size=400)
+  s2 = rng.dirichlet(np.ones(3000), size=300)
+  s2[:, :7] = s1[:300, :7]
+  i1 = rng.integers(0, 400, n_pairs)
+  i2 = rng.integers(0, 300, n_pairs)
+  want = base._de_stats_numpy(s1, s2, i1, i2, mode, 0.25)
+  got = base._de_stats_torch(torch.tensor(s1, device=dev),
+                             torch.tensor(s2, device=dev), i1, i2, mode,
+                             0.25)
+  for k in want:
+    if k.startswith("proba"):
+      np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+      continue
+    # relative to the value, or to the terms it is a difference or a
+    # signed sum of where larger (a value near 0 keeps their rounding)
+    scale = np.abs(want[k])
+    if k in ("lfc_mean", "lfc_median"):
+      scale = np.maximum(scale, np.hypot(want["lfc_mean"], want["lfc_std"]))
+    if k == "bayes_factor":
+      p = want.get("proba_de", want.get("proba_m1"))
+      scale = np.maximum(scale, np.abs(np.log(p + 1e-10))
+                         + np.abs(np.log1p(1e-10 - p)))
+    err = np.abs(got[k] - want[k]) / np.maximum(scale, 1e-300)
+    assert err.max() <= 1e-10, (k, err.max())
+
+
+@pytest.mark.parametrize("shape", [(512, 3300), (511, 3301)])
+def test_imputation_medians_on_the_card_equal_numpy(dev, shape):
+  from sisua_tpu_torch.analysis import (imputation_mean_score,
+                                        imputation_score)
+  rng = np.random.default_rng(shape[1])
+  org = rng.poisson(2.0, shape).astype(np.float32)
+  cor = org.copy()
+  cor[::3, :40] = 0.0
+  imp = rng.gamma(2.0, 1.0, shape).astype(np.float32)
+  t = [torch.tensor(a, device=dev) for a in (org, cor, imp)]
+  assert imputation_score(t[0], t[2]) == float(np.median(np.abs(org - imp)))
+  mask = (org != cor).any(1)
+  want = np.median(np.abs(org[mask] - imp[mask]), axis=1).mean()
+  np.testing.assert_allclose(imputation_mean_score(*t), want, rtol=1e-6)
+
+
+def test_nll_member_axis_one_forward_launch(dev):
+  """S = 4 MC draws of a ZINB head score through one launch of the forward
+  kernel (x shared at member stride 0), equal to the plain version's
+  distribution math."""
+  import sisua_tpu_torch.dist as TD
+  from sisua_tpu_torch.models.objective import mc_row_log_prob
+  g = torch.Generator(device=dev).manual_seed(0)
+  S, B, D = 4, 512, 3000
+  x = torch.poisson(torch.full((B, D), 1.5, device=dev), generator=g)
+  f = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+  dist = TD.Independent(TD.ZeroInflated(
+      TD.NegativeBinomialDispLog(f(S, B, D), torch.exp(f(1, D))),
+      f(S, B, D)), 1)
+  tz.reset_launches()
+  got = mc_row_log_prob(dist, x)
+  torch.cuda.synchronize()
+  assert tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 0}
+  want = dist.log_prob(x)
+  np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                             **FWD)

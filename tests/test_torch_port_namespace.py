@@ -15,8 +15,7 @@ _DATA_LAYER = {
     "SingleCellOMIC", "OMIC", "get_dataset", "get_dataset_meta",
     "get_dataset_availability", "get_dataset_summary", "AVAILABILITY",
     "read_h5ad", "write_h5ad", "read_10x_mtx", "read_10x_h5",
-    "apply_artificial_corruption", "standardize_protein_name",
-    "get_all_omics", "MARKER_ADT_GENE", "MARKER_ADTS", "MARKER_ATAC",
+    "get_all_omics", "MARKER_ATAC",
     "MARKER_GENES", "PROTEIN_PAIR_NEGATIVE", "PROTEIN_PAIR_POSITIVE",
     "UNIVERSAL_RANDOM_SEED", "TSNE_DIM", "DATA_DIR", "DOWNLOAD_DIR",
     "EXP_DIR", "CONFIG_PATH",
@@ -25,10 +24,20 @@ _DATA_LAYER = {
 # with the torch experimenter (ROADMAP A22)
 _GENERATORS = {"generate_synthetic", "generate_citeseq", "generate_multiome"}
 # the experimenter, scoreboard and fit_hyper load through the data layer
-# (ROADMAP A22); analysis needs sklearn and matplotlib (ROADMAP A12)
+# (ROADMAP A22)
 _A22 = {"ScoreBoard", "Experimenter", "SisuaExperimenter", "fit_hyper",
         "DEFAULT_SPACE"}
+# the posterior hub, the criticizer, the latent-space scores and the plots
+# need sklearn (KMeans, GaussianMixture, ARI/NMI/silhouette, boosted
+# trees) and matplotlib, which the card lacks (ROADMAP A12b)
 _A12 = {"Posterior", "ResultsSheet", "Criticizer"}
+_A12B = _A12 | {
+    "discretize_factors", "ClusteringScores", "clustering_scores",
+    "multi_label_adj_Rindex", "streamline_classifier",
+    "unsupervised_clustering_accuracy", "plot_imputation",
+    "plot_distance_heatmap", "plot_latents_protein_pairs",
+    "plot_latents_binary", "SingleCellMonitor", "LearningCurves",
+    "ScatterPlot", "HeatmapPlot"}
 
 NOT_PORTED = {
     # flax's TrainState: the port keeps a module, an optimizer and a step
@@ -37,18 +46,19 @@ NOT_PORTED = {
     "sisua_tpu.ops": {"pallas_available"},
     "sisua_tpu.data": _DATA_LAYER | _GENERATORS,
     "sisua_tpu.models.hyper_params": _A22,
+    "sisua_tpu.analysis": _A12B,
     "sisua_tpu": _DATA_LAYER | _A12 | _A22 | {
-        # submodules of host-only layers: analysis (A12), parallel (A21),
-        # utils (the JAX profiler and compilation cache), label_threshold
-        # and baselines (sklearn), cross_analyze and cli (A22)
-        "analysis", "parallel", "utils", "label_threshold", "baselines",
+        # submodules of host-only layers: parallel (A21), utils (the JAX
+        # profiler and compilation cache), label_threshold and baselines
+        # (sklearn), cross_analyze and cli (A22)
+        "parallel", "utils", "label_threshold", "baselines",
         "cross_analyze", "cli"},
 }
 
 MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
            "sisua_tpu.train", "sisua_tpu.nn", "sisua_tpu.rv", "sisua_tpu.ops",
            "sisua_tpu.data", "sisua_tpu.train.ensemble",
-           "sisua_tpu.models.hyper_params"]
+           "sisua_tpu.models.hyper_params", "sisua_tpu.analysis"]
 
 
 def _port_name(module):
