@@ -56,7 +56,9 @@ before the final line:
      and (10,), bf16 fetch, forced chunking; ``get_normalized_expression``,
      ``compute_llk`` (Jensen: ≥ evaluate's llk_x) and
      ``marginal_log_prob`` (≥ the ELBO); save and load seconds and bytes.
-     Serving math never launches a kernel (distribution math).
+     Serving math launches no kernel but ``compute_llk``'s, which takes
+     the fused forward once per ZINB/NB head and batch, the draws as its
+     member axis.
   9. the rest of the zoo at the same width, each fit from launch counts
      set to 0, batch 512, 16 epochs in two windows of 8, the JAX
      package's default nets: FVAE ('zinb', γ = 6, its TC discriminator
@@ -218,10 +220,26 @@ before the final line:
      against the 10 proteins over 4,096 cells: finite, ≥ 0, 64 genes
      equal to the CPU on the same operands (atol 1e-5 nats), peak memory
      within its 2 GiB budget; seconds.
+ 17. the posterior hub (``sisua_tpu_torch.analysis``). (a) after 16c,
+     ``create_posterior`` of 16a's SISUA on the 1,024 held-out cells at
+     the JAX defaults (dropout 0.2, retain 0.2, binomial, 10 draws, batch
+     256, seed 8) with ``device_cache=True``, then ``save_scores()`` and
+     the proteins' ``cal_all_scores()`` (the JAX experimenter's
+     ``on_eval``): every family's keys present and finite, none skipped;
+     ``cal_llk`` through the fused forward (the draws as members: 2
+     sources × 4 batches × 2 target sets × 2 heads = 32 launches) equal to
+     the distribution math at the same draws (rel ≤ 1e-5); seconds by
+     family, peak memory, the host bytes of ``pX_cor`` and ``pX_org``.
+     (b) after 16b, its SCVI's latent means of all 8,192 planted cells
+     against their 4 groups: ``clustering_scores`` (KMeans 10 restarts,
+     a full GMM, the silhouette over 8,192² pairs) on the card against
+     the port's CPU path (KMeans and GMM partitions identical up to
+     relabeling, ASW/ARI/NMI/UCA within 1e-9) and the criticizer's
+     ``cal_all_scores()`` with the groups one-hot as factors; seconds.
 Earlier phases train through ``fit(device_cache=True)``, the loop they
 were written for. Before the last line it prints the kernels' JSON summary
 (launches of the phase 4 and phase 6 fits, of phase 8 and of phases 9 to
-16's fits, round trips and served NLL batches and phase 14a's probe run;
+17's fits, round trips, served NLL and LLK batches and phase 14a's probe run;
 time, plain time and bound at 512 × 33,000 'main_full', and under
 ``bf16_operands`` / ``bf16_writes`` the bf16 modes' at the same shape
 with phase 13a's launches, under ``members`` the 4-member launch's at 15a's
@@ -1050,15 +1068,18 @@ def _serve_model(torch, tag, saved, x, held_data, smi):
         and iw.mean() >= elbo - BOUND_SLACK * abs(elbo),
         f"{tag}: marginal_log_prob mean {iw.mean()} vs ELBO {elbo}")
   served = {k: tz.launches[k] - serving_start[k] for k in tz.launches}
-  check(served == {"zinb_rowsum_fwd": heads * -(-IW_CELLS // BATCH),
-                   "zinb_rowsum_bwd": 0},
+  # compute_llk: the fused forward once per head and batch (the draws as
+  # members); the ELBO's evaluate: once per head and batch
+  llk_fwd = heads * -(-HELD_OUT // BATCH)
+  check(served == {"zinb_rowsum_fwd": llk_fwd
+                   + heads * -(-IW_CELLS // BATCH), "zinb_rowsum_bwd": 0},
         f"{tag}: serving launched kernels {served}")
   log(f"[8 serve] {tag}: compute_llk ({MC},) "
       + " ".join(f"{k} {v:.2f}" for k, v in sorted(llk.items()))
       + f" ≥ evaluate llk_x {ev['llk_x']:.2f}; marginal_log_prob "
       f"(S={IW_SAMPLES}, batch {IW_BATCH}, {IW_CELLS} cells) mean "
       f"{iw.mean():.2f} ≥ ELBO {elbo:.2f}, {iw_s:.2f} s | {smi}")
-  return fwd + heads * -(-IW_CELLS // BATCH)
+  return fwd + llk_fwd + heads * -(-IW_CELLS // BATCH)
 
 
 def phase_per_gene_leaf(torch, held):
@@ -3073,7 +3094,8 @@ def phase_de(torch, x):
   """Phase 16b: phase 4's SCVI fit (16 epochs in two windows of 8; 8
   left a group unresolved) on planted groups, then
   ``differential_expression`` one-vs-rest at the JAX defaults and once in
-  'vanilla' mode. Returns the ZINB launches of its fit."""
+  'vanilla' mode. Returns the ZINB launches of its fit, the latent means
+  of the planted counts and their group labels."""
   import numpy as np
   from scipy import stats
   from sisua_tpu_torch.models import base
@@ -3172,8 +3194,10 @@ def phase_de(torch, x):
       f"{[round(float(r), 4) for r in rho_all]} (need > {DE_SPEARMAN}), "
       f"over the {len(union)} planted genes "
       f"{[round(float(r), 4) for r in rho_planted]}")
+  # phase 17b's latents: the fitted model's latent means of every cell
+  z = model.predict_mean(xd)[1][0]
   del xd
-  return launches
+  return launches, z, labels
 
 
 def _de_scale(want, k):
@@ -3271,15 +3295,335 @@ def phase_knn_mi(torch, model, imp, x, y):
 
 
 def phase_analysis(torch, x, held, y, held_y):
-  """Phase 16: the metric callbacks, differential expression and the kNN
-  mutual information. Returns the ZINB launches of 16a and 16b."""
+  """Phases 16 and 17: the metric callbacks, the kNN mutual information,
+  the posterior hub on 16a's SISUA, differential expression, and the
+  latent-space scores of 16b's SCVI. Returns the ZINB launches of 16a,
+  16b and 17a."""
   launches, model, imp = phase_callbacks(torch, x, held, y, held_y)
   phase_knn_mi(torch, model, imp, x, y)
+  del imp
+  torch.cuda.empty_cache()
+  hub_launches, unplanted = phase_posterior(torch, model, x, y, held,
+                                            held_y)
   del model
   torch.cuda.empty_cache()
-  de_launches = phase_de(torch, x)
+  de_launches, z, labels = phase_de(torch, x)
   torch.cuda.empty_cache()
-  return {k: v + de_launches[k] for k, v in launches.items()}
+  phase_latent_scores(torch, z, labels, *unplanted)
+  return {k: v + de_launches[k] + hub_launches[k]
+          for k, v in launches.items()}
+
+
+# phase 17: the posterior hub
+HUB_DRAWS = 10           # create_posterior's sample_shape (the JAX default)
+HUB_BATCH = 256          # its batch_size (the JAX default)
+HUB_LLK_RTOL = 1e-5      # cal_llk: kernel route vs distribution math
+HUB_CARD_TOL = 1e-9      # 17b: the card's scores vs the CPU's
+HUB_FAMILIES = ("cal_llk", "cal_imputation_scores", "cal_spearman",
+                "cal_pearson", "cal_protein_prediction",
+                "cal_mutual_information", "cal_protein_classification",
+                "cal_mig", "cal_dci", "cal_clustering_scores")
+CRT_FAMILIES = ("cal_clustering_scores", "cal_dci_scores",
+                "cal_mutual_info_gap", "cal_total_correlation",
+                "cal_separated_attr_predictability",
+                "cal_relative_disentanglement_strength",
+                "cal_relative_mutual_strength", "cal_betavae_score",
+                "cal_factorvae_score")
+CRT_KEYS = ("ASW", "ARI", "NMI", "UCA", "disentanglement", "completeness",
+            "informativeness", "dci", "mig", "tc", "sap", "rds", "rms",
+            "betavae", "factorvae")
+
+
+def _timed_methods(torch, obj, names):
+  """Each method of ``obj`` timed (synchronized) into ``seconds[name]``,
+  through an instance attribute that its callers find first."""
+  seconds = {}
+  for name in names:
+    def timed(*a, run=getattr(obj, name), name=name, **kw):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out = run(*a, **kw)
+      torch.cuda.synchronize()
+      seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+      return out
+    setattr(obj, name, timed)
+  return seconds
+
+
+def _host_bytes(dists):
+  """Bytes of the tensors held by (a tuple of) host distributions."""
+  import sisua_tpu_torch.dist as TD
+  seen = []
+  for d in dists if isinstance(dists, tuple) else (dists,):
+    TD.tree_map(lambda t: seen.append(t.nbytes) or t, d)
+  return sum(seen)
+
+
+def _hub_keys(post, prots):
+  """The keys ``save_scores`` must give for SISUA with the 10 proteins,
+  by family (the JAX package's names)."""
+  pairs = [f"{p}/{g}" for p, g in zip(prots, _marker_names()[0])]
+  outs, f = post.output_omics, "proteomic"
+  f1 = sorted(k for k in post.cal_protein_classification())
+  return {
+      "cal_llk": {f"llk_{o}_pred{a}_data{b}" for o in outs
+                  for a in ("cor", "org") for b in ("org", "cor")},
+      "cal_imputation_scores": {"imputation_med", "imputation_mean",
+                                "imputation_std"},
+      "cal_spearman": {f"spearman_{p}" for p in pairs} | {"spearman_mean"},
+      "cal_pearson": {f"pearson_{p}" for p in pairs} | {"pearson_mean"},
+      "cal_protein_prediction": (
+          {f"protein_{m}_{p}" for m in ("pearson", "spearman")
+           for p in prots} | {"protein_pearson_mean",
+                              "protein_spearman_mean"}),
+      "cal_mutual_information": {f"mi_{f}"},
+      "cal_protein_classification": set(f1) | {"f1_F1micro",
+                                              "f1_F1macro"},
+      "cal_mig": {f"mig_{f}"},
+      "cal_dci": {f"{k}_{f}" for k in ("disentanglement", "completeness",
+                                       "informativeness", "dci")},
+      "cal_clustering_scores": {f"{k}_{f}" for k in ("ASW", "ARI", "NMI",
+                                                     "UCA")},
+  }
+
+
+def phase_posterior(torch, model, x, y, held, held_y):
+  """Phase 17a: the posterior hub at full width, the JAX experimenter's
+  ``on_eval``: ``create_posterior`` of 16a's SISUA on the held-out cells
+  at the JAX defaults with ``device_cache=True``, ``save_scores()``, the
+  proteins' ``cal_all_scores()``; then ``create_posterior`` at every
+  default (``device_cache=False``) and its ``cal_llk``. Returns the ZINB
+  launches, and for 17b the model's latent means of all cells with
+  their protein bins' labels (the first positive protein), which hold
+  no planted groups."""
+  import math
+  import numpy as np
+  from sisua_tpu_torch.models import base
+  from sisua_tpu_torch.ops import zinb as tz
+  genes, prots = _marker_names()
+  data = {"transcriptomic": held, "proteomic": held_y}
+  names = {"transcriptomic": genes, "proteomic": prots}
+  torch.cuda.synchronize()
+  base_mem = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  post = model.create_posterior(data, var_names=names, device_cache=True,
+                                sample_shape=HUB_DRAWS,
+                                batch_size=HUB_BATCH)
+  torch.cuda.synchronize()
+  build_s = time.perf_counter() - t0
+  host = _host_bytes(post.pX_cor) + _host_bytes(post.pX_org)
+  seconds = _timed_methods(torch, post, HUB_FAMILIES)
+  state = model.generator.get_state()  # cal_llk draws first
+  scores = post.save_scores()
+  crt = post.criticizers["proteomic"]
+  crt_seconds = _timed_methods(torch, crt, CRT_FAMILIES)
+  crt_scores = crt.cal_all_scores()
+  torch.cuda.synchronize()
+  total_s = time.perf_counter() - t0
+  launches = dict(tz.launches)
+  peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+  check(not post.failures, f"families skipped: {post.failures}")
+  want = _hub_keys(post, prots)
+  missing = {fam: sorted(keys - set(scores)) for fam, keys in want.items()
+             if keys - set(scores)}
+  check(not missing, f"save_scores lacks {missing}")
+  check(set(scores) == set().union(*want.values()),
+        f"save_scores has extra keys "
+        f"{sorted(set(scores) - set().union(*want.values()))}")
+  check(all(math.isfinite(v) for v in scores.values()),
+        f"non-finite scores {[k for k, v in scores.items() if not math.isfinite(v)]}")
+  check(set(crt_scores) == set(CRT_KEYS)
+        and all(math.isfinite(v) for v in crt_scores.values()),
+        f"cal_all_scores {crt_scores}")
+  # 2 sources × served batches × 2 target sets × 2 heads (RNA, proteins),
+  # the draws as the member axis: one forward launch each
+  batches = -(-HELD_OUT // HUB_BATCH)
+  check(launches == {"zinb_rowsum_fwd": 2 * batches * 2 * 2,
+                     "zinb_rowsum_bwd": 0},
+        f"hub launches {launches}: expected 2 sources × {batches} batches "
+        f"× 2 target sets × 2 heads forward")
+  # cal_llk's kernel route against the distribution math at the same draws
+  model.generator.set_state(state)
+  fused = base.mc_row_log_prob
+  base.mc_row_log_prob = lambda dist, x: dist.log_prob(x)
+  try:
+    tz.reset_launches()
+    plain = post._cal_llk_on_device()
+    torch.cuda.synchronize()
+    plain_launches = tz.launches["zinb_rowsum_fwd"]
+  finally:
+    base.mc_row_log_prob = fused
+  llk = post.cal_llk()
+  rel = max(abs(llk[k] - plain[k]) / abs(plain[k]) for k in plain)
+  check(list(plain) == list(llk) and plain_launches == 0
+        and rel <= HUB_LLK_RTOL,
+        f"cal_llk kernel route vs distribution math: rel {rel:.2e}, "
+        f"plain route launched {plain_launches}")
+  log(f"[17a posterior] create_posterior(SISUA, {HELD_OUT} held-out cells "
+      f"× {GENES} genes + {PROTEINS} proteins, dropout 0.2 / retain 0.2 "
+      f"binomial, sample_shape {HUB_DRAWS}, batch {HUB_BATCH}, "
+      f"device_cache=True) {build_s:.2f} s; pX_cor + pX_org hold "
+      f"{host / 1e9:.3f} GB on the host; save_scores() {len(scores)} keys "
+      f"and cal_all_scores() {len(crt_scores)} keys, all finite, no family "
+      f"skipped; {total_s:.2f} s in all; peak {peak:.2f} GiB above the "
+      f"resident {base_mem / 2**30:.2f} GiB; launches {launches}")
+  log(f"[17a posterior] seconds by family: "
+      + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+      + "; criticizer: "
+      + ", ".join(f"{k} {v:.3f}" for k, v in crt_seconds.items()))
+  log(f"[17a posterior] cal_llk through the fused forward (draws as "
+      f"members) vs the distribution math at the same draws: worst rel "
+      f"{rel:.2e} (bound {HUB_LLK_RTOL}); "
+      + ", ".join(f"{k} {v:.4f}" for k, v in llk.items()))
+  log(f"[17a posterior] imputation_med {scores['imputation_med']:.4f} "
+      f"mean {scores['imputation_mean']:.4f}; spearman_mean "
+      f"{scores['spearman_mean']:.4f} pearson_mean "
+      f"{scores['pearson_mean']:.4f}; protein_pearson_mean "
+      f"{scores['protein_pearson_mean']:.4f}; f1_F1micro "
+      f"{scores['f1_F1micro']:.4f}; mi_proteomic "
+      f"{scores['mi_proteomic']:.4f}; dci {crt_scores['dci']:.4f} "
+      f"betavae {crt_scores['betavae']:.4f} factorvae "
+      f"{crt_scores['factorvae']:.4f} ASW {crt_scores['ASW']:.4f}")
+  embedding = post._protein_embedding()
+  del post
+  default_launches = _posterior_at_defaults(torch, model, data, names)
+  zs = model.predict_mean([x, y], batch_size=HUB_BATCH)[1][0]
+  bins = embedding.predict(y)
+  return ({k: v + default_launches[k] for k, v in launches.items()},
+          (zs, np.argmax(bins, 1)))
+
+
+def _posterior_at_defaults(torch, model, data, names):
+  """17a at ``create_posterior``'s own defaults (``device_cache=False``:
+  the predictions streamed to the host): ``cal_llk`` takes each 256
+  cells of the host distributions to the card, through the fused
+  forward (the draws as members), and equals their distribution math
+  there (rel ≤ HUB_LLK_RTOL). Returns the ZINB launches."""
+  from sisua_tpu_torch.ops import zinb as tz
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  post = model.create_posterior(data, var_names=names)
+  build_s = time.perf_counter() - t0
+  check(not post.device_cache and post.sample_shape == HUB_DRAWS
+        and post.batch_size == HUB_BATCH, "create_posterior's defaults")
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  llk = post.cal_llk()
+  torch.cuda.synchronize()
+  llk_s = time.perf_counter() - t0
+  launches = dict(tz.launches)
+  batches = -(-HELD_OUT // HUB_BATCH)
+  check(launches == {"zinb_rowsum_fwd": 2 * batches * 2 * 2,
+                     "zinb_rowsum_bwd": 0},
+        f"default hub launches {launches}: expected 2 sources × {batches} "
+        f"batches × 2 target sets × 2 heads forward")
+  tz.reset_launches()
+  plain = post._cal_llk_of_predictions(lambda dist, m: dist.log_prob(m))
+  torch.cuda.synchronize()
+  rel = max(abs(llk[k] - plain[k]) / abs(plain[k]) for k in plain)
+  check(list(plain) == list(llk) and len(llk) == 8
+        and tz.launches["zinb_rowsum_fwd"] == 0 and rel <= HUB_LLK_RTOL,
+        f"default cal_llk vs distribution math: rel {rel:.2e}")
+  log(f"[17a posterior] at the defaults (device_cache=False): "
+      f"create_posterior {build_s:.2f} s, cal_llk on the card {llk_s:.2f} s "
+      f"({launches['zinb_rowsum_fwd']} forward launches on the host "
+      f"distributions' draws), vs the distribution math at those draws: "
+      f"worst rel {rel:.2e} (bound {HUB_LLK_RTOL})")
+  del post
+  return launches
+
+
+def _card_vs_cpu(torch, z, ids):
+  """``clustering_scores`` of latents ``z`` against label ids on the card
+  and on the CPU (the same host draws), and KMeans (10 restarts) and the
+  full GMM on both: identical partitions up to relabeling, inertia and
+  lower bound within HUB_CARD_TOL relative, every score within
+  HUB_CARD_TOL. Returns (card scores, worst |Δ| of the scores, worst rel
+  of inertia and lower bound, seconds by name)."""
+  from sisua_tpu_torch.analysis import clustering_scores
+  from sisua_tpu_torch.analysis.estimators import (GaussianMixture, KMeans,
+                                                   adjusted_rand_score)
+  k = int(ids.max() + 1)
+  zc = torch.as_tensor(z, dtype=torch.float64, device=DEVICE)
+  zh = zc.cpu()
+  timing = {}
+
+  def timed(name, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    timing[name] = time.perf_counter() - t0
+    return out
+  card = timed("card", lambda: clustering_scores(zc, ids, seed=8))
+  cpu = timed("cpu", lambda: clustering_scores(zh, ids, seed=8,
+                                               device="cpu"))
+  worst = max(abs(card[key] - cpu[key]) for key in cpu)
+  check(list(card) == list(cpu) == ["ASW", "ARI", "NMI", "UCA"]
+        and worst <= HUB_CARD_TOL,
+        f"clustering_scores card {card} vs cpu {cpu}")
+  # the fits themselves: the same host draws on both devices
+  rel = 0.0
+  for name, est, value in (
+      ("kmeans", lambda d: KMeans(k, n_init=10, random_state=8, device=d),
+       lambda m: m.inertia_),
+      ("gmm", lambda d: GaussianMixture(k, random_state=8, device=d),
+       lambda m: m.lower_bound_)):
+    mc, mh = est(DEVICE).fit(zc), est("cpu").fit(zh)
+    pc = mc.labels_ if name == "kmeans" else mc.predict(zc)
+    ph = mh.labels_ if name == "kmeans" else mh.predict(zh)
+    check(adjusted_rand_score(pc.cpu(), ph, device="cpu") == 1.0,
+          f"{name} partition differs between card and CPU")
+    rel = max(rel, abs(value(mc) / value(mh) - 1))
+    check(rel <= HUB_CARD_TOL, f"{name} card {value(mc)!r} vs cpu "
+          f"{value(mh)!r}: rel {rel:.2e}")
+  return card, worst, rel, timing
+
+
+def phase_latent_scores(torch, z, labels, zs, protein_ids):
+  """Phase 17b: the latent-space scores at an evaluation set's size: 16b's
+  SCVI latent means of all 8,192 cells against their 4 planted groups,
+  ``clustering_scores`` and the criticizer on the card, the clustering
+  held against the port's own CPU path on the same host draws; the same
+  card-vs-CPU check on 16a's SISUA latent means of the 8,192 cells
+  against their protein bins, where no clusters are planted."""
+  import math
+  import numpy as np
+  from sisua_tpu_torch.analysis import Criticizer
+  ids = np.unique(labels, return_inverse=True)[1]
+  k = int(ids.max() + 1)
+  card, worst, rel, timing = _card_vs_cpu(torch, z, ids)
+  pids = np.unique(protein_ids, return_inverse=True)[1]
+  card2, worst2, rel2, timing2 = _card_vs_cpu(torch, zs, pids)
+  crt = Criticizer(torch.as_tensor(z, dtype=torch.float64, device=DEVICE),
+                   np.eye(k)[ids], seed=8)
+  seconds = _timed_methods(torch, crt, CRT_FAMILIES)
+  t0 = time.perf_counter()
+  scores = crt.cal_all_scores()
+  crt_s = time.perf_counter() - t0
+  check(set(scores) == set(CRT_KEYS)
+        and all(math.isfinite(v) for v in scores.values()),
+        f"cal_all_scores {scores}")
+  log(f"[17b latent scores] {len(ids)} SCVI latent means × {z.shape[1]} "
+      f"against {k} planted groups: clustering_scores on the card "
+      f"{timing['card']:.3f} s (KMeans 10 restarts, full GMM, ASW over "
+      f"{len(ids)}² pairs), the CPU {timing['cpu']:.3f} s; card vs CPU "
+      f"worst |Δ| {worst:.2e}, inertia / lower bound worst rel {rel:.2e} "
+      f"(bound {HUB_CARD_TOL}); KMeans and GMM partitions identical up to "
+      f"relabeling; " + ", ".join(f"{key} {v:.6f}"
+                                  for key, v in card.items()))
+  log(f"[17b latent scores] {len(pids)} SISUA latent means × "
+      f"{zs.shape[1]} against {int(pids.max() + 1)} protein-bin labels "
+      f"(no planted groups): card {timing2['card']:.3f} s, CPU "
+      f"{timing2['cpu']:.3f} s; card vs CPU worst |Δ| {worst2:.2e}, "
+      f"inertia / lower bound worst rel {rel2:.2e}; partitions identical; "
+      + ", ".join(f"{key} {v:.6f}" for key, v in card2.items()))
+  log(f"[17b latent scores] Criticizer.cal_all_scores() {crt_s:.2f} s: "
+      + ", ".join(f"{key} {v:.3f}" for key, v in seconds.items())
+      + "; dci {dci:.4f} mig {mig:.4f} betavae {betavae:.4f} factorvae "
+      "{factorvae:.4f}".format(**scores))
 
 
 def main():

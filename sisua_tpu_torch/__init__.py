@@ -18,29 +18,32 @@ seven optimizers, mixed precision, ``scan_steps``), ``evaluate`` and
 serving, checkpoints either package reads, the vmapped ensemble
 (``train.VmapEnsemble``) and the on-card hyper-parameter search
 (``models.hyper_params.fit_hyper_vmap``), and what a user runs on a
-fitted model (``analysis``: the training-time metric callbacks, the
-imputation and marker-correlation scores; ``differential_expression``;
-``ops.knn_mi``, the gene × protein mutual information on the card).
-Top-level names resolve lazily, as in the JAX package:
-``sisua_tpu_torch.SCVI``, ``.get_model``, ``.load_model``, ``.Trainer``,
-``.DataFeeder``, ``.VmapEnsemble``.
+fitted model (``analysis``: the posterior hub ``Posterior`` with its
+``Criticizer``, the latent-space scores on the port's own estimators,
+the training-time metric callbacks, the imputation and marker-correlation
+scores; ``label_threshold.ProbabilisticEmbedding``;
+``differential_expression``; ``ops.knn_mi``, the gene × protein mutual
+information on the card). Top-level names resolve lazily, as in the JAX
+package: ``sisua_tpu_torch.SCVI``, ``.get_model``, ``.load_model``,
+``.Trainer``, ``.DataFeeder``, ``.VmapEnsemble``, ``.Posterior``.
 """
 
 __version__ = "0.1.0"
 
 _SUBMODULES = ("data", "models", "train", "dist", "nn", "rv", "ops",
-               "interpolation", "convert", "native", "analysis")
+               "interpolation", "convert", "native", "analysis",
+               "label_threshold")
 
 
 def __getattr__(name):
-  """Lazy top-level re-exports from ``models``, ``data`` and ``train``;
-  submodule names resolve directly first."""
+  """Lazy top-level re-exports from ``models``, ``data``, ``analysis``
+  and ``train``; submodule names resolve directly first."""
   import importlib
   if name in _SUBMODULES:
     return importlib.import_module(f".{name}", __name__)
   if name.startswith("__"):
     raise AttributeError(name)
-  for module in ("models", "data", "train"):
+  for module in ("models", "data", "analysis", "train"):
     mod = importlib.import_module(f".{module}", __name__)
     if hasattr(mod, name):
       return getattr(mod, name)
@@ -50,7 +53,7 @@ def __getattr__(name):
 # the JAX package's top-level names that the port has (a static list, so
 # dir() does not import the models)
 _TOP_LEVEL_NAMES = (
-    "MISA", "SCALE", "SCALAR", "SCVI", "SISUA", "VAE", "TotalVI",
+    "Posterior", "Criticizer", "MISA", "SCALE", "SCALAR", "SCVI", "SISUA", "VAE", "TotalVI",
     "DeepCountAutoencoder", "SCScope", "FVAE", "SemiFVAE", "AUTOZI", "SOLO",
     "CellAssign", "NetConf", "RVmeta", "SingleCellModel", "get_model",
     "load_model", "Trainer", "VmapEnsemble", "DataFeeder",

@@ -13,9 +13,10 @@ and ``var_names=[genes, proteins]`` for ``CorrelationScores``.
 Unlike the JAX callbacks, no distribution goes to the host: each served
 batch is reduced on the device to what its score needs (``_reduce``), and
 only that is kept: (n,) log-likelihoods, the (n, D) imputed mean, the
-imputed marker columns. ``call(y_true, pX, qZ)`` scores whole
-distributions, the JAX surface. ``ClusteringScores`` waits for the port's
-own clustering scores (ROADMAP A12b: the card has no sklearn).
+imputed marker columns, the latent means. ``call(y_true, pX, qZ)`` scores
+whole distributions, the JAX surface. ``ClusteringScores`` takes its cell
+labels as an array (``labels=``) in place of the JAX lookup of a label
+omic.
 """
 
 from __future__ import annotations
@@ -32,10 +33,11 @@ from ..models.objective import mc_row_log_prob
 from ..train.trainer import TrainingCallback
 from .imputation import (_marker_pairs, correlation_scores,
                          imputation_mean_score, imputation_score)
+from .latent import clustering_scores
 from .posterior import _dist_mean, _unwrap_imputed
 
 __all__ = ["SingleCellMetric", "NegativeLogLikelihood", "ImputationError",
-           "CorrelationScores"]
+           "CorrelationScores", "ClusteringScores"]
 
 
 def _host(a):
@@ -222,3 +224,28 @@ class CorrelationScores(SingleCellMetric):
                               self.var_names[1])
     return {"spearman": float(np.mean([v[0] for v in corr.values()])),
             "pearson": float(np.mean([v[1] for v in corr.values()]))}
+
+
+class ClusteringScores(SingleCellMetric):
+  """ASW, ARI, NMI and UCA of the latent means against cell labels
+  (``clustering_scores``; keys ``ASW``, ``ARI``, ``NMI``, ``UCA``). The
+  port takes ``labels=``, one id per cell of ``data`` or a one-hot (or
+  score) matrix whose row argmax is the id, in place of the JAX package's
+  lookup of a 'celltype', 'disease' or 'progenitor' omic; without labels
+  there is nothing to score. Only the latent means are kept from each
+  served batch, and the estimators run where they lie."""
+
+  def __init__(self, labels=None, **kwargs):
+    super().__init__(**kwargs)
+    self.labels = labels
+
+  def _reduce(self, y_true, pX, qZ):
+    return [_first(qZ).mean()]
+
+  def _score(self, parts, y_true):
+    if self.labels is None:
+      return {}
+    labels = np.asarray(_host(self.labels))
+    if labels.ndim == 2:
+      labels = np.argmax(labels, 1)
+    return clustering_scores(parts[0], labels, device=parts[0].device)

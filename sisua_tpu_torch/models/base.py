@@ -39,8 +39,9 @@ device-resident, out of core: ``train/trainer.py``); with
 ``compute_dtype='bfloat16'`` the model trains in mixed precision. Serving
 uploads a CSR matrix as triplets where they are clearly smaller than its
 dense block. ``differential_expression`` draws its scales on the device
-and computes its statistics there in float64. Not ported yet:
-``create_posterior`` and the mesh (``fit`` raises on its argument).
+and computes its statistics there in float64. ``create_posterior``
+builds the analysis hub (``analysis.Posterior``) on arrays. Not ported
+yet: the mesh (``fit`` raises on its argument).
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ from ..rv import RVmeta, parse_rv
 from ..train import checkpoint as ckpt
 from ..train.trainer import Trainer, TrainingCallback
 from .module import VAEModule, VAEOutput
-from .objective import compute_loss
+from .objective import compute_loss, mc_row_log_prob
 
 __all__ = ["SingleCellModel", "resolve_device"]
 
@@ -1315,7 +1316,10 @@ class SingleCellModel:
     posterior predictive, ``{f"{tag}_output{i}": mean_llk}``, summed on the
     device. ``targets``: tag → per-output (n, d_i) matrices. MC sample dims
     collapse as logsumexp − log S; padded rows are masked out. The targets
-    count in the chunk budget."""
+    count in the chunk budget. A ZINB/NB head's log-probs take the fused
+    forward with the draws as its member axis
+    (``objective.mc_row_log_prob``: one launch per head, target set and
+    batch on the card); every other head the distribution math."""
     mats, library = self._serving_inputs(inputs, mesh)
     sample_shape = _as_shape(sample_shape)
     log_s = math.log(float(math.prod(sample_shape)))
@@ -1335,7 +1339,7 @@ class SingleCellModel:
                             sample_shape)
           for t, ms in tgt_b.items():
             for j, (pX, m) in enumerate(zip(out.outputs, ms)):
-              lp = pX.log_prob(m[i])                       # (S…, B)
+              lp = mc_row_log_prob(pX, m[i])               # (S…, B)
               if lp.ndim > 1:
                 lp = torch.logsumexp(lp.reshape(-1, lp.shape[-1]), 0) \
                     - log_s
@@ -1373,6 +1377,24 @@ class SingleCellModel:
         lw = llk + lp - lq
         chunks.append((torch.logsumexp(lw, 0) - math.log(S)).cpu().numpy())
     return np.concatenate(chunks, 0)
+
+  # ---------------------------------------------------------------- analysis
+  def create_posterior(self, test, var_names=None, dropout_rate: float = 0.2,
+                       retain_rate: float = 0.2,
+                       corruption_distribution: str = "binomial",
+                       sample_shape: int = 10, batch_size: int = 256,
+                       device_cache: bool = False, mesh=None,
+                       verbose: bool = False):
+    """The posterior analysis hub (``analysis.Posterior``) of this model on
+    ``test``: ``{omic_name: (n, d) matrix}`` with ``var_names``
+    ``{omic_name: names}``, in place of the JAX package's
+    ``SingleCellOMIC``."""
+    from ..analysis.posterior import Posterior
+    return Posterior(self, test, var_names=var_names,
+                     dropout_rate=dropout_rate, retain_rate=retain_rate,
+                     corruption_distribution=corruption_distribution,
+                     sample_shape=sample_shape, batch_size=batch_size,
+                     device_cache=device_cache, mesh=mesh, verbose=verbose)
 
   # -------------------------------------------------------------------- io
   def save_weights(self, path: str, backend: str = "msgpack") -> str:

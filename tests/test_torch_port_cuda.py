@@ -511,7 +511,9 @@ def test_checkpoint_round_trip_serves_on_card(dev, tmp_path):
   """save_weights → load_model on the card: weights and history come back,
   evaluate equals the trained model's at the same noise with the forward
   kernel twice per batch (SISUA's two heads), and the serving half runs on
-  the card through the distribution math (no kernel launch)."""
+  the card through the distribution math (no kernel launch) but
+  ``compute_llk``, whose draws take the forward kernel as its member axis
+  once per head and batch."""
   from sisua_tpu_torch.models import SISUA, RVmeta, load_model
   rng = np.random.default_rng(8)
   x = rng.poisson(1.0, (192, 300)).astype(np.float32)
@@ -551,8 +553,12 @@ def test_checkpoint_round_trip_serves_on_card(dev, tmp_path):
   assert pX[0].mean().device.type == "cpu"
   np.testing.assert_allclose(qZ.mean().numpy(), zm[0], rtol=1e-6,
                              atol=1e-7)
+  assert tz.launches == {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
   llk = m2.compute_llk(x, {"t": [x, y]}, sample_shape=(2,), batch_size=32)
   assert np.isfinite(list(llk.values())).all()
+  assert tz.launches == {"zinb_rowsum_fwd": 2 * 192 // 32,
+                         "zinb_rowsum_bwd": 0}
+  tz.reset_launches()
   assert np.isfinite(m2.marginal_log_prob(x[:40], 8, batch_size=16)).all()
   assert tz.launches == {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
 
@@ -1222,3 +1228,96 @@ def test_nll_member_axis_one_forward_launch(dev):
   want = dist.log_prob(x)
   np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                              **FWD)
+
+
+# ------------------------------------------- the posterior hub's estimators
+CPU = torch.device("cpu")
+
+
+def _groups(seed, n=2000, d=8, k=4):
+  rng = np.random.default_rng(seed)
+  ids = rng.integers(0, k, n)
+  return rng.normal(size=(n, d)) + 2.5 * np.eye(k, d)[ids], ids
+
+
+def test_label_scores_on_the_card_equal_cpu(dev):
+  """Contingency tables and silhouette distances on the card: within 1e-9
+  of the CPU (float64; the ARI's pair counts in int64, exact)."""
+  from sisua_tpu_torch.analysis import estimators as E
+  Z, ids = _groups(1)
+  pred = np.random.default_rng(2).integers(0, 5, len(ids))
+  for name in ("adjusted_rand_score", "normalized_mutual_info_score",
+               "mutual_info_score"):
+    fn = getattr(E, name)
+    card = fn(torch.as_tensor(ids, device=dev),
+              torch.as_tensor(pred, device=dev), device=dev)
+    assert abs(card - fn(ids, pred, device=CPU)) <= 1e-9, name
+  card = E.silhouette_score(torch.as_tensor(Z, device=dev), ids, device=dev)
+  assert abs(card - E.silhouette_score(Z, ids, device=CPU)) <= 1e-9
+  yt = (Z[:, :3] > 0).astype(int)
+  yp = (Z[:, 3:6] > 0).astype(int)
+  for avg in ("micro", "macro"):
+    assert E.f1_score(torch.as_tensor(yt, device=dev), yp, average=avg,
+                      device=dev) == E.f1_score(yt, yp, average=avg,
+                                                device=CPU)
+
+
+def test_mixtures_and_kmeans_on_the_card_equal_cpu(dev):
+  """The same host draws give the same partitions (up to relabeling) on
+  the card as on the CPU; inertia and lower bound within 1e-9 relative."""
+  from sisua_tpu_torch.analysis import estimators as E
+  Z, _ = _groups(3)
+  for data in (Z, np.random.default_rng(4).normal(size=(1500, 5))):
+    zc = torch.as_tensor(data, device=dev)
+    km_c = E.KMeans(4, n_init=10, random_state=8, device=dev).fit(zc)
+    km = E.KMeans(4, n_init=10, random_state=8, device=CPU).fit(data)
+    assert km_c.labels_.device == zc.device
+    assert E.adjusted_rand_score(km_c.labels_.cpu(), km.labels_,
+                                 device=CPU) == 1.0
+    assert abs(km_c.inertia_ / km.inertia_ - 1) <= 1e-9
+    for cov in ("full", "diag"):
+      gm_c = E.GaussianMixture(4, covariance_type=cov, random_state=8,
+                               device=dev)
+      gm = E.GaussianMixture(4, covariance_type=cov, random_state=8,
+                             device=CPU)
+      lc, l0 = gm_c.fit_predict(data), gm.fit_predict(data)
+      assert E.adjusted_rand_score(lc.cpu(), l0, device=CPU) == 1.0, cov
+      assert abs(gm_c.lower_bound_ / gm.lower_bound_ - 1) <= 1e-9, cov
+
+
+def test_linear_classifiers_on_the_card_equal_cpu(dev):
+  from sisua_tpu_torch.analysis import estimators as E
+  Z, ids = _groups(5, n=1200)
+  Y = np.stack([ids == 0, Z[:, 5] > 0.3], 1).astype(int)
+  svc_c = E.LinearSVC(device=dev).fit(torch.as_tensor(Z, device=dev), Y)
+  svc = E.LinearSVC(device=CPU).fit(Z, Y)
+  np.testing.assert_allclose(svc_c.coef_.cpu().numpy(), svc.coef_.numpy(),
+                             rtol=1e-9, atol=1e-10)
+  assert (svc_c.predict(Z).cpu().numpy() == svc.predict(Z).numpy()).all()
+  lr_c = E.LogisticRegression(device=dev).fit(
+      torch.as_tensor(Z, device=dev), torch.as_tensor(ids, device=dev))
+  lr = E.LogisticRegression(device=CPU).fit(Z, ids)
+  np.testing.assert_allclose(lr_c.coef_.cpu().numpy(), lr.coef_.numpy(),
+                             rtol=1e-8, atol=1e-9)
+  assert lr_c.score(Z, ids) == lr.score(Z, ids)
+
+
+def test_clustering_scores_and_embedding_on_the_card_equal_cpu(dev):
+  """``clustering_scores`` on card latents against the CPU within 1e-9,
+  and ``ProbabilisticEmbedding`` fitted on the card giving the CPU's bins."""
+  from sisua_tpu_torch.analysis import clustering_scores
+  from sisua_tpu_torch.label_threshold import ProbabilisticEmbedding
+  Z, ids = _groups(6)
+  card = clustering_scores(Z, ids)                 # the default: 'cuda'
+  cpu = clustering_scores(Z, ids, device=CPU)
+  assert list(card) == list(cpu)
+  for k in cpu:
+    assert abs(card[k] - cpu[k]) <= 1e-9, k
+  rng = np.random.default_rng(7)
+  pos = rng.random((800, 4)) < 0.4
+  X = np.where(pos, rng.poisson(150, (800, 4)),
+               rng.poisson(6, (800, 4))).astype(np.float32)
+  pe_c = ProbabilisticEmbedding().fit(X)           # the default: 'cuda'
+  pe = ProbabilisticEmbedding(device=CPU).fit(X)
+  assert pe_c._models[0][1].means_.device.type == "cuda"
+  np.testing.assert_array_equal(pe_c.predict(X), pe.predict(X))

@@ -27,17 +27,14 @@ _GENERATORS = {"generate_synthetic", "generate_citeseq", "generate_multiome"}
 # (ROADMAP A22)
 _A22 = {"ScoreBoard", "Experimenter", "SisuaExperimenter", "fit_hyper",
         "DEFAULT_SPACE"}
-# the posterior hub, the criticizer, the latent-space scores and the plots
-# need sklearn (KMeans, GaussianMixture, ARI/NMI/silhouette, boosted
-# trees) and matplotlib, which the card lacks (ROADMAP A12b)
-_A12 = {"Posterior", "ResultsSheet", "Criticizer"}
-_A12B = _A12 | {
-    "discretize_factors", "ClusteringScores", "clustering_scores",
-    "multi_label_adj_Rindex", "streamline_classifier",
-    "unsupervised_clustering_accuracy", "plot_imputation",
-    "plot_distance_heatmap", "plot_latents_protein_pairs",
-    "plot_latents_binary", "SingleCellMonitor", "LearningCurves",
-    "ScatterPlot", "HeatmapPlot"}
+# what waits for a plotting layer (the card has no matplotlib) and a
+# pandas-free score table (ROADMAP A12c): the score sheet over many
+# posteriors, the plots, and the monitor callbacks, which only plot
+_A12 = {"ResultsSheet"}
+_A12C = _A12 | {
+    "plot_imputation", "plot_distance_heatmap",
+    "plot_latents_protein_pairs", "plot_latents_binary",
+    "SingleCellMonitor", "LearningCurves", "ScatterPlot", "HeatmapPlot"}
 
 NOT_PORTED = {
     # flax's TrainState: the port keeps a module, an optimizer and a step
@@ -46,13 +43,12 @@ NOT_PORTED = {
     "sisua_tpu.ops": {"pallas_available"},
     "sisua_tpu.data": _DATA_LAYER | _GENERATORS,
     "sisua_tpu.models.hyper_params": _A22,
-    "sisua_tpu.analysis": _A12B,
+    "sisua_tpu.analysis": _A12C,
     "sisua_tpu": _DATA_LAYER | _A12 | _A22 | {
         # submodules of host-only layers: parallel (A21), utils (the JAX
-        # profiler and compilation cache), label_threshold and baselines
-        # (sklearn), cross_analyze and cli (A22)
-        "parallel", "utils", "label_threshold", "baselines",
-        "cross_analyze", "cli"},
+        # profiler and compilation cache), baselines (sklearn), cross_analyze
+        # and cli (A22)
+        "parallel", "utils", "baselines", "cross_analyze", "cli"},
 }
 
 MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
