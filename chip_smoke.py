@@ -236,10 +236,33 @@ before the final line:
      the port's CPU path (KMeans and GMM partitions identical up to
      relabeling, ASW/ARI/NMI/UCA within 1e-9) and the criticizer's
      ``cal_all_scores()`` with the groups one-hot as factors; seconds.
+ 18. the experiment entry points, every part with ``SISUA_EXP`` in a
+     temporary directory. (a) ``python -m sisua_tpu_torch.cli.train
+     model.name=sisua dataset.name=synthetic10k dataset.batch_size=128
+     train.epochs=3 train.valid_freq=0`` in a subprocess, as a user runs
+     it: exit 0, the 'cuda' device printed, ``config.yaml``,
+     ``model/metamodel.json`` and ``scores.json`` written, one uid in
+     ``scores_synthetic10k`` with every value finite, no error row; then
+     ``cli.predict`` of its model on synthetic10k (the manifest's shapes,
+     finite means) and, at the same time, ``cli.evaluate -model sisua -ds
+     synthetic10k -ds2 synthetic2k --no-plots`` (one finite row in
+     ``eval_synthetic2k``, the score table written). (b)
+     ``SisuaExperimenter.run_config`` of SISUA on the port's
+     ``generate_synthetic(8192, 33000, 10)`` split 0.8 (base.yaml's
+     variables: 'zinbd' RNA, 'nb' proteins, one-hot cell types), batch
+     512, 4 epochs, streamed: host seconds of the generator, training and
+     ``on_eval`` (posterior, ``save_scores``, criticizers), the steady ms
+     a step, peak device memory, both ZINB kernels launched, every score
+     finite and no error row. (c) multirun of VAE and DCA on synthetic in
+     two spawned processes sharing the card: two results without an
+     error, two scoreboard uids. (d) ``fit_hyper`` of SCVI, 4 one-epoch
+     trials in 2 processes: every trial finite, a best config. (a), (c),
+     (d) and (b)'s generator run at once (threads over subprocesses and
+     spawned processes); (b)'s training and scoring then run alone.
 Earlier phases train through ``fit(device_cache=True)``, the loop they
 were written for. Before the last line it prints the kernels' JSON summary
 (launches of the phase 4 and phase 6 fits, of phase 8 and of phases 9 to
-17's fits, round trips, served NLL and LLK batches and phase 14a's probe run;
+17's fits and 18b's run_config, round trips, served NLL and LLK batches and phase 14a's probe run;
 time, plain time and bound at 512 × 33,000 'main_full', and under
 ``bf16_operands`` / ``bf16_writes`` the bf16 modes' at the same shape
 with phase 13a's launches, under ``members`` the 4-member launch's at 15a's
@@ -259,6 +282,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -333,7 +357,6 @@ def phase_device(torch):
 def phase_build():
   """The CUDA kernels (one nvcc per source, all at once) and, beside them,
   the host gathers with g++; both must load."""
-  from concurrent.futures import ThreadPoolExecutor
   from sisua_tpu_torch import native
   from sisua_tpu_torch.ops import _build
   fresh = not _build.library_path().is_file()
@@ -3626,6 +3649,282 @@ def phase_latent_scores(torch, z, labels, zs, protein_ids):
       "{factorvae:.4f}".format(**scores))
 
 
+# phase 18: the experiment path (SISUA_EXP → a temporary directory)
+EXP_CLI = ("model.name=sisua", "dataset.name=synthetic10k",
+           "dataset.batch_size=128", "train.epochs=3", "train.valid_freq=0")
+EXP_CLI_CELLS, EXP_CLI_GENES = 10_000, 500   # the registry's synthetic10k
+EXP_CLI_DRAWS = 2            # predict's --sample-shape
+# evaluate scores the model on another registry set of the same genes: the
+# test split of synthetic2k, 400 cells (cli.train scored synthetic10k's)
+EXP_EVAL_DS = "synthetic2k"
+EXP_WIDE = {"model.name": "sisua", "dataset.name": "wide33k",
+            "dataset.batch_size": BATCH, "train.epochs": 4}
+EXP_SPLIT = 0.8              # phase 18b's train_percent
+EXP_TIMEOUT = 600            # seconds for each CLI call
+HYPER_EVALS = 4
+
+
+def _cli(args, env):
+  """``python -m <args>`` as a user runs it, from the checkout's root;
+  its output's last lines are logged, a non-zero exit fails the phase."""
+  t0 = time.perf_counter()
+  proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=EXP_TIMEOUT)
+  secs = time.perf_counter() - t0
+  tail = (proc.stdout + proc.stderr).strip().splitlines()[-4:]
+  for line in tail:
+    log(f"[18 experiment]   | {line[:200]}")
+  check(proc.returncode == 0,
+        f"{args[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+  return proc.stdout, secs
+
+
+def _finite_rows(sb, table, n_uids):
+  """The scoreboard table's rows: ``n_uids`` of them, every value
+  finite, and no error row."""
+  import math
+  rows = sb.read_scores(table)
+  check(len(rows) == n_uids, f"{table}: {len(rows)} uids, want {n_uids}")
+  bad = {u: [k for k, v in r.items() if not math.isfinite(v)]
+         for u, r in rows.items()}
+  check(not any(bad.values()), f"{table}: non-finite scores {bad}")
+  errors = sb.read_errors()
+  check(errors == [], f"scoreboard errors: "
+        f"{[(e['uid'], e['message'][:300]) for e in errors]}")
+  return rows
+
+
+def phase_experiment_cli(root):
+  """18a: ``cli.train`` on the registry's synthetic10k as a user runs it,
+  then ``cli.predict`` on the model it saved and ``cli.evaluate``."""
+  import numpy as np
+  from sisua_tpu_torch.train.scoreboard import ScoreBoard
+  env = dict(os.environ, SISUA_EXP=root)
+  # the CLIs' default device is 'cuda'; a rehearsal elsewhere passes its own
+  dev = [] if DEVICE == "cuda" else ["--device", DEVICE]
+  out, train_s = _cli(["sisua_tpu_torch.cli.train", *EXP_CLI, *dev], env)
+  device = [ln for ln in out.splitlines() if ln.startswith(" - device")]
+  check(device and DEVICE in device[0], f"train printed {device}")
+  dirs = [d for d in os.listdir(root) if d.startswith("sisua_synthetic10k_")]
+  check(len(dirs) == 1, f"experiment dirs {os.listdir(root)}")
+  exp_dir = os.path.join(root, dirs[0])
+  for f in ("config.yaml", "model/metamodel.json", "scores.json"):
+    check(os.path.isfile(os.path.join(exp_dir, f)), f"{f} missing")
+  sb = ScoreBoard(os.path.join(root, "scoreboard.db"))
+  rows = _finite_rows(sb, "scores_synthetic10k", 1)
+  with open(os.path.join(exp_dir, "scores.json")) as f:
+    keys = set(json.load(f))
+  check(keys <= set(rows[dirs[0]]), "scores.json keys not on the board")
+  log(f"[18a experiment] cli.train: {train_s:.1f} s, {device[0].strip()}, "
+      f"{dirs[0]}: {len(keys)} posterior scores, {len(rows[dirs[0]])} on "
+      "the scoreboard with the criticizers', all finite, no error row")
+  pred, ev = os.path.join(root, "predict"), os.path.join(root, "evaluate")
+  with ThreadPoolExecutor(2) as pool:  # both only read the saved model
+    predicting = pool.submit(
+        _cli, ["sisua_tpu_torch.cli.predict", os.path.join(exp_dir, "model"),
+               "synthetic10k", "-o", pred, "--sample-shape",
+               str(EXP_CLI_DRAWS), *dev], env)
+    evaluating = pool.submit(
+        _cli, ["sisua_tpu_torch.cli.evaluate", "-model", "sisua", "-ds",
+               "synthetic10k", "-ds2", EXP_EVAL_DS, "--no-plots", "-path",
+               ev, *dev], env)
+    (_, pred_s), (_, eval_s) = predicting.result(), evaluating.result()
+  with open(os.path.join(pred, "manifest.json")) as f:
+    manifest = json.load(f)
+  want = [[EXP_CLI_CELLS, EXP_CLI_GENES], [EXP_CLI_CELLS, PROTEINS],
+          [EXP_CLI_CELLS, 7]]
+  check(manifest["model"] == "SISUA" and manifest["n_cells"] == EXP_CLI_CELLS
+        and manifest["outputs"] == want
+        and manifest["latents"] == [[EXP_CLI_CELLS, 12]],
+        f"predict manifest {manifest}")
+  with np.load(os.path.join(pred, "imputed.npz")) as z:
+    check(all(np.isfinite(z[k]).all() for k in z), "imputed not finite")
+  uid = f"sisua_{EXP_EVAL_DS}"
+  erows = _finite_rows(sb, f"eval_{EXP_EVAL_DS}", 1)
+  check(list(erows) == [uid], f"eval rows {list(erows)}")
+  check(os.path.isfile(os.path.join(ev, "scores.csv")), "no scores.csv")
+  sb.close()
+  log(f"[18a experiment] at once: cli.predict {pred_s:.1f} s, outputs "
+      f"{manifest['outputs']}; cli.evaluate -ds2 {EXP_EVAL_DS} --no-plots "
+      f"{eval_s:.1f} s, {len(erows[uid])} scores in eval_{EXP_EVAL_DS}")
+
+
+def _wide_data():
+  """18b's data: the port's generator at 8,192 × 33,000 × 10 proteins, on
+  the host; (container, seconds)."""
+  from sisua_tpu_torch.data import generate_synthetic
+  t0 = time.perf_counter()
+  sco = generate_synthetic(n_cells=CELLS, n_genes=GENES, n_proteins=PROTEINS)
+  return sco, time.perf_counter() - t0
+
+
+def phase_experiment_wide(torch, root, sco, data_s):
+  """18b: ``SisuaExperimenter.run_config`` of SISUA on ``sco``, the port's
+  ``generate_synthetic`` at 8,192 × 33,000 × 10 proteins made in
+  ``data_s`` seconds (the base.yaml variables: 'zinbd' RNA, 'nb'
+  proteins, the one-hot cell types), split 0.8, batch 512, 4 epochs.
+  Returns its ZINB launches."""
+  import numpy as np
+  from sisua_tpu_torch.ops import zinb as tz
+  from sisua_tpu_torch.train.experimenter import SisuaExperimenter
+
+  class Wide(SisuaExperimenter):
+    def on_load_data(self, cfg):
+      self.seconds = {"data": data_s}
+      train, test = sco.split(EXP_SPLIT)
+      return {"sco": sco, "train": train, "test": test}
+
+    def on_train(self, cfg, exp_dir, model, data):
+      t0 = time.perf_counter()
+      super().on_train(cfg, exp_dir, model, data)
+      torch.cuda.synchronize()
+      self.seconds["train"] = time.perf_counter() - t0
+      self.model = model
+
+    def on_eval(self, cfg, exp_dir, model, data):
+      """``on_eval`` with its posterior, ``save_scores`` and criticizers
+      timed apart."""
+      import sisua_tpu_torch.train.experimenter as X
+      from sisua_tpu_torch.analysis import Criticizer, Posterior
+      spent = dict.fromkeys(("posterior", "save_scores", "criticizers"), 0.0)
+
+      def timed(fn, key):
+        def run(*a, **k):
+          torch.cuda.synchronize()
+          t = time.perf_counter()
+          try:
+            return fn(*a, **k)
+          finally:
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+        return run
+
+      patches = ((X, "sco_posterior", "posterior"),
+                 (Posterior, "save_scores", "save_scores"),
+                 (Criticizer, "cal_all_scores", "criticizers"))
+      saved = [(o, n, getattr(o, n)) for o, n, _ in patches]
+      for o, n, key in patches:
+        setattr(o, n, timed(getattr(o, n), key))
+      t0 = time.perf_counter()
+      try:
+        scores = super().on_eval(cfg, exp_dir, model, data)
+      finally:
+        for o, n, fn in saved:
+          setattr(o, n, fn)
+      self.seconds["eval"] = time.perf_counter() - t0
+      self.seconds.update(spent)
+      return scores
+
+  exp = Wide(save_path=os.path.join(root, "wide"), device=DEVICE)
+  cfg = exp.load_config(EXP_WIDE)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  scores = exp.run_config(cfg)
+  total_s = time.perf_counter() - t0
+  launches = dict(tz.launches)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  model = exp.model
+  h = model.history
+  losses = np.asarray(h["loss"])
+  check(len(losses) == EXP_WIDE["train.epochs"] and np.isfinite(losses).all()
+        and "val_loss" in h, f"losses {losses}, history {sorted(h)}")
+  check(model.outputs[0].dim == GENES and len(model.outputs) == 3,
+        f"outputs {model.outputs}")
+  check(launches["zinb_rowsum_fwd"] > 0 and launches["zinb_rowsum_bwd"] > 0,
+        f"launches {launches}")
+  rows = _finite_rows(exp.scoreboard, "scores_wide33k", 1)
+  steps = model.step // len(losses)
+  step_ms = float(np.median(h["epoch_time"][1:])) / steps * 1e3
+  log(f"[18b experiment] SISUA {CELLS} × {GENES} × {PROTEINS} proteins "
+      f"through run_config: data {exp.seconds['data']:.1f} s on the host "
+      "(beside 18a, c, d), "
+      f"train {exp.seconds['train']:.1f} s ({model.step} steps, steady "
+      f"{step_ms:.3f} ms a step, loss {losses[0]:.1f} → {losses[-1]:.1f}, "
+      f"val_loss {h['val_loss'][-1]:.1f}), on_eval "
+      f"{exp.seconds['eval']:.1f} s (posterior "
+      f"{exp.seconds['posterior']:.1f}, save_scores "
+      f"{exp.seconds['save_scores']:.1f}, criticizers "
+      f"{exp.seconds['criticizers']:.1f}), run_config {total_s:.1f} s; peak "
+      f"{peak:.2f} GiB; launches {launches}; {len(scores)} scores, "
+      f"{len(rows[next(iter(rows))])} on the board, no error row")
+  del exp.model, model
+  torch.cuda.empty_cache()
+  return launches
+
+
+def phase_experiment_multi(root):
+  """18c: multirun of VAE and DCA in two spawned processes sharing the
+  card."""
+  from sisua_tpu_torch.train.experimenter import SisuaExperimenter
+  exp = SisuaExperimenter(save_path=os.path.join(root, "multi"),
+                          device=DEVICE)
+  t0 = time.perf_counter()
+  res = exp.run(["model.name=vae,dca", "dataset.name=synthetic",
+                 "train.epochs=1", "train.valid_freq=0", "-m", "--ncpu",
+                 "2"])
+  multi_s = time.perf_counter() - t0
+  check(len(res) == 2 and not any("error" in r for r in res),
+        f"multirun results {[r.get('error') for r in res]}")
+  _finite_rows(exp.scoreboard, "scores_synthetic", 2)
+  log(f"[18c experiment] multirun vae,dca on synthetic, 2 processes on the "
+      f"card: {multi_s:.1f} s, 2 scoreboard uids, no error row")
+
+
+def phase_experiment_hyper():
+  """18d: ``fit_hyper`` of SCVI, 4 trials in waves of 2 processes."""
+  import numpy as np
+  from sisua_tpu_torch.models.hyper_params import fit_hyper
+  t0 = time.perf_counter()
+  hyper = fit_hyper("scvi", "synthetic", max_evals=HYPER_EVALS, epochs=1,
+                    n_processes=2, device=DEVICE)
+  hyper_s = time.perf_counter() - t0
+  losses = [t["loss"] for t in hyper["trials"]]
+  check(len(losses) == HYPER_EVALS and np.isfinite(losses).all()
+        and hyper["best"] is not None and not hyper["errors"],
+        f"fit_hyper {hyper}")
+  log(f"[18d experiment] fit_hyper scvi, {HYPER_EVALS} trials, 2 processes: "
+      f"{hyper_s:.1f} s; best {hyper['best']} val_loss {hyper['loss']:.2f}")
+
+
+def phase_experiment(torch):
+  """Phase 18: the experiment entry points on the card, every part with
+  ``SISUA_EXP`` in a temporary directory. Returns 18b's launches."""
+  # imported here first: threads importing the package at once would meet
+  # its import cycles (models ↔ train) as half-initialised modules
+  import sisua_tpu_torch.data  # noqa: F401
+  import sisua_tpu_torch.models.hyper_params  # noqa: F401
+  import sisua_tpu_torch.train.experimenter  # noqa: F401
+  root = tempfile.mkdtemp(prefix="chip_smoke_exp_")
+  old = os.environ.get("SISUA_EXP")
+  os.environ["SISUA_EXP"] = root
+  t0 = time.perf_counter()
+  try:
+    # the CLIs, multirun and fit_hyper run in processes of their own: they
+    # share the card beside the host's generator; 18b then runs alone
+    with ThreadPoolExecutor(4) as pool:
+      data = pool.submit(_wide_data)
+      parts = [pool.submit(phase_experiment_cli, os.path.join(root, "cli")),
+               pool.submit(phase_experiment_multi, root),
+               pool.submit(phase_experiment_hyper)]
+      for part in parts:
+        part.result()
+      sco, data_s = data.result()
+    log(f"[18 experiment] 18a, c, d and 18b's data in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = phase_experiment_wide(torch, root, sco, data_s)
+    del sco
+  finally:
+    if old is None:
+      os.environ.pop("SISUA_EXP", None)
+    else:
+      os.environ["SISUA_EXP"] = old
+    shutil.rmtree(root, ignore_errors=True)
+  log(f"[18 experiment] phase 18 in {time.perf_counter() - t0:.1f} s")
+  return launches
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -3674,6 +3973,9 @@ def main():
     members = phase_member_kernels(torch)
     fleet_launches = phase_fleet(torch, x, held, library, smi)
     analysis_launches = phase_analysis(torch, x, held, y, held_y)
+    del x, held, y, held_y
+    torch.cuda.empty_cache()
+    experiment_launches = phase_experiment(torch)
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
   launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]
@@ -3681,6 +3983,7 @@ def main():
               + bf16_launches[k] + surface_launches[k] + probe_launches[k]
               + ooc_launches[k] + stream_launches[k] + scan_launches[k]
               + fleet_launches[k] + analysis_launches[k]
+              + experiment_launches[k]
               for k, v in launches.items()}
 
   def numbers(case, key, err, kind, results=kern):

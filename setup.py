@@ -38,6 +38,10 @@ setup(
             "sisua-tpu-embed=sisua_tpu.label_threshold:main",
             "sisua-tpu-showdata=sisua_tpu.cli.showdata:main",
             "sisua-tpu-predict=sisua_tpu.cli.predict:main",
+            "sisua-torch-train=sisua_tpu_torch.cli.train:main",
+            "sisua-torch-predict=sisua_tpu_torch.cli.predict:main",
+            "sisua-torch-evaluate=sisua_tpu_torch.cli.evaluate:main",
+            "sisua-torch-embed=sisua_tpu_torch.label_threshold:main",
         ],
     },
     test_suite="tests",

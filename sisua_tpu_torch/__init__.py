@@ -23,16 +23,21 @@ fitted model (``analysis``: the posterior hub ``Posterior`` with its
 the training-time metric callbacks, the imputation and marker-correlation
 scores; ``label_threshold.ProbabilisticEmbedding``;
 ``differential_expression``; ``ops.knn_mi``, the gene × protein mutual
-information on the card). Top-level names resolve lazily, as in the JAX
-package: ``sisua_tpu_torch.SCVI``, ``.get_model``, ``.load_model``,
-``.Trainer``, ``.DataFeeder``, ``.VmapEnsemble``, ``.Posterior``.
+information on the card), and the experiment entry points: the YAML
+experimenter and its sqlite scoreboard (``train.experimenter``,
+``train.scoreboard``), ``fit_hyper``, the numpy synthetic datasets behind
+``data.get_dataset``, ``analysis.ResultsSheet``'s score table, and the
+``cli`` package (train, predict, evaluate, embed). Top-level names resolve
+lazily, as in the JAX package: ``sisua_tpu_torch.SCVI``, ``.get_model``,
+``.load_model``, ``.Trainer``, ``.DataFeeder``, ``.VmapEnsemble``,
+``.Posterior``, ``.SisuaExperimenter``, ``.get_dataset``.
 """
 
 __version__ = "0.1.0"
 
 _SUBMODULES = ("data", "models", "train", "dist", "nn", "rv", "ops",
                "interpolation", "convert", "native", "analysis",
-               "label_threshold")
+               "label_threshold", "cli")
 
 
 def __getattr__(name):
@@ -58,6 +63,8 @@ _TOP_LEVEL_NAMES = (
     "CellAssign", "NetConf", "RVmeta", "SingleCellModel", "get_model",
     "load_model", "Trainer", "VmapEnsemble", "DataFeeder",
     "MARKER_ADT_GENE", "MARKER_ADTS", "standardize_protein_name",
+    "SingleCellOMIC", "get_dataset", "get_dataset_meta", "ResultsSheet",
+    "SisuaExperimenter",
 )
 
 

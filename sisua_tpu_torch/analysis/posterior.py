@@ -50,7 +50,6 @@ from scipy import stats as sp_stats
 from .. import dist as D
 from ..data.const import MARKER_ADT_GENE
 from ..data.utils import apply_artificial_corruption
-from ..label_threshold import ProbabilisticEmbedding
 from ..models.objective import mc_row_log_prob
 from .criticizer import Criticizer
 from .imputation import (correlation_scores, imputation_mean_score,
@@ -515,10 +514,12 @@ class Posterior:
     return self._crt_metric("cal_all_scores")
 
   # ------------------------------------------------------------ classifier
-  def _protein_embedding(self) -> ProbabilisticEmbedding:
+  def _protein_embedding(self):
     """The protein counts' ProbabilisticEmbedding at its defaults (seed
     8), fitted once on the model's device."""
     if "protein_embedding" not in self._cache:
+      # imported here: label_threshold imports analysis.estimators
+      from ..label_threshold import ProbabilisticEmbedding
       self._cache["protein_embedding"] = ProbabilisticEmbedding(
           device=self.scm.device).fit(self.original("proteomic"))
     return self._cache["protein_embedding"]

@@ -1,11 +1,13 @@
-"""The marker knowledge base the port's analysis needs (copy of
-``sisua_tpu/data/const.py``'s ``MARKER_ADT_GENE`` and ``MARKER_ADTS``):
-each surface protein (ADT) and the gene that codes it, the pairs that
-``analysis.correlation_scores`` scores."""
+"""The constants the port needs (copy of ``sisua_tpu/data/const.py``'s
+``UNIVERSAL_RANDOM_SEED``, ``MARKER_ADT_GENE`` and ``MARKER_ADTS``): the
+seed of the data split, and each surface protein (ADT) with the gene that
+codes it, the pairs that ``analysis.correlation_scores`` scores."""
 
 from typing import List
 
-__all__ = ["MARKER_ADT_GENE", "MARKER_ADTS"]
+__all__ = ["UNIVERSAL_RANDOM_SEED", "MARKER_ADT_GENE", "MARKER_ADTS"]
+
+UNIVERSAL_RANDOM_SEED = 5218
 
 # protein (ADT) → marker gene symbol
 MARKER_ADT_GENE = {

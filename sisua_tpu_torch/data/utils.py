@@ -2,7 +2,8 @@
 pandas: ``get_library_size`` for numpy arrays, scipy sparse matrices and
 torch tensors; ``apply_artificial_corruption``, the scVI count dropout
 behind every imputation score, bitwise the JAX package's for the same
-input and seed; ``standardize_protein_name``."""
+input and seed; ``standardize_protein_name``; ``read_csv_matrix``, the
+counts of a CSV as ``pandas.read_csv(path, index_col=0)`` reads them."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from scipy import sparse
 
 __all__ = ["get_library_size", "int16_exact", "apply_artificial_corruption",
+           "read_csv_matrix",
            "standardize_protein_name"]
 
 # rows per float64 row-sum pass over a tensor: at most 2^25 elements, so the
@@ -142,3 +144,26 @@ def standardize_protein_name(name):
       name = name.replace(f"{sep}{suffix}", "")
   name = name.strip()
   return _PROTEIN_ALIASES.get(name, name)
+
+
+def read_csv_matrix(path: str) -> np.ndarray:
+  """The (rows, columns) float32 values of a CSV (``.csv`` or
+  ``.csv.gz``) with a header row and an index column, as
+  ``pandas.read_csv(path, index_col=0).to_numpy(np.float32)`` reads them:
+  the header names the columns, every other row is a label then its
+  numbers; an empty field is NaN."""
+  import csv
+  import gzip
+  opener = gzip.open if str(path).endswith(".gz") else open
+  with opener(path, "rt", newline="") as f:
+    rows = [r for r in csv.reader(f) if r]
+  if not rows:
+    raise ValueError(f"{path} is empty")
+  width = len(rows[0])
+  values = []
+  for lineno, r in enumerate(rows[1:], start=2):
+    if len(r) != width:
+      raise ValueError(f"{path}:{lineno}: {len(r)} fields, the header has "
+                       f"{width}")
+    values.append([float(v) if v.strip() else np.nan for v in r[1:]])
+  return np.asarray(values, np.float32).reshape(len(values), width - 1)

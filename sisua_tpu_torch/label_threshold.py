@@ -12,12 +12,15 @@ the positive (higher-mean) component (``scipy.stats.norm.interval``),
 ``predict_proba`` averages the positive components' responsibilities.
 Outputs are numpy arrays, as in the JAX package.
 
-The ``sisua-embed`` CLI (``main``) waits for the port's CLIs (ROADMAP
-A22), the plots for its plotting layer.
+``main`` is the ``sisua-embed`` CLI: a registry dataset's proteins or a
+CSV → ``y_bin``, ``y_prob`` and ``model.pkl`` pickles. Its figures wait
+for the port's plotting layer (ROADMAP A12c): it refuses to start without
+``--no-figures``.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 from typing import List, Optional, Tuple
 
@@ -27,7 +30,7 @@ from scipy import stats
 
 from .analysis.estimators import GaussianMixture
 
-__all__ = ["ProbabilisticEmbedding"]
+__all__ = ["ProbabilisticEmbedding", "main"]
 
 
 def _clipping_quartile(x: np.ndarray, alpha: float = 1.5,
@@ -236,3 +239,49 @@ class ProbabilisticEmbedding:
     """Unpickle a saved embedding (only files this package wrote)."""
     with open(path, "rb") as f:
       return pickle.load(f)
+
+
+def main(argv=None):
+  """``sisua-embed``: fit on a registry dataset's proteins or a CSV's
+  columns on ``--device`` (default 'cuda') and pickle the labels and the
+  embedding."""
+  import argparse
+  p = argparse.ArgumentParser(
+      "sisua-embed", description="GMM probabilistic embedding of protein "
+      "labels: dataset name or CSV → y_bin / y_prob pickles")
+  p.add_argument("input", help="dataset name (registry) or CSV path")
+  p.add_argument("-o", "--outpath", default="/tmp/sisua_embed")
+  p.add_argument("--ci", type=float, default=-0.68)
+  p.add_argument("--components", type=int, default=2)
+  p.add_argument("--no-figures", action="store_true",
+                 help="required: the figures are not ported (ROADMAP A12c)")
+  p.add_argument("--device", default="cuda",
+                 help="where the mixtures fit: 'cuda' (default) or 'cpu'")
+  args = p.parse_args(argv)
+  if not args.no_figures:
+    raise SystemExit(
+        "sisua-embed: the figures are not ported yet (ROADMAP A12c); pass "
+        "--no-figures to save the labels and the embedding only")
+  if os.path.isfile(args.input):
+    from .data.utils import read_csv_matrix
+    X = read_csv_matrix(args.input)
+  else:
+    from .data import get_dataset
+    sco = get_dataset(args.input)
+    if "proteomic" not in sco.omics:
+      raise ValueError(f"{args.input} has no proteomic omic")
+    X = sco.numpy("proteomic")
+  pe = ProbabilisticEmbedding(n_components_per_class=args.components,
+                              ci_threshold=args.ci, device=args.device)
+  pe.fit(X)
+  os.makedirs(args.outpath, exist_ok=True)
+  with open(os.path.join(args.outpath, "y_bin"), "wb") as f:
+    pickle.dump(pe.predict(X), f)
+  with open(os.path.join(args.outpath, "y_prob"), "wb") as f:
+    pickle.dump(pe.predict_proba(X), f)
+  pe.save(os.path.join(args.outpath, "model.pkl"))
+  print(f"Saved y_bin, y_prob, model.pkl to {args.outpath}")
+
+
+if __name__ == "__main__":
+  main()

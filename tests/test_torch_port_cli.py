@@ -1,0 +1,265 @@
+"""The port's entry points against the JAX package's, on the CPU
+(``--device cpu``): ``sisua_tpu_torch.cli.train`` end to end beside the
+JAX experimenter's ``run_config`` on the same config, ``get_models`` on
+both packages' experiment directories, ``cli.predict``, ``cli.evaluate``,
+``cli.embed`` and ``ResultsSheet``; and that the port imports none of the
+packages the card lacks."""
+
+import json
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+import yaml
+
+import sisua_tpu.train.experimenter as JX
+import sisua_tpu_torch.train.experimenter as TX
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# a 4-dim latent: the boosted trees of the DCI score, which grow on the
+# host over every latent dim, set the cost of each posterior
+OVERRIDES = ["model.name=vae", "dataset.name=synthetic500", "train.epochs=1",
+             "variables.latents.event_shape=4"]
+
+
+@pytest.fixture(scope="module")
+def stores(tmp_path_factory):
+  """One experiment of the JAX experimenter, and the same config through
+  the port's CLI in a fresh interpreter (``SISUA_EXP`` → its store)."""
+  root = tmp_path_factory.mktemp("stores")
+  jexp = JX.SisuaExperimenter(save_path=str(root / "j"))
+  jscores = jexp.run_config(jexp.load_config(
+      JX.parse_overrides(OVERRIDES)[0]))
+  env = dict(os.environ, SISUA_EXP=str(root / "t"))
+  proc = subprocess.run(
+      [sys.executable, "-m", "sisua_tpu_torch.cli.train", *OVERRIDES,
+       "--device", "cpu"], cwd=REPO, env=env, capture_output=True,
+      text=True, timeout=600)
+  return dict(root=root, jexp=jexp, jscores=jscores, proc=proc,
+              jdir=str(root / "j"), tdir=str(root / "t"))
+
+
+def _exp_dirs(store):
+  return sorted(d for d in os.listdir(store) if d != "scoreboard.db")
+
+
+def test_train_cli_end_to_end_as_jax(stores):
+  proc = stores["proc"]
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  assert " - device : cpu" in proc.stdout
+  (jname,), (tname,) = _exp_dirs(stores["jdir"]), _exp_dirs(stores["tdir"])
+  assert tname == jname
+  tdir = os.path.join(stores["tdir"], tname)
+  jdir = os.path.join(stores["jdir"], jname)
+  for f in ("config.yaml", "model/metamodel.json", "model/params.msgpack",
+            "model/history.json", "scores.json"):
+    assert os.path.isfile(os.path.join(tdir, f)), f
+  with open(os.path.join(tdir, "config.yaml")) as a, \
+      open(os.path.join(jdir, "config.yaml")) as b:
+    assert yaml.safe_load(a) == yaml.safe_load(b)
+  with open(os.path.join(tdir, "scores.json")) as a, \
+      open(os.path.join(jdir, "scores.json")) as b:
+    tscores, jscores = json.load(a), json.load(b)
+  assert set(tscores) == set(jscores)
+  assert all(np.isfinite(v) for v in tscores.values())
+  tsb = TX.ScoreBoard(os.path.join(stores["tdir"], "scoreboard.db"))
+  rows = tsb.read_scores("scores_synthetic500")
+  assert list(rows) == [tname]
+  assert set(rows[tname]) == set(stores["jscores"])
+  assert all(np.isfinite(v) for v in rows[tname].values())
+  assert tsb.read_errors() == []
+
+
+def test_get_models_rebuilds_both_packages_models(stores):
+  import sisua_tpu_torch.convert as convert
+  texp = TX.SisuaExperimenter(save_path=stores["tdir"], device="cpu")
+  (cfg, model), = texp.get_models("model.name=vae dataset.name=synthetic500")
+  assert cfg["model"]["name"] == "vae" and str(model.device) == "cpu"
+  assert type(model).__name__ == "VAE" and len(model.outputs) == 1
+  assert texp.get_models("model.name=dca") == []
+  # the JAX experimenter's directory: the same weights as JAX reads them
+  (jcfg, tmodel), = TX.SisuaExperimenter(
+      save_path=stores["jdir"], device="cpu").get_models("model.name=vae")
+  (_, jmodel), = stores["jexp"].get_models("model.name=vae")
+  params, stats = convert.torch_to_jax(tmodel.module)
+  jparams = jmodel._state.params
+
+  def leaves(tree, prefix=()):
+    for k, v in tree.items():
+      if isinstance(v, dict):
+        yield from leaves(v, prefix + (k,))
+      else:
+        yield prefix + (k,), np.asarray(v)
+
+  want = dict(leaves(jparams))
+  got = dict(leaves(params))
+  assert set(got) == set(want)
+  for k in want:
+    np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
+  assert tmodel.history["loss"] == pytest.approx(jmodel.history["loss"])
+
+
+def test_predict_cli_writes_what_jax_writes(stores, tmp_path):
+  from scipy import sparse
+
+  from sisua_tpu.cli.predict import main as jpredict
+  from sisua_tpu_torch.cli.predict import main as tpredict
+  from sisua_tpu_torch.data import get_dataset
+  ckpt = os.path.join(stores["jdir"], _exp_dirs(stores["jdir"])[0], "model")
+  test = get_dataset("synthetic500").split(0.8)[1]
+  x = test.numpy()
+  npz = str(tmp_path / "counts.npz")
+  np.savez(npz, X=x)
+  jm = jpredict([ckpt, npz, "-o", str(tmp_path / "j"), "--sample-shape",
+                 "2"])
+  tm = tpredict([ckpt, npz, "-o", str(tmp_path / "t"), "--sample-shape",
+                 "2", "--device", "cpu"])
+  assert tm == jm
+  for f in ("imputed.npz", "latents.npz"):
+    a, b = np.load(tmp_path / "j" / f), np.load(tmp_path / "t" / f)
+    assert sorted(a) == sorted(b)
+    for k in a:
+      assert a[k].shape == b[k].shape and np.isfinite(b[k]).all()
+  # the other inputs: a sparse npz, a CSV, a registry name
+  sparse.save_npz(str(tmp_path / "sp.npz"), sparse.csr_matrix(x))
+  pd.DataFrame(x, index=[f"c{i}" for i in range(len(x))]).to_csv(
+      tmp_path / "counts.csv")
+  for inp in (str(tmp_path / "sp.npz"), str(tmp_path / "counts.csv"),
+              "synthetic500"):
+    m = tpredict([ckpt, inp, "-o", str(tmp_path / "o"), "--sample-shape",
+                  "1", "--device", "cpu"])
+    assert m["outputs"] == [[m["n_cells"], 500]]
+  for bad in ([ckpt, "x.h5ad"], [ckpt, npz, "--mesh", "all"]):
+    with pytest.raises(NotImplementedError):
+      tpredict(bad + ["-o", str(tmp_path / "o"), "--device", "cpu"])
+
+
+def test_evaluate_cli_refuses_plots_and_writes_rows(stores, tmp_path,
+                                                    monkeypatch):
+  from sisua_tpu_torch.cli.evaluate import main as evaluate
+  monkeypatch.setattr(TX.SisuaExperimenter, "get_models",
+                      lambda *a, **k: pytest.fail("worked before refusing"))
+  with pytest.raises(SystemExit, match="A12c.*--no-plots"):
+    evaluate(["-model", "vae", "-ds", "synthetic500", "--device", "cpu"])
+  # the summary figures are not ported either: the option does not exist
+  with pytest.raises(SystemExit) as e:
+    evaluate(["--no-plots", "--summary-plots", "--device", "cpu"])
+  assert e.value.code == 2
+  monkeypatch.undo()
+  orig = TX.SisuaExperimenter.__init__
+  monkeypatch.setattr(
+      TX.SisuaExperimenter, "__init__",
+      lambda self, save_path=None, config_path=TX.CONFIG_PATH, device="cuda":
+      orig(self, save_path=stores["tdir"], config_path=config_path,
+           device=device))
+  # -ds2: scored on the test split of another dataset of the same genes
+  # (200 cells: the score families' cost scales with the test rows)
+  posts = evaluate(["-model", "vae", "-ds", "synthetic500", "-ds2",
+                    "synthetic200", "-path", str(tmp_path), "--no-plots",
+                    "--device", "cpu"])
+  assert len(posts) == 1 and str(posts[0].scm.device) == "cpu"
+  assert posts[0].name == "vae_synthetic200_test"
+  sb = TX.ScoreBoard(os.path.join(stores["tdir"], "scoreboard.db"))
+  rows = sb.read_scores("eval_synthetic200")
+  assert list(rows) == ["vae_synthetic200"]
+  assert any(k.startswith("llk") for k in rows["vae_synthetic200"])
+  assert not sb.read_errors()
+  table = pd.read_csv(tmp_path / "scores.csv", index_col=0)
+  assert list(table.index) == [posts[0].name]
+  assert (tmp_path / "scores.html").is_file()
+
+
+def test_results_sheet_table_parses_as_jax(tmp_path):
+  """Two posteriors of one name and different metrics: the same rows,
+  columns and NaNs as the JAX sheet's CSV."""
+  from sisua_tpu.analysis import Posterior as JP
+  from sisua_tpu.analysis import ResultsSheet as JR
+  from sisua_tpu_torch.analysis import Posterior as TP
+  from sisua_tpu_torch.analysis import ResultsSheet as TR
+  scores = [("vae_x", {"llk": -1.5, "f1": 0.25}),
+            ("vae_x", {"llk": -2.0, "mi": float("nan")}),
+            ("dca_x", {"mi": 1.0 / 3.0})]
+
+  def fakes(cls):
+    out = []
+    for name, sc in scores:
+      p = cls.__new__(cls)
+      p._name = name
+      p.save_scores = (lambda sc=sc: dict(sc))
+      out.append(p)
+    return out
+
+  JR(*fakes(JP)).save_scores(str(tmp_path / "j" / "scores"))
+  sheet = TR(*fakes(TP))
+  assert sheet.names == ["vae_x", "vae_x_1", "dca_x"]
+  sheet.save_scores(str(tmp_path / "t" / "scores.csv"))
+  j = pd.read_csv(tmp_path / "j" / "scores.csv", index_col=0)
+  t = pd.read_csv(tmp_path / "t" / "scores.csv", index_col=0)
+  assert list(t.index) == list(j.index)
+  assert set(t.columns) == set(j.columns)
+  pd.testing.assert_frame_equal(t[sorted(t.columns)], j[sorted(j.columns)])
+  assert (tmp_path / "t" / "scores.html").is_file()
+  assert sheet.get_scores()["vae_x_1"]["llk"] == -2.0
+
+
+def test_embed_cli_refuses_figures_and_writes_three_files(tmp_path):
+  from sisua_tpu.label_threshold import main as jembed
+  from sisua_tpu_torch.cli.embed import main as tembed
+  with pytest.raises(SystemExit, match="A12c.*--no-figures"):
+    tembed(["synthetic200", "-o", str(tmp_path / "t"), "--device", "cpu"])
+  assert not (tmp_path / "t").exists()
+  tembed(["synthetic200", "-o", str(tmp_path / "t"), "--no-figures",
+          "--device", "cpu"])
+  jembed(["synthetic200", "-o", str(tmp_path / "j"), "--no-figures"])
+  for f in ("y_bin", "y_prob"):
+    with open(tmp_path / "t" / f, "rb") as a, open(tmp_path / "j" / f,
+                                                  "rb") as b:
+      t, j = pickle.load(a), pickle.load(b)
+    assert t.shape == j.shape == (200, 10)
+    if f == "y_bin":
+      np.testing.assert_array_equal(t, j)
+  assert (tmp_path / "t" / "model.pkl").is_file()
+  # a CSV of proteins
+  from sisua_tpu_torch.data import get_dataset
+  y = get_dataset("synthetic200").numpy("proteomic")
+  pd.DataFrame(y, columns=[f"p{i}" for i in range(10)]).to_csv(
+      tmp_path / "p.csv")
+  tembed([str(tmp_path / "p.csv"), "-o", str(tmp_path / "c"),
+          "--no-figures", "--device", "cpu"])
+  with open(tmp_path / "c" / "y_bin", "rb") as f:
+    np.testing.assert_array_equal(pickle.load(f),
+                                  pickle.load(open(tmp_path / "t" / "y_bin",
+                                                   "rb")))
+
+
+_BLOCKER = """
+import importlib.abc, sys
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "pandas", "yaml", "sklearn",
+           "h5py", "matplotlib", "sisua_tpu"}
+class Block(importlib.abc.MetaPathFinder):
+  def find_spec(self, name, path=None, target=None):
+    if name.split(".")[0] in BLOCKED:
+      raise ImportError(f"{name} is blocked")
+sys.meta_path.insert(0, Block())
+import pkgutil, importlib, sisua_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(sisua_tpu_torch.__path__,
+                                              "sisua_tpu_torch.")]
+for m in mods:
+  importlib.import_module(m)
+import sisua_tpu_torch.cli.train
+assert not BLOCKED & {k.split(".")[0] for k in sys.modules}
+print(len(mods))
+"""
+
+
+def test_port_imports_none_of_what_the_card_lacks():
+  """Every module of the port (``cli`` too) imports with jax, pandas,
+  yaml, sklearn, h5py, matplotlib and the JAX package unimportable."""
+  proc = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
+                        capture_output=True, text=True, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert int(proc.stdout.split()[-1]) > 40

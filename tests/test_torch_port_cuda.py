@@ -1321,3 +1321,23 @@ def test_clustering_scores_and_embedding_on_the_card_equal_cpu(dev):
   pe = ProbabilisticEmbedding(device=CPU).fit(X)
   assert pe_c._models[0][1].means_.device.type == "cuda"
   np.testing.assert_array_equal(pe_c.predict(X), pe.predict(X))
+
+
+def test_experimenter_runs_a_config_on_the_card(dev, tmp_path):
+  """A tiny ``run_config`` of SISUA on 'cuda': the model lives on the
+  card, every training step and the posterior's log-likelihoods launch
+  the ZINB kernels, the scores are finite and the errors table is empty."""
+  from sisua_tpu_torch.train.experimenter import SisuaExperimenter
+  exp = SisuaExperimenter(save_path=str(tmp_path), device="cuda")
+  cfg = exp.load_config({"model.name": "sisua", "dataset.name": "synthetic200",
+                         "train.epochs": 2, "train.valid_freq": 0,
+                         "variables.latents.event_shape": 4})
+  tz.reset_launches()
+  scores = exp.run_config(cfg)
+  assert tz.launches["zinb_rowsum_fwd"] > 0
+  assert tz.launches["zinb_rowsum_bwd"] > 0
+  assert scores and all(np.isfinite(v) for v in scores.values())
+  assert exp.scoreboard.read_errors() == []
+  (_, model), = exp.get_models("model.name=sisua")
+  assert model.device.type == "cuda"
+  assert len(exp.scoreboard.read_scores("scores_synthetic200")) == 1

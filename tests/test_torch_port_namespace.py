@@ -10,51 +10,47 @@ import importlib
 
 import pytest
 
-# the pandas data layer, its loaders (they download) and its constants
+# the JAX data layer's pandas half: the OMIC flag type and its helper (the
+# port names omics by strings), the availability table and the dataset
+# summary (pandas DataFrames over loaders that download), the AnnData and
+# 10x readers and writer (h5py, which the card lacks), the marker tables
+# and the t-SNE width the port's analysis does not use
 _DATA_LAYER = {
-    "SingleCellOMIC", "OMIC", "get_dataset", "get_dataset_meta",
-    "get_dataset_availability", "get_dataset_summary", "AVAILABILITY",
-    "read_h5ad", "write_h5ad", "read_10x_mtx", "read_10x_h5",
-    "get_all_omics", "MARKER_ATAC",
-    "MARKER_GENES", "PROTEIN_PAIR_NEGATIVE", "PROTEIN_PAIR_POSITIVE",
-    "UNIVERSAL_RANDOM_SEED", "TSNE_DIM", "DATA_DIR", "DOWNLOAD_DIR",
-    "EXP_DIR", "CONFIG_PATH",
+    "OMIC", "get_all_omics", "get_dataset_availability",
+    "get_dataset_summary", "AVAILABILITY", "read_h5ad", "write_h5ad",
+    "read_10x_mtx", "read_10x_h5", "MARKER_ATAC", "MARKER_GENES",
+    "PROTEIN_PAIR_NEGATIVE", "PROTEIN_PAIR_POSITIVE", "TSNE_DIM",
 }
-# the synthetic generators build SingleCellOMICs; a numpy-only copy comes
-# with the torch experimenter (ROADMAP A22)
-_GENERATORS = {"generate_synthetic", "generate_citeseq", "generate_multiome"}
-# the experimenter, scoreboard and fit_hyper load through the data layer
-# (ROADMAP A22)
-_A22 = {"ScoreBoard", "Experimenter", "SisuaExperimenter", "fit_hyper",
-        "DEFAULT_SPACE"}
-# what waits for a plotting layer (the card has no matplotlib) and a
-# pandas-free score table (ROADMAP A12c): the score sheet over many
-# posteriors, the plots, and the monitor callbacks, which only plot
-_A12 = {"ResultsSheet"}
-_A12C = _A12 | {
+# what waits for a plotting layer (the card has no matplotlib; ROADMAP
+# A12c): the plots and the monitor callbacks, which only plot.
+# ResultsSheet is ported without its figures (the score table only)
+_A12C = {
     "plot_imputation", "plot_distance_heatmap",
     "plot_latents_protein_pairs", "plot_latents_binary",
     "SingleCellMonitor", "LearningCurves", "ScatterPlot", "HeatmapPlot"}
 
 NOT_PORTED = {
     # flax's TrainState: the port keeps a module, an optimizer and a step
-    "sisua_tpu.train": {"TrainState"} | _A22,
+    "sisua_tpu.train": {"TrainState"},
     # Pallas on a TPU; the port's counterpart is ops.zinb.kernels_available
     "sisua_tpu.ops": {"pallas_available"},
-    "sisua_tpu.data": _DATA_LAYER | _GENERATORS,
-    "sisua_tpu.models.hyper_params": _A22,
+    "sisua_tpu.data": _DATA_LAYER,
     "sisua_tpu.analysis": _A12C,
-    "sisua_tpu": _DATA_LAYER | _A12 | _A22 | {
-        # submodules of host-only layers: parallel (A21), utils (the JAX
-        # profiler and compilation cache), baselines (sklearn), cross_analyze
-        # and cli (A22)
-        "parallel", "utils", "baselines", "cross_analyze", "cli"},
+    "sisua_tpu": {"OMIC", "get_dataset_availability", "MARKER_ATAC",
+                  "MARKER_GENES", "PROTEIN_PAIR_NEGATIVE",
+                  "PROTEIN_PAIR_POSITIVE"} | {
+        # submodules of host-only layers: parallel (ROADMAP A21), utils
+        # (the JAX profiler and compilation cache), baselines (sklearn),
+        # cross_analyze (it always plots; ROADMAP A12c)
+        "parallel", "utils", "baselines", "cross_analyze"},
 }
 
 MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
            "sisua_tpu.train", "sisua_tpu.nn", "sisua_tpu.rv", "sisua_tpu.ops",
            "sisua_tpu.data", "sisua_tpu.train.ensemble",
-           "sisua_tpu.models.hyper_params", "sisua_tpu.analysis"]
+           "sisua_tpu.models.hyper_params", "sisua_tpu.analysis",
+           "sisua_tpu.train.experimenter", "sisua_tpu.train.scoreboard",
+           "sisua_tpu.data.synthetic"]
 
 
 def _port_name(module):
