@@ -272,6 +272,7 @@ the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -328,6 +329,7 @@ OPS = {"fwd": (30, 95), "bwd": (55, 110)}  # (zero count, nonzero count)
 IW_SAMPLES, IW_BATCH, IW_CELLS = 100, 32, 256
 NLL_RTOL = 1e-4       # phase 16a: the NLL's kernel route vs plain route
 PHASE4 = {}  # phase 4's steady single-model step ms, beside phase 15's fleet
+SINGLE_MS = {}  # phases 9–12: each class's steady step ms, beside phase 19
 
 
 def log(msg):
@@ -1138,11 +1140,11 @@ GAMMA = 6.0           # FVAE's TC weight (sisua_tpu/models/fvae.py default)
 N_COMPONENTS = 10     # SCALE's mixture latent (sisua_tpu/models/scale.py)
 
 
-def _zoo_model(name):
+def _zoo_model(name, seed=SEED):
   """The JAX package's default nets and latent for each model."""
   from sisua_tpu_torch import models as T
   rna = T.RVmeta(GENES, "nbd" if name == "LDVAE" else "zinb", name="rna")
-  kw = dict(device=DEVICE, seed=SEED)
+  kw = dict(device=DEVICE, seed=seed)
   if name == "FVAE":
     return T.FVAE(rna, gamma=GAMMA, **kw)
   if name == "SCALAR":
@@ -1206,6 +1208,7 @@ def _zoo_fit(torch, name, data, smi):
   step_ms, cells_s, peak = _steady(h, torch)
   log(f"[9 zoo] {name}: {steps} steps in {fit_s:.1f} s; loss first window "
       f"{first:.2f} last window {last:.2f}{extra}; launches {launches}")
+  SINGLE_MS[name] = step_ms
   log(f"[9 zoo] {name}: steady step {step_ms:.3f} ms, {cells_s:.0f} "
       f"cells/s (last window), peak memory {peak:.2f} GiB | {smi}")
   return model, launches
@@ -1288,11 +1291,11 @@ SCANVI_ALPHA = 50.0          # sisua_tpu/models/scanvi.py default
 TOTALVI_LABELS_PERCENT = 0.5
 
 
-def _phase10_model(name):
+def _phase10_model(name, seed=SEED):
   """Phase 4's nets for SCVI; the JAX package's default nets for TotalVI
   and SCANVI."""
   from sisua_tpu_torch import models as T
-  kw = dict(device=DEVICE, seed=SEED)
+  kw = dict(device=DEVICE, seed=seed)
   rna = T.RVmeta(GENES, "zinbd", name="rna")
   if name == "SCVI_batch":
     return T.SCVI([rna, T.RVmeta(PROTEINS, "nb", name="adt")],
@@ -1407,6 +1410,7 @@ def _phase10_fit(torch, name, data, valid, smi):
       f"{h['val_loss'][0]:.2f} → {h['val_loss'][-1]:.2f}; "
       + ", ".join(f"{k} {h[k][-1]:.3f}" for k in own)
       + f"; launches {launches}")
+  SINGLE_MS[name] = step_ms
   log(f"[10 batch] {name}: steady step {step_ms:.3f} ms, {cells_s:.0f} "
       f"cells/s (last window), peak memory {peak:.2f} GiB | {smi}")
   return model, launches
@@ -1490,14 +1494,14 @@ def _mosaic(torch, gen, x, a):
   return atac_only, rna_only
 
 
-def _multiome_model(name):
+def _multiome_model(name, seed=SEED):
   """The JAX package's defaults: PEAKVI's encoder (64, 64) with batchnorm
   and input dropout 0.3, decoder (64, 64), latent 10 'diag', depth (32,);
   MULTIVI's 'zinbd' RNA at n_batch = 4, latent 16 'diag', encoders and
   decoders (128, 128) with batchnorm (encoders with dropout 0.1), depth
   (32,), modality_penalty 1."""
   from sisua_tpu_torch import models as T
-  kw = dict(device=DEVICE, seed=SEED)
+  kw = dict(device=DEVICE, seed=seed)
   atac = T.RVmeta(PEAKS, "bernoulli", name="atac")
   if name == "PEAKVI":
     return T.PEAKVI(atac, **kw)
@@ -1549,6 +1553,7 @@ def _multiome_fit(torch, name, data, valid, smi):
       f"{h['val_loss'][0]:.2f} → {h['val_loss'][-1]:.2f}; "
       + ", ".join(f"{k} {h[k][-1]:.3f}" for k in own)
       + f"; launches {launches}")
+  SINGLE_MS[name] = step_ms
   log(f"[11 multiome] {name}: steady step {step_ms:.3f} ms, {cells_s:.0f} "
       f"cells/s (last window), peak memory {peak:.2f} GiB ({resident:.2f} "
       f"GiB resident before the fit) | {smi}")
@@ -1673,12 +1678,12 @@ CA_LR = 1e-2
 CA_RECOVERY = 0.9       # share of cells whose planted type must come back
 
 
-def _phase12_model(name, head="nzmse"):
+def _phase12_model(name, head="nzmse", seed=SEED):
   """The JAX package's default nets: AUTOZI as SCVI's ('zinbd', 'full'
   dispersion, latent 10); SCScope's encoder (64, 64) with batchnorm and
   input dropout 0.3, decoder (64, 64), latent 50 'linear', t_steps 2."""
   from sisua_tpu_torch import models as T
-  kw = dict(device=DEVICE, seed=SEED)
+  kw = dict(device=DEVICE, seed=seed)
   if name == "AUTOZI":
     return T.AUTOZI(T.RVmeta(GENES, "zinbd", name="rna"), **kw)
   return T.SCScope(T.RVmeta(GENES, head, name="rna"),
@@ -1733,6 +1738,7 @@ def _phase12_fit(torch, name, x, held, smi):
       f"{h['val_loss'][0]:.4f} "
       f"→ {h['val_loss'][-1]:.4f}; {own} {h[own][-1]:.4f}; launches "
       f"{launches}")
+  SINGLE_MS[name] = step_ms
   log(f"[12 zoo] {name}: steady step {step_ms:.3f} ms, {cells_s:.0f} "
       f"cells/s (last window), peak memory {peak:.2f} GiB ({resident:.2f} "
       f"GiB resident before the fit) | {smi}")
@@ -2700,66 +2706,212 @@ def phase_member_kernels(torch):
   return results
 
 
-def _fleet_against_singles(torch, x, library):
-  """Phase 15b's first check: one fleet step against FLEET single-model
-  steps (each its own ClippedAdam) on one batch with the same noise and
-  dropout masks. Loss rtol ROUTE_LOSS_RTOL; gradients within phase 7's
-  bound; parameters after the step within 2·lr (Adam's first step moves
-  an element by at most lr, and by ±lr wherever the gradient is rounding
-  noise: the biases ahead of a BatchNorm)."""
+# A ReLU whose input lies within rounding of 0 can take the other side in a
+# fleet step than in its single step (their rounding differs by ~1e-7
+# there) and move its row's share of a gradient. The single step takes the
+# fleet's side of such a unit (its input set to the fleet's value, its
+# gradient path kept), so the bounds hold as they are; a unit whose two
+# inputs differ by more than KINK_BAND is a real difference and fails.
+KINK_BAND = 1e-5
+
+
+@contextlib.contextmanager
+def _relu_hooks(module, hook):
+  """``hook(output)`` on the layer that feeds each ReLU of ``module``'s
+  MLPs (its Dense, Conv or BatchNorm), in forward order, while the
+  context is open; a tensor it returns replaces the output."""
+  from sisua_tpu_torch.nn import MLP
+  handles = []
+  for mlp in module.modules():
+    if isinstance(mlp, MLP) and mlp.conf.activation == "relu":
+      kind = "bn" if mlp.conf.batchnorm else (
+          "conv" if mlp.conf.use_conv else "dense")
+      for j in range(len(mlp.conf.units)):
+        handles.append(getattr(mlp, f"{kind}{j}").register_forward_hook(
+            lambda mod, inp, out: hook(out)))
+  try:
+    yield
+  finally:
+    for h in handles:
+      h.remove()
+
+
+@contextlib.contextmanager
+def _fleet_relu_inputs(model):
+  """The fleet step's ReLU inputs: while open, the template ``model``'s
+  loss returns beside its metrics the input of every ReLU of its forward
+  (``relu<j>`` in forward order), which the vmapped step hands back with
+  the member axis first."""
+  base = type(model)._loss
+
+  def loss(batch, training, beta, **kw):
+    seen = []
+    with _relu_hooks(model.module, lambda out: seen.append(out.detach())):
+      value, metrics, rest = base(model, batch, training, beta, **kw)
+    return value, dict(metrics, **{f"relu{j}": v for j, v in
+                                   enumerate(seen)}), rest
+  model._loss = loss
+  try:
+    yield
+  finally:
+    del model._loss
+
+
+@contextlib.contextmanager
+def _fleet_sides(torch, module, fleet):
+  """A single step's forward of ``module`` takes the fleet's side of every
+  ReLU whose input lies on the other side of 0 in ``fleet`` (that
+  member's ReLU inputs in forward order): the input becomes the fleet's
+  value, its gradient kept. Yields [(units switched, max|Δ| of their
+  inputs)] per ReLU layer."""
+  inputs, seen = iter(fleet), []
+
+  def align(out):
+    f = next(inputs)
+    flip = (f > 0) != (out > 0)
+    gap = (f - out.detach()).abs()[flip]
+    seen.append((gap.numel(), float(gap.max()) if gap.numel() else 0.0))
+    return out + torch.where(flip, f - out, torch.zeros_like(out)).detach()
+  with _relu_hooks(module, align):
+    yield seen
+
+
+def _fleet_against_singles(torch, label, name, ens, batch, heads=1,
+                           vanishing_floor=None):
+  """One fleet step of ``ens`` against FLEET single-model steps (each its
+  own ClippedAdam) on ``batch`` with the same noise, dropout masks,
+  Gumbel draws, δ pairs and permutations: loss and metrics rtol
+  ROUTE_LOSS_RTOL; every gradient's max|Δ| within ROUTE_GRAD_BOUND of its
+  max|g| + 1e-3·G, each single step on the fleet's side of every ReLU
+  (``_fleet_sides``); parameters after the step within 2·lr (Adam's
+  first step moves an element by at most lr, and by ±lr wherever the
+  gradient is rounding noise: the biases ahead of a BatchNorm). With
+  ``vanishing_floor`` those biases are held to max|g| ≤ vanishing_floor·G
+  on both sides instead, as in ``_compare_routes``. For FactorVAE the
+  discriminator step too, each member's from the fleet's updated state:
+  its loss rtol ROUTE_LOSS_RTOL, its parameters within 2·lr of the
+  fleet's. ``heads`` launches of each kernel for the step. Returns the
+  step's launches."""
   import numpy as np
   from sisua_tpu_torch.nn import DropoutMasks
   from sisua_tpu_torch.ops import zinb as tz
-  from sisua_tpu_torch.train import ClippedAdam, VmapEnsemble
-  make = lambda s: _scvi(torch, "full", seed=SEED + s)  # noqa: E731
-  ens = VmapEnsemble(make, n_models=FLEET)
+  from sisua_tpu_torch.train import ClippedAdam
   ens._stacked = ens._stack_states()
-  batch = {"inputs": [x[:BATCH]], "mask": torch.ones(BATCH, device=DEVICE),
-           "library": library[:BATCH]}
   plan = ens._draw_plan(batch)
   step_fn = ens._make_step(True, True, plan)
+  aux_fn = ens._make_aux_step(True, True, plan)
   noise, masks = ens._draws(plan)
+  aux_draws = None if aux_fn is None else ens._aux_draws(plan)
   tz.reset_launches()
-  loss, _, grads = ens._train_step(step_fn, batch, noise, masks, FLEET_LR,
-                                   FLEET_CLIP)
+  with _fleet_relu_inputs(ens.model):
+    loss, metrics, grads = ens._train_step(
+        step_fn, batch, noise, masks, FLEET_LR, FLEET_CLIP,
+        None if aux_fn is None else (aux_fn, aux_draws))
   torch.cuda.synchronize()
-  check(tz.launches == {"zinb_rowsum_fwd": 1, "zinb_rowsum_bwd": 1},
-        f"fleet step launches {tz.launches}")
-  worst_loss = worst_grad = worst_p = 0.0
-  off = total = 0
+  launches = dict(tz.launches)
+  check(launches == {"zinb_rowsum_fwd": heads, "zinb_rowsum_bwd": heads},
+        f"{name} fleet step launches {launches}, expected {heads} each")
+  relu = [metrics.pop(f"relu{j}") for j in range(
+      sum(1 for k in list(metrics) if k.startswith("relu")))]
+  st = ens._stacked
+  vanishing = (set() if vanishing_floor is None
+               else _batchnormed_biases(ens.model.module))
+  worst_loss = worst_metric = worst_p = noise_max = kink_gap = 0.0
+  ratios, keys, switched, off, total = [], [], [], 0, 0
   for i, m in enumerate(ens.models):
     m.optimizer = ClippedAdam(m.module.parameters(), FLEET_LR, FLEET_CLIP)
-    li, _, _ = m._loss(batch, True, m.beta(m.step),
-                       noise=[n[i] for n in noise],
-                       masks=DropoutMasks([k[i] for k in masks]))
+    with _fleet_sides(torch, m.module, [v[i] for v in relu]) as sides:
+      li, mi, _ = m._loss(batch, True, m.beta(m.step),
+                          noise=ens._member_draws(noise, i),
+                          masks=DropoutMasks([k[i] for k in masks]))
+    check(len(sides) == len(relu),
+          f"{name}: {len(sides)} ReLU layers in a single step's forward, "
+          f"{len(relu)} in the fleet's")
+    switched.append(sum(n for n, _ in sides))
+    kink_gap = max([kink_gap] + [d for _, d in sides])
     m.module.zero_grad(set_to_none=True)
     li.backward()
     gi = {k: p.grad.detach().clone() for k, p in m.module.named_parameters()}
     m.optimizer.step()
     li = float(li.detach())
     worst_loss = max(worst_loss, abs(float(loss[i]) - li) / abs(li))
+    for k, v in mi.items():
+      v = float(v.detach())
+      worst_metric = max(worst_metric, abs(float(metrics[k][i]) - v)
+                         / max(abs(v), 1e-6))
     scale = max(float(g.abs().max()) for g in gi.values())
+    ratio, key = 0.0, None
     for k, g in gi.items():
-      bound = float(g.abs().max()) + 1e-3 * scale
-      worst_grad = max(worst_grad,
-                       float((grads[k][i] - g).abs().max()) / bound)
+      if k in vanishing:
+        noise_max = max(noise_max, float(g.abs().max()) / scale,
+                        float(grads[k][i].abs().max()) / scale)
+        continue
+      r = float((grads[k][i] - g).abs().max()) / (
+          float(g.abs().max()) + 1e-3 * scale)
+      if r >= ratio:
+        ratio, key = r, k
+    ratios.append(ratio)
+    keys.append(key)
     for k, p in m.module.named_parameters():
-      d = (ens._stacked["params"][k][i] - p.detach()).abs()
+      d = (st["params"][k][i] - p.detach()).abs()
       worst_p = max(worst_p, float(d.max()))
       off += int((d > 1e-2 * FLEET_LR).sum())
       total += d.numel()
-  check(worst_loss <= ROUTE_LOSS_RTOL, f"fleet loss off by {worst_loss}")
-  check(worst_grad <= ROUTE_GRAD_BOUND,
-        f"fleet gradient off by {worst_grad:.2e} of max|g| + 1e-3·G")
+  worst = int(np.argmax(ratios))
+  check(worst_loss <= ROUTE_LOSS_RTOL and worst_metric <= ROUTE_LOSS_RTOL,
+        f"{name} fleet loss off by {worst_loss}, a metric by {worst_metric}")
+  check(kink_gap <= KINK_BAND,
+        f"{name}: a ReLU input on the other side of 0 in the fleet differs "
+        f"by {kink_gap:.2e} > {KINK_BAND}")
+  check(ratios[worst] <= ROUTE_GRAD_BOUND,
+        f"{name} fleet gradient {keys[worst]} of member {worst} off by "
+        f"{ratios[worst]:.2e} of max|g| + 1e-3·G (by member "
+        f"{[f'{r:.2e}' for r in ratios]}; ReLUs switched {switched})")
+  check(noise_max <= (vanishing_floor or 0.0),
+        f"{name}: a bias ahead of a BatchNorm has gradient {noise_max:.2e}·G")
   check(worst_p <= 2 * FLEET_LR * (1 + 1e-6),
-        f"fleet parameter off by {worst_p:.3e} > 2·lr")
-  log(f"[15b fleet] one fleet step vs {FLEET} single SCVI steps (one "
-      f"launch of each kernel for the fleet): loss rel {worst_loss:.2e} "
-      f"(bound {ROUTE_LOSS_RTOL}); worst gradient max|Δ|/(max|g|+1e-3·G) "
-      f"{worst_grad:.2e} (bound {ROUTE_GRAD_BOUND}); parameters after the "
-      f"step max|Δ| {worst_p / FLEET_LR:.3f}·lr (bound 2·lr), "
-      f"{off} of {total} elements beyond 1e-2·lr")
-  del ens, grads
+        f"{name} fleet parameter off by {worst_p:.3e} > 2·lr")
+  disc = ""
+  if aux_fn is not None:
+    worst_d = worst_a = 0.0
+    lr = ens._aux_adam[0]
+    for i, m in enumerate(ens.models):
+      with torch.no_grad():
+        for k, p in m.module.named_parameters():
+          p.copy_(st["params"][k][i])
+        for k, b in m.module.named_buffers():
+          b.copy_(st["buffers"][k][i])
+      m.aux_optimizer = m._make_aux_optimizer()
+      d = ens._member_draws(aux_draws, i)
+      di = float(m._aux_step(batch, {}, noise=d[:-1],
+                             perms=d[-1])["disc_loss"])
+      worst_d = max(worst_d, abs(float(metrics["disc_loss"][i]) - di)
+                    / abs(di))
+      for k, p in m.aux.named_parameters():
+        worst_a = max(worst_a, float((st["aux"]["params"][k][i]
+                                      - p.detach()).abs().max()))
+    check(worst_d <= ROUTE_LOSS_RTOL and worst_a <= 2 * lr * (1 + 1e-6),
+          f"{name} discriminator step: disc_loss off by {worst_d}, "
+          f"parameters by {worst_a:.3e}")
+    disc = (f"; the discriminator step from the fleet's state: disc_loss "
+            f"rel {worst_d:.2e}, parameters max|Δ| {worst_a / lr:.3f}·lr")
+  floor = ("" if vanishing_floor is None else
+           f"; the {len(vanishing)} biases ahead of a BatchNorm max|g| "
+           f"{noise_max:.2e}·G (bound {vanishing_floor:.2e})")
+  log(f"[{label}] {name}: one fleet step vs {FLEET} single steps "
+      f"({len(plan.noise)} noise entries, {len(plan.masks)} dropout masks"
+      f"{'' if plan.aux is None else f', {len(plan.aux)} discriminator draws'}"
+      f"; {heads} launch(es) of each kernel for the fleet): loss rel "
+      f"{worst_loss:.2e}, metrics rel {worst_metric:.2e} (bound "
+      f"{ROUTE_LOSS_RTOL}); gradient max|Δ|/(max|g|+1e-3·G) by member "
+      f"{[f'{r:.2e}' for r in ratios]} (bound {ROUTE_GRAD_BOUND}), the "
+      f"largest at {keys[worst]}; ReLU units on the other side of 0 in the "
+      f"fleet, by member {switched} over {len(relu)} ReLU layers (their "
+      f"inputs within {kink_gap:.2e}; the single step takes the fleet's "
+      f"side){floor}; parameters max|Δ| {worst_p / FLEET_LR:.3f}·lr (bound "
+      f"2·lr), {off} of {total} beyond 1e-2·lr{disc}")
+  del grads, relu
+  return launches
 
 
 def phase_fleet(torch, x, held, library, smi):
@@ -2771,10 +2923,13 @@ def phase_fleet(torch, x, held, library, smi):
   from sisua_tpu_torch.ops import zinb as tz
   from sisua_tpu_torch.train import VmapEnsemble
   total = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
-  _fleet_against_singles(torch, x, library)
-  torch.cuda.empty_cache()
   steps_epoch = CELLS // BATCH
   make = lambda s: _scvi(torch, "full", seed=SEED + s)  # noqa: E731
+  _fleet_against_singles(torch, "15b fleet", "SCVI", VmapEnsemble(
+      make, n_models=FLEET), {"inputs": [x[:BATCH]],
+                              "mask": torch.ones(BATCH, device=DEVICE),
+                              "library": library[:BATCH]})
+  torch.cuda.empty_cache()
   ens = VmapEnsemble(make, n_models=FLEET)
   torch.cuda.reset_peak_memory_stats()
   tz.reset_launches()
@@ -2803,9 +2958,7 @@ def phase_fleet(torch, x, held, library, smi):
     torch.cuda.synchronize()
   for k in total:
     total[k] += tz.launches[k]
-  dev = [e for e in prof.events()
-         if e.device_type == torch.autograd.DeviceType.CUDA]
-  ops = [e for e in dev if not (e.is_user_annotation or "#" in e.name)]
+  ops = _device_ops(torch, prof)
   busy = _union_us([e.time_range for e in ops]) / 1e3 / steps_epoch
   log(f"[15b fleet] VmapEnsemble of {FLEET} SCVI ('zinbd', full "
       f"dispersion, phase 4's nets) on {CELLS} × {GENES}, batch {BATCH}, "
@@ -2870,6 +3023,236 @@ def phase_fleet(torch, x, held, library, smi):
       f"finite in {serve_s:.2f} s; launches {n} each")
   del res, best
   torch.cuda.empty_cache()
+  return total
+
+
+# phase 19: the rest of the zoo as fleets of FLEET members, each class at
+# its phases 9–12 nets; SemiFVAE (no single-model phase) at FVAE's with
+# SISUA's outputs
+FLEET_ZOO = {"FVAE": 1, "SemiFVAE": 2, "SCALE": 1, "SCALAR": 2, "TotalVI": 1,
+             "SCANVI": 1, "AUTOZI": 1, "MULTIVI": 1}  # ZINB/NB heads of each
+# epochs and metrics window of each fleet: MULTIVI's loss spikes in its
+# first epochs at this width (its single fits too) and falls from the
+# first window of 8 to the second, as phase 11 checks it
+FLEET_ZOO_EPOCHS = {"MULTIVI": (EPOCHS, WINDOW)}
+FLEET_ZOO_SHORT = (2, 2)
+# a gradient that vanishes but for rounding (a bias ahead of a BatchNorm),
+# on the fleet and on the single step: max|g| below 2^-14 of the largest
+FLEET_VANISHING_FLOOR = 2.0 ** -14
+PROFILE_AUX_STEPS = 8    # the discriminator step alone under the profiler
+
+
+def _fleet_zoo_model(name, seed):
+  from sisua_tpu_torch import models as T
+  if name == "SemiFVAE":
+    return T.SemiFVAE(_sisua_outputs(), alpha=ALPHA, gamma=GAMMA,
+                      device=DEVICE, seed=seed)
+  if name in ZOO:
+    return _zoo_model(name, seed)
+  if name in PHASE10:
+    return _phase10_model(name, seed)
+  if name in MULTIOME:
+    return _multiome_model(name, seed)
+  return _phase12_model(name, seed=seed)
+
+
+def _fleet_zoo_inputs(name, x, y, b, ct, a):
+  """The data of a phase 19 fleet; MULTIVI's ``x`` and ``a`` are phase
+  11's mosaic pair."""
+  if name in ("SemiFVAE", "SCALAR"):
+    return [x, y]
+  if name in PHASE10:
+    return _phase10_inputs(name, x, y, b, ct)
+  if name in MULTIOME:
+    return _multiome_inputs(name, x, a, b)
+  return [x]
+
+
+def _profile_fvae_fleet(torch, ens, data, library, labels, step_ms):
+  """One profiled epoch of the FVAE fleet (device busy ms a step, its
+  idle share of 19b's unprofiled ``step_ms``, device operations a step),
+  then PROFILE_AUX_STEPS discriminator steps alone (what the batched
+  step adds). Returns the launches."""
+  from torch.profiler import ProfilerActivity, profile
+  from sisua_tpu_torch.ops import zinb as tz
+  steps_epoch = CELLS // BATCH
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               acc_events=True) as prof:
+    ens.fit(data if len(data) > 1 else data[0], epochs=1, batch_size=BATCH,
+            learning_rate=FLEET_LR, clipnorm=FLEET_CLIP,
+            labels_percent=labels)
+    torch.cuda.synchronize()
+  wall = (time.perf_counter() - t0) / steps_epoch * 1e3
+  launches = dict(tz.launches)
+  check(launches == {"zinb_rowsum_fwd": steps_epoch,
+                     "zinb_rowsum_bwd": steps_epoch},
+        f"FVAE's profiled epoch launched {launches}")
+  ops = _device_ops(torch, prof)
+  busy = _union_us([e.time_range for e in ops]) / 1e3 / steps_epoch
+  rows = torch.arange(BATCH, device=DEVICE)
+  batch = {"inputs": [m[rows] for m in data], "library": library[rows],
+           "mask": torch.ones(BATCH, device=DEVICE)}
+  plan = ens._draw_plan(batch)
+  aux_fn = ens._make_aux_step(True, True, plan)
+  draws = [ens._aux_draws(plan) for _ in range(PROFILE_AUX_STEPS)]
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               acc_events=True) as prof:
+    for d in draws:
+      ens._aux_train_step(aux_fn, d, batch)
+    torch.cuda.synchronize()
+  aux_ops = _device_ops(torch, prof)
+  aux_busy = _union_us([e.time_range for e in aux_ops]) / 1e3
+  log(f"[19b fleet zoo] FVAE: one profiled epoch ({wall:.3f} ms a fleet "
+      f"step under the profiler): device busy {busy:.3f} ms a step, idle "
+      f"{1 - busy / step_ms:.1%} of 19b's {step_ms:.3f} ms, "
+      f"{len(ops) / steps_epoch:.0f} device "
+      f"operations a step; the batched discriminator step alone adds "
+      f"{len(aux_ops) / PROFILE_AUX_STEPS:.0f} device operations and "
+      f"{aux_busy / PROFILE_AUX_STEPS:.3f} ms of device time a step "
+      f"(mean of {PROFILE_AUX_STEPS})")
+  return launches
+
+
+def _device_ops(torch, prof):
+  """The device operations of a profile, without annotation spans."""
+  return [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not (e.is_user_annotation or "#" in e.name)]
+
+
+def _fleet_zoo_fit(torch, name, ens, data, labels, smi):
+  """19b: the class's epochs and window (FLEET_ZOO_EPOCHS) from 19a's
+  stacked state: finite losses, distinct across members, each member's
+  mean over the last window below its mean over the first; one launch of
+  each kernel per head and fleet step; the ms a fleet step (median of the
+  last window), summed cells/s, peak memory. Returns the launches and the
+  ms a fleet step."""
+  import numpy as np
+  from sisua_tpu_torch.ops import zinb as tz
+  epochs, window = FLEET_ZOO_EPOCHS.get(name, FLEET_ZOO_SHORT)
+  steps_epoch = CELLS // BATCH
+  torch.cuda.reset_peak_memory_stats()
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  ens.fit(data, epochs=epochs, batch_size=BATCH, learning_rate=FLEET_LR,
+          clipnorm=FLEET_CLIP, labels_percent=labels, metrics_interval=window)
+  torch.cuda.synchronize()
+  fit_s = time.perf_counter() - t0
+  launches = dict(tz.launches)
+  heads, steps = FLEET_ZOO[name], epochs * steps_epoch
+  check(launches == {"zinb_rowsum_fwd": heads * steps,
+                     "zinb_rowsum_bwd": heads * steps},
+        f"{name} fleet launches {launches} != {heads} × {steps} fleet steps")
+  loss = ens.history["loss"]
+  half = epochs // 2
+  first, last = loss[:half].mean(0), loss[-half:].mean(0)
+  check(loss.shape == (epochs, FLEET) and np.isfinite(loss).all()
+        and (last < first).all(), f"{name} fleet losses {loss}")
+  check(len(np.unique(loss[-1])) == FLEET, f"{name} members alike: {loss}")
+  epoch_s = float(np.median(ens.history["epoch_time"][-window:]))
+  step_ms = epoch_s / steps_epoch * 1e3
+  single = SINGLE_MS.get(name)
+  per = ("no single-model phase" if single is None else
+         f"{single:.3f} ms a single-model step in phases 9–12, "
+         f"{step_ms / FLEET / single:.2f}× it per member")
+  log(f"[19b fleet zoo] {name}: {FLEET} members, {epochs} epochs in "
+      f"windows of {window}: {steps} fleet steps in {fit_s:.1f} s; mean "
+      f"loss of the first {half} epoch(s) {[round(float(v), 2) for v in first]}"
+      f" → of the last {half} {[round(float(v), 2) for v in last]}; "
+      f"{step_ms:.3f} ms a fleet step (median of the last window; {per}); "
+      f"{FLEET * CELLS / epoch_s:.0f} cells/s "
+      f"summed over members; peak memory "
+      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+      f"{launches} | {smi}")
+  return launches, step_ms
+
+
+def phase_fleet_zoo(torch, x, y, library, smi):
+  """Phase 19: FVAE, SemiFVAE, SCALE, SCALAR, TotalVI, SCANVI, AUTOZI and
+  MULTIVI as fleets at 33,000 genes (19a, 19b; FVAE's fleet profiled),
+  then ``fit_hyper_vmap`` of AUTOZI (19c). Returns the launches, every one
+  with the member axis."""
+  import numpy as np
+  from sisua_tpu_torch.models.autozi import _stacked_log_gamma_pairs
+  from sisua_tpu_torch.models.hyper_params import fit_hyper_vmap
+  from sisua_tpu_torch.ops import zinb as tz
+  from sisua_tpu_torch.train import VmapEnsemble
+  t_phase = time.perf_counter()
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+  b, _ = _batch_onehots(  # phase 10's
+      torch, torch.Generator(device=DEVICE).manual_seed(SEED + 14))
+  ct = _onehots(torch, gen, CELLS, CELL_TYPES)
+  t0 = time.perf_counter()
+  a, xm = _atac(torch, gen, CELLS), x.clone()
+  _mosaic(torch, gen, xm, a)  # phase 11's ATAC-only and RNA-only cells
+  torch.cuda.synchronize()
+  log(f"[19 fleet zoo] ATAC {tuple(a.shape)} on the card "
+      f"({a.numel() * 4 / 1e9:.2f} GB f32) and a mosaic copy of the counts "
+      f"in {time.perf_counter() - t0:.1f} s")
+  total = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+
+  def add(launches):
+    for k in total:
+      total[k] += launches[k]
+  for name in FLEET_ZOO:
+    t0 = time.perf_counter()
+    data = _fleet_zoo_inputs(name, xm if name in MULTIOME else x, y, b, ct,
+                             a)
+    labels = {"TotalVI": TOTALVI_LABELS_PERCENT}.get(name, LABELS_PERCENT)
+    ens = VmapEnsemble(lambda s: _fleet_zoo_model(name, SEED + s),
+                       n_models=FLEET)
+    rows = torch.arange(BATCH, device=DEVICE)
+    add(_fleet_against_singles(
+        torch, "19a fleet zoo", name, ens,
+        {"inputs": [m[rows] for m in data], "library": library[rows],
+         "mask": (torch.rand((BATCH,), generator=gen, device=DEVICE)
+                  < 0.5).to(torch.float32)},
+        FLEET_ZOO[name], FLEET_VANISHING_FLOOR))
+    launches, step_ms = _fleet_zoo_fit(
+        torch, name, ens, data if len(data) > 1 else data[0], labels, smi)
+    add(launches)
+    if name == "FVAE":
+      add(_profile_fvae_fleet(torch, ens, data, library, labels, step_ms))
+    del ens
+    torch.cuda.empty_cache()
+    log(f"[19 fleet zoo] {name}: {time.perf_counter() - t0:.1f} s")
+  del a, xm
+  torch.cuda.empty_cache()
+  # 19c: the hyper-parameter search of AUTOZI; δ from each member's α, β
+  t0 = time.perf_counter()
+  tz.reset_launches()
+  res = fit_hyper_vmap(lambda s: _phase12_model("AUTOZI", seed=s), x,
+                       learning_rates=HYPER_LRS, epochs=1, batch_size=BATCH)
+  torch.cuda.synchronize()
+  hyper_s = time.perf_counter() - t0
+  n = CELLS // BATCH
+  check(tz.launches == {"zinb_rowsum_fwd": n, "zinb_rowsum_bwd": n},
+        f"AUTOZI fit_hyper_vmap launches {tz.launches}")
+  add(tz.launches)
+  trials = [t["loss"] for t in res["trials"]]
+  check(len(trials) == len(HYPER_LRS) and np.isfinite(trials).all()
+        and len(set(trials)) == len(trials), f"AUTOZI trials {trials}")
+  st = res["ensemble"]._stacked["params"]
+  m = len(HYPER_LRS)
+  sign = torch.tensor([5.0 if i % 2 == 0 else -5.0 for i in range(m)],
+                      device=DEVICE)[:, None]
+  la, lb = _stacked_log_gamma_pairs(m, gen, {
+      "log_alpha_delta": torch.ones_like(st["log_alpha_delta"]) * sign,
+      "log_beta_delta": -torch.ones_like(st["log_beta_delta"]) * sign})
+  check(all(bool(((la[i] > lb[i]) if i % 2 == 0 else (la[i] < lb[i])).all())
+            for i in range(m)),
+        "δ's pairs do not follow each member's own α, β")
+  log(f"[19c fleet zoo] fit_hyper_vmap of AUTOZI over lr {HYPER_LRS}, 1 "
+      f"epoch: {hyper_s:.1f} s; trials "
+      f"{[(t['config']['learning_rate'], round(t['loss'], 2)) for t in res['trials']]}"
+      f"; δ's pairs drawn on the card for {m} members at ±5 log α, ∓5 log β "
+      f"follow each member's own; launches {n} each")
+  del res
+  torch.cuda.empty_cache()
+  log(f"[19 fleet zoo] phase 19 in {time.perf_counter() - t_phase:.1f} s")
   return total
 
 
@@ -3972,6 +4355,7 @@ def main():
     torch.cuda.empty_cache()
     members = phase_member_kernels(torch)
     fleet_launches = phase_fleet(torch, x, held, library, smi)
+    fleet_zoo_launches = phase_fleet_zoo(torch, x, y, library, smi)
     analysis_launches = phase_analysis(torch, x, held, y, held_y)
     del x, held, y, held_y
     torch.cuda.empty_cache()
@@ -3982,7 +4366,8 @@ def main():
               + batch_launches[k] + multiome_launches[k] + last_launches[k]
               + bf16_launches[k] + surface_launches[k] + probe_launches[k]
               + ooc_launches[k] + stream_launches[k] + scan_launches[k]
-              + fleet_launches[k] + analysis_launches[k]
+              + fleet_launches[k] + fleet_zoo_launches[k]
+              + analysis_launches[k]
               + experiment_launches[k]
               for k, v in launches.items()}
 
@@ -4008,8 +4393,9 @@ def main():
                                             kind))
     if kind == "bwd":  # float32 operands, bf16 gradient writes
       entry["bf16_writes"] = numbers("main_full_writes", key, err, kind)
-    # FLEET members in one launch (phase 15b's fleet path), x shared
-    entry["members"] = dict(count=FLEET, launches=fleet_launches[name],
+    # FLEET members in one launch (phases 15b–d's and 19's fleets)
+    entry["members"] = dict(count=FLEET, launches=fleet_launches[name]
+                            + fleet_zoo_launches[name],
                             **numbers("fleet_full_shared", key, err, kind,
                                       members))
     kernels.append(entry)

@@ -15,8 +15,8 @@ CPU tensors every kernel wrapper runs its plain PyTorch version instead.
 Port state: every model of the JAX zoo, ``fit`` with its streaming,
 device-resident and out-of-core loops (validation, early stopping, the
 seven optimizers, mixed precision, ``scan_steps``), ``evaluate`` and
-serving, checkpoints either package reads, the vmapped ensemble
-(``train.VmapEnsemble``) and the on-card hyper-parameter search
+serving, checkpoints either package reads, the vmapped ensemble of any
+model class (``train.VmapEnsemble``) and the on-card hyper-parameter search
 (``models.hyper_params.fit_hyper_vmap``), and what a user runs on a
 fitted model (``analysis``: the posterior hub ``Posterior`` with its
 ``Criticizer``, the latent-space scores on the port's own estimators,

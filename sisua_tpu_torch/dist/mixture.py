@@ -82,17 +82,25 @@ class MixtureSameFamily(Distribution):
     parameters, not the mixture logits: those get theirs through
     ``log_prob`` (the Monte-Carlo KL), as in the JAX package. ``eps`` is
     the pair (component indices (…,), component noise (…, K, *event)),
-    else both come from ``generator``."""
+    else both come from ``generator``. A floating-point first entry is
+    standard Gumbel noise (…, K) instead of indices: the index is then
+    ``argmax(mixture_logits + g)``, ``jax.random.categorical``'s
+    Gumbel-max, which ``torch.func.vmap`` can run (``VmapEnsemble``)."""
     if eps is None:
       k = Categorical(self.mixture_logits).sample(sample_shape, generator)
       noise = None
     else:
       k, noise = eps
       shape = tuple(sample_shape) + self.batch_shape
+      if k.is_floating_point():
+        shape += (self.n_components,)
       if tuple(k.shape) != shape:
-        raise ValueError(f"component indices of shape {tuple(k.shape)}, "
-                         f"expected {shape}")
-      k = k.to(device=self.mixture_logits.device, dtype=torch.int64)
+        raise ValueError(f"component indices or Gumbel noise of shape "
+                         f"{tuple(k.shape)}, expected {shape}")
+      if k.is_floating_point():
+        k = torch.argmax(self.mixture_logits + k, dim=-1)
+      else:
+        k = k.to(device=self.mixture_logits.device, dtype=torch.int64)
     draws = self.components.rsample(sample_shape, generator=generator,
                                     eps=noise)
     return self._pick(draws, k)

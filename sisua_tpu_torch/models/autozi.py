@@ -35,7 +35,7 @@ from torch import nn
 from .. import dist as D
 from ..rv import parse_rv
 from .base import _flatten
-from .module import SCVIModule, VAEOutput
+from .module import NoiseRecorder, SCVIModule, VAEOutput
 from .scvi import SCVI
 
 __all__ = ["AUTOZI", "AUTOZIModule", "beta_kl", "compose_gate_logits"]
@@ -70,22 +70,54 @@ def compose_gate_logits(log_delta: torch.Tensor,
   return log_pi - torch.log(-torch.expm1(log_pi))
 
 
+class _GammaGrad(torch.autograd.Function):
+  """∂g/∂a of a draw g ~ Gamma(a, 1) (``torch._standard_gamma_grad``) as
+  an operator with a ``vmap`` rule: torch has no batching rule for it, and
+  its fallback loops over the members; the op is elementwise, so the rule
+  runs it once on the members' stacked tensors."""
+
+  @staticmethod
+  def forward(a, g):
+    return torch._standard_gamma_grad(a, g)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    pass
+
+  @staticmethod
+  def backward(ctx, grad):
+    raise NotImplementedError("the implicit gamma gradient has no second "
+                              "derivative")
+
+  @staticmethod
+  def vmap(info, in_dims, a, g):
+    a, g = (t.expand(info.batch_size, *t.shape) if d is None
+            else t.movedim(d, 0) for t, d in zip((a, g), in_dims))
+    return torch._standard_gamma_grad(a, g), 0
+
+
 class _LogGammaDraw(torch.autograd.Function):
   """log g of a draw g ~ Gamma(a, 1), given, with JAX's ``loggamma``
   gradient d log g / da = (∂g/∂a) / g, g floored at the smallest normal
-  float where it underflows."""
+  float where it underflows. ``torch.func`` transforms take it
+  (``VmapEnsemble``'s ``vmap(grad(…))``)."""
+
+  generate_vmap_rule = True
 
   @staticmethod
-  def forward(ctx, a, log_g):
-    ctx.save_for_backward(a, log_g)
+  def forward(a, log_g):
     return log_g.clone()
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
 
   @staticmethod
   def backward(ctx, grad):
     a, log_g = ctx.saved_tensors
     g = torch.exp(log_g)
     g = torch.where(g == 0, torch.finfo(g.dtype).tiny, g)
-    return grad * torch._standard_gamma_grad(a, g) / g, None
+    return grad * _GammaGrad.apply(a, g) / g, None
 
 
 def _draw_log_gamma(a: torch.Tensor, generator) -> torch.Tensor:
@@ -98,6 +130,16 @@ def _draw_log_gamma(a: torch.Tensor, generator) -> torch.Tensor:
                        dtype=a.dtype)  # (0, 1]
   return torch.log(g) + torch.where(boost, torch.log(u) / a,
                                     torch.zeros_like(a))
+
+
+def _stacked_log_gamma_pairs(m, generator, params):
+  """δ's (log Ga, log Gb) for M members at once, (M, G) each, each
+  member's from its own α, β (``params``: the members' stacked
+  parameters, as ``NoiseRecorder`` hands them)."""
+  with torch.no_grad():
+    a, b = (torch.exp(torch.clamp(params[k], -_LOG_CLIP, _LOG_CLIP))
+            for k in ("log_alpha_delta", "log_beta_delta"))
+    return _draw_log_gamma(a, generator), _draw_log_gamma(b, generator)
 
 
 class AUTOZIModule(SCVIModule):
@@ -121,6 +163,9 @@ class AUTOZIModule(SCVIModule):
     pair (log Ga, log Gb)), the posterior mean otherwise."""
     a, b = self.delta_posterior()
     if self.training:
+      if isinstance(noise, NoiseRecorder):
+        noise = noise.record(_stacked_log_gamma_pairs,
+                             (torch.zeros_like(a), torch.zeros_like(b)))
       if noise is None:
         with torch.no_grad():
           noise = (_draw_log_gamma(a, generator),
@@ -153,13 +198,17 @@ class AUTOZIModule(SCVIModule):
     _, b = self.split_batch(x)
     qZ = self.encode(x, generator)
     n = len(qZ)
-    if noise is not None and len(noise) not in (n, n + 1):
+    if isinstance(noise, NoiseRecorder):
+      delta_noise = noise
+    elif noise is None or len(noise) == n:
+      delta_noise = None
+    elif len(noise) == n + 1:
+      delta_noise = noise[n]
+    else:
       raise ValueError(f"{len(noise)} noise entries for {n} latents and δ")
     zs = self._sample(qZ, sample_shape, generator,
                       None if noise is None else noise[:n])
-    pX = self.decode(zs, library, generator, b,
-                     noise=None if noise is None or len(noise) == n
-                     else noise[n])
+    pX = self.decode(zs, library, generator, b, noise=delta_noise)
     return VAEOutput(outputs=pX, latents=qZ, latent_samples=zs,
                      priors=self.latent_priors(library, like=x))
 

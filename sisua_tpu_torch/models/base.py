@@ -543,6 +543,20 @@ class SingleCellModel:
     (FactorVAE trains its discriminator here)."""
     return metrics
 
+  def _aux_plan(self, batch, recorder) -> None:
+    """Records the aux step's draws in ``recorder`` (a ``NoiseRecorder``),
+    for ``VmapEnsemble``, which batches the aux step over members as
+    ``_aux_loss`` and one Adam step of the aux optimizer's settings
+    (FactorVAE overrides both)."""
+    raise NotImplementedError(f"{type(self).__name__}'s aux step has no "
+                              "form VmapEnsemble can batch")
+
+  def _aux_loss(self, batch, draws) -> torch.Tensor:
+    """The aux group's loss at the module's current state from the draws
+    ``_aux_plan`` recorded: what ``_aux_step`` descends."""
+    raise NotImplementedError(f"{type(self).__name__}'s aux step has no "
+                              "form VmapEnsemble can batch")
+
   def _train_step(self, batch) -> Dict[str, torch.Tensor]:
     """One optimizer step; β is the schedule at the current step. Then the
     aux step, on the updated parameters. Every parameter gets its gradient,

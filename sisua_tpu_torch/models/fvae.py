@@ -121,13 +121,18 @@ class FVAE(SingleCellModel):
       return self._reduced_z(self.module._sample(qZ, (), self.generator,
                                                  noise))
 
-  def _disc_update(self, z: torch.Tensor, perms=None) -> torch.Tensor:
-    """One Adam step of the discriminator on joint ``z`` against its
-    column-permuted copy; returns the loss before the step."""
+  def _disc_loss(self, z: torch.Tensor, perms=None) -> torch.Tensor:
+    """The discriminator's loss on joint ``z`` (class 0) against its
+    column-permuted copy (class 1)."""
     z_perm = _permute_dims(z, self.generator, perms)
     logp = F.log_softmax(self.aux(torch.cat([z, z_perm])), dim=-1)
     n = z.shape[0]
-    loss = -0.5 * (torch.mean(logp[:n, 0]) + torch.mean(logp[n:, 1]))
+    return -0.5 * (torch.mean(logp[:n, 0]) + torch.mean(logp[n:, 1]))
+
+  def _disc_update(self, z: torch.Tensor, perms=None) -> torch.Tensor:
+    """One Adam step of the discriminator on ``z``; returns the loss
+    before the step."""
+    loss = self._disc_loss(z, perms)
     self.aux_optimizer.zero_grad(set_to_none=True)
     loss.backward()
     self.aux_optimizer.step()
@@ -141,6 +146,20 @@ class FVAE(SingleCellModel):
     metrics = dict(metrics)
     metrics["disc_loss"] = self._disc_update(z, perms)
     return metrics
+
+  # ------------------------------------------------- the ensemble's aux step
+  def _aux_plan(self, batch, recorder) -> None:
+    """Records the discriminator step's draws: the eval-mode latents'
+    noise, then the (D, B) column permutations."""
+    b, d = self._draw_latents(batch, recorder).shape
+    recorder.record(lambda m, gen, params: torch.argsort(
+        torch.rand((m, d, b), generator=gen, device=gen.device), dim=-1),
+        None)
+
+  def _aux_loss(self, batch, draws) -> torch.Tensor:
+    """The discriminator's loss at the updated main parameters, from the
+    draws ``_aux_plan`` records (one member's)."""
+    return self._disc_loss(self._draw_latents(batch, draws[:-1]), draws[-1])
 
 
 class SemiFVAE(FVAE):

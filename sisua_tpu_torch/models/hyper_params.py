@@ -183,8 +183,9 @@ def fit_hyper_vmap(model_fn: Callable[[int], Any],
              for lr in learning_rates for s in range(seeds_per_rate)]
   ens = VmapEnsemble(model_fn, n_models=len(configs), base_seed=base_seed)
   # the members numbered serially by VmapEnsemble are rebuilt with the
-  # configs' seeds, as in the JAX package
+  # configs' seeds (and a discriminator's too), as in the JAX package
   ens.models = [model_fn(c["seed"]) for c in configs]
+  ens.model = ens.models[0]
   ens.fit(train, epochs=epochs, batch_size=batch_size,
           learning_rate=[c["learning_rate"] for c in configs],
           shared_batches=False, metrics_interval=metrics_interval,

@@ -13,8 +13,10 @@ normal tensor of the draw's shape for 'diag'/'normal'/'tril'; for a
 mixture latent ('mixgaus'/'mdn'/'mixtril') the pair (component indices
 (…, B), every component's standard noise (…, B, K, D)); None for a
 deterministic latent (DCA). A module that draws again after the latents
-(TotalVI's log β, SCANVI's z₂) takes that draw's noise as one more entry,
-in the order the JAX module calls ``make_rng('sample')``.
+(TotalVI's log β, SCANVI's z₂, AUTOZI's δ) takes that draw's noise as one
+more entry, in the order the JAX module calls ``make_rng('sample')``.
+A ``NoiseRecorder`` in place of the list learns those entries from one
+forward (``VmapEnsemble``'s draw plan).
 
 Batch-covariate conditioning (``n_batch`` > 0, scvi-tools semantics): the
 module input may end in a batch one-hot block, which joins both the
@@ -38,10 +40,64 @@ from .. import dist as D
 from ..nn import DistributionDense, NetConf, dense, resolve_dtype
 from ..rv import RVmeta
 
-__all__ = ["VAEOutput", "VAEModule", "SCVIModule"]
+__all__ = ["VAEOutput", "VAEModule", "SCVIModule", "NoiseRecorder"]
 
 # log 1e-7: floor of SCVI's log-space softmax (the linear path's clip)
 _LOG_SCALE_FLOOR = -16.118095
+
+
+def _gumbel(shape, generator) -> torch.Tensor:
+  """Standard Gumbel noise, −log(−log U) with U floored at the smallest
+  normal float (``jax.random.gumbel``)."""
+  u = torch.rand(shape, generator=generator, device=generator.device)
+  return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(u.dtype).tiny)))
+
+
+class NoiseRecorder:
+  """A forward's ``noise`` that records the draws instead of feeding
+  them: each draw gets zeros of its shape in its place, and the recorder
+  keeps a function that makes that draw for M members at once, (M, …),
+  from a generator and the members' stacked parameters (keys as the
+  module's ``named_parameters``). ``entries`` line up with the ``noise``
+  list the forward reads; None marks a deterministic latent. Slicing
+  gives the recorder itself, so a forward's later draws (log β, z₂, δ)
+  record after its latents, in the order it reads them."""
+
+  def __init__(self, device):
+    self.device = torch.device(device)
+    self.entries = []
+
+  def __getitem__(self, index):
+    if not isinstance(index, slice):
+      raise TypeError("a NoiseRecorder is read by slices, as a forward "
+                      "passes its later draws on")
+    return self
+
+  def record(self, draw, placeholder):
+    """Keeps ``draw(m, generator, params)``; returns ``placeholder``."""
+    self.entries.append(draw)
+    return placeholder
+
+  def latent(self, q: D.Distribution, sample_shape=()):
+    """The ``eps`` of ``q.rsample``: standard noise, a mixture's pair
+    (Gumbel noise (…, K) for ``jax.random.categorical``'s Gumbel-max, every
+    component's noise), or None for a deterministic latent."""
+    lead = tuple(sample_shape)
+    zeros = lambda s: torch.zeros(s, device=self.device)  # noqa: E731
+    if isinstance(q, D.VectorDeterministic):
+      return self.record(None, None)
+    if isinstance(q, D.MixtureSameFamily):
+      ks = lead + tuple(q.batch_shape) + (q.n_components,)
+      c = q.components
+      cs = lead + tuple(c.batch_shape) + tuple(c.event_shape)
+      return self.record(
+          lambda m, gen, params: (
+              _gumbel((m, *ks), gen),
+              torch.randn((m, *cs), generator=gen, device=gen.device)),
+          (zeros(ks), zeros(cs)))
+    s = lead + tuple(q.batch_shape) + tuple(q.event_shape)
+    return self.record(lambda m, gen, params: torch.randn(
+        (m, *s), generator=gen, device=gen.device), zeros(s))
 
 
 @dataclasses.dataclass
@@ -211,8 +267,10 @@ class VAEModule(nn.Module):
     """One reparameterized draw per latent, each ``noise`` entry passed
     through unchanged as that latent's ``eps`` (see the module docstring);
     a deterministic latent (DCA) returns its ``loc`` and takes no noise
-    (its entry may be None)."""
-    if noise is not None and len(noise) != len(qZ):
+    (its entry may be None). A ``NoiseRecorder`` records each draw."""
+    if isinstance(noise, NoiseRecorder):
+      noise = [noise.latent(q, sample_shape) for q in qZ]
+    elif noise is not None and len(noise) != len(qZ):
       raise ValueError(f"{len(noise)} noise tensors for {len(qZ)} latents")
     return tuple(q.rsample(sample_shape, generator=generator,
                            eps=None if noise is None else noise[i])

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from ..nn import dense
 from ..rv import RVmeta, parse_rv
 from .base import SingleCellModel, _flatten
-from .module import VAEModule, VAEOutput
+from .module import NoiseRecorder, VAEModule, VAEOutput
 
 __all__ = ["SCScope", "SCScopeModule"]
 
@@ -67,6 +67,9 @@ class SCScopeModule(VAEModule):
       h_t = observed * x0 + (1.0 - observed) * imp
       qZ = self.encode(self._with_batch(h_t, b), generator)
       zs = self._sample(qZ, sample_shape if last else (), generator, noise)
+      if isinstance(noise, NoiseRecorder):
+        # recorded once: every cycle reads the same (deterministic) entries
+        noise = [None] * len(qZ)
       pX = self.decode(self.reduce_latents(zs), library, generator, b)
       if not last:
         aux.append(pX[0])

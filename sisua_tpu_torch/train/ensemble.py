@@ -11,12 +11,23 @@ members on one launch each (``ops/zinb.py``: the member axis is grid z).
 
 What the transform changes, and how the port deals with it:
 
-* A ``torch.Generator`` draw cannot run inside ``vmap``. Each step's
-  reparameterization noise (one standard-normal tensor per latent) and
-  dropout keep-masks are drawn outside the transform as (M, …) tensors
-  from the ensemble's generator and fed in (``noise=``, ``DropoutMasks``).
-  Their shapes come from one forward of the template model outside the
-  transform at the start of each ``fit`` (``_draw_plan``).
+* A ``torch.Generator`` draw cannot run inside ``vmap``. Every draw of a
+  step is made outside the transform as (M, …) tensors from the
+  ensemble's generator and fed in: the forward's noise entries
+  (``noise=``) and dropout keep-masks (``DropoutMasks``). Which draws a
+  forward makes is learnt at the start of each ``fit`` from one forward
+  of the template model handed a ``NoiseRecorder`` (``_draw_plan``):
+  each latent's standard noise; a mixture latent's Gumbel noise and
+  component noise (SCALE/SCALAR: the component index is
+  ``argmax(logits + Gumbel)`` inside the transform, as
+  ``jax.random.categorical``); TotalVI's log β and SCANVI's z₂ noise;
+  AUTOZI's δ pair, drawn from each member's own α, β; MULTIVI's (z, l).
+* FVAE/SemiFVAE's discriminator step, after the main one: each member's
+  TC term reads its own discriminator (detached), then a second vmapped
+  gradient over the stacked discriminators, at the updated parameters
+  and running statistics with fresh eval-mode noise and column
+  permutations, and one unclipped Adam step of ``discriminator_lr``
+  with its own count, as the JAX step's ``_aux_step``.
 * BatchNorm updates its running statistics in place; under
   ``functional_call`` the stacked (M, F) buffers are what it updates.
 * The optimizer is the JAX ensemble's own: ``optax.chain(
@@ -30,23 +41,22 @@ Use:
     losses = ens.history["loss"]          # (epochs, n_models)
     best = ens.best()                     # a standalone trained model
 
-Not batched yet, and raising ``NotImplementedError`` (ROADMAP A19b): a
-class with an auxiliary step (FVAE/SemiFVAE's discriminator), a mixture
-latent (SCALE/SCALAR: the component index depends on the forward), and a
-forward that draws beyond its latents' noise and dropout (TotalVI's
-log β, SCANVI's z₂, AUTOZI's δ). ``mesh=`` raises too (ROADMAP A21).
+Every class of ``get_all_models()`` trains as a fleet. ``mesh=`` raises
+(ROADMAP A21). AUTOZI's Beta KL is scaled by ``n_total_cells`` as the
+template has it (10,000 when unset), as the JAX ensemble, which never
+calls AUTOZI's ``fit``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from .. import dist as D
+from ..models.module import NoiseRecorder
 from ..nn import DropoutMasks
 from .optim import clipped_adam_step_
 from .trainer import ClippedAdam, Trainer
@@ -57,37 +67,40 @@ __all__ = ["VmapEnsemble"]
 _SEED = 17
 
 
-class _MemberLoss(nn.Module):
-  """The template model's training loss as a module whose state is the
-  template's ``module`` (keys ``module.<name>``), for ``functional_call``."""
+class _Member(nn.Module):
+  """The template model's module (keys ``module.<name>``) and aux group
+  (``aux.<name>``) as one module for ``functional_call``: a member's
+  stacked state swaps in for both."""
 
   def __init__(self, model):
     super().__init__()
     self.module = model.module
+    if model.aux is not None:
+      self.aux = model.aux
     self._model = [model]  # a plain list: not a submodule
+
+
+class _MemberLoss(_Member):
+  """The training loss; FactorVAE's TC term reads the member's own
+  discriminator (its ``aux.*``, fed detached)."""
 
   def forward(self, batch, beta, noise, masks):
     return self._model[0]._loss(batch, True, beta, noise=noise,
                                 masks=DropoutMasks(masks))
 
 
-_BEYOND = ("'s forward draws beyond its latents' noise and dropout; the "
-           "ensemble cannot feed it yet (ROADMAP A19b)")
+class _MemberAuxLoss(_Member):
+  """The aux step's loss (FactorVAE's discriminator)."""
+
+  def forward(self, batch, draws):
+    return self._model[0]._aux_loss(batch, draws)
 
 
-class _LatentNoise(list):
-  """The draw plan's noise, one entry per latent: a forward that asks for
-  an entry past them (TotalVI's log β, SCANVI's z₂, AUTOZI's δ) raises."""
-
-  def __init__(self, entries, owner: str):
-    super().__init__(entries)
-    self.owner = owner
-
-  def __getitem__(self, i):
-    start = (i.start or 0) if isinstance(i, slice) else i
-    if start >= len(self):
-      raise NotImplementedError(self.owner + _BEYOND)
-    return super().__getitem__(i)
+class _Plan(NamedTuple):
+  """One member's draws a fleet step makes, learnt from the template."""
+  noise: List   # the forward's noise entries: NoiseRecorder draw functions
+  masks: List   # (shape, keep probability) of each dropout mask
+  aux: Optional[List]  # the aux step's draws, or None without one
 
 
 class VmapEnsemble:
@@ -108,27 +121,46 @@ class VmapEnsemble:
   # ------------------------------------------------------------------ state
   def _stack_states(self) -> Dict:
     """The members' parameters and buffers stacked on a leading member
-    axis, fresh Adam moments and counts, and each member's step."""
-    mods = [m.module for m in self.models]
-    params = {k: torch.stack([dict(md.named_parameters())[k].detach()
-                              for md in mods])
-              for k, _ in mods[0].named_parameters()}
-    buffers = {k: torch.stack([dict(md.named_buffers())[k] for md in mods])
-               for k, _ in mods[0].named_buffers()}
+    axis, fresh Adam moments and counts, and each member's step; with an
+    aux group, the same for it under ``aux`` (its own Adam count)."""
     dev = self.model.device
-    return {"params": params, "buffers": buffers,
-            "mu": {k: torch.zeros_like(v) for k, v in params.items()},
-            "nu": {k: torch.zeros_like(v) for k, v in params.items()},
-            "count": torch.zeros((self.n_models,), dtype=torch.int32,
-                                 device=dev),
-            "steps": [int(m.step) for m in self.models]}
+
+    def stacked(mods):
+      params = {k: torch.stack([dict(md.named_parameters())[k].detach()
+                                for md in mods])
+                for k, _ in mods[0].named_parameters()}
+      return {"params": params,
+              "buffers": {k: torch.stack([dict(md.named_buffers())[k]
+                                          for md in mods])
+                          for k, _ in mods[0].named_buffers()},
+              "mu": {k: torch.zeros_like(v) for k, v in params.items()},
+              "nu": {k: torch.zeros_like(v) for k, v in params.items()},
+              "count": torch.zeros((self.n_models,), dtype=torch.int32,
+                                   device=dev)}
+    st = stacked([m.module for m in self.models])
+    st["steps"] = [int(m.step) for m in self.models]
+    if self.model.aux is not None:
+      st["aux"] = stacked([m.aux for m in self.models])
+    return st
+
+  @staticmethod
+  def _adam_state(opt, named, st, i: int, count: int) -> None:
+    """Member ``i``'s moments and count as ``opt``'s (a torch Adam)."""
+    for k, p in named.items():
+      opt.state[p] = {"step": torch.tensor(float(count)),
+                      "exp_avg": st["mu"][k][i].clone(),
+                      "exp_avg_sq": st["nu"][k][i].clone()}
 
   def _write_back(self, lrs, clipnorm: float) -> None:
     """Each member's parameters, buffers and step into its model, and its
     Adam moments into the model's optimizer (a later ``fit`` carries them
-    over, as the JAX ``fit`` keeps the member's ``opt_state``)."""
+    over, as the JAX ``fit`` keeps the member's ``opt_state``); the aux
+    parameters into its ``aux``, their moments and count into its
+    ``aux_optimizer``."""
     st = self._stacked
     counts = st["count"].cpu().tolist()
+    aux = st.get("aux")
+    aux_counts = None if aux is None else aux["count"].cpu().tolist()
     with torch.no_grad():
       for i, m in enumerate(self.models):
         named = dict(m.module.named_parameters())
@@ -138,99 +170,175 @@ class VmapEnsemble:
           b.copy_(st["buffers"][k][i])
         m.step = st["steps"][i]
         opt = ClippedAdam(named.values(), lrs[i], clipnorm)
-        for k, p in named.items():
-          opt.inner.state[p] = {"step": torch.tensor(float(counts[i])),
-                                "exp_avg": st["mu"][k][i].clone(),
-                                "exp_avg_sq": st["nu"][k][i].clone()}
+        self._adam_state(opt.inner, named, st, i, counts[i])
         m.optimizer, m._last_freeze = opt, ()
+        if aux is not None:
+          named = dict(m.aux.named_parameters())
+          for k, p in named.items():
+            p.copy_(aux["params"][k][i])
+          m.aux_optimizer = m._make_aux_optimizer()
+          self._adam_state(m.aux_optimizer, named, aux, i, aux_counts[i])
 
   # -------------------------------------------------------------- the step
-  def _check_supported(self) -> None:
-    model = self.model
-    if model.aux is not None:
-      raise NotImplementedError(
-          f"{type(model).__name__}'s auxiliary step (its discriminator) is "
-          "not batched over ensemble members yet (ROADMAP A19b)")
+  @staticmethod
+  def _check_supported(mesh) -> None:
+    if mesh is not None:
+      raise NotImplementedError("mesh training of an ensemble is not "
+                                "ported yet (ROADMAP A21)")
 
-  def _draw_plan(self, batch):
-    """The shapes of one member's draws for a batch like ``batch``: each
-    latent's standard noise (None for a deterministic latent) and each
-    dropout mask with its keep probability, from one forward of the
-    template model's module outside the transform (its running stats
-    kept; no likelihood, so no kernel launch)."""
+  def _draw_plan(self, batch) -> _Plan:
+    """The draws of one member's step on a batch like ``batch``, learnt
+    from the template model outside the transform (its running stats
+    kept; no likelihood, so no kernel launch): every noise entry its
+    forward reads, recorded as it is drawn (``NoiseRecorder``: a latent,
+    a mixture's Gumbel and component noise, TotalVI's log β, SCANVI's z₂,
+    AUTOZI's δ pair), every dropout mask, and the aux step's draws."""
     model = self.model
-    model.module.train(True)
+    noise = NoiseRecorder(model.device)
+    masks = DropoutMasks()
+    aux = None
     with torch.no_grad(), model._batch_stats_kept(True):
+      model.module.train(True)
       x = model._masked_module_input(batch, True)
-      shapes = []
-      for q in model.module.encode(x, DropoutMasks()):
-        if isinstance(q, D.MixtureSameFamily):
-          raise NotImplementedError(
-              f"{type(model).__name__}'s mixture latent draws its component "
-              "from the forward; the ensemble cannot feed it yet (ROADMAP "
-              "A19b)")
-        shapes.append(None if isinstance(q, D.VectorDeterministic)
-                      else tuple(q.batch_shape) + tuple(q.event_shape))
-      masks = DropoutMasks()
-      noise = _LatentNoise([None if s is None else
-                            torch.zeros(s, device=x.device) for s in shapes],
-                           type(model).__name__)
       library = batch.get("library") if model.uses_library else None
       try:
         model.module(x, library=library, generator=masks, noise=noise)
-      except TypeError as e:  # a torch draw handed DropoutMasks
-        raise NotImplementedError(type(model).__name__ + _BEYOND) from e
-    return shapes, masks.specs
+      except TypeError as e:  # a draw from the generator, not the recorder
+        raise TypeError(f"{type(model).__name__}'s forward draws from its "
+                        "generator where VmapEnsemble cannot feed the draw"
+                        ) from e
+      if model.aux is not None:
+        aux = NoiseRecorder(model.device)
+        model._aux_plan(batch, aux)
+        aux = aux.entries
+    return _Plan(noise.entries, masks.specs, aux)
 
-  def _draws(self, plan):
+  def _draws(self, plan: _Plan):
     """One fleet step's noise and dropout masks, (M, …) each."""
-    shapes, mask_specs = plan
-    gen, m, dev = self.generator, self.n_models, self.model.device
-    noise = [None if s is None else
-             torch.randn((m, *s), generator=gen, device=dev) for s in shapes]
-    masks = [torch.rand((m, *s), generator=gen, device=dev) < keep
-             for s, keep in mask_specs]
+    gen, m = self.generator, self.n_models
+    noise = self._made(plan.noise)
+    masks = [torch.rand((m, *s), generator=gen, device=self.model.device)
+             < keep for s, keep in plan.masks]
     return noise, masks
 
-  def _make_step(self, shared: bool, has_library: bool, plan):
+  def _aux_draws(self, plan: _Plan):
+    """One fleet step's aux-step draws, (M, …) each."""
+    return self._made(plan.aux)
+
+  def _made(self, entries):
+    params = self._stacked["params"]
+    return [None if e is None else e(self.n_models, self.generator, params)
+            for e in entries]
+
+  def _make_step(self, shared: bool, has_library: bool, plan: _Plan):
     """The vmapped gradient of one member's loss: (params, buffers,
-    inputs, mask, library, noise, masks, beta) → (grads, (loss,
-    metrics)), every output with the member axis first."""
+    aux params, inputs, mask, library, noise, masks, beta) → (grads,
+    (loss, metrics)), every output with the member axis first."""
     loss_module = _MemberLoss(self.model)
 
-    def member_loss(params, buffers, inputs, mask, library, noise, masks,
-                    beta):
-      batch = {"inputs": list(inputs), "mask": mask}
-      if library is not None:
-        batch["library"] = library
-      state = {f"module.{k}": v for k, v in params.items()}
-      state.update({f"module.{k}": v for k, v in buffers.items()})
+    def member_loss(params, buffers, aux, inputs, mask, library, noise,
+                    masks, beta):
+      state = self._state(params, buffers, aux)
       loss, metrics, _ = torch.func.functional_call(
-          loss_module, state, (batch, beta, noise, masks))
+          loss_module, state, (self._batch(inputs, mask, library), beta,
+                               noise, masks))
       return loss, metrics
 
     x_dim = None if shared else 0
-    noise_dims = [None if s is None else 0 for s in plan[0]]
+    aux_dim = None if plan.aux is None else 0
     beta_dim = None if isinstance(self._beta([0]), float) else 0
     return torch.func.vmap(
         torch.func.grad_and_value(member_loss, has_aux=True),
-        in_dims=(0, 0, x_dim, x_dim, x_dim if has_library else None,
-                 noise_dims, 0, beta_dim))
+        in_dims=(0, 0, aux_dim, x_dim, x_dim, x_dim if has_library else None,
+                 self._dims(plan.noise), 0, beta_dim))
 
-  def _train_step(self, step_fn, batch, noise, masks, lr, clipnorm: float):
+  def _make_aux_step(self, shared: bool, has_library: bool, plan: _Plan):
+    """The vmapped gradient of one member's aux loss in its aux
+    parameters: (aux params, params, buffers, inputs, mask, library,
+    draws) → (grads, loss); None without an aux step."""
+    if plan.aux is None:
+      return None
+    group = self.model._make_aux_optimizer().param_groups[0]
+    self._aux_adam = (float(group["lr"]), group["betas"], group["eps"])
+    aux_module = _MemberAuxLoss(self.model)
+
+    def member_aux(aux, params, buffers, inputs, mask, library, draws):
+      return torch.func.functional_call(
+          aux_module, self._state(params, buffers, aux),
+          (self._batch(inputs, mask, library), draws))
+
+    x_dim = None if shared else 0
+    return torch.func.vmap(
+        torch.func.grad_and_value(member_aux),
+        in_dims=(0, 0, 0, x_dim, x_dim, x_dim if has_library else None,
+                 self._dims(plan.aux)))
+
+  @staticmethod
+  def _dims(entries):
+    return [None if e is None else 0 for e in entries]
+
+  @staticmethod
+  def _member_draws(entries, i: int):
+    """Member ``i``'s share of one fleet step's draws (``_draws``,
+    ``_aux_draws``): a tensor's row, a pair's rows (a mixture's Gumbel
+    and component noise, AUTOZI's δ), or None."""
+    return [None if e is None else tuple(t[i] for t in e)
+            if isinstance(e, tuple) else e[i] for e in entries]
+
+  @staticmethod
+  def _state(params, buffers, aux):
+    state = {f"module.{k}": v for k, v in params.items()}
+    state.update({f"module.{k}": v for k, v in buffers.items()})
+    if aux is not None:
+      state.update({f"aux.{k}": v for k, v in aux.items()})
+    return state
+
+  @staticmethod
+  def _batch(inputs, mask, library):
+    batch = {"inputs": list(inputs), "mask": mask}
+    if library is not None:
+      batch["library"] = library
+    return batch
+
+  def _train_step(self, step_fn, batch, noise, masks, lr, clipnorm: float,
+                  aux=None):
     """One fleet step on the stacked state: every member's gradient in one
-    vmapped call, then the stacked clipped Adam. Returns the (M,) losses,
-    the metrics and the pre-clip gradients, on the card."""
+    vmapped call, then the stacked clipped Adam; with ``aux`` = (aux step
+    function, aux draws), then ``_aux_train_step``. Returns the (M,)
+    losses, the metrics and the pre-clip gradients, on the card."""
     st = self._stacked
     keys = list(st["params"])
+    frozen = (None if "aux" not in st else
+              {k: v.detach() for k, v in st["aux"]["params"].items()})
     grads, (loss, metrics) = step_fn(
-        st["params"], st["buffers"], batch["inputs"], batch["mask"],
+        st["params"], st["buffers"], frozen, batch["inputs"], batch["mask"],
         batch.get("library"), noise, masks, self._beta(st["steps"]))
     clipped_adam_step_([st["params"][k] for k in keys],
                        [grads[k] for k in keys], [st["mu"][k] for k in keys],
                        [st["nu"][k] for k in keys], st["count"], lr, clipnorm)
     st["steps"] = [s + 1 for s in st["steps"]]
+    if aux is not None:
+      metrics = dict(metrics, disc_loss=self._aux_train_step(*aux, batch))
     return loss.detach(), metrics, grads
+
+  def _aux_train_step(self, aux_fn, draws, batch) -> torch.Tensor:
+    """The aux step of every member at its updated parameters and
+    statistics: the vmapped gradient of its aux loss, then one unclipped
+    Adam step with the aux optimizer's settings (FactorVAE's
+    discriminator: ``optax.adam(discriminator_lr)``, its own count).
+    Returns the (M,) aux losses before the step."""
+    st, aux_st = self._stacked, self._stacked["aux"]
+    grads, value = aux_fn(aux_st["params"], st["params"], st["buffers"],
+                          batch["inputs"], batch["mask"],
+                          batch.get("library"), draws)
+    names = list(aux_st["params"])
+    lr, (b1, b2), eps = self._aux_adam
+    clipped_adam_step_([aux_st["params"][k] for k in names],
+                       [grads[k] for k in names],
+                       [aux_st["mu"][k] for k in names],
+                       [aux_st["nu"][k] for k in names], aux_st["count"],
+                       lr, 0.0, b1, b2, eps)
+    return value.detach()
 
   def _beta(self, steps):
     """β of every member at its step: one float for a constant schedule,
@@ -264,10 +372,7 @@ class VmapEnsemble:
     epoch losses stay on the card and are fetched once per window of K
     epochs. ``history['loss']`` is (epochs, M). The stacked state is kept
     between calls; each member's state is written back into its model."""
-    if mesh is not None:
-      raise NotImplementedError("mesh training of an ensemble is not "
-                                "ported yet (ROADMAP A21)")
-    self._check_supported()
+    self._check_supported(mesh)
     model = self.model
     if not model.is_semi_supervised:
       labels_percent = 0.0
@@ -309,7 +414,7 @@ class VmapEnsemble:
         b["library"] = take(library, rows)
       return b
 
-    plan, step_fn = None, None
+    plan = step_fn = aux_fn = None
     interval = max(1, int(metrics_interval))
     losses: List[np.ndarray] = []
     times: List[float] = []
@@ -340,8 +445,11 @@ class VmapEnsemble:
           if step_fn is None:
             step_fn = self._make_step(shared_batches, library is not None,
                                       plan)
-          loss = self._train_step(step_fn, batch, *self._draws(plan), lr,
-                                  float(clipnorm or 0.0))[0]
+            aux_fn = self._make_aux_step(shared_batches, library is not None,
+                                         plan)
+          loss = self._train_step(
+              step_fn, batch, *self._draws(plan), lr, float(clipnorm or 0.0),
+              None if aux_fn is None else (aux_fn, self._aux_draws(plan)))[0]
           loss_sum += loss
         win.append(loss_sum / steps)
       win_losses = torch.stack(win, 1).cpu().numpy()  # (M, E): one fetch

@@ -1139,6 +1139,90 @@ def test_vmap_ensemble_on_the_card(dev):
   assert np.isfinite(loss).all() and (loss[-1] < loss[0]).all()
 
 
+FLEETS = {"FVAE": 1, "AUTOZI": 1}  # ZINB/NB heads
+
+
+def _fleet(name, dev, genes=2000):
+  from sisua_tpu_torch import models as T
+  from sisua_tpu_torch.train import VmapEnsemble
+  if name == "FVAE":
+    make = lambda s: T.FVAE(T.RVmeta(genes, "zinb", name="rna"),  # noqa
+                            seed=s, device=dev)
+  else:
+    make = lambda s: T.AUTOZI(T.RVmeta(genes, "zinbd", name="rna"),  # noqa
+                              seed=s, device=dev)
+  ens = VmapEnsemble(make, n_models=3)
+  ens._stacked = ens._stack_states()
+  return ens
+
+
+def _to(entries, dev):
+  return [None if e is None else tuple(t.to(dev) for t in e)
+          if isinstance(e, tuple) else e.to(dev) for e in entries]
+
+
+@pytest.mark.parametrize("name", list(FLEETS))
+def test_fleet_step_on_card_matches_cpu_plain_route(dev, name):
+  """One 3-member fleet step (FVAE with its discriminator step; AUTOZI
+  with δ's pair from each member's α, β) on the card and on the CPU's
+  plain route from the same weights, batch and draws: one launch of each
+  kernel per head for the fleet; loss and metrics rtol 1e-4; gradients
+  within 1e-3 of (each tensor's max|g| + 1e-3 of the largest: the routes'
+  bound in chip_smoke.py); parameters after the step within 2·lr. The
+  discriminator step then runs from the card's updated state on both:
+  its loss rtol 1e-4, its parameters within 2·lr."""
+  from sisua_tpu_torch.data import get_library_size
+  lr, clip = 1e-3, 100.0
+  card, cpu = _fleet(name, dev), _fleet(name, "cpu")
+  g = torch.Generator(device=dev).manual_seed(5)
+  x = torch.poisson(torch.exp(-1.0 + torch.randn((256, 2000), generator=g,
+                                                 device=dev)), generator=g)
+  batch = {"inputs": [x], "mask": torch.ones(256, device=dev),
+           "library": torch.cat(get_library_size(x), 1)}
+  host = {k: ([t.cpu() for t in v] if k == "inputs" else v.cpu())
+          for k, v in batch.items()}
+  plan = card._draw_plan(batch)
+  noise, masks = card._draws(plan)
+  aux_draws = None if plan.aux is None else card._aux_draws(plan)
+  fns = {}
+  for ens, b in ((card, batch), (cpu, host)):
+    p = ens._draw_plan(b)
+    fns[id(ens)] = (ens._make_step(True, True, p),
+                    ens._make_aux_step(True, True, p))
+  tz.reset_launches()
+  loss, metrics, grads = card._train_step(fns[id(card)][0], batch, noise,
+                                          masks, lr, clip)
+  torch.cuda.synchronize()
+  heads = FLEETS[name]
+  assert tz.launches == {"zinb_rowsum_fwd": heads, "zinb_rowsum_bwd": heads}
+  closs, cmetrics, cgrads = cpu._train_step(
+      fns[id(cpu)][0], host, _to(noise, "cpu"), _to(masks, "cpu"), lr, clip)
+  np.testing.assert_allclose(loss.cpu(), closs, rtol=1e-4)
+  for k in cmetrics:
+    np.testing.assert_allclose(metrics[k].detach().cpu(), cmetrics[k],
+                               rtol=1e-4, atol=1e-6, err_msg=k)
+  scale = max(float(v.abs().max()) for v in cgrads.values())
+  for k, v in cgrads.items():
+    bound = float(v.abs().max()) + 1e-3 * scale
+    assert float((grads[k].cpu() - v).abs().max()) <= 1e-3 * bound, k
+  st, cst = card._stacked, cpu._stacked
+  for k, v in cst["params"].items():
+    assert float((st["params"][k].cpu() - v).abs().max()) <= 2 * lr + 1e-6
+  if aux_draws is not None:
+    for group in ("params", "buffers"):
+      for k, v in st[group].items():
+        cst[group][k].copy_(v.cpu())
+    tz.reset_launches()
+    disc = card._aux_train_step(fns[id(card)][1], aux_draws, batch)
+    cdisc = cpu._aux_train_step(fns[id(cpu)][1], _to(aux_draws, "cpu"), host)
+    assert tz.launches == {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+    np.testing.assert_allclose(disc.cpu(), cdisc, rtol=1e-4)
+    dlr = card._aux_adam[0]
+    for k, v in cst["aux"]["params"].items():
+      assert float((st["aux"]["params"][k].cpu() - v).abs().max()) \
+          <= 2 * dlr + 1e-7, k
+
+
 # ------------------------------------------------------------- analysis
 def test_knn_mutual_information_card_equals_cpu(dev):
   """The same jittered float32 operands on the card and on the CPU count

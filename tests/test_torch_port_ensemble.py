@@ -19,7 +19,9 @@ rule over ``ops/zinb_pallas.py``).
 * The fleet step against M single port steps on the same batch, noise and
   dropout masks (SCVI with its default dropout).
 * ``VmapEnsemble`` and ``fit_hyper_vmap`` as ``tests/test_ensemble.py``
-  pins them for JAX, the classes that raise, and the stacked conversion.
+  pins them for JAX, what the ensemble refuses, and the stacked
+  conversion. The other classes' fleets: ``test_torch_port_ensemble_zoo.py``,
+  ``_draws.py`` and ``_all.py``.
 """
 
 import functools
@@ -474,34 +476,19 @@ def test_vmapped_hyper_search(tmp_path):
   assert saved["best"] == res["best"] and saved["loss"] == res["loss"]
 
 
-@pytest.mark.parametrize("case", ["mesh", "fvae", "scale", "totalvi",
-                                  "lr_count"])
+@pytest.mark.parametrize("case", ["mesh", "lr_count"])
 def test_what_the_ensemble_refuses(case):
-  """``mesh`` (A21), a class with an auxiliary step, a mixture latent, a
-  forward drawing beyond its latents (A19b) raise NotImplementedError
-  naming the ROADMAP item rather than train wrongly; a rate list of the
-  wrong length raises ValueError."""
+  """``mesh`` (A21) raises NotImplementedError naming the ROADMAP item
+  rather than train wrongly; a rate list of the wrong length raises
+  ValueError."""
   x = _counts(128, 5)
-  y = np.random.default_rng(5).poisson(5.0, (128, 4)).astype(np.float32)
-  nets = dict(device="cpu", encoder=NetConf((8,)), decoder=NetConf((8,)))
-  rna = TRV(G, "zinb", name="rna")
-  make, data, kw = {
-      "mesh": (_vae, x, dict(mesh=object())),
-      "fvae": (lambda s: T.FVAE(rna, seed=s, **nets), x, {}),
-      "scale": (lambda s: T.SCALE(rna, seed=s, **nets), x, {}),
-      "totalvi": (lambda s: T.TotalVI(
-          [TRV(G, "zinbd", name="rna"), TRV(4, "nb", name="adt")], seed=s,
-          **nets), [x, y], {}),
-      "lr_count": (_vae, x, dict(learning_rate=[1e-3])),
+  kw, error, match = {
+      "mesh": (dict(mesh=object()), NotImplementedError, "ROADMAP A21"),
+      "lr_count": (dict(learning_rate=[1e-3]), ValueError, "learning rates"),
   }[case]
-  ens = VmapEnsemble(make, n_models=2)
-  if case == "lr_count":
-    with pytest.raises(ValueError, match="learning rates"):
-      ens.fit(data, epochs=1, batch_size=64, **kw)
-    return
-  with pytest.raises(NotImplementedError,
-                     match="ROADMAP A21" if case == "mesh" else "A19b"):
-    ens.fit(data, epochs=1, batch_size=64, **kw)
+  ens = VmapEnsemble(_vae, n_models=2)
+  with pytest.raises(error, match=match):
+    ens.fit(x, epochs=1, batch_size=64, **kw)
 
 
 def test_stacked_conversion_round_trips():
