@@ -259,6 +259,20 @@ before the final line:
      trials in 2 processes: every trial finite, a best config. (a), (c),
      (d) and (b)'s generator run at once (threads over subprocesses and
      spawned processes); (b)'s training and scoring then run alone.
+ 20. the data analyzer (``SingleCellOMIC``, ``data/analysis.py``), after
+     17b: phase 4's counts in 16b's 4 planted groups with phase 6's 10
+     proteins, 8,192 × 33,000: ``calculate_quality_metrics``,
+     ``filter_highly_variable_genes(n_top_genes=2000)``, ``normalize``
+     (total, log1p), PCA (IncrementalPCA above 4,096 rows), UMAP on 50
+     PCs, ``neighbors``, ``louvain``, ``clustering`` by KMeans, GMM, Ward
+     and spectral matched to the groups, ``rank_vars_groups`` (Welch,
+     Mann-Whitney), ``get_correlation``, ``get_mutual_information`` with
+     both backends on 4,096 cells (cut) and ``get_importance_matrix`` on
+     the 500 most variable genes at the largest tree count the phase's
+     120 s budget leaves (cut, printed): seconds on the card and peak
+     memory above the resident of each; each method held against the
+     port's CPU path on every 4th cell, each later step on one input,
+     with its tolerance printed; the card-side methods within the budget.
 Earlier phases train through ``fit(device_cache=True)``, the loop they
 were written for. Before the last line it prints the kernels' JSON summary
 (launches of the phase 4 and phase 6 fits, of phase 8 and of phases 9 to
@@ -4032,6 +4046,306 @@ def phase_latent_scores(torch, z, labels, zs, protein_ids):
       "{factorvae:.4f}".format(**scores))
 
 
+# phase 20: the data analyzer (``SingleCellOMIC``'s ``data/analysis.py``)
+P20_HVG = 2000           # filter_highly_variable_genes(n_top_genes=...)
+P20_PCS = 100            # dimension_reduce's default n_components
+P20_BUDGET = 120.0       # seconds of the card-side methods at full size
+P20_CHECK_STEP = 4       # the card-vs-CPU subset: every 4th cell (2,048)
+P20_MI_CPU_GENES = 64    # genes of the MI's card-vs-CPU check
+P20_MI_CELLS = 4096      # get_mutual_information's max_cells (16c's cells)
+P20_TREES_MAX = 80       # get_importance_matrix's default n_estimators
+P20_IMP_GENES = 500      # its genes: the trees' host time grows with them
+P20_TOL = {              # card vs CPU on the subset
+    "float32": 1e-6,     # relative: QC, normalize, rank scores/p-values
+    "pca_sv": 1e-4,      # relative: singular values (float32 SVDs)
+    "pca": 1e-2,         # of the range: the leading 3 score columns
+    "graph": 1e-9,       # relative: kNN distances, fuzzy-set weights
+    "umap_start": 1e-4,  # the spectral start, absolute
+    "umap_p99": 1e-5,    # one SGD epoch from one graph and start: 99% of
+    "umap_max": 1e-2,    # the coordinates within 1e-5, all within 1e-2
+    "pearson": 1e-6, "spearman": 1e-9, "mi_sklearn": 1e-9,
+    "mi_jax": MI_ATOL}
+
+
+def _p20_container(torch, x, y):
+  """Phase 16b's 4 planted groups of phase 4's counts, phase 6's 10
+  proteins and the groups one-hot, as a ``SingleCellOMIC`` (numpy on the
+  host, as the container holds them)."""
+  import numpy as np
+  from sisua_tpu_torch.data import SingleCellOMIC
+  xd, labels, _ = _planted(torch, x)
+  genes, prots = _marker_names()
+  sco = SingleCellOMIC(xd.cpu().numpy(), gene_id=genes, name="phase20")
+  del xd
+  sco.add_omic("proteomic", y.cpu().numpy(), prots)
+  ids = np.unique(labels, return_inverse=True)[1]
+  sco.add_omic("celltype", np.eye(DE_GROUPS, dtype=np.float32)[ids],
+               [f"group{g}" for g in range(DE_GROUPS)])
+  return sco, ids
+
+
+def _p20_run(torch, rows, label, fn):
+  """``fn()`` timed on the card (synchronized) with its peak memory above
+  the resident; one result line."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  t0 = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  sec = time.perf_counter() - t0
+  peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+  rows[label] = sec
+  log(f"[20 analysis] {label}: {sec:.3f} s on the card, peak "
+      f"{peak:.3f} GiB above the resident")
+  return out
+
+
+def _p20_close(label, got, want, tol, scale=None):
+  """|got − want| ≤ tol·|want| (or tol·scale); prints the worst."""
+  import numpy as np
+  got = np.asarray(got, np.float64)
+  want = np.asarray(want, np.float64)
+  check(got.shape == want.shape, f"{label}: shapes {got.shape} "
+        f"{want.shape}")
+  bound = tol * (np.abs(want) if scale is None else scale)
+  err = np.abs(got - want)
+  worst = float(np.max(err / np.maximum(bound, 1e-300) * tol)) \
+      if err.size else 0.0
+  check(bool(np.all(err <= bound)), f"{label}: card vs CPU worst "
+        f"{worst:.2e} beyond {tol:g}")
+  kind = ("relative" if scale is None else "absolute"
+          if np.ndim(scale) == 0 else "of each column's range")
+  log(f"[20 analysis] {label}: card vs CPU within {tol:g} ({kind}; "
+      f"worst {worst:.2e})")
+
+
+def _p20_equal(label, got, want, what="card equal to the CPU"):
+  import numpy as np
+  check(np.array_equal(np.asarray(got), np.asarray(want)),
+        f"{label}: not {what}")
+  log(f"[20 analysis] {label}: {what}")
+
+
+def phase_data_analysis(torch, x, y):
+  """Phase 20: the data analyzer on 8,192 × 33,000 planted counts with 10
+  proteins, every method through ``SingleCellOMIC`` on the card, timed,
+  with peak memory; each held against the port's own CPU path on a
+  2,048-cell subset (every 4th cell) run through the same steps."""
+  import numpy as np
+  from sisua_tpu_torch.analysis.estimators import adjusted_rand_score
+  from sisua_tpu_torch.analysis.stats import mutual_info_regression
+  from sisua_tpu_torch.data.umap_impl import fit_umap, fuzzy_simplicial_set
+  from sisua_tpu_torch.ops.knn_mi import knn_mutual_information
+  t_phase = time.perf_counter()
+  full, groups = _p20_container(torch, x, y)
+  card = full[::P20_CHECK_STEP]
+  cpu = full[::P20_CHECK_STEP]
+  rows = {}
+  C = dict(device="cpu")
+  log(f"[20 analysis] {full.n_obs} × {full.n_vars} counts, "
+      f"{full.get_dim('proteomic')} proteins, {DE_GROUPS} planted groups "
+      f"(16b's); the CPU check on {card.n_obs} cells; tolerances "
+      + ", ".join(f"{k} {v:g}" for k, v in P20_TOL.items()))
+
+  # QC, HVG, normalize
+  _p20_run(torch, rows, "calculate_quality_metrics",
+           full.calculate_quality_metrics)
+  card.calculate_quality_metrics()
+  cpu.calculate_quality_metrics(**C)
+  for k in ("n_vars_by_counts", "total_counts",
+            "pct_counts_in_top_50_vars"):
+    _p20_close(f"QC obs {k}", card.obs[f"transcriptomic_{k}"],
+               cpu.obs[f"transcriptomic_{k}"], P20_TOL["float32"])
+  for k in ("n_cells_by_counts", "total_counts", "mean_counts",
+            "pct_dropout_by_counts"):
+    _p20_close(f"QC var {k}", card.get_var()[k], cpu.get_var()[k],
+               P20_TOL["float32"])
+  _p20_run(torch, rows, "filter_highly_variable_genes",
+           lambda: full.filter_highly_variable_genes(n_top_genes=P20_HVG))
+  check(full.n_vars == P20_HVG, f"HVG kept {full.n_vars}")
+  card.filter_highly_variable_genes(n_top_genes=P20_HVG)
+  cpu.filter_highly_variable_genes(n_top_genes=P20_HVG, **C)
+  _p20_equal("HVG selection", card.get_var_names(), cpu.get_var_names())
+  _p20_run(torch, rows, "normalize(total, log1p)",
+           lambda: full.normalize(total=True, log1p=True))
+  card.normalize(total=True, log1p=True)
+  cpu.normalize(total=True, log1p=True, **C)
+  _p20_close("normalize", card.numpy(), cpu.numpy(), P20_TOL["float32"])
+  # each later step is held on one input (log1p differs in the last bit)
+  cpu.set_omic("transcriptomic", card.numpy())
+
+  # PCA (incremental: 8,192 > 4,096 rows), UMAP on 50 PCs
+  pca = _p20_run(torch, rows, "dimension_reduce(pca, 100) [IncrementalPCA]",
+                 lambda: full.dimension_reduce(n_components=P20_PCS))
+  check(type(full.uns["transcriptomic_pca_model"]).__name__
+        == "IncrementalPCA" and np.isfinite(pca).all(),
+        "the full PCA is incremental and finite")
+  a = card.dimension_reduce(n_components=P20_PCS)
+  b = cpu.dimension_reduce(n_components=P20_PCS, **C)
+  mc, mh = (c.uns["transcriptomic_pca_model"] for c in (card, cpu))
+  _p20_close(f"PCA ({mh.svd_solver_}) singular values",
+             mc.singular_values_.cpu(), mh.singular_values_,
+             P20_TOL["pca_sv"])
+  # float32 randomized SVDs: cuSOLVER's and LAPACK's LU power iterations
+  # turn components whose singular values lie close within their plane
+  _p20_close("PCA scores, leading 3 columns", a[:, :3], b[:, :3],
+             P20_TOL["pca"], scale=np.abs(b[:, :3]).max(0))
+  worst = np.abs(a - b).max(0) / np.abs(b).max(0)
+  log(f"[20 analysis] PCA scores, all {a.shape[1]} columns (not held): "
+      f"worst {worst.max():.2e} of the range at column {worst.argmax()}")
+  cpu.obsm["transcriptomic_pca"] = a.copy()   # downstream: one embedding
+  emb = _p20_run(torch, rows, "dimension_reduce(umap) on 50 PCs",
+                 lambda: full.dimension_reduce(algo="umap"))
+  check(emb.shape == (full.n_obs, 3) and np.isfinite(emb).all(),
+        f"UMAP {emb.shape}")
+  Wc = fuzzy_simplicial_set(a[:, :50])
+  Wh = fuzzy_simplicial_set(a[:, :50], **C)
+  _p20_equal("UMAP graph edges", np.stack([Wc.row, Wc.col]),
+             np.stack([Wh.row, Wh.col]))
+  _p20_close("UMAP graph weights", Wc.data, Wh.data, P20_TOL["graph"])
+  import sisua_tpu_torch.data.umap_impl as umap_impl
+  init = umap_impl._spectral_init(Wh.tocsr(), 3, 8, device="cpu")
+  init_c = umap_impl._spectral_init(Wh.tocsr(), 3, 8)
+  _p20_close("UMAP spectral start", init_c, init, P20_TOL["umap_start"],
+             scale=1.0)
+  # the SGD from one graph and start (where the start's eigenspace is
+  # degenerate, either LU picks its basis arbitrarily). The float32 power
+  # differs in the last bit between the card and the CPU, and the
+  # repulsion, clipped at ±4 where two points nearly meet, amplifies that
+  # in a few coordinates: held by the 99th percentile and the largest
+  umap_impl.fuzzy_simplicial_set = lambda *args, **kw: Wh
+  spectral_init = umap_impl._spectral_init
+  umap_impl._spectral_init = lambda *args, **kw: init.copy()
+  try:
+    d = np.abs(fit_umap(a[:, :50], 3, n_epochs=1)
+               - fit_umap(a[:, :50], 3, n_epochs=1, **C)).ravel()
+  finally:
+    umap_impl.fuzzy_simplicial_set = fuzzy_simplicial_set
+    umap_impl._spectral_init = spectral_init
+  p99 = float(np.quantile(d, 0.99))
+  check(p99 <= P20_TOL["umap_p99"] and d.max() <= P20_TOL["umap_max"],
+        f"UMAP one SGD epoch: card vs CPU 99th percentile {p99:.2e}, "
+        f"largest {d.max():.2e}")
+  log(f"[20 analysis] UMAP one SGD epoch from the CPU's graph and start: "
+      f"card vs CPU median {np.median(d):.2e}, 99th percentile {p99:.2e} "
+      f"(bound {P20_TOL['umap_p99']:g}), largest {d.max():.2e} (bound "
+      f"{P20_TOL['umap_max']:g}), absolute on a ±10 layout")
+
+  # neighbours, Louvain, the clusterings matched to the groups
+  g = _p20_run(torch, rows, "neighbors", full.neighbors)
+  gc, gh = card.neighbors(), cpu.neighbors(**C)
+  _p20_equal("neighbors indices", gc["distances"].indices,
+             gh["distances"].indices)
+  _p20_close("neighbors distances", gc["distances"].data,
+             gh["distances"].data, P20_TOL["graph"])
+  ids = _p20_run(torch, rows, "louvain", full.louvain)
+  _p20_equal("louvain", card.louvain(), cpu.louvain(**C))
+  log(f"[20 analysis] louvain: {len(np.unique(ids))} communities of "
+      f"{g['n_neighbors']}-NN graph")
+  for algo in ("kmeans", "gmm", "agglomerative", "spectral"):
+    ids = _p20_run(torch, rows, f"clustering({algo})",
+                   lambda: full.clustering(algo=algo,
+                                           matching_labels="celltype"))
+    got = card.clustering(algo=algo, matching_labels="celltype")
+    want = cpu.clustering(algo=algo, matching_labels="celltype", **C)
+    ari = adjusted_rand_score(got, want, device="cpu")
+    check(ari == 1.0, f"clustering({algo}) card vs CPU ARI {ari}")
+    log(f"[20 analysis] clustering({algo}): card vs CPU ARI 1; "
+        f"{np.mean(np.asarray(ids) == groups):.4f} of the {full.n_obs:,} "
+        f"cells in their planted (Hungarian-matched) group")
+
+  # rank tests, correlations
+  for method in ("t-test", "wilcoxon"):
+    res = _p20_run(torch, rows, f"rank_vars_groups({method})",
+                   lambda: full.rank_vars_groups(method=method))
+    check(len(res) == DE_GROUPS, f"rank groups {list(res)}")
+    got = card.rank_vars_groups(method=method)
+    want = cpu.rank_vars_groups(method=method, **C)
+    for grp in want:
+      _p20_equal(f"rank {method} {grp} names", got[grp]["names"],
+                 want[grp]["names"])
+      _p20_close(f"rank {method} {grp} scores", got[grp]["scores"],
+                 want[grp]["scores"], P20_TOL["float32"])
+      _p20_close(f"rank {method} {grp} p-values", got[grp]["pvals"],
+                 want[grp]["pvals"], P20_TOL["float32"])
+  corr = _p20_run(torch, rows, "get_correlation", full.get_correlation)
+  check(len(corr) == P20_HVG * PROTEINS, f"{len(corr)} pairs")
+  cc = {k[:2]: k[2:] for k in card.get_correlation()}
+  ch = {k[:2]: k[2:] for k in cpu.get_correlation(**C)}
+  keys = sorted(ch)
+  _p20_close("pearson", [cc[k][0] for k in keys], [ch[k][0] for k in keys],
+             P20_TOL["pearson"], scale=1.0)
+  _p20_close("spearman", [cc[k][1] for k in keys], [ch[k][1] for k in keys],
+             P20_TOL["spearman"], scale=1.0)
+
+  # mutual information, both backends, 2,000 HVGs × 10 proteins
+  log(f"[20 analysis] get_mutual_information: cut: cells {full.n_obs:,} "
+      f"→ {P20_MI_CELLS:,} (max_cells, a seeded subsample)")
+  for backend in ("sklearn", "jax"):
+    # both backends share the JAX cache key: drop the first's entry
+    full.uns.pop(f"transcriptomic_proteomic_mutualinfo_sub{P20_MI_CELLS}",
+                 None)
+    mi = _p20_run(torch, rows, f"get_mutual_information({backend})",
+                  lambda: full.get_mutual_information(
+                      backend=backend, max_cells=P20_MI_CELLS))
+    vals = np.stack([mi[p] for p in full.get_var_names("proteomic")])
+    check(vals.shape == (PROTEINS, P20_HVG) and np.isfinite(vals).all()
+          and (vals >= 0).all(), f"MI {backend} {vals.shape}")
+  X = card.numpy()[:, :P20_MI_CPU_GENES].astype(np.float64)
+  Y = card.numpy("proteomic").astype(np.float64)
+  for j in range(PROTEINS):
+    _p20_close(f"MI sklearn protein {j}",
+               mutual_info_regression(X, Y[:, j], random_state=8),
+               mutual_info_regression(X, Y[:, j], random_state=8, **C),
+               P20_TOL["mi_sklearn"], scale=1.0)
+  _p20_close("MI jax", knn_mutual_information(X, Y),
+             knn_mutual_information(X, Y, **C), P20_TOL["mi_jax"],
+             scale=1.0)
+
+  # random-forest importances on the most variable genes (the trees grow
+  # on the host), at the largest tree count the budget leaves: one tree a
+  # protein first, which sets the count
+  imp_sco = full.copy()
+  n_imp = min(P20_IMP_GENES, full.n_vars)
+  top = np.argsort(-imp_sco.numpy().var(0))[:n_imp]
+  imp_sco.apply_indices(np.sort(top), observation=False)
+  ncpu = min(PROTEINS, len(os.sched_getaffinity(0)))
+  imp = _p20_run(torch, rows, "get_importance_matrix(1 tree)",
+                 lambda: imp_sco.get_importance_matrix(n_estimators=1,
+                                                       ncpu=ncpu))
+  t_one = rows["get_importance_matrix(1 tree)"]
+  left = P20_BUDGET - sum(rows.values())
+  trees = int(max(1, min(P20_TREES_MAX, left // (t_one * 1.25))))
+  log(f"[20 analysis] get_importance_matrix: cut: genes {full.n_vars:,} "
+      f"→ {n_imp} (the most variable), n_estimators {P20_TREES_MAX} "
+      f"→ {trees} ({ncpu} spawned processes for {PROTEINS} proteins; "
+      f"{left:.1f} s of the {P20_BUDGET:.0f} s budget left after one "
+      f"tree a protein)")
+  if trees > 1:
+    imp_sco.uns.clear()
+    imp = _p20_run(torch, rows, f"get_importance_matrix({trees} trees)",
+                   lambda: imp_sco.get_importance_matrix(n_estimators=trees,
+                                                         ncpu=ncpu))
+  vals = np.stack([imp[p] for p in full.get_var_names("proteomic")])
+  check(vals.shape == (PROTEINS, n_imp) and np.isfinite(vals).all()
+        and np.allclose(vals.sum(1), 1.0),
+        "importances finite, each protein's summing to 1")
+  small = card[:512]
+  small.apply_indices(np.arange(100), observation=False)
+  _p20_equal("importances on 512 cells × 100 genes, 2 trees",
+             np.stack(list(small.get_importance_matrix(
+                 n_estimators=2, ncpu=ncpu).values())[1:]),
+             np.stack(list(small.copy().get_importance_matrix(
+                 n_estimators=2, ncpu=1).values())[1:]),
+             what=f"{ncpu} processes equal to one")
+  total = sum(rows.values())
+  log(f"[20 analysis] card-side methods {total:.1f} s of the "
+      f"{P20_BUDGET:.0f} s budget; phase 20 in "
+      f"{time.perf_counter() - t_phase:.1f} s")
+  check(total <= P20_BUDGET, f"phase 20's methods took {total:.1f} s")
+
+
 # phase 18: the experiment path (SISUA_EXP → a temporary directory)
 EXP_CLI = ("model.name=sisua", "dataset.name=synthetic10k",
            "dataset.batch_size=128", "train.epochs=3", "train.valid_freq=0")
@@ -4357,6 +4671,8 @@ def main():
     fleet_launches = phase_fleet(torch, x, held, library, smi)
     fleet_zoo_launches = phase_fleet_zoo(torch, x, y, library, smi)
     analysis_launches = phase_analysis(torch, x, held, y, held_y)
+    torch.cuda.empty_cache()
+    phase_data_analysis(torch, x, y)
     del x, held, y, held_y
     torch.cuda.empty_cache()
     experiment_launches = phase_experiment(torch)

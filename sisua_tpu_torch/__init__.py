@@ -27,7 +27,10 @@ information on the card), and the experiment entry points: the YAML
 experimenter and its sqlite scoreboard (``train.experimenter``,
 ``train.scoreboard``), ``fit_hyper``, the numpy synthetic datasets behind
 ``data.get_dataset``, ``analysis.ResultsSheet``'s score table, and the
-``cli`` package (train, predict, evaluate, embed). Top-level names resolve
+``cli`` package (train, predict, evaluate, embed); the data analyzer of
+``data.SingleCellOMIC`` (QC, filters, PCA/UMAP, neighbours, clusterings,
+rank tests, correlations, mutual information, importances) on the card,
+and ``utils``. Top-level names resolve
 lazily, as in the JAX package: ``sisua_tpu_torch.SCVI``, ``.get_model``,
 ``.load_model``, ``.Trainer``, ``.DataFeeder``, ``.VmapEnsemble``,
 ``.Posterior``, ``.SisuaExperimenter``, ``.get_dataset``.
@@ -37,7 +40,7 @@ __version__ = "0.1.0"
 
 _SUBMODULES = ("data", "models", "train", "dist", "nn", "rv", "ops",
                "interpolation", "convert", "native", "analysis",
-               "label_threshold", "cli")
+               "label_threshold", "cli", "utils")
 
 
 def __getattr__(name):
@@ -62,7 +65,9 @@ _TOP_LEVEL_NAMES = (
     "DeepCountAutoencoder", "SCScope", "FVAE", "SemiFVAE", "AUTOZI", "SOLO",
     "CellAssign", "NetConf", "RVmeta", "SingleCellModel", "get_model",
     "load_model", "Trainer", "VmapEnsemble", "DataFeeder",
-    "MARKER_ADT_GENE", "MARKER_ADTS", "standardize_protein_name",
+    "MARKER_ADT_GENE", "MARKER_ADTS", "MARKER_ATAC", "MARKER_GENES",
+    "PROTEIN_PAIR_NEGATIVE", "PROTEIN_PAIR_POSITIVE",
+    "standardize_protein_name",
     "SingleCellOMIC", "get_dataset", "get_dataset_meta", "ResultsSheet",
     "SisuaExperimenter",
 )

@@ -29,9 +29,12 @@ sklearn's (``labels_``, ``means_``, ``precisions_``,
   * ``GradientBoostingClassifier``: log-loss, the class prior as the
     initial raw prediction, one regression tree per class a stage (one for
     two classes), squared-error trees grown on the host with one Newton
-    step per leaf.
+    step per leaf;
+  * ``RandomForestRegressor``: bootstrapped squared-error trees grown on
+    the host with the bootstrap counts as sample weights, and sklearn's
+    feature importances.
 
-Every entry point but the boosted trees takes ``device`` (default
+Every entry point but the trees takes ``device`` (default
 ``'cuda'``, which must exist; ``'cpu'`` on request) and computes there,
 whatever device its inputs lie on; fitted attributes stay on it.
 
@@ -61,7 +64,7 @@ from scipy.stats import gmean
 __all__ = ["adjusted_rand_score", "normalized_mutual_info_score",
            "mutual_info_score", "silhouette_score", "f1_score", "KMeans",
            "GaussianMixture", "LinearSVC", "LogisticRegression",
-           "GradientBoostingClassifier"]
+           "GradientBoostingClassifier", "RandomForestRegressor"]
 
 _SIL_BUDGET = 256 << 20   # bytes of one block of silhouette distances
 _EPS64 = float(np.finfo(np.float64).eps)
@@ -785,23 +788,29 @@ def _seq_sum(a: np.ndarray) -> float:
 def _left_sums(ys: np.ndarray, pos: np.ndarray, total: float) -> np.ndarray:
   """sklearn's ``sum_left`` at each split position ``pos`` (ascending) of
   one feature: running sums from the node's first sample, except where a
-  position lies nearer the end than the last one, where sklearn restarts
-  from the node total and subtracts from the end."""
+  position lies nearer the end than the one before, where sklearn
+  restarts from the node total and subtracts from the end, then runs on
+  from there. Each run is one sequential ``cumsum`` (or
+  ``subtract.accumulate``), so every sum is sklearn's, in its order."""
   m = len(ys)
   prev = np.concatenate([[0], pos[:-1]])
-  if not ((pos - prev) > (m - pos)).any():
+  restarts = np.flatnonzero((pos - prev) > (m - pos))
+  if not len(restarts):
     return np.cumsum(ys)[pos - 1]
   out = np.empty(len(pos))
-  s, p0 = 0.0, 0
-  for i, p in enumerate(pos.tolist()):
-    if p - p0 <= m - p:
-      for q in range(p0, p):
-        s += ys[q]
-    else:
-      s = total
-      for q in range(m - 1, p - 1, -1):
-        s -= ys[q]
-    out[i], p0 = s, p
+  first = restarts[0]
+  if first:
+    out[:first] = np.cumsum(ys[:pos[first - 1]])[pos[:first] - 1]
+  bounds = list(restarts) + [len(pos)]
+  for r, stop in zip(restarts, bounds[1:]):
+    p = int(pos[r])
+    base = float(np.subtract.accumulate(
+        np.concatenate([[total], ys[:p - 1:-1]]))[-1])
+    out[r] = base
+    if stop > r + 1:
+      run = pos[r + 1:stop]
+      out[r + 1:stop] = np.cumsum(np.concatenate(
+          [[base], ys[p:run[-1]]]))[run - p]
   return out
 
 
@@ -841,7 +850,8 @@ def _partition(seg: np.ndarray, left: np.ndarray) -> np.ndarray:
 class _Tree:
   """A regression tree in sklearn's node order and layout: per node
   ``feature``, ``threshold`` (float64), ``left``/``right`` (-1 at a
-  leaf), ``impurity``, ``n_samples`` and ``value``."""
+  leaf), ``impurity``, ``n_samples`` (sklearn's
+  ``weighted_n_node_samples``) and ``value``."""
 
   def __init__(self):
     self.feature, self.threshold, self.left, self.right = [], [], [], []
@@ -881,8 +891,10 @@ class _Tree:
 
 class _TreeBuilder:
   """sklearn's ``DepthFirstTreeBuilder`` with the best splitter and the
-  squared-error criterion at unit sample weights (``min_samples_split``
-  2, ``min_samples_leaf`` 1), followed step by step: the features each
+  squared-error criterion (``min_samples_split`` 2, ``min_samples_leaf``
+  1), at unit sample weights or at given ones (a forest's bootstrap
+  counts: the samples of weight 0 are left out, every sum weighs w·y, in
+  sklearn's order), followed step by step: the features each
   node visits, in the order ``rand_r`` draws them; the samples array that
   each visit sorts and the final split partitions; and every sum the
   criterion forms, in its order. So a split's proxy (sum_l²/n_l +
@@ -892,11 +904,14 @@ class _TreeBuilder:
   sklearn's introsort leaves them in an order of its own."""
 
   def __init__(self, X32: np.ndarray, order: np.ndarray, max_depth: int,
-               seed: int):
+               seed: int, weights: Optional[np.ndarray] = None):
     self.X, self.order, self.max_depth = X32, order, int(max_depth)
     self.rng = _RandR(seed)
     n, d = X32.shape
-    self.samples = np.arange(n, dtype=np.int64)
+    # sklearn's splitter keeps only the samples of nonzero weight
+    self.w = np.ones(n) if weights is None else np.asarray(weights,
+                                                             np.float64)
+    self.samples = np.flatnonzero(self.w != 0.0).astype(np.int64)
     self.features = np.arange(d, dtype=np.int64)
     self.constant = np.zeros(d, np.int64)
 
@@ -904,9 +919,11 @@ class _TreeBuilder:
     """sklearn's ``node_split_best`` on samples[start:end]: (feature,
     position, threshold) or None, and the node's constant-feature count
     for its children."""
-    X, feats, rng = self.X, self.features, self.rng
+    X, feats, rng, w = self.X, self.features, self.rng, self.w
     d = X.shape[1]
-    total = _seq_sum(y[self.samples[start:end]])
+    wy = w * y
+    total = _seq_sum(wy[self.samples[start:end]])
+    w_total = _seq_sum(w[self.samples[start:end]])
     # every feature's node samples in ascending order: the presorted rows
     # filtered by membership (a sort of the node's values, ties apart)
     member = np.zeros(len(X), bool)
@@ -936,9 +953,10 @@ class _TreeBuilder:
       feats[f_i], feats[f_j] = feats[f_j], feats[f_i]
       m = len(seg)
       pos = 1 + np.nonzero(xs[1:] > xs[:-1] + _FEATURE_THRESHOLD)[0]
-      sl = _left_sums(y[seg], pos, total)
+      sl = _left_sums(wy[seg], pos, total)
       sr = total - sl
-      proxy = sl * sl / pos.astype(np.float64) + sr * sr / (m - pos)
+      wl = _left_sums(w[seg], pos, w_total)
+      proxy = sl * sl / wl + sr * sr / (w_total - wl)
       k = int(np.argmax(proxy))
       if proxy[k] > best_proxy:
         p = int(pos[k])
@@ -953,18 +971,22 @@ class _TreeBuilder:
   def build(self, y: np.ndarray) -> Tuple[_Tree, np.ndarray]:
     """The tree fitted to ``y`` and the leaf of every row."""
     tree = _Tree()
-    n = len(y)
-    leaf_of = np.zeros(n, np.int64)
+    w = self.w
+    wy = w * y
+    leaf_of = np.zeros(len(y), np.int64)
     seg = self.samples
-    total, sq_total = _seq_sum(y[seg]), _seq_sum(y[seg] * y[seg])
-    root_imp = sq_total / n - (total / n) ** 2.0
+    n = len(seg)
+    w_n = _seq_sum(w[seg])
+    total, sq_total = _seq_sum(wy[seg]), _seq_sum(wy[seg] * y[seg])
+    root_imp = sq_total / w_n - (total / w_n) ** 2.0
     # (start, end, depth, parent, is_left, impurity, n_constant)
     stack = [(0, n, 0, -1, False, root_imp, 0)]
     while stack:
       start, end, depth, parent, is_left, impurity, n_const = stack.pop()
       m = end - start
-      ys = y[self.samples[start:end]]
-      total, sq_total = _seq_sum(ys), _seq_sum(ys * ys)
+      seg = self.samples[start:end]
+      wm = _seq_sum(w[seg])
+      total, sq_total = _seq_sum(wy[seg]), _seq_sum(wy[seg] * y[seg])
       split = None
       if not (depth >= self.max_depth or m < 2 or impurity <= _EPS64):
         split, n_const = self._split(start, end, y, n_const)
@@ -974,23 +996,26 @@ class _TreeBuilder:
                          self.X[self.samples[start:end], f].astype(
                              np.float64) <= thr)
         self.samples[start:end] = seg
-        ys, nl, nr = y[seg], pos - start, end - pos
-        sl = (_seq_sum(ys[:nl]) if nl <= nr else float(
-            np.subtract.accumulate(np.concatenate([[total],
-                                                   ys[:nl - 1:-1]]))[-1]))
-        sr = total - sl
-        sq_l = _seq_sum(ys[:nl] * ys[:nl])
-        imp_l = sq_l / nl - (sl / nl) ** 2.0
-        imp_r = (sq_total - sq_l) / nr - (sr / nr) ** 2.0
-        gain = (m / n) * (impurity - nr / m * imp_r - nl / m * imp_l)
+        wys, ws, nl, nr = wy[seg], w[seg], pos - start, end - pos
+
+        def left(a, whole):
+          return (_seq_sum(a[:nl]) if nl <= nr else float(
+              np.subtract.accumulate(np.concatenate([[whole],
+                                                     a[:nl - 1:-1]]))[-1]))
+        sl, wl = left(wys, total), left(ws, wm)
+        sr, wr = total - sl, wm - wl
+        sq_l = _seq_sum(wys[:nl] * y[seg][:nl])
+        imp_l = sq_l / wl - (sl / wl) ** 2.0
+        imp_r = (sq_total - sq_l) / wr - (sr / wr) ** 2.0
+        gain = (wm / w_n) * (impurity - wr / wm * imp_r - wl / wm * imp_l)
         if gain + _EPS64 < 0.0:   # min_impurity_decrease 0
           split = None
       node = tree.node_count
       if parent >= 0:
         (tree.left if is_left else tree.right)[parent] = node
       tree.impurity.append(impurity)
-      tree.n_samples.append(m)
-      tree.value.append(total / m)
+      tree.n_samples.append(wm)
+      tree.value.append(total / wm)
       tree.left.append(-1)
       tree.right.append(-1)
       if split is None:
@@ -1117,6 +1142,68 @@ class GradientBoostingClassifier:
   def score(self, X, y) -> float:
     y = y.detach().cpu().numpy() if isinstance(y, torch.Tensor) else y
     return float(np.mean(self.predict(X) == np.asarray(y).ravel()))
+
+
+class RandomForestRegressor:
+  """sklearn's ``RandomForestRegressor(n_estimators, max_depth,
+  random_state)`` at its other defaults: squared error, every feature a
+  split, bootstrap. Each tree draws its seed from the forest's
+  ``RandomState`` (``randint(2**31 - 1)``), its bootstrap from a
+  ``RandomState`` of that seed (``randint(0, n, n)``, counted into sample
+  weights) and its feature order from one ``randint(0, 2**31 - 1)`` of
+  another, as sklearn's tree does; the tree is grown on the host by
+  ``_TreeBuilder`` at those weights. ``feature_importances_`` is
+  sklearn's: each tree's weighted impurity decrease normalized, averaged
+  over the trees with a split, normalized."""
+
+  def __init__(self, n_estimators: int = 100, max_depth: Optional[int] =
+               None, random_state=None):
+    self.n_estimators = int(n_estimators)
+    self.max_depth = max_depth
+    self.random_state = random_state
+
+  def fit(self, X, y) -> "RandomForestRegressor":
+    X32 = GradientBoostingClassifier._host32(X)
+    y = y.detach().cpu().numpy() if isinstance(y, torch.Tensor) else y
+    y = np.ascontiguousarray(np.asarray(y, np.float64).ravel())
+    n, d = X32.shape
+    self.n_features_in_ = d
+    depth = np.iinfo(np.int32).max if self.max_depth is None \
+        else int(self.max_depth)
+    rs = check_random_state(self.random_state)
+    seeds = [rs.randint(np.iinfo(np.int32).max)
+             for _ in range(self.n_estimators)]
+    order = np.argsort(X32, axis=0, kind="stable").T.copy()     # (d, n)
+    self.estimators_ = []
+    for seed in seeds:
+      counts = np.bincount(np.random.RandomState(seed).randint(0, n, n),
+                           minlength=n).astype(np.float64)
+      split_seed = np.random.RandomState(seed).randint(0, _RAND_R_MAX)
+      tree, _ = _TreeBuilder(X32, order, depth, split_seed,
+                             weights=counts).build(y)
+      self.estimators_.append(tree)
+    return self
+
+  @property
+  def feature_importances_(self) -> np.ndarray:
+    per_tree = []
+    for t in self.estimators_:
+      if t.node_count <= 1:
+        continue
+      imp = t.importances(self.n_features_in_)
+      total = imp.sum()
+      per_tree.append(imp / total if total > 0.0 else imp)
+    if not per_tree:
+      return np.zeros(self.n_features_in_)
+    avg = np.mean(per_tree, axis=0, dtype=np.float64)
+    return avg / np.sum(avg)
+
+  def predict(self, X) -> np.ndarray:
+    X32 = GradientBoostingClassifier._host32(X)
+    out = np.zeros(len(X32))
+    for t in self.estimators_:
+      out += np.asarray(t.value)[t.apply(X32)]
+    return out / len(self.estimators_)
 
 
 def _exp(a: np.ndarray) -> np.ndarray:

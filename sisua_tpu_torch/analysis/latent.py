@@ -90,13 +90,17 @@ def clustering_scores(latent, labels, n_labels: Optional[int] = None,
 
 
 def streamline_classifier(Z_train, y_train, Z_test, y_test,
-                          labels_name: Sequence[str], device="cuda"):
+                          labels_name: Sequence[str], mode: str = "ovr",
+                          seed: int = 8, device="cuda"):
   """Per-protein F1 of one-vs-rest linear SVMs on latents.
 
   ``y_*`` are label matrices, binarized at 0.5; columns that hold one
   class in training are dropped. Returns ``(train_scores, test_scores)``,
   each {protein: F1, 'F1micro', 'F1macro'}, or two empty dicts when no
-  column is left. The SVMs are fitted on ``device``."""
+  column is left. The SVMs are fitted on ``device``. ``mode`` and
+  ``seed`` are the JAX signature's: the JAX function fits one-vs-rest
+  whatever ``mode`` says, and its ``seed`` orders liblinear's coordinate
+  descent, which the port's exact Newton solve does not have."""
   def binary(y):
     if isinstance(y, torch.Tensor):
       y = y.detach().cpu().numpy()

@@ -5,7 +5,9 @@ part of ``sisua_tpu/analysis/results_sheet.py``, without pandas).
 posterior's ``save_scores()``; ``save_scores(path)`` writes it as
 ``<base>.csv`` (parsing to the JAX sheet's table: a row per posterior, the
 union of the metrics as columns, an empty field where a posterior lacks
-one) and ``<base>.html``. Two posteriors of one name are renamed
+one) and ``<base>.html``; ``summary()`` (also ``str``) lists the
+posteriors and their omics, and the sheet indexes as the JAX one does.
+Two posteriors of one name are renamed
 ``name_1``, ``name_2``, … as the JAX sheet does. The comparison figures
 wait for the port's plotting layer (ROADMAP A12c).
 """
@@ -86,3 +88,40 @@ class ResultsSheet:
       f.write(f'<table border="1" class="dataframe">\n<thead><tr><th></th>'
               f"{head}</tr></thead>\n<tbody>\n{body}</tbody>\n</table>\n")
     return base + ".csv"
+
+  def summary(self) -> str:
+    lines = [f"ResultsSheet: {len(self)} posteriors"]
+    for p in self.posteriors:
+      lines.append(f"  {p.name}: omics={list(p.data)}")
+    return "\n".join(lines)
+
+  def __str__(self):
+    return self.summary()
+
+  def __len__(self):
+    return len(self.posteriors)
+
+  def __getitem__(self, key):
+    """A string matches the full posterior name first, then any
+    '_'-token of a name, case-insensitively; a callable filters; an int
+    or a slice indexes."""
+    if isinstance(key, str):
+      for p in self.posteriors:
+        if p.name == key:
+          return p
+      for p in self.posteriors:
+        if key.lower() in p.name.lower().split("_"):
+          return p
+      raise KeyError(key)
+    if callable(key):
+      for p in self.posteriors:
+        if key(p):
+          return p
+      raise KeyError(key)
+    return self.posteriors[key]
+
+  def __iter__(self):
+    return iter(self.posteriors)
+
+  def __repr__(self):
+    return f"ResultsSheet({', '.join(self.names)})"

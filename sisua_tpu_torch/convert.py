@@ -12,6 +12,10 @@ maps to a ``state_dict`` key by joining with '.'. Leaf renames:
   batch_stats ``mean``/``var``      ↔  ``running_mean``/``running_var``
   a bare ``self.param`` (e.g. ``px_r_single``) keeps its name.
 
+A module whose child's attribute name differs from its flax name (PEAKVI's
+and MULTIVI's ``depth_head``, flax ``depth_logit``, whose name the method
+``depth_logit`` holds) lists the pair in its ``flax_names``.
+
 Any module whose submodules carry the flax names converts: the VAE
 modules, and FactorVAE's discriminator (``dense{i}`` and ``logits``
 Dense layers, ``aux_params`` in the JAX ``TrainState``), whose tree is
@@ -65,9 +69,22 @@ def _owner_is_batchnorm(module: nn.Module, owner: str) -> bool:
     return False
 
 
+def _renamed(module: nn.Module, parts: Tuple[str, ...], to_flax: bool
+             ) -> Tuple[str, ...]:
+  """``parts`` with its first name mapped through ``module.flax_names``
+  (torch → flax, or back)."""
+  names = getattr(module, "flax_names", {})
+  if not to_flax:
+    names = {v: k for k, v in names.items()}
+  if len(parts) > 1 and parts[0] in names:
+    return (names[parts[0]],) + tuple(parts[1:])
+  return tuple(parts)
+
+
 def _torch_key(module: nn.Module, path: Tuple[str, ...], collection: str
                ) -> Tuple[str, bool]:
   """(state_dict key, transpose?) for one flax leaf path."""
+  path = _renamed(module, path, to_flax=False)
   owner, leaf = ".".join(path[:-1]), path[-1]
   if collection == "batch_stats":
     name = {"mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
@@ -127,7 +144,7 @@ def flax_param_path(module: nn.Module, key: str) -> Tuple[str, ...]:
   if leaf == "weight":
     leaf = ("scale" if _owner_is_batchnorm(module, ".".join(owner))
             else "kernel")
-  return tuple(owner) + (leaf,)
+  return _renamed(module, tuple(owner) + (leaf,), to_flax=True)
 
 
 def torch_to_jax(module: nn.Module,
@@ -162,7 +179,7 @@ def torch_to_jax(module: nn.Module,
         else:
           leaf, value = "kernel", _reversed_axes(value)
     node = tree
-    for p in owner:
+    for p in _renamed(module, tuple(owner) + (leaf,), to_flax=True)[:-1]:
       node = node.setdefault(p, {})
     if collection in values:
       node[leaf] = value.contiguous().cpu().numpy()

@@ -1,8 +1,10 @@
-"""sisua_tpu_torch.data — the host-side data layer the port needs,
-without pandas (counterpart of ``sisua_tpu.data``): the feeder, the
-library statistics and corruption, the port's ``SingleCellOMIC``
-(``dataset.py``), the numpy synthetic generators, and ``get_dataset`` over
-the registry's synthetic family.
+"""sisua_tpu_torch.data — the data layer, without pandas (counterpart of
+``sisua_tpu.data``): the feeder, the library statistics and corruption,
+the port's ``SingleCellOMIC`` (``dataset.py``) with the JAX analyzer
+(``analysis.py``: QC, filters, PCA/UMAP, neighbours, clusterings, rank
+tests, correlations, mutual information and importances, on the card),
+the marker tables, the numpy synthetic generators, and ``get_dataset``
+over the registry's synthetic family.
 
 ``get_dataset`` loads 'synthetic', 'synthetic<k>' (k in 200, 500, 1k, 2k,
 5k, 10k, 40k, 100k, 1m) and 'citeseqsim'. Every other name of the JAX
@@ -18,7 +20,9 @@ import os
 from functools import partial
 from typing import Callable, Dict
 
-from .const import MARKER_ADT_GENE, MARKER_ADTS, UNIVERSAL_RANDOM_SEED
+from .const import (MARKER_ADT_GENE, MARKER_ADTS, MARKER_ATAC, MARKER_GENES,
+                    PROTEIN_PAIR_NEGATIVE, PROTEIN_PAIR_POSITIVE, TSNE_DIM,
+                    UNIVERSAL_RANDOM_SEED, marker_pairs)
 from .dataset import SingleCellOMIC
 from .feeder import DataFeeder
 from .path import CONFIG_PATH, DATA_DIR, DOWNLOAD_DIR, EXP_DIR
@@ -32,6 +36,8 @@ __all__ = ["DataFeeder", "SingleCellOMIC", "get_dataset", "get_dataset_meta",
            "read_synthetic", "SYNTHETIC_SIZES", "get_library_size",
            "int16_exact", "apply_artificial_corruption",
            "standardize_protein_name", "MARKER_ADT_GENE", "MARKER_ADTS",
+           "MARKER_ATAC", "MARKER_GENES", "PROTEIN_PAIR_NEGATIVE",
+           "PROTEIN_PAIR_POSITIVE", "TSNE_DIM", "marker_pairs",
            "UNIVERSAL_RANDOM_SEED", "DATA_DIR", "DOWNLOAD_DIR", "EXP_DIR",
            "CONFIG_PATH"]
 

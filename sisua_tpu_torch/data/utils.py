@@ -22,12 +22,14 @@ __all__ = ["get_library_size", "int16_exact", "apply_artificial_corruption",
 _SUM_ELEMENTS = 1 << 25
 
 
-def get_library_size(X):
+def get_library_size(X, return_log_count: bool = False):
   """Per-cell library statistics in log space (scVI convention).
 
   Returns ``(local_mean, local_var)``, each (n_cells, 1) float32: the
   dataset-level mean and (population) variance of log total counts,
-  broadcast per cell. A torch tensor stays on its device."""
+  broadcast per cell; with ``return_log_count``, ``(log_counts,
+  local_mean, local_var)``, the per-cell log total counts first. A torch
+  tensor stays on its device."""
   if X.ndim != 2:
     raise ValueError("Only support 2-D matrix")
   n = X.shape[0]
@@ -38,7 +40,10 @@ def get_library_size(X):
     log_counts = torch.log(totals + 1e-8)
     mean = log_counts.mean().to(torch.float32)
     var = log_counts.var(correction=0).to(torch.float32)
-    return mean.expand(n, 1).clone(), var.expand(n, 1).clone()
+    mean, var = mean.expand(n, 1).clone(), var.expand(n, 1).clone()
+    if return_log_count:
+      return log_counts[:, None].to(torch.float32), mean, var
+    return mean, var
   total_counts = np.asarray(X.sum(axis=1)).ravel()
   if not np.all(total_counts >= 0):
     warnings.warn(f"Some cell in matrix {X.shape} contains negative counts; "
@@ -46,6 +51,8 @@ def get_library_size(X):
   log_counts = np.log(total_counts + 1e-8)
   local_mean = np.full((n, 1), np.mean(log_counts), dtype=np.float32)
   local_var = np.full((n, 1), np.var(log_counts), dtype=np.float32)
+  if return_log_count:
+    return log_counts[:, None].astype(np.float32), local_mean, local_var
   return local_mean, local_var
 
 

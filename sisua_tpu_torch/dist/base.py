@@ -34,13 +34,22 @@ class Distribution:
   def log_prob(self, x: Tensor) -> Tensor:
     raise NotImplementedError
 
+  def prob(self, x: Tensor) -> Tensor:
+    return torch.exp(self.log_prob(x))
+
   def mean(self) -> Tensor:
     raise NotImplementedError
 
   def variance(self) -> Tensor:
     raise NotImplementedError
 
+  def stddev(self) -> Tensor:
+    return torch.sqrt(self.variance())
+
   def mode(self) -> Tensor:
+    raise NotImplementedError
+
+  def entropy(self) -> Tensor:
     raise NotImplementedError
 
   def rsample(self, sample_shape: Tuple[int, ...] = (),
@@ -57,6 +66,16 @@ class Distribution:
     reparameterization override this."""
     with torch.no_grad():
       return self.rsample(sample_shape, generator=generator)
+
+  def sample_and_log_prob(self, sample_shape: Tuple[int, ...] = (),
+                          generator: torch.Generator | None = None):
+    """A draw (``sample``) and its log-probability."""
+    s = self.sample(sample_shape, generator=generator)
+    return s, self.log_prob(s)
+
+  def __getitem__(self, idx) -> "Distribution":
+    """Index into the batch dimensions of every parameter tensor."""
+    return tree_map(lambda p: p[idx], self)
 
 
 class Independent(Distribution):
@@ -89,6 +108,10 @@ class Independent(Distribution):
 
   def mode(self):
     return self.base.mode()
+
+  def entropy(self):
+    ent = self.base.entropy()
+    return ent.sum(dim=tuple(range(-self.reinterpreted_batch_ndims, 0)))
 
   def rsample(self, sample_shape=(), generator=None, eps=None):
     return self.base.rsample(sample_shape, generator=generator, eps=eps)

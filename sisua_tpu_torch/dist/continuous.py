@@ -61,6 +61,9 @@ class Normal(Distribution):
   def mode(self):
     return self.mean()
 
+  def entropy(self):
+    return 0.5 + _HALF_LOG_2PI + torch.log(self.scale)
+
   def rsample(self, sample_shape=(), generator=None, eps=None):
     shape = tuple(sample_shape) + self.batch_shape
     return self.loc + self.scale * _standard_noise(shape, self.loc,
@@ -97,6 +100,21 @@ class MultivariateNormalDiag(Distribution):
 
   def mean(self):
     return self.loc.expand(self.batch_shape + self.event_shape)
+
+  def variance(self):
+    return torch.square(self.scale_diag).expand(self.batch_shape
+                                                + self.event_shape)
+
+  def mode(self):
+    return self.mean()
+
+  def entropy(self):
+    return torch.sum(0.5 + _HALF_LOG_2PI + torch.log(self.scale_diag),
+                     dim=-1)
+
+  def covariance(self):
+    """The (…, D, D) diagonal covariance."""
+    return torch.diag_embed(torch.square(self.scale_diag))
 
   def rsample(self, sample_shape=(), generator=None, eps=None):
     shape = tuple(sample_shape) + self.batch_shape + self.event_shape

@@ -11,6 +11,11 @@ from .base import Distribution, Tensor
 __all__ = ["Categorical", "OneHotCategorical"]
 
 
+def _entropy(logits: Tensor) -> Tensor:
+  lp = F.log_softmax(logits, dim=-1)
+  return -torch.sum(torch.exp(lp) * lp, dim=-1)
+
+
 class Categorical(Distribution):
   """Over class indices; ``logits`` is (..., K)."""
 
@@ -27,12 +32,20 @@ class Categorical(Distribution):
   def log_prob(self, x):
     lp = F.log_softmax(self.logits, dim=-1)
     idx = x.to(torch.int64)[..., None]
-    return torch.take_along_dim(lp, idx, dim=-1)[..., 0]
+    lead = torch.broadcast_shapes(idx.shape[:-1], lp.shape[:-1])
+    return torch.take_along_dim(lp.expand(lead + lp.shape[-1:]),
+                                idx.expand(lead + (1,)), dim=-1)[..., 0]
 
   def mean(self):
     k = self.logits.shape[-1]
     return torch.sum(self.probs() * torch.arange(
         k, dtype=self.logits.dtype, device=self.logits.device), -1)
+
+  def mode(self):
+    return torch.argmax(self.logits, dim=-1)
+
+  def entropy(self):
+    return _entropy(self.logits)
 
   def sample(self, sample_shape=(), generator=None):
     shape = tuple(sample_shape) + self.batch_shape
@@ -66,3 +79,18 @@ class OneHotCategorical(Distribution):
 
   def mean(self):
     return self.probs()
+
+  def sample(self, sample_shape=(), generator=None):
+    idx = Categorical(self.logits).sample(sample_shape, generator)
+    return F.one_hot(idx, self.logits.shape[-1]).to(self.logits.dtype)
+
+  def variance(self):
+    p = self.probs()
+    return p * (1.0 - p)
+
+  def mode(self):
+    return F.one_hot(torch.argmax(self.logits, -1),
+                     self.logits.shape[-1]).to(self.logits.dtype)
+
+  def entropy(self):
+    return _entropy(self.logits)

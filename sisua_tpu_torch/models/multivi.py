@@ -68,6 +68,10 @@ def _observed(x: torch.Tensor) -> torch.Tensor:
 
 
 class MULTIVIModule(VAEModule):
+  #: torch submodule name → its flax name (``convert`` maps them): the
+  #: method ``depth_logit`` owns the name in Python, as in the JAX module
+  flax_names = {"depth_head": "depth_logit"}
+
   """Two-expert module; its input is concat(rna, atac) (then the batch
   block). Submodules and parameters carry the flax names. The experts and
   the RNA and accessibility heads project in the compute dtype."""
@@ -108,8 +112,7 @@ class MULTIVIModule(VAEModule):
     self.region_factor = nn.Parameter(torch.zeros(self.n_regions))
     self.AccessibilityScale = dense(d_a, self.n_regions, generator)
     self.depth_encoder = depth_conf.build(self.n_regions, generator)
-    self.add_module("depth_logit", dense(self.depth_encoder.out_dim, 1,
-                                         generator))
+    self.depth_head = dense(self.depth_encoder.out_dim, 1, generator)
 
   # ---- input handling -----------------------------------------------------
   def _main_dim(self) -> int:
@@ -149,12 +152,12 @@ class MULTIVIModule(VAEModule):
                               library) + (None, None)
 
   # ---- decode -------------------------------------------------------------
-  def depth_logits(self, x, generator=None) -> torch.Tensor:
-    """ℓ_d, (…, 1), from the binarized peaks: the JAX module's
-    ``depth_logit`` method."""
+  def depth_logit(self, x, generator=None) -> torch.Tensor:
+    """ℓ_d, (…, 1), from the binarized peaks, through ``depth_head`` (the
+    Dense layer flax names ``depth_logit``)."""
     x, _ = self.split_batch(x)
     _, atac = self._split_modalities(x)
-    return self.depth_logit(self.depth_encoder(_binarized(atac), generator))
+    return self.depth_head(self.depth_encoder(_binarized(atac), generator))
 
   def decode(self, latent_samples, library=None, generator=None, batch=None,
              depth_logit: Optional[torch.Tensor] = None,
@@ -187,7 +190,7 @@ class MULTIVIModule(VAEModule):
     q_joint, q_l, q_r, q_a = qZ
     z, l = self._sample((q_joint, q_l), sample_shape, generator, noise)
     pX = self.decode((z, l), library, generator, b,
-                     depth_logit=self.depth_logits(x, generator))
+                     depth_logit=self.depth_logit(x, generator))
     return VAEOutput(outputs=pX, latents=qZ,
                      latent_samples=(z, l, q_r.mean(), q_a.mean()),
                      priors=self.latent_priors(library, like=x))

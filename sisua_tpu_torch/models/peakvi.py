@@ -6,15 +6,16 @@
     likelihood target;
   * per-cell-per-peak Bernoulli with p = σ(ℓ_y)·σ(ℓ_d)·σ(ρ): ℓ_y from the
     decoder (``AccessibilityScale``), ℓ_d a per-cell depth logit from its
-    own encoder on the binarized peaks (``depth_encoder`` → ``depth_logit``),
+    own encoder on the binarized peaks (``depth_encoder`` → ``depth_head``),
     ρ a per-peak region factor that starts at zero;
   * standard normal latent prior, analytic KL.
 
 The three factors compose in log space and convert to one Bernoulli logit
 (``_compose_logits``), as the JAX package does in XLA; plain torch here
-too, no kernel. The JAX module's method ``depth_logit`` shares its name
-with the Dense layer whose parameters the checkpoints key ``depth_logit``:
-the port keeps the layer's name and calls the method ``depth_logits``.
+too, no kernel. As in the JAX module, the method is ``depth_logit`` and
+the Dense layer the attribute ``depth_head``, whose parameters flax (and
+so every checkpoint) keys ``depth_logit``: ``flax_names`` tells
+``convert`` so.
 """
 
 from __future__ import annotations
@@ -59,6 +60,9 @@ class PEAKVIModule(VAEModule):
   """The VAE engine with a binarizing ``preprocess``, the depth encoder, the
   per-peak region factor and the composed Bernoulli decode."""
 
+  #: torch submodule name → its flax name (``convert`` maps them)
+  flax_names = {"depth_head": "depth_logit"}
+
   def __init__(self, outputs, latents, encoder_confs, decoder_confs,
                log_norm: bool = False, reduce_latent: str = "concat",
                depth_conf: Optional[NetConf] = None, n_batch: int = 0,
@@ -70,17 +74,16 @@ class PEAKVIModule(VAEModule):
     self.region_factor = nn.Parameter(torch.zeros(R))
     # the depth encoder reads the binarized peaks without the batch block
     self.depth_encoder = depth_conf.build(R, generator)
-    self.add_module("depth_logit", dense(self.depth_encoder.out_dim, 1,
-                                         generator))
+    self.depth_head = dense(self.depth_encoder.out_dim, 1, generator)
     self.AccessibilityScale = dense(self.decoders[0].out_dim, R, generator)
 
   def preprocess(self, x):
     return _binarized(x)
 
-  def depth_logits(self, x, generator=None) -> torch.Tensor:
-    """ℓ_d, (…, 1): the JAX module's ``depth_logit`` method."""
+  def depth_logit(self, x, generator=None) -> torch.Tensor:
+    """ℓ_d, (…, 1), through ``depth_head``."""
     xb, _ = self.split_batch(x)
-    return self.depth_logit(self.depth_encoder(self.preprocess(xb),
+    return self.depth_head(self.depth_encoder(self.preprocess(xb),
                                                generator))
 
   def decode(self, z, library=None, generator=None, batch=None,
@@ -101,7 +104,7 @@ class PEAKVIModule(VAEModule):
     qZ = self.encode(x, generator)
     zs = self._sample(qZ, sample_shape, generator, noise)
     pX = self.decode(self.reduce_latents(zs), library, generator, b,
-                     depth_logit=self.depth_logits(x, generator))
+                     depth_logit=self.depth_logit(x, generator))
     return VAEOutput(outputs=pX, latents=qZ, latent_samples=zs,
                      priors=self.latent_priors(library, like=x))
 

@@ -1,0 +1,19 @@
+"""sisua_tpu_torch.utils — host utilities (counterpart of
+``sisua_tpu.utils``, less the JAX profiler and XLA's compilation cache;
+the port profiles with ``torch.profiler``). The plots wait for the
+port's plotting layer (ROADMAP A12c)."""
+
+from .io_utils import (load_data_from_csv, save_data, save_data_to_R,
+                       save_data_to_csv)
+from .others import (UnitTimer, anything2image, apply_threshold,
+                     dimension_reduction, filtering_experiment_path, mpi_map,
+                     steady_window_rates, thresholding_by_sparsity,
+                     thresholding_by_sparsity_matching)
+
+__all__ = [
+    "save_data", "save_data_to_csv", "save_data_to_R", "load_data_from_csv",
+    "filtering_experiment_path", "dimension_reduction",
+    "thresholding_by_sparsity", "thresholding_by_sparsity_matching",
+    "apply_threshold", "anything2image", "UnitTimer", "steady_window_rates",
+    "mpi_map",
+]

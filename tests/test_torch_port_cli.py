@@ -251,14 +251,46 @@ mods = [m.name for m in pkgutil.walk_packages(sisua_tpu_torch.__path__,
 for m in mods:
   importlib.import_module(m)
 import sisua_tpu_torch.cli.train
+for m in ("data.analysis", "data.umap_impl", "analysis.decomposition",
+          "analysis.cluster", "analysis.stats", "utils", "utils.others",
+          "utils.io_utils"):
+  assert "sisua_tpu_torch." + m in mods, m
+# the analyzer's methods import lazily: run each once on the CPU (one
+# thread: the tier runs several test processes on the machine's cores)
+import tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from sisua_tpu_torch.data import generate_synthetic
+from sisua_tpu_torch import utils
+s = generate_synthetic(n_cells=200, n_genes=60, n_proteins=3,
+                       n_celltypes=3, seed=1)
+kw = dict(device="cpu")
+s.calculate_quality_metrics(**kw)
+s.filter_highly_variable_genes(n_top_genes=40, **kw)
+s.normalize(total=True, log1p=True, **kw)
+s.dimension_reduce(n_components=20, **kw)
+s.dimension_reduce(algo="umap", n_components=2, **kw)
+s.louvain(**kw)
+for algo in ("kmeans", "agglo", "spectral"):
+  s.clustering(algo=algo, matching_labels="celltype", **kw)
+for method in ("t-test", "wilcoxon"):
+  s.rank_vars_groups(method=method, **kw)
+s.get_correlation(**kw)
+s.get_mutual_information(**kw)
+s.get_mutual_information(backend="jax", **kw)
+s.get_importance_matrix(n_estimators=2)
+s.probabilistic_embedding("proteomic", **kw)
+utils.save_data_to_csv(s, tempfile.mkdtemp() + "/x.csv.gz")
 assert not BLOCKED & {k.split(".")[0] for k in sys.modules}
 print(len(mods))
 """
 
 
 def test_port_imports_none_of_what_the_card_lacks():
-  """Every module of the port (``cli`` too) imports with jax, pandas,
-  yaml, sklearn, h5py, matplotlib and the JAX package unimportable."""
+  """Every module of the port (``cli``, the data analyzer and ``utils``
+  too) imports with jax, pandas, yaml, sklearn, h5py, matplotlib and the
+  JAX package unimportable, and each analyzer method runs so."""
   proc = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr

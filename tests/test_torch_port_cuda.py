@@ -1425,3 +1425,83 @@ def test_experimenter_runs_a_config_on_the_card(dev, tmp_path):
   (_, model), = exp.get_models("model.name=sisua")
   assert model.device.type == "cuda"
   assert len(exp.scoreboard.read_scores("scores_synthetic200")) == 1
+
+
+# ------------------------------------------------------ the data analyzer
+def _analyzer_pair():
+  from sisua_tpu_torch.data import generate_synthetic
+  s = generate_synthetic(n_cells=600, n_genes=80, n_proteins=8,
+                         n_celltypes=4, seed=5218)
+  return s.copy(), s.copy()
+
+
+def test_analyzer_pca_on_the_card_equals_cpu(dev, monkeypatch):
+  """PCA (full, randomized) and IncrementalPCA fitted on the card against
+  the CPU. cuSOLVER's and LAPACK's float32 SVDs agree to ~1e-5 of a score
+  column's range on the leading components; where singular values lie
+  close, the components turn within their plane (up to 2.3e-4 of the
+  range measured at column 34 of 80): the first 5 columns within 5e-5,
+  every column within 1e-3; 1e-9 in float64."""
+  import sisua_tpu_torch.data.analysis as TA
+  from sisua_tpu_torch.analysis.decomposition import PCA
+  for batch, n in ((4096, 100), (4096, 20), (256, 50)):
+    monkeypatch.setattr(TA, "BATCH_SIZE", batch)
+    card, cpu = _analyzer_pair()
+    a = card.dimension_reduce(n_components=n)      # the default: 'cuda'
+    b = cpu.dimension_reduce(n_components=n, device=CPU)
+    assert card.uns["transcriptomic_pca_model"].components_.device.type \
+        == "cuda"
+    for c in range(a.shape[1]):
+      np.testing.assert_allclose(a[:, c], b[:, c], rtol=0,
+                                 atol=(5e-5 if c < 5 else 1e-3)
+                                 * np.abs(b[:, c]).max())
+  X = np.random.default_rng(2).gamma(0.6, 2.0, (700, 60))
+  for n in (60, 10):
+    got = PCA(n, random_state=3).fit_transform(X).cpu().numpy()
+    want = PCA(n, random_state=3, device=CPU).fit_transform(X).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-9 * np.abs(want).max())
+
+
+def test_analyzer_umap_on_the_card(dev, monkeypatch):
+  """The kNN, the smooth-kNN calibration and the fuzzy graph on the card
+  equal the CPU's (edges; weights 1e-12); the spectral initialization is
+  finite on both (three blobs leave a degenerate null space, whose basis
+  either LU picks arbitrarily, as the JAX package's does); from the same
+  graph and start the SGD's first epoch within 2e-3 (its
+  repulsion, clipped at ±4 where two points nearly meet, amplifies the
+  float32 power's last-bit differences: 8.3e-4 measured on this ±10
+  layout); two card runs give the same bits."""
+  import sisua_tpu_torch.data.umap_impl as TU
+  rng = np.random.default_rng(0)
+  X = np.concatenate([c + rng.normal(0, 1, (150, 20))
+                      for c in rng.normal(0, 8, (3, 20))])
+  W = TU.fuzzy_simplicial_set(X)
+  Wc = TU.fuzzy_simplicial_set(X, device=CPU)
+  np.testing.assert_array_equal(W.row, Wc.row)
+  np.testing.assert_array_equal(W.col, Wc.col)
+  np.testing.assert_allclose(W.data, Wc.data, rtol=1e-12)
+  init = TU._spectral_init(Wc.tocsr(), 2, 4, device=CPU)
+  assert init.shape == (450, 2) and np.isfinite(
+      TU._spectral_init(Wc.tocsr(), 2, 4, device="cuda")).all()
+  monkeypatch.setattr(TU, "fuzzy_simplicial_set", lambda *a, **k: Wc)
+  monkeypatch.setattr(TU, "_spectral_init", lambda *a, **k: init.copy())
+  a = TU.fit_umap(X, n_epochs=1, random_state=4)
+  b = TU.fit_umap(X, n_epochs=1, random_state=4, device=CPU)
+  np.testing.assert_allclose(a, b, rtol=0, atol=2e-3)
+  np.testing.assert_array_equal(TU.fit_umap(X, n_epochs=40, random_state=4),
+                                TU.fit_umap(X, n_epochs=40, random_state=4))
+
+
+def test_analyzer_rank_tests_on_the_card_equal_cpu(dev):
+  """Welch's t and the Mann-Whitney U on the card: the CPU's names, scores
+  and p-values (the sums run in numpy's order on both)."""
+  card, cpu = _analyzer_pair()
+  for method in ("t-test", "wilcoxon"):
+    a = card.rank_vars_groups(method=method)
+    b = cpu.rank_vars_groups(method=method, device=CPU)
+    assert list(a) == list(b)
+    for g in a:
+      np.testing.assert_array_equal(a[g]["names"], b[g]["names"])
+      np.testing.assert_allclose(a[g]["scores"], b[g]["scores"], rtol=1e-6)
+      np.testing.assert_allclose(a[g]["pvals"], b[g]["pvals"], rtol=1e-6)

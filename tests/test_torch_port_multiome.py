@@ -43,7 +43,6 @@ from sisua_tpu_torch import models as T
 from sisua_tpu_torch.models import objective as tobj
 from sisua_tpu_torch.models.module import VAEOutput as TOut
 from sisua_tpu_torch.models.peakvi import _compose_logits as t_compose
-from sisua_tpu_torch.nn import BatchNorm
 from sisua_tpu_torch.ops import zinb as tz
 from sisua_tpu_torch.rv import RVmeta as TRV
 
@@ -199,13 +198,10 @@ def _port_grad_tree(module):
   """Parameter gradients in the flax layout (kernels transposed)."""
   out = {}
   for key, p in module.named_parameters():
-    *owner, leaf = key.split(".")
+    *owner, leaf = convert.flax_param_path(module, key)
     g = p.grad.numpy()
-    if leaf == "weight":
-      if isinstance(module.get_submodule(".".join(owner)), BatchNorm):
-        leaf = "scale"
-      else:
-        leaf, g = "kernel", g.T
+    if leaf == "kernel":
+      g = g.T
     node = out
     for o in owner:
       node = node.setdefault(o, {})

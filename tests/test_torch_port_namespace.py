@@ -1,25 +1,27 @@
-"""The port's public names against the JAX package's.
+"""The port's public names and signatures against the JAX package's.
 
 Each port namespace must export every name of its JAX counterpart's
 ``__all__`` (for the top level, the JAX package's lazy ``dir()``), less
 the names written below that cannot be ported, or wait for a ROADMAP
-item, each with its reason.
+item, each with its reason. Each public class must have the JAX class's
+public methods, and each function and method must take the JAX
+signature's argument names, less the JAX-only ones written below, each
+with its reason.
 """
 
 import importlib
+import inspect
 
 import pytest
 
 # the JAX data layer's pandas half: the OMIC flag type and its helper (the
 # port names omics by strings), the availability table and the dataset
 # summary (pandas DataFrames over loaders that download), the AnnData and
-# 10x readers and writer (h5py, which the card lacks), the marker tables
-# and the t-SNE width the port's analysis does not use
+# 10x readers and writer (h5py, which the card lacks)
 _DATA_LAYER = {
     "OMIC", "get_all_omics", "get_dataset_availability",
     "get_dataset_summary", "AVAILABILITY", "read_h5ad", "write_h5ad",
-    "read_10x_mtx", "read_10x_h5", "MARKER_ATAC", "MARKER_GENES",
-    "PROTEIN_PAIR_NEGATIVE", "PROTEIN_PAIR_POSITIVE", "TSNE_DIM",
+    "read_10x_mtx", "read_10x_h5",
 }
 # what waits for a plotting layer (the card has no matplotlib; ROADMAP
 # A12c): the plots and the monitor callbacks, which only plot.
@@ -36,13 +38,20 @@ NOT_PORTED = {
     "sisua_tpu.ops": {"pallas_available"},
     "sisua_tpu.data": _DATA_LAYER,
     "sisua_tpu.analysis": _A12C,
-    "sisua_tpu": {"OMIC", "get_dataset_availability", "MARKER_ATAC",
-                  "MARKER_GENES", "PROTEIN_PAIR_NEGATIVE",
-                  "PROTEIN_PAIR_POSITIVE"} | {
-        # submodules of host-only layers: parallel (ROADMAP A21), utils
-        # (the JAX profiler and compilation cache), baselines (sklearn),
-        # cross_analyze (it always plots; ROADMAP A12c)
-        "parallel", "utils", "baselines", "cross_analyze"},
+    "sisua_tpu": {"OMIC", "get_dataset_availability"} | {
+        # submodules of host-only layers: parallel (ROADMAP A21),
+        # baselines (ROADMAP A24), cross_analyze (it always plots; ROADMAP
+        # A12c)
+        "parallel", "baselines", "cross_analyze"},
+    # the JAX profiler and XLA's compilation cache (the port profiles with
+    # torch.profiler, ``profile_dir``), and the plots (ROADMAP A12c)
+    "sisua_tpu.utils": {
+        "profile_trace", "enable_compilation_cache",
+        "plot_series_statistics", "plot_monitoring_epoch",
+        "plot_countsum_series", "plot_countsum_comparison", "Visualizer",
+        "fast_scatter", "plot_evaluate_classifier",
+        "plot_evaluate_regressor", "plot_evaluate_reconstruction",
+        "save_figures", "downsample_data", "show_image"},
 }
 
 MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
@@ -50,7 +59,57 @@ MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
            "sisua_tpu.data", "sisua_tpu.train.ensemble",
            "sisua_tpu.models.hyper_params", "sisua_tpu.analysis",
            "sisua_tpu.train.experimenter", "sisua_tpu.train.scoreboard",
-           "sisua_tpu.data.synthetic"]
+           "sisua_tpu.data.synthetic", "sisua_tpu.label_threshold",
+           "sisua_tpu.utils"]
+
+# argument names of the JAX signatures that the port's do not take, each
+# with its reason, and where (None: anywhere; else the callables whose
+# qualified name holds one of the strings)
+JAX_ONLY_ARGS = {
+    # a jax.random key: the port draws from a torch.Generator or a seed
+    "key": None,
+    # flax's train flag: a torch module's train()/eval() mode
+    "training": None,
+    # flax's module tree and module name
+    "parent": None, "name": None,
+    # flax variables handed to ``apply``: a torch module holds its own
+    "params": None, "batch_stats": None,
+    # a flax module field: the port's modules take it through
+    # ``set_compute_dtype``, and the models keep their ``compute_dtype``
+    "compute_dtype": ("Module", "module_cls"),
+    # the JAX encoders take the library and ignore it
+    "library": "encode",
+    # the JAX Trainer's jitted step functions and flax TrainState: the
+    # port's Trainer builds its steps from the model it trains
+    "step_core": "Trainer", "eval_fn": "Trainer", "state": "Trainer",
+    # the device mesh (ROADMAP A21)
+    "mesh": None,
+    # the JAX objects take a JAX SingleCellOMIC; the port's take matrices
+    # (``data``) and var names, or a container through ``data/adapters``:
+    # the posterior, the metric callbacks (``extras``: the protein matrix
+    # of the JAX container), the clustering score's label omic (the port's
+    # callback reads the labels from its ``data``), and DE's ``groupby``
+    # column of the container's obs (the port takes the ``labels``)
+    "sco": None, "extras": None,
+    "label_omic": "ClusteringScores", "groupby": "differential_expression",
+    # LDVAE's loadings as a pandas DataFrame indexed by ``var_names``: the
+    # port returns the array in the recorded var order
+    "var_names": "get_loadings",
+    # the figure of streamline_classifier (ROADMAP A12c)
+    "return_figure": "streamline_classifier",
+    "title": "streamline_classifier",
+}
+
+# JAX methods the port's classes do not have: flax's ``setup`` and the
+# jitted JAX step builders (the port's steps are the model's own
+# ``_train_step``), and the figures (ROADMAP A12c)
+_JAX_ONLY_METHODS = {"setup", "make_train_step", "make_eval_step",
+                     "make_train_step_core"}
+
+
+def _is_plot(method: str) -> bool:
+  return (method.startswith(("plot_", "boxplot", "barplot_"))
+          or method in ("save_plots", "save_figures", "add_figure"))
 
 
 def _port_name(module):
@@ -66,6 +125,80 @@ def test_port_exports_the_jax_names(module):
   assert not missing, f"{_port_name(module)} lacks {missing}"
   unlisted = sorted(n for n in want if n not in port.__all__)
   assert not unlisted, f"{_port_name(module)}.__all__ lacks {unlisted}"
+
+
+def _arg_names(fn):
+  """(names, takes **kwargs) of a callable's signature, or None."""
+  try:
+    sig = inspect.signature(fn)
+  except (TypeError, ValueError):
+    return None
+  kinds = inspect.Parameter
+  names = [p.name for p in sig.parameters.values()
+           if p.kind not in (kinds.VAR_POSITIONAL, kinds.VAR_KEYWORD)]
+  return names, any(p.kind == kinds.VAR_KEYWORD
+                    for p in sig.parameters.values())
+
+
+def _missing_args(where: str, jax_fn, port_fn):
+  jax_args, port_args = _arg_names(jax_fn), _arg_names(port_fn)
+  if jax_args is None or port_args is None or port_args[1]:
+    return []
+  out = []
+  for a in jax_args[0]:
+    if a == "self" or a in port_args[0]:
+      continue
+    scope = JAX_ONLY_ARGS.get(a, ())
+    if scope is None or any(s in where for s in (
+        (scope,) if isinstance(scope, str) else scope)):
+      continue
+    out.append(f"{where}({a}=)")
+  return out
+
+
+def _jax_methods(cls):
+  for m in dir(cls):
+    if m.startswith("_") and m not in ("__init__", "__call__",
+                                       "__getitem__", "__len__"):
+      continue
+    fn = getattr(cls, m, None)
+    # flax's and the standard library's own methods are not the package's
+    if callable(fn) and str(getattr(fn, "__module__", "")).startswith(
+        "sisua_tpu"):
+      yield m, fn
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_port_takes_the_jax_methods_and_arguments(module):
+  """Every public class has the JAX class's methods, and every function
+  and method takes the JAX argument names (``JAX_ONLY_ARGS`` and the
+  figures apart); a torch module's ``forward`` answers flax's
+  ``__call__``."""
+  import torch
+  jm = importlib.import_module(module)
+  pm = importlib.import_module(_port_name(module))
+  skip = NOT_PORTED.get(module, set())
+  faults = []
+  for n in jm.__all__:
+    jo, po = getattr(jm, n, None), getattr(pm, n, None)
+    if n in skip or jo is None or po is None:
+      continue
+    if not inspect.isclass(jo):
+      if callable(jo):
+        faults += _missing_args(n, jo, po)
+      continue
+    for m, jf in _jax_methods(jo):
+      if m in _JAX_ONLY_METHODS or _is_plot(m):
+        continue
+      pf = getattr(po, m, None)
+      if m == "__call__" and isinstance(po, type) and issubclass(
+          po, torch.nn.Module):
+        pf = po.forward
+      if pf is None:
+        faults.append(f"{n}.{m} is missing")
+        continue
+      faults += _missing_args(f"{n}.{m}", jf, pf)
+  assert not faults, f"{_port_name(module)}: {sorted(set(faults))}"
 
 
 def test_top_level_resolves_the_jax_names_lazily():
