@@ -267,12 +267,28 @@ before the final line:
      PCs, ``neighbors``, ``louvain``, ``clustering`` by KMeans, GMM, Ward
      and spectral matched to the groups, ``rank_vars_groups`` (Welch,
      Mann-Whitney), ``get_correlation``, ``get_mutual_information`` with
-     both backends on 4,096 cells (cut) and ``get_importance_matrix`` on
+     both backends on 2,048 cells (cut) and ``get_importance_matrix`` on
      the 500 most variable genes at the largest tree count the phase's
-     120 s budget leaves (cut, printed): seconds on the card and peak
+     90 s budget leaves (cut, printed): seconds on the card and peak
      memory above the resident of each; each method held against the
      port's CPU path on every 4th cell, each later step on one input,
      with its tolerance printed; the card-side methods within the budget.
+ 21. the classical baselines and t-SNE, after 20 (about 180 s). (a)
+     ``baselines.run_baseline`` of PCA, PPCA, sparse PCA, NMF and factor
+     analysis at 10 components on phase 20's 8,192 planted cells at
+     counts, cut to its 2,000 HVGs, with the 10 proteins and the 4 groups
+     as ``celltype``: seconds, peak memory and score keys of each, every
+     score finite; each estimator's latents on every 4th cell (2,048)
+     held to the port's CPU path. (b) ``dimension_reduce(algo='tsne')``
+     on all 8,192 cells (3 components on 50 of phase 20's 100 cached
+     PCs, the octree): seconds, the KL divergence of the embedding (the
+     Barnes-Hut error under its P) and its trustworthiness (k = 12)
+     against the 50 PCs, on the card. (c) ``utils.dimension_reduction(z,
+     'tsne', 2)`` of 16b's 8,192 SCVI latent means (the quadtree, the
+     kd-tree's exact neighbours). (d) on 2,048 of (b)'s cells, card
+     against CPU: the neighbours and P (1e-7 of the largest), the first
+     forces from one start at one OpenMP thread (1e-6 of the largest),
+     and the final KL of two default runs within 2%. No kernel launches.
 Earlier phases train through ``fit(device_cache=True)``, the loop they
 were written for. Before the last line it prints the kernels' JSON summary
 (launches of the phase 4 and phase 6 fits, of phase 8 and of phases 9 to
@@ -3718,7 +3734,7 @@ def phase_analysis(torch, x, held, y, held_y):
   """Phases 16 and 17: the metric callbacks, the kNN mutual information,
   the posterior hub on 16a's SISUA, differential expression, and the
   latent-space scores of 16b's SCVI. Returns the ZINB launches of 16a,
-  16b and 17a."""
+  16b and 17a, and 16b's latent means."""
   launches, model, imp = phase_callbacks(torch, x, held, y, held_y)
   phase_knn_mi(torch, model, imp, x, y)
   del imp
@@ -3731,7 +3747,7 @@ def phase_analysis(torch, x, held, y, held_y):
   torch.cuda.empty_cache()
   phase_latent_scores(torch, z, labels, *unplanted)
   return {k: v + de_launches[k] + hub_launches[k]
-          for k, v in launches.items()}
+          for k, v in launches.items()}, z
 
 
 # phase 17: the posterior hub
@@ -4049,10 +4065,14 @@ def phase_latent_scores(torch, z, labels, zs, protein_ids):
 # phase 20: the data analyzer (``SingleCellOMIC``'s ``data/analysis.py``)
 P20_HVG = 2000           # filter_highly_variable_genes(n_top_genes=...)
 P20_PCS = 100            # dimension_reduce's default n_components
-P20_BUDGET = 120.0       # seconds of the card-side methods at full size
+# seconds of the card-side methods at full size (120 until phase 21 joined
+# the run: the trees fill what the budget leaves)
+P20_BUDGET = 90.0
 P20_CHECK_STEP = 4       # the card-vs-CPU subset: every 4th cell (2,048)
 P20_MI_CPU_GENES = 64    # genes of the MI's card-vs-CPU check
-P20_MI_CELLS = 4096      # get_mutual_information's max_cells (16c's cells)
+# get_mutual_information's max_cells: 2,048 since phase 21 joined the run
+# (4,096 took 29 s in sklearn's O(N²) backend, 13 s in 'jax')
+P20_MI_CELLS = 2048
 P20_TREES_MAX = 80       # get_importance_matrix's default n_estimators
 P20_IMP_GENES = 500      # its genes: the trees' host time grows with them
 P20_TOL = {              # card vs CPU on the subset
@@ -4167,6 +4187,7 @@ def phase_data_analysis(torch, x, y):
   card.filter_highly_variable_genes(n_top_genes=P20_HVG)
   cpu.filter_highly_variable_genes(n_top_genes=P20_HVG, **C)
   _p20_equal("HVG selection", card.get_var_names(), cpu.get_var_names())
+  counts = full.copy()   # phase 21's baselines: the HVGs at counts
   _p20_run(torch, rows, "normalize(total, log1p)",
            lambda: full.normalize(total=True, log1p=True))
   card.normalize(total=True, log1p=True)
@@ -4344,6 +4365,194 @@ def phase_data_analysis(torch, x, y):
       f"{P20_BUDGET:.0f} s budget; phase 20 in "
       f"{time.perf_counter() - t_phase:.1f} s")
   check(total <= P20_BUDGET, f"phase 20's methods took {total:.1f} s")
+  return full, counts
+
+
+# phase 21: the classical baselines and t-SNE
+P21_COMPONENTS = 10      # run_baseline's n_components (the JAX default)
+P21_BUDGET = 180.0       # seconds of the phase, its CPU checks included
+P21_TRUST_K = 12         # trustworthiness's n_neighbors
+P21_TOL = {              # card vs CPU on every 4th cell
+    # float32 SVDs: cuSOLVER's and LAPACK's power iterations turn close
+    # components within their plane (phase 20): the leading 3 columns
+    "pca": 1e-2, "ppca": 1e-2,
+    "fa": 1e-6,          # float64 throughout
+    "nmf": 1e-2,         # from an SVD start that moves as PCA's does
+    "sppca": 5e-2,       # float32 LARS steps and a float32 stopping test
+    "P": 1e-7,           # of the largest joint probability
+    "forces": 1e-6,      # of the largest |force|, one OpenMP thread
+    "kl": 0.02}          # relative, two default runs
+
+
+def _p21_gap(a, b, cols=None):
+  """The largest |a − b| of each column over the column's largest |b|."""
+  import numpy as np
+  a = np.asarray(a, np.float64)[:, :cols]
+  b = np.asarray(b, np.float64)[:, :cols]
+  return float(np.max(np.abs(a - b).max(0) / np.maximum(
+      np.abs(b).max(0), 1e-300)))
+
+
+def _p21_kl(torch, X, emb, dof):
+  """The Barnes-Hut KL divergence of ``emb`` under the P of X (what
+  t-SNE reports as ``kl_divergence_`` at its last iteration)."""
+  from sisua_tpu_torch import native
+  from sisua_tpu_torch.analysis import manifold as M
+  k = min(X.shape[0] - 1, 91)
+  indptr, indices, P = M._joint_probabilities_nn(*M._kneighbors(X, k),
+                                                 30.0)
+  return native.tsne_gradient(P.float().cpu().numpy(), emb,
+                              indices.cpu().numpy(), indptr.cpu().numpy(),
+                              dof=dof)[0]
+
+
+def phase_baselines_tsne(torch, full, counts, z):
+  """Phase 21: the classical baselines on phase 20's planted counts at its
+  2,000 HVGs, t-SNE through the container and through ``utils``, and the
+  card against the CPU on 2,048 cells."""
+  import numpy as np
+  from sisua_tpu_torch import baselines, native, utils
+  from sisua_tpu_torch.analysis import manifold as M
+  t_phase = time.perf_counter()
+  log(f"[21 baselines] {counts.n_obs} × {counts.n_vars} counts, "
+      f"{counts.get_dim('proteomic')} proteins, {DE_GROUPS} planted groups "
+      f"as celltype; cut: genes 33,000 → {counts.n_vars:,} (phase 20's "
+      f"HVGs: the set users compare baselines on, and sparse PCA's 1,000 "
+      f"dictionary iterations over 33,000 genes would not fit the run); "
+      f"n_components {P21_COMPONENTS}; tolerances "
+      + ", ".join(f"{k} {v:g}" for k, v in P21_TOL.items()))
+  x_sub = np.log1p(counts.numpy()[::P20_CHECK_STEP])
+  t_cpu = 0.0
+  for model in baselines.BASELINE_MODELS:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    scores = baselines.run_baseline(counts, model,
+                                    n_components=P21_COMPONENTS)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    check({"ARI_celltype", "f1_F1micro"} <= set(scores)
+          and all(np.isfinite(v) for v in scores.values()),
+          f"run_baseline({model}) scores {scores}")
+    fc = baselines._fit_latent(x_sub, model, P21_COMPONENTS, 8)
+    zc = fc.transform(x_sub).cpu().numpy()
+    t1 = time.perf_counter()
+    fh = baselines._fit_latent(x_sub, model, P21_COMPONENTS, 8,
+                               device="cpu")
+    zh = fh.transform(x_sub).cpu().numpy()
+    t_cpu += time.perf_counter() - t1
+    check(np.isfinite(zc).all() and zc.shape == zh.shape,
+          f"{model} latents {zc.shape}")
+    held = 3 if model in ("pca", "ppca") else None
+    gap = _p21_gap(zc, zh, held)
+    check(gap <= P21_TOL[model], f"{model}: card vs CPU latents {gap:.2e} "
+          f"beyond {P21_TOL[model]:g}")
+    log(f"[21 baselines] run_baseline({model}): {sec:.3f} s on the card, "
+        f"peak {peak:.3f} GiB above the resident; keys "
+        f"{','.join(sorted(scores))}; ARI_celltype "
+        f"{scores['ARI_celltype']:.4f}, f1_F1micro "
+        f"{scores['f1_F1micro']:.4f}; card vs CPU on {len(x_sub)} cells: "
+        f"latents {'(leading 3) ' if held else ''}{gap:.2e} of each "
+        f"column's range (bound {P21_TOL[model]:g}), all columns "
+        f"{_p21_gap(zc, zh):.2e}"
+        + (f", n_iter {fc.n_iter_} / {fh.n_iter_}"
+           if hasattr(fc, "n_iter_") else ""))
+
+  log(f"[21 baselines] the five in {time.perf_counter() - t_phase:.1f} s, "
+      f"{t_cpu:.1f} s of it the CPU's fits on {len(x_sub)} cells")
+
+  # (b) t-SNE through the container, on phase 20's cached PCs
+  pcs = full.obsm["transcriptomic_pca"][:, :50]
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  emb = full.dimension_reduce(algo="tsne")
+  torch.cuda.synchronize()
+  sec = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  check(emb.shape == (full.n_obs, 3) and np.isfinite(emb).all()
+        and "transcriptomic_tsne" in full.obsm, f"t-SNE {emb.shape}")
+  X = torch.as_tensor(pcs, device=DEVICE)
+  kl = _p21_kl(torch, X, emb, 2)
+  tw = M.trustworthiness(X, emb, n_neighbors=P21_TRUST_K)
+  # the planted groups are faint in 50 PCs: t-SNE must keep more of each
+  # cell's neighbourhood than the linear 3-D projection does
+  tw_pca = M.trustworthiness(X, pcs[:, :3], n_neighbors=P21_TRUST_K)
+  log(f"[21 tsne] dimension_reduce(algo='tsne'): {full.n_obs} cells × 3 "
+      f"components on 50 PCs: {sec:.3f} s (neighbours, P and the descent "
+      f"on the card, the octree's forces on {os.cpu_count()} host CPUs), "
+      f"peak {peak:.3f} GiB; KL {kl:.4f}; trustworthiness (k = "
+      f"{P21_TRUST_K}) {tw:.4f}, the first 3 PCs' {tw_pca:.4f}")
+  check(np.isfinite(kl) and tw > tw_pca, f"t-SNE KL {kl}, trustworthiness "
+        f"{tw} (the first 3 PCs' {tw_pca})")
+
+  # (c) t-SNE through utils, on 16b's SCVI latent means
+  t0 = time.perf_counter()
+  e2 = utils.dimension_reduction(z, "tsne", 2)
+  torch.cuda.synchronize()
+  sec2 = time.perf_counter() - t0
+  Z = torch.as_tensor(np.asarray(z, np.float32), device=DEVICE)
+  tw2 = M.trustworthiness(Z, e2, n_neighbors=P21_TRUST_K)
+  tw2_pca = M.trustworthiness(Z, utils.dimension_reduction(z, "pca", 2),
+                              n_neighbors=P21_TRUST_K)
+  check(e2.shape == (len(z), 2) and np.isfinite(e2).all()
+        and tw2 > tw2_pca, f"utils t-SNE {e2.shape}, trustworthiness {tw2}"
+        f" (PCA's {tw2_pca})")
+  log(f"[21 tsne] utils.dimension_reduction(z, 'tsne', 2): {len(z)} SCVI "
+      f"latent means × {z.shape[1]} (the kd-tree's exact neighbours, the "
+      f"quadtree): {sec2:.3f} s; KL {_p21_kl(torch, Z, e2, 1):.4f}; "
+      f"trustworthiness {tw2:.4f}, 2-D PCA's {tw2_pca:.4f}")
+
+  # (d) card against CPU on every 4th cell
+  Xs = pcs[::P20_CHECK_STEP]
+  k = 91
+  parts = {}
+  for dev in (DEVICE, "cpu"):
+    Xd = torch.as_tensor(Xs, device=dev)
+    idx, d = M._kneighbors(Xd, k)
+    parts[dev] = (idx.cpu(), d.cpu()) + tuple(
+        t.cpu() for t in M._joint_probabilities_nn(idx, d, 30.0))
+  (ic, dc, pc, nc, vc), (ih, dh, ph, nh, vh) = parts[DEVICE], parts["cpu"]
+  moved = int((ic != ih).sum())
+  check(moved == 0 and torch.equal(pc, ph) and torch.equal(nc, nh),
+        f"t-SNE neighbours: {moved} indices differ")
+  dgap = float(torch.max(torch.abs(dc - dh) / dh.clamp(min=1e-300)))
+  pgap = float(torch.max(torch.abs(vc - vh))) / float(vh.max())
+  check(pgap <= P21_TOL["P"], f"t-SNE P: card vs CPU {pgap:.2e}")
+  start = M.TSNE(3, random_state=8, device="cpu")._start(
+      torch.as_tensor(Xs), np.random.RandomState(8)).numpy()
+  start_c = M.TSNE(3, random_state=8)._start(
+      torch.as_tensor(Xs, device=DEVICE), np.random.RandomState(8))
+  forces = [native.tsne_gradient((v * 12.0).float().numpy(), start,
+                                 n.numpy(), p.numpy(), dof=2,
+                                 num_threads=1)[1]
+            for v, n, p in ((vc, nc, pc), (vh, nh, ph))]
+  fgap = float(np.abs(forces[0] - forces[1]).max()
+               / np.abs(forces[1]).max())
+  check(fgap <= P21_TOL["forces"], f"t-SNE first forces {fgap:.2e}")
+  runs = {}
+  for dev in (DEVICE, "cpu"):
+    t0 = time.perf_counter()
+    m = M.TSNE(3, random_state=8, device=dev)
+    m.fit_transform(Xs)
+    runs[dev] = (m.kl_divergence_, time.perf_counter() - t0)
+  klgap = abs(runs[DEVICE][0] - runs["cpu"][0]) / runs["cpu"][0]
+  check(klgap <= P21_TOL["kl"], f"t-SNE final KL card {runs[DEVICE][0]} "
+        f"vs CPU {runs['cpu'][0]}")
+  log(f"[21 tsne] card vs CPU on {len(Xs)} cells: neighbour indices equal, "
+      f"distances worst rel {dgap:.2e}; P structure equal, values "
+      f"{pgap:.2e} of the largest (bound {P21_TOL['P']:g}); the PCA start "
+      f"{_p21_gap(start_c.cpu().numpy(), start):.2e} of each column's "
+      f"range; first forces from the CPU's start at one OpenMP thread "
+      f"{fgap:.2e} of the largest (bound {P21_TOL['forces']:g}); default "
+      f"runs: KL card {runs[DEVICE][0]:.5f} ({runs[DEVICE][1]:.1f} s), CPU "
+      f"{runs['cpu'][0]:.5f} ({runs['cpu'][1]:.1f} s), {klgap:.2%} apart "
+      f"(bound {P21_TOL['kl']:.0%})")
+  total = time.perf_counter() - t_phase
+  log(f"[21] phase 21 in {total:.1f} s (budget {P21_BUDGET:.0f} s)")
+  check(total <= P21_BUDGET, f"phase 21 took {total:.1f} s")
 
 
 # phase 18: the experiment path (SISUA_EXP → a temporary directory)
@@ -4630,10 +4839,17 @@ def main():
     return 2
   sys.path.insert(0, ROOT)
   import sisua_tpu_torch  # noqa: F401  (fails outside a checkout)
+  t_start = time.perf_counter()
+
+  def mark(phases):
+    log(f"[timing] phases {phases} end at "
+        f"{time.perf_counter() - t_start:.1f} s")
+
   smi = phase_device(torch)
   phase_build()
   kern = phase_kernels(torch)
   x, held = phase_data(torch)
+  mark("1-3")
   ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
   try:
     model, library, launches = phase_fit(torch, x, held)
@@ -4646,6 +4862,7 @@ def main():
     del sisua
     serve_launches = phase_serving(torch, saved, x, held, held_y, smi)
     del saved
+    mark("4-8")
     zoo_launches = phase_zoo(torch, x, held, y, held_y, library, ckpt_root,
                              smi)
     batch_launches = phase_batch(torch, x, held, y, held_y, library,
@@ -4656,9 +4873,11 @@ def main():
     torch.cuda.empty_cache()
     last_launches = phase_last_zoo(torch, x, held, library, ckpt_root, smi)
     torch.cuda.empty_cache()
+    mark("9-12")
     bf16_launches, _ = phase_bf16(torch, x, held, library, ckpt_root, smi)
     surface_launches = phase_fit_surface(torch, x, held, ckpt_root, smi)
     torch.cuda.empty_cache()
+    mark("13")
     probes, probe_launches = phase_probes(torch)
     big, ooc_model, ooc_launches = phase_out_of_core(torch, x, smi)
     stream_launches = phase_streaming(torch, big, held, smi)
@@ -4667,15 +4886,24 @@ def main():
     scan_launches = phase_scan_steps(torch, big)
     del big
     torch.cuda.empty_cache()
+    mark("14, 15e")
     members = phase_member_kernels(torch)
     fleet_launches = phase_fleet(torch, x, held, library, smi)
     fleet_zoo_launches = phase_fleet_zoo(torch, x, y, library, smi)
-    analysis_launches = phase_analysis(torch, x, held, y, held_y)
+    mark("15a-d, 19")
+    analysis_launches, z = phase_analysis(torch, x, held, y, held_y)
     torch.cuda.empty_cache()
-    phase_data_analysis(torch, x, y)
+    mark("16-17")
+    full, counts = phase_data_analysis(torch, x, y)
+    mark("20")
     del x, held, y, held_y
     torch.cuda.empty_cache()
+    phase_baselines_tsne(torch, full, counts, z)
+    del full, counts, z
+    torch.cuda.empty_cache()
+    mark("21")
     experiment_launches = phase_experiment(torch)
+    mark("18")
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
   launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]

@@ -29,8 +29,10 @@ experimenter and its sqlite scoreboard (``train.experimenter``,
 ``data.get_dataset``, ``analysis.ResultsSheet``'s score table, and the
 ``cli`` package (train, predict, evaluate, embed); the data analyzer of
 ``data.SingleCellOMIC`` (QC, filters, PCA/UMAP, neighbours, clusterings,
-rank tests, correlations, mutual information, importances) on the card,
-and ``utils``. Top-level names resolve
+rank tests, correlations, mutual information, importances, PCA, t-SNE
+and UMAP) on the card, ``utils``, and the classical baselines
+(``baselines.run_baseline``: PCA, probabilistic PCA, sparse PCA, NMF
+and factor analysis, scored like the deep models). Top-level names resolve
 lazily, as in the JAX package: ``sisua_tpu_torch.SCVI``, ``.get_model``,
 ``.load_model``, ``.Trainer``, ``.DataFeeder``, ``.VmapEnsemble``,
 ``.Posterior``, ``.SisuaExperimenter``, ``.get_dataset``.
@@ -40,7 +42,7 @@ __version__ = "0.1.0"
 
 _SUBMODULES = ("data", "models", "train", "dist", "nn", "rv", "ops",
                "interpolation", "convert", "native", "analysis",
-               "label_threshold", "cli", "utils")
+               "label_threshold", "baselines", "cli", "utils")
 
 
 def __getattr__(name):

@@ -18,7 +18,9 @@ in ``obsm['<omic>_pca' | '_umap']``, cluster ids in
 ``obs['<omic>_<algo><k>_r<seed>']``, graphs and tables in ``uns``. A
 pandas DataFrame of the JAX analyzer is a ``{column: array}`` dict here,
 in its column order, with its index of var names under ``'index'``.
-t-SNE is not ported (ROADMAP A23b): ``dimension_reduce('tsne')`` raises.
+t-SNE is sklearn's Barnes-Hut t-SNE (``analysis/manifold.py``): its
+neighbours, probabilities and descent on the card, its tree and forces
+in C++ on the host.
 """
 
 from __future__ import annotations
@@ -32,11 +34,6 @@ from scipy import sparse
 __all__ = ["_OMICanalyzer", "diagonal_linear_assignment", "BATCH_SIZE"]
 
 BATCH_SIZE = 4096  # rows above which PCA is incremental, and its batch
-
-_TSNE_REFUSED = (
-    "dimension_reduce(algo='tsne') is not ported: sklearn's t-SNE is "
-    "Barnes-Hut, whose quadtree the port has no counterpart of yet "
-    "(ROADMAP A23b); use algo='pca' or 'umap'")
 
 
 def diagonal_linear_assignment(cm: np.ndarray) -> np.ndarray:
@@ -350,14 +347,14 @@ class _OMICanalyzer:
                        algo: str = "pca",
                        random_state: int = 8,
                        device="cuda") -> np.ndarray:
-    """PCA (incremental above ``BATCH_SIZE`` rows) or UMAP embedding,
-    cached in ``obsm['<omic>_<algo>']``; a wider request recomputes.
-    UMAP runs on the first 50 PCs of a wider omic."""
+    """PCA (incremental above ``BATCH_SIZE`` rows), t-SNE or UMAP
+    embedding, cached in ``obsm['<omic>_<algo>']``; a wider request
+    recomputes. t-SNE (2 or 3 components, sklearn's defaults, a PCA
+    start) runs on the first 50 of the omic's cached PCs (up to 100);
+    UMAP on the first 50 PCs of a wider omic."""
     omic = self._one(omic)
     algo = str(algo).lower()
-    if algo == "tsne":
-      raise NotImplementedError(_TSNE_REFUSED)
-    if algo not in ("pca", "umap"):
+    if algo not in ("pca", "tsne", "umap"):
       raise ValueError(f"Unknown algo '{algo}' (pca|tsne|umap)")
     key = f"{omic}_{algo}"
     if key in self.obsm:
@@ -378,6 +375,15 @@ class _OMICanalyzer:
                     device=device)
       emb = _host(model.fit_transform(X))
       self.uns[f"{key}_model"] = model
+    elif algo == "tsne":
+      from ..analysis.manifold import TSNE
+      pca = self.dimension_reduce(omic, n_components=min(100, X.shape[1]),
+                                  algo="pca", random_state=random_state,
+                                  device=device)
+      n_components = min(n_components, 3)
+      emb = _host(TSNE(n_components=max(2, n_components),
+                       random_state=random_state, init="pca",
+                       device=device).fit_transform(pca[:, :50]))
     else:
       from .umap_impl import fit_umap
       nc = max(2, min(n_components, 3))

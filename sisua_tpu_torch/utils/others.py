@@ -1,9 +1,10 @@
 """Host utilities (port of ``sisua_tpu/utils/others.py``, less the JAX
 profiler and XLA's compilation cache): the order-preserving process map
 the analyzer fans its tasks over, experiment-directory filtering, the
-one-call embedding wrapper (PCA and UMAP on the card; t-SNE is not ported,
-ROADMAP A23b), thresholding a reconstruction to a target sparsity, the
-steady-window rate of a training history, and a wall-clock timer.
+one-call embedding wrapper (PCA, t-SNE and UMAP on the card; t-SNE's
+tree and forces on the host), thresholding a reconstruction to a target
+sparsity, the steady-window rate of a training history, and a wall-clock
+timer.
 """
 
 from __future__ import annotations
@@ -80,10 +81,11 @@ def dimension_reduction(x, algo: str = "pca", n_components: int = 2,
                         random_state: int = 5218,
                         device="cuda") -> np.ndarray:
   """One-call embedding of the rows of ``x``, float32: 'pca' (the port's
-  sklearn-following PCA) or 'umap' (the port's UMAP, as the JAX package
-  computes it without umap-learn), on ``device``. The JAX function falls
-  back to t-SNE for 'umap' when umap-learn is missing; the port has its
-  UMAP and runs it. 'tsne' is not ported (ROADMAP A23b)."""
+  sklearn-following PCA), 'tsne' (sklearn's Barnes-Hut t-SNE with a PCA
+  start, on the first 50 PCs of a wider ``x``) or 'umap' (the port's
+  UMAP, as the JAX package computes it without umap-learn), on
+  ``device``. The JAX function falls back to t-SNE for 'umap' when
+  umap-learn is missing; the port has its UMAP and runs it."""
   algo = str(algo).lower()
   x = np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x,
                  np.float32)
@@ -97,8 +99,13 @@ def dimension_reduction(x, algo: str = "pca", n_components: int = 2,
     return fit_umap(x, n_components=max(2, min(n_components, 3)),
                     random_state=random_state, device=device)
   if algo == "tsne":
-    from ..data.analysis import _TSNE_REFUSED
-    raise NotImplementedError(_TSNE_REFUSED)
+    from ..analysis.decomposition import PCA
+    from ..analysis.manifold import TSNE
+    if x.shape[1] > 50:
+      x = PCA(50, random_state=random_state, device=device).fit_transform(x)
+    return TSNE(n_components=max(2, min(n_components, 3)),
+                random_state=random_state, init="pca",
+                device=device).fit_transform(x).cpu().numpy()
   raise ValueError(f"Unknown algo '{algo}' (pca|tsne|umap)")
 
 

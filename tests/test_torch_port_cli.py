@@ -237,7 +237,8 @@ def test_embed_cli_refuses_figures_and_writes_three_files(tmp_path):
 
 
 _BLOCKER = """
-import importlib.abc, sys
+import importlib.abc, os, sys
+os.environ["OMP_NUM_THREADS"] = "1"   # t-SNE's and LARS's OpenMP teams
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "pandas", "yaml", "sklearn",
            "h5py", "matplotlib", "sisua_tpu"}
 class Block(importlib.abc.MetaPathFinder):
@@ -253,7 +254,8 @@ for m in mods:
 import sisua_tpu_torch.cli.train
 for m in ("data.analysis", "data.umap_impl", "analysis.decomposition",
           "analysis.cluster", "analysis.stats", "utils", "utils.others",
-          "utils.io_utils"):
+          "utils.io_utils", "baselines", "analysis.manifold",
+          "analysis.lars"):
   assert "sisua_tpu_torch." + m in mods, m
 # the analyzer's methods import lazily: run each once on the CPU (one
 # thread: the tier runs several test processes on the machine's cores)
@@ -271,6 +273,7 @@ s.filter_highly_variable_genes(n_top_genes=40, **kw)
 s.normalize(total=True, log1p=True, **kw)
 s.dimension_reduce(n_components=20, **kw)
 s.dimension_reduce(algo="umap", n_components=2, **kw)
+s.dimension_reduce(algo="tsne", **kw)
 s.louvain(**kw)
 for algo in ("kmeans", "agglo", "spectral"):
   s.clustering(algo=algo, matching_labels="celltype", **kw)
@@ -282,15 +285,19 @@ s.get_mutual_information(backend="jax", **kw)
 s.get_importance_matrix(n_estimators=2)
 s.probabilistic_embedding("proteomic", **kw)
 utils.save_data_to_csv(s, tempfile.mkdtemp() + "/x.csv.gz")
+from sisua_tpu_torch.baselines import BASELINE_MODELS, run_baseline
+for m in BASELINE_MODELS:
+  run_baseline(s, m, n_components=4, **kw)
 assert not BLOCKED & {k.split(".")[0] for k in sys.modules}
 print(len(mods))
 """
 
 
 def test_port_imports_none_of_what_the_card_lacks():
-  """Every module of the port (``cli``, the data analyzer and ``utils``
-  too) imports with jax, pandas, yaml, sklearn, h5py, matplotlib and the
-  JAX package unimportable, and each analyzer method runs so."""
+  """Every module of the port (``cli``, the data analyzer, ``utils`` and
+  the baselines too) imports with jax, pandas, yaml, sklearn, h5py,
+  matplotlib and the JAX package unimportable, and each analyzer method
+  (t-SNE too) and each baseline runs so."""
   proc = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr

@@ -1505,3 +1505,122 @@ def test_analyzer_rank_tests_on_the_card_equal_cpu(dev):
       np.testing.assert_array_equal(a[g]["names"], b[g]["names"])
       np.testing.assert_allclose(a[g]["scores"], b[g]["scores"], rtol=1e-6)
       np.testing.assert_allclose(a[g]["pvals"], b[g]["pvals"], rtol=1e-6)
+
+
+def test_native_libraries_build_on_the_card_machine(dev):
+  """The host libraries of t-SNE and LARS build with g++ and load."""
+  from sisua_tpu_torch import native
+  for name in ("tsne", "lars"):
+    assert native.build(name).is_file()
+    native.load(name)
+
+
+def _baseline_counts():
+  rng = np.random.RandomState(0)
+  lam = rng.gamma(0.5, 2.0, (200, 40)) * rng.uniform(0.2, 2, (200, 1))
+  return np.log1p(rng.poisson(lam))
+
+
+def _col_gap(a, b):
+  a = np.asarray(a.cpu() if hasattr(a, "cpu") else a, np.float64)
+  b = np.asarray(b.cpu() if hasattr(b, "cpu") else b, np.float64)
+  return float(np.max(np.abs(a - b).max(0) / np.abs(b).max(0)))
+
+
+def test_baseline_estimators_on_the_card_equal_cpu(dev):
+  """FactorAnalysis, NMF, SparsePCA and PCA('full') fitted on the card
+  against the CPU in float64 (cuSOLVER's and LAPACK's factorizations
+  agree to rounding): components and latents within 1e-8 of each
+  column's range; in float32 each runs on the card, finite, its latents
+  within 1e-2 of the CPU's (float32 SVD starts; see
+  test_torch_port_baselines for the float32 paths against sklearn)."""
+  from sisua_tpu_torch.analysis import decomposition as TD
+  X = _baseline_counts()
+  makers = {
+      "fa": lambda d: TD.FactorAnalysis(10, random_state=8, device=d),
+      "nmf": lambda d: TD.NMF(10, max_iter=400, random_state=8, device=d),
+      "sppca": lambda d: TD.SparsePCA(10, random_state=8, device=d),
+      "ppca": lambda d: TD.PCA(10, svd_solver="full", device=d)}
+  for name, make in makers.items():
+    for dtype, tol in ((np.float64, 1e-8), (np.float32, 1e-2)):
+      Xd = X.astype(dtype)
+      card, cpu = make("cuda").fit(Xd), make(CPU).fit(Xd)
+      assert card.components_.device.type == "cuda"
+      zc, zh = card.transform(Xd), cpu.transform(Xd)
+      assert torch.isfinite(zc).all()
+      assert _col_gap(zc, zh) <= tol, (name, dtype, _col_gap(zc, zh))
+      if dtype == np.float64:
+        assert _col_gap(card.components_.T, cpu.components_.T) <= tol
+
+
+def test_run_baseline_on_the_card(dev):
+  """``run_baseline`` of each model on the card: the CPU's score keys,
+  every score finite."""
+  from sisua_tpu_torch import baselines
+  from sisua_tpu_torch.data import generate_synthetic
+  s = generate_synthetic(n_cells=300, n_genes=60, n_proteins=4,
+                         n_celltypes=3, seed=5218)
+  for model in baselines.BASELINE_MODELS:
+    got = baselines.run_baseline(s, model)
+    want = baselines.run_baseline(s, model, device=CPU)
+    assert list(got) == list(want)
+    assert np.isfinite(list(got.values())).all()
+
+
+@pytest.mark.parametrize("f", [50, 10], ids=["brute", "kd_tree"])
+def test_tsne_P_and_first_forces_on_the_card_equal_cpu(dev, f):
+  """t-SNE's neighbours and P made on the card against the CPU's (indices
+  and CSR structure equal, P within 1e-7 of its largest), the first
+  forces from one start at one OpenMP thread within 1e-6 of the largest,
+  and a short run from that start on the card equal to the CPU's
+  (positions within 1e-5 of their range)."""
+  from sisua_tpu_torch import native
+  from sisua_tpu_torch.analysis import manifold as M
+  rng = np.random.RandomState(f)
+  centers = rng.normal(size=(5, f)) * 4
+  X = (centers[rng.randint(0, 5, 1000)]
+       + rng.normal(size=(1000, f))).astype(np.float32)
+  out = {}
+  for d in ("cuda", CPU):
+    idx, dist = M._kneighbors(torch.as_tensor(X, device=d), 91)
+    out[d] = [t.cpu() for t in (idx, dist) + M._joint_probabilities_nn(
+        idx, dist, 30.0)]
+  (ic, dc, pc, nc, vc), (ih, dh, ph, nh, vh) = out["cuda"], out[CPU]
+  assert torch.equal(ic, ih) and torch.equal(pc, ph) and torch.equal(nc, nh)
+  np.testing.assert_allclose(dc.numpy(), dh.numpy(), rtol=1e-9)
+  np.testing.assert_allclose(vc.numpy(), vh.numpy(), rtol=0,
+                             atol=1e-7 * float(vh.max()))
+  start = (np.random.RandomState(1).normal(size=(1000, 3)) * 1e-4).astype(
+      np.float32)
+  fc, fh = (native.tsne_gradient((v * 12.0).float().numpy(), start,
+                                 n.numpy(), p.numpy(), dof=2,
+                                 num_threads=1)[1]
+            for v, n, p in ((vc, nc, pc), (vh, nh, ph)))
+  np.testing.assert_allclose(fc, fh, rtol=0, atol=1e-6 * np.abs(fh).max())
+  a = M.TSNE(3, init=start, max_iter=50, device="cuda",
+             num_threads=1).fit_transform(X).cpu().numpy()
+  b = M.TSNE(3, init=start, max_iter=50, device=CPU,
+             num_threads=1).fit_transform(X).numpy()
+  np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.ptp(b, 0).max())
+
+
+def test_tsne_on_the_card(dev):
+  """A default 3-D t-SNE on the card: the embedding stays on the card,
+  its KL within 2% of the CPU run's and its trustworthiness within
+  0.02; trustworthiness on the card equals the CPU's."""
+  from sisua_tpu_torch.analysis import manifold as M
+  rng = np.random.RandomState(3)
+  centers = rng.normal(size=(5, 30)) * 3
+  X = (centers[rng.randint(0, 5, 1500)]
+       + rng.normal(size=(1500, 30))).astype(np.float32)
+  card, cpu = M.TSNE(3, random_state=0), M.TSNE(3, random_state=0,
+                                                 device=CPU)
+  a, b = card.fit_transform(X), cpu.fit_transform(X)
+  assert a.device.type == "cuda" and a.dtype == torch.float32
+  assert abs(card.kl_divergence_ - cpu.kl_divergence_) <= \
+      0.02 * cpu.kl_divergence_
+  ta = M.trustworthiness(X, a, n_neighbors=12)
+  assert ta == pytest.approx(M.trustworthiness(X, a, n_neighbors=12,
+                                               device=CPU), abs=1e-12)
+  assert abs(ta - M.trustworthiness(X, b, n_neighbors=12, device=CPU)) \
+      <= 0.02

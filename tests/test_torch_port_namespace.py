@@ -40,9 +40,8 @@ NOT_PORTED = {
     "sisua_tpu.analysis": _A12C,
     "sisua_tpu": {"OMIC", "get_dataset_availability"} | {
         # submodules of host-only layers: parallel (ROADMAP A21),
-        # baselines (ROADMAP A24), cross_analyze (it always plots; ROADMAP
-        # A12c)
-        "parallel", "baselines", "cross_analyze"},
+        # cross_analyze (it always plots; ROADMAP A12c)
+        "parallel", "cross_analyze"},
     # the JAX profiler and XLA's compilation cache (the port profiles with
     # torch.profiler, ``profile_dir``), and the plots (ROADMAP A12c)
     "sisua_tpu.utils": {
@@ -60,7 +59,7 @@ MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
            "sisua_tpu.models.hyper_params", "sisua_tpu.analysis",
            "sisua_tpu.train.experimenter", "sisua_tpu.train.scoreboard",
            "sisua_tpu.data.synthetic", "sisua_tpu.label_threshold",
-           "sisua_tpu.utils"]
+           "sisua_tpu.utils", "sisua_tpu.baselines"]
 
 # argument names of the JAX signatures that the port's do not take, each
 # with its reason, and where (None: anywhere; else the callables whose
