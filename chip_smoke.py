@@ -3731,22 +3731,25 @@ def phase_knn_mi(torch, model, imp, x, y):
 
 
 def phase_analysis(torch, x, held, y, held_y):
-  """Phases 16 and 17: the metric callbacks, the kNN mutual information,
-  the posterior hub on 16a's SISUA, differential expression, and the
-  latent-space scores of 16b's SCVI. Returns the ZINB launches of 16a,
-  16b and 17a, and 16b's latent means."""
+  """Phases 16, 17 and 22: the metric callbacks, the kNN mutual
+  information, the posterior hub on 16a's SISUA, the figures' data of
+  that hub (22), differential expression, and the latent-space scores of
+  16b's SCVI. Returns the ZINB launches of 16a, 16b, 17a and 22, and
+  16b's latent means."""
   launches, model, imp = phase_callbacks(torch, x, held, y, held_y)
   phase_knn_mi(torch, model, imp, x, y)
   del imp
   torch.cuda.empty_cache()
-  hub_launches, unplanted = phase_posterior(torch, model, x, y, held,
-                                            held_y)
-  del model
+  hub_launches, unplanted, hubs = phase_posterior(torch, model, x, y,
+                                                  held, held_y)
+  torch.cuda.empty_cache()
+  fig_launches = phase_figures(torch, model, x, y, held, held_y, *hubs)
+  del model, hubs
   torch.cuda.empty_cache()
   de_launches, z, labels = phase_de(torch, x)
   torch.cuda.empty_cache()
   phase_latent_scores(torch, z, labels, *unplanted)
-  return {k: v + de_launches[k] + hub_launches[k]
+  return {k: v + de_launches[k] + hub_launches[k] + fig_launches[k]
           for k, v in launches.items()}, z
 
 
@@ -3829,9 +3832,9 @@ def phase_posterior(torch, model, x, y, held, held_y):
   at the JAX defaults with ``device_cache=True``, ``save_scores()``, the
   proteins' ``cal_all_scores()``; then ``create_posterior`` at every
   default (``device_cache=False``) and its ``cal_llk``. Returns the ZINB
-  launches, and for 17b the model's latent means of all cells with
-  their protein bins' labels (the first positive protein), which hold
-  no planted groups."""
+  launches, for 17b the model's latent means of all cells with their
+  protein bins' labels (the first positive protein), which hold no
+  planted groups, and for phase 22 the two hubs."""
   import math
   import numpy as np
   from sisua_tpu_torch.models import base
@@ -3923,12 +3926,12 @@ def phase_posterior(torch, model, x, y, held, held_y):
       f"betavae {crt_scores['betavae']:.4f} factorvae "
       f"{crt_scores['factorvae']:.4f} ASW {crt_scores['ASW']:.4f}")
   embedding = post._protein_embedding()
-  del post
-  default_launches = _posterior_at_defaults(torch, model, data, names)
+  default_launches, post_default = _posterior_at_defaults(torch, model,
+                                                          data, names)
   zs = model.predict_mean([x, y], batch_size=HUB_BATCH)[1][0]
   bins = embedding.predict(y)
   return ({k: v + default_launches[k] for k, v in launches.items()},
-          (zs, np.argmax(bins, 1)))
+          (zs, np.argmax(bins, 1)), (post, post_default))
 
 
 def _posterior_at_defaults(torch, model, data, names):
@@ -3936,7 +3939,7 @@ def _posterior_at_defaults(torch, model, data, names):
   the predictions streamed to the host): ``cal_llk`` takes each 256
   cells of the host distributions to the card, through the fused
   forward (the draws as members), and equals their distribution math
-  there (rel ≤ HUB_LLK_RTOL). Returns the ZINB launches."""
+  there (rel ≤ HUB_LLK_RTOL). Returns the ZINB launches and the hub."""
   from sisua_tpu_torch.ops import zinb as tz
   torch.cuda.synchronize()
   t0 = time.perf_counter()
@@ -3967,8 +3970,7 @@ def _posterior_at_defaults(torch, model, data, names):
       f"({launches['zinb_rowsum_fwd']} forward launches on the host "
       f"distributions' draws), vs the distribution math at those draws: "
       f"worst rel {rel:.2e} (bound {HUB_LLK_RTOL})")
-  del post
-  return launches
+  return launches, post
 
 
 def _card_vs_cpu(torch, z, ids):
@@ -4145,6 +4147,335 @@ def _p20_equal(label, got, want, what="card equal to the CPU"):
   check(np.array_equal(np.asarray(got), np.asarray(want)),
         f"{label}: not {what}")
   log(f"[20 analysis] {label}: {what}")
+
+
+# phase 22: the figures' data on the card
+FIG_TOL = dict(rtol=1e-5, atol=1e-6)  # card vs CPU data steps (float32)
+# the min-max scaled dot plots and heatmaps (the CPU tests' bound): an ulp
+# of a float32 log1p mean, divided by the range the scaling divides by
+FIG_SCALED = ("_dotplot_", "_heatmap_")
+FIG_SCALED_ATOL = 1e-5
+FIG_PCA_ATOL = 2e-4   # PCA scatters: of a column's range (ROADMAP A23)
+FIG_TRUST = 0.02      # t-SNE / UMAP scatters: trustworthiness gap
+FIG_BUDGET_S = 120.0
+# the card-vs-CPU check's held-out cells: two of the hub's batches, so
+# that its batch loops cross a batch boundary on both devices
+FIG_CPU_CELLS = 2 * HUB_BATCH
+# the check's draws: the first of the hub's HUB_DRAWS (cal_llk's plain
+# ZINB over 10 draws of 512 × 33,000 took 42 s on the host's CPU)
+FIG_CPU_DRAWS = 2
+FIG_EMBEDDED = ("_tsne", "_umap", "protein_pairs", "latent_binary")
+FIG_PCA = ("_pca", "divergence", "disentanglement_scatter", "ScatterPlot")
+
+
+def _same_figure_data(name, card, cpu, z):
+  """A figure's data from the card against the CPU's: strings, shapes and
+  counts exactly, numbers within FIG_TOL (the scaled dot plots and
+  heatmaps within FIG_SCALED_ATOL); a PCA embedding within
+  FIG_PCA_ATOL of each column's range, a t-SNE/UMAP embedding by its
+  trustworthiness against the latents ``z`` (FIG_TRUST)."""
+  import numpy as np
+  from sisua_tpu_torch.analysis.manifold import trustworthiness
+
+  def walk(a, b, where):
+    if isinstance(a, dict):
+      check(isinstance(b, dict) and list(a) == list(b), f"{where} keys")
+      for k in a:
+        walk(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+      check(isinstance(b, (list, tuple)) and len(a) == len(b),
+            f"{where} length")
+      for i, (u, v) in enumerate(zip(a, b)):
+        walk(u, v, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray) and a.dtype.kind in "fiu":
+      b = np.asarray(b)
+      check(a.shape == b.shape, f"{where} shape {a.shape} vs {b.shape}")
+      if where.endswith(".emb") and any(k in name for k in FIG_EMBEDDED):
+        ta = trustworthiness(z, a, device=DEVICE)
+        tb = trustworthiness(z, b, device=DEVICE)
+        check(abs(ta - tb) <= FIG_TRUST,
+              f"{where} trustworthiness card {ta:.4f} cpu {tb:.4f}")
+      elif where.endswith(".emb") and any(k in name for k in FIG_PCA):
+        span = np.ptp(b, axis=0) if len(b) else 0
+        check(np.all(np.abs(a - b) <= FIG_PCA_ATOL * span + 1e-6),
+              f"{where}: PCA beyond {FIG_PCA_ATOL} of the range")
+      else:
+        tol = dict(FIG_TOL)
+        if any(k in name for k in FIG_SCALED):
+          tol["atol"] = FIG_SCALED_ATOL
+        ok = np.allclose(a.astype(np.float64), b.astype(np.float64),
+                         equal_nan=True, **tol)
+        check(ok, f"{where}: max |Δ| "
+              f"{np.nanmax(np.abs(a.astype(np.float64) - b)):.3e}")
+    elif isinstance(a, float):
+      check(abs(a - b) <= FIG_TOL["atol"] + FIG_TOL["rtol"] * abs(b)
+            or (a != a and b != b), f"{where}: {a!r} vs {b!r}")
+    else:
+      a, b = np.asarray(a), np.asarray(b)
+      check(a.shape == b.shape and bool(np.all(a == b)),
+            f"{where}: {a!r} vs {b!r}")
+  walk(card, cpu, name)
+
+
+def _sub_hub(torch, model, post, data, names, device, n, draws):
+  """A hub of the first ``n`` cells and ``draws`` draws of ``post``'s
+  data and predictions (host distributions, sliced) whose data steps run
+  on ``device``: a copy of the model there whose ``predict`` gives the
+  slices (the corrupted source, then the original)."""
+  import copy
+  import sisua_tpu_torch.dist as TD
+  from sisua_tpu_torch.analysis import Posterior
+  from sisua_tpu_torch.analysis.posterior import _rows
+
+  def first(d):  # cells, then draws (the leading sample axis)
+    d = _rows(d, 0, n, "cpu")
+    if len(d.batch_shape) < 2:
+      return d
+    s, rank = d.batch_shape[0], len(d.batch_shape)
+    return TD.tree_map(lambda t: t.narrow(0, 0, draws)
+                       if t.ndim > rank and t.shape[0] == s else t, d)
+
+  def cut(d):
+    return tuple(first(t) for t in d) if isinstance(d, tuple) else first(d)
+  sub = copy.copy(model)
+  sub.device = torch.device(device)
+  preds = iter([(cut(post.pX_cor), cut(post.qZ_cor)),
+                (cut(post.pX_org), cut(post.qZ_org))])
+  sub.predict = lambda *a, **k: next(preds)
+  hub = Posterior(sub, {k: v[:n].cpu() for k, v in data.items()},
+                  var_names=names, sample_shape=draws, seed=8)
+  hub.name = post.name
+  return hub
+
+
+def _share_trees(src_hub, hub):
+  """The DCI's boosted trees (``Criticizer.create_importance_matrix``)
+  grow on the host from a criticizer's host arrays, whatever the hub's
+  device, and its split is the only draw from the criticizer's own
+  stream. So where a criticizer of ``hub`` has latents and factors equal,
+  bitwise, to one of ``src_hub``'s that grew them, it takes those trees
+  instead of growing the same ones again. Returns the list of the factor
+  names shared (filled as ``hub`` makes its criticizers)."""
+  import numpy as np
+  shared = []
+
+  def share(crt):
+    for src in src_hub.criticizers.values():
+      if ("imp" in src._cache
+          and np.array_equal(src.latents, crt.latents)
+          and np.array_equal(src.factors, crt.factors)):
+        crt._cache["imp"] = src._cache["imp"]
+        shared.append(list(crt.factor_names))
+        break
+    return crt
+  for crt in hub.criticizers.values():
+    share(crt)
+  make = hub._criticizer
+  hub._criticizer = lambda factors, names: share(make(factors, names))
+  return shared
+
+
+def _monitors(held, held_y, prots, root):
+  """22c's three monitors on the held-out cells, every epoch."""
+  from sisua_tpu_torch.analysis import (HeatmapPlot, LearningCurves,
+                                        ScatterPlot)
+  kw = dict(data=[held, held_y], freq=1)
+  return [LearningCurves(root, **kw),
+          ScatterPlot(root, labels=held_y, label_names=prots, **kw),
+          HeatmapPlot(root, **kw)]
+
+
+def _hub_figures(torch, hub, second):
+  """The data of ``hub.plot_all(full=True)`` and of the ResultsSheet's
+  ``plot_all`` over ``hub`` and ``second``, with their seconds."""
+  from sisua_tpu_torch.analysis import ResultsSheet
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with hub.figure_data() as figs:
+    hub.plot_all(full=True)
+  torch.cuda.synchronize()
+  t1 = time.perf_counter()
+  sheet = ResultsSheet(hub, second)
+  with sheet.figure_data() as sheet_figs:
+    sheet.plot_all()
+  torch.cuda.synchronize()
+  return figs, sheet_figs, t1 - t0, time.perf_counter() - t1
+
+
+def _families(post):
+  return [m for m in dir(post) if m.startswith("plot_") and m != "plot_all"]
+
+
+def _top(seconds, k=6):
+  return ", ".join(f"{name} {v:.3f}" for name, v in sorted(
+      seconds.items(), key=lambda kv: -kv[1])[:k])
+
+
+def phase_figures(torch, model, x, y, held, held_y, post, post_default):
+  """Phase 22: the data step of every figure of ``plot_all(full=True)``
+  of 17a's hub (16a's SISUA on the held-out cells), of
+  ``ResultsSheet.plot_all`` over it and 17a's second hub of the same data
+  (the one at ``create_posterior``'s defaults), and of the three monitors
+  over one SISUA epoch, on the card. The data steps are held against the
+  CPU's on the first FIG_CPU_CELLS held-out cells and FIG_CPU_DRAWS draws
+  (hubs of the same predictions on the card and on the CPU; the sheet's
+  second hub 17a's second in both; the DCI's host trees grown once, see
+  ``_share_trees``). Then the renders' refusal:
+  the card has no matplotlib. Returns the ZINB launches of the main path
+  (the battery, the sheet and the monitors' epoch; the card-vs-CPU
+  check's own launches are left out)."""
+  import contextlib
+  import sisua_tpu_torch.dist as TD
+  from sisua_tpu_torch.analysis.sc_metrics import _first
+  from sisua_tpu_torch.models import SISUA
+  from sisua_tpu_torch.ops import zinb as tz
+  genes, prots = _marker_names()
+  data = {"transcriptomic": held, "proteomic": held_y}
+  names = {"transcriptomic": genes, "proteomic": prots}
+  n = FIG_CPU_CELLS
+  log(f"[22 figures] the battery on 17a's hub of {HELD_OUT} held-out cells "
+      f"(its t-SNE, UMAP, mutual-information and importance data on all "
+      f"of them, no cut); card against CPU on the first {n} held-out cells "
+      f"({n // HUB_BATCH} of the hub's batches of {HUB_BATCH}) and the "
+      f"first {FIG_CPU_DRAWS} of its {HUB_DRAWS} draws, the sheet's "
+      f"second hub there 17a's second (scored once, on the card): the "
+      f"cuts keep phase 22 in its budget")
+  torch.cuda.synchronize()
+  base_mem = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  tz.reset_launches()
+  t_phase = time.perf_counter()
+  seconds = _timed_methods(torch, post, _families(post))
+  card, sheet_card, card_s, sheet_s = _hub_figures(torch, post,
+                                                   post_default)
+  launches = dict(tz.launches)  # the main path's: the battery and sheet
+  peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+  check(len(card) >= 30 and len(sheet_card) >= 10 and not post.figures,
+        f"{len(card)} hub figures, {len(sheet_card)} sheet figures")
+  log(f"[22a posterior figures] plot_all(full=True) data on the card: "
+      f"{len(card)} figures in {card_s:.2f} s; peak {peak:.2f} GiB above "
+      f"the resident {base_mem / 2**30:.2f} GiB; launches {launches} "
+      f"(17a cached both hubs' cal_llk)")
+  log("[22a posterior figures] seconds by figure family: "
+      + _top(seconds, len(seconds)))
+  log(f"[22b results sheet] plot_all() data over 17a's two hubs on the "
+      f"card: {len(sheet_card)} figures in {sheet_s:.2f} s (the second "
+      f"hub's scores included): {list(sheet_card)}")
+  # the same data steps on the card and on the CPU, from one prediction;
+  # their launches are not the main path's
+  t0 = time.perf_counter()
+  got, took, card_hub = {}, {}, None
+  for dev in (DEVICE, "cpu"):
+    hub = _sub_hub(torch, model, post, data, names, dev, n, FIG_CPU_DRAWS)
+    if card_hub is not None:  # the host's trees are grown once
+      shared = _share_trees(card_hub, hub)
+    fam = _timed_methods(torch, hub, _families(hub))
+    figs, sheet_figs, hub_s, sh_s = _hub_figures(torch, hub, post_default)
+    got[dev] = (figs, sheet_figs)
+    took[dev] = (hub_s, sh_s, fam)
+    card_hub = hub
+  del hub, card_hub
+  check(len(shared) == 2, f"the CPU hub shared the trees of {len(shared)} "
+        f"criticizers, not of its 2 (the proteins and the imputed ones)")
+  check_launches = dict(tz.launches)
+  (cf, cs), (hf, hs) = got[DEVICE], got["cpu"]
+  check(list(cf) == list(hf) == list(card),
+        f"hub figure names differ: card {list(cf)}, cpu {list(hf)}, "
+        f"full {list(card)}")
+  check(list(cs) == list(hs) == list(sheet_card),
+        f"sheet figure names differ: card {list(cs)}, cpu {list(hs)}, "
+        f"full {list(sheet_card)}")
+  z = post.latents[:n]
+  t1 = time.perf_counter()
+  for figs_c, figs_h in ((cf, hf), (cs, hs)):
+    for k in figs_c:
+      _same_figure_data(k, figs_c[k], figs_h[k], z)
+  t2 = time.perf_counter()
+  log(f"[22a/b card vs CPU] {len(cf)} hub and {len(cs)} sheet figures of "
+      f"{n} cells: names and data equal (tol {FIG_TOL}, scaled dot plots "
+      f"and heatmaps atol {FIG_SCALED_ATOL}, PCA {FIG_PCA_ATOL} "
+      f"of a column's range, t-SNE/UMAP trustworthiness within "
+      f"{FIG_TRUST}) in {t2 - t0:.2f} s (the comparison {t2 - t1:.2f} s); "
+      f"the check's own launches {check_launches}, not counted; the "
+      f"DCI's boosted trees (host code on host arrays, equal bitwise on "
+      f"both hubs) grown once, on the card's hub, for {len(shared)} "
+      f"criticizers")
+  for dev, (hub_s, sh_s, fam) in took.items():
+    log(f"[22a/b card vs CPU] on {dev}: battery {hub_s:.2f} s, sheet "
+        f"{sh_s:.2f} s; slowest families: {_top(fam)}")
+  # 22c: the monitors over one SISUA epoch, then card vs CPU data steps
+  root = tempfile.mkdtemp(prefix="chip_smoke_monitors_")
+  try:
+    mons = _monitors(held, held_y, prots, root)
+    fresh = SISUA(_sisua_outputs(), alpha=ALPHA, device=DEVICE, seed=SEED)
+    tz.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+      fired = [stack.enter_context(m.figure_data()) for m in mons]
+      fresh.fit([x, y], epochs=1, batch_size=BATCH, learning_rate=1e-3,
+                labels_percent=LABELS_PERCENT, device_cache=True,
+                callbacks=mons)
+      torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: v + tz.launches[k] for k, v in launches.items()}
+    check(not os.listdir(root), "a monitor wrote files in its data mode")
+    fired = {type(m).__name__: list(d) for m, d in zip(mons, fired)}
+    check(fired["ScatterPlot"] == ["ScatterPlot_epoch0000"]
+          and fired["HeatmapPlot"] == ["HeatmapPlot_epoch0000"],
+          f"monitor firings {fired}")
+    pX, qZ = fresh.predict([held, held_y], sample_shape=(2,),
+                           batch_size=HUB_BATCH)
+    to = lambda d, dev: TD.tree_map(lambda t: t.to(dev), d)  # noqa: E731
+    t0 = time.perf_counter()
+    for m in mons[1:]:
+      yc = [held, held_y]
+      dc = m._figure_data(m._reduce(yc, tuple(to(d, DEVICE) for d in pX),
+                                    to(qZ, DEVICE)), yc)
+      yh = [held.cpu(), held_y.cpu()]
+      dh = m._figure_data(m._reduce(yh, pX, qZ), yh)
+      _same_figure_data(type(m).__name__, dc, dh,
+                        _first(qZ).mean().numpy())
+    torch.cuda.synchronize()
+    mon_s = time.perf_counter() - t0
+    del fresh, pX, qZ
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  log(f"[22c monitors] SISUA 1 epoch ({CELLS} × {GENES}) with "
+      f"LearningCurves, ScatterPlot and HeatmapPlot (in their "
+      f"figure_data blocks) {fit_s:.2f} s, firings {fired}; their data "
+      f"steps over a served prediction of the {HELD_OUT} held-out cells "
+      f"equal to the CPU's ({mon_s:.2f} s)")
+  # 22d: the renders refuse without matplotlib, before any work
+  import importlib.util
+  present = importlib.util.find_spec("matplotlib") is not None
+  saved = sys.modules.get("matplotlib")
+  if present:
+    sys.modules["matplotlib"] = None  # the card case, made here
+  try:
+    for what, run in (("plot_all", lambda: post.plot_all(full=True)),
+                      ("sisua-evaluate", lambda: __import__(
+                          "sisua_tpu_torch.cli.evaluate", fromlist=["main"])
+                       .main(["-model", "sisua", "--device", DEVICE]))):
+      try:
+        run()
+        raise RuntimeError(f"check failed: {what} ran without matplotlib")
+      except ImportError as e:
+        check("matplotlib" in str(e), f"{what}: {e}")
+  finally:
+    if present:
+      if saved is None:
+        del sys.modules["matplotlib"]
+      else:
+        sys.modules["matplotlib"] = saved
+  check(not post.figures, "a figure was drawn")
+  total_s = time.perf_counter() - t_phase
+  log(f"[22d renders] plot_all and sisua-evaluate without --no-plots stop "
+      f"with an ImportError naming matplotlib (matplotlib "
+      f"{'installed, blocked for the check' if present else 'absent'})")
+  log(f"[22 figures] phase 22 {total_s:.1f} s (budget {FIG_BUDGET_S:.0f} "
+      f"s{', OVER' if total_s > FIG_BUDGET_S else ''}); main-path launches "
+      f"{launches} (the battery and sheet, the monitors' epoch)")
+  return launches
 
 
 def phase_data_analysis(torch, x, y):
@@ -4893,7 +5224,7 @@ def main():
     mark("15a-d, 19")
     analysis_launches, z = phase_analysis(torch, x, held, y, held_y)
     torch.cuda.empty_cache()
-    mark("16-17")
+    mark("16-17, 22")
     full, counts = phase_data_analysis(torch, x, y)
     mark("20")
     del x, held, y, held_y

@@ -42,6 +42,7 @@ setup(
             "sisua-torch-predict=sisua_tpu_torch.cli.predict:main",
             "sisua-torch-evaluate=sisua_tpu_torch.cli.evaluate:main",
             "sisua-torch-embed=sisua_tpu_torch.label_threshold:main",
+            "sisua-torch-showdata=sisua_tpu_torch.cli.showdata:main",
         ],
     },
     test_suite="tests",

@@ -26,8 +26,11 @@ scores; ``label_threshold.ProbabilisticEmbedding``;
 information on the card), and the experiment entry points: the YAML
 experimenter and its sqlite scoreboard (``train.experimenter``,
 ``train.scoreboard``), ``fit_hyper``, the numpy synthetic datasets behind
-``data.get_dataset``, ``analysis.ResultsSheet``'s score table, and the
-``cli`` package (train, predict, evaluate, embed); the data analyzer of
+``data.get_dataset``, ``analysis.ResultsSheet``, ``cross_analyze`` and the
+``cli`` package (train, predict, evaluate, embed, showdata); the figures
+(each a data step in torch on the device and a matplotlib render step:
+the ``plot_*`` methods of ``SingleCellOMIC``, ``Posterior`` and
+``ResultsSheet``, the monitor callbacks); the data analyzer of
 ``data.SingleCellOMIC`` (QC, filters, PCA/UMAP, neighbours, clusterings,
 rank tests, correlations, mutual information, importances, PCA, t-SNE
 and UMAP) on the card, ``utils``, and the classical baselines
@@ -42,7 +45,8 @@ __version__ = "0.1.0"
 
 _SUBMODULES = ("data", "models", "train", "dist", "nn", "rv", "ops",
                "interpolation", "convert", "native", "analysis",
-               "label_threshold", "baselines", "cli", "utils")
+               "label_threshold", "baselines", "cli", "utils",
+               "cross_analyze")
 
 
 def __getattr__(name):

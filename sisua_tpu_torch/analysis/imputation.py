@@ -10,8 +10,10 @@
 Each takes numpy arrays or tensors. With a tensor among the arguments the
 score is computed where that tensor lies (the others are moved there),
 and a median is ``np.median``'s: for an even count, the mean of the two
-middle values (``torch.median`` returns the lower one). The plots wait for
-the port's plotting layer (ROADMAP A12b).
+middle values (``torch.median`` returns the lower one).
+``plot_imputation`` and ``plot_imputation_series`` compute their log1p
+series (and the regression line) in torch where the data lies, and draw
+with matplotlib (``utils.visualization``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from ..data.utils import standardize_protein_name
 
 __all__ = ["imputation_score", "imputation_mean_score",
            "imputation_std_score", "correlation_scores",
-           "get_imputed_indices"]
+           "get_imputed_indices", "plot_imputation",
+           "plot_imputation_series"]
 
 
 def _median(t: torch.Tensor, dim=None) -> torch.Tensor:
@@ -157,3 +160,98 @@ def correlation_scores(X, y,
       pear = float(sp_stats.pearsonr(a, b).statistic)
     scores[f"{prot}/{gene}"] = (spear, pear)
   return scores
+
+
+def _imputation_series_data(original, imputed) -> dict:
+  """log1p of both series in float64, and the least-squares line of the
+  imputed on the original."""
+  x = torch.log1p(_float64(original).reshape(-1))
+  y = torch.log1p(_float64(imputed, x.device).reshape(-1))
+  if x.numel() > 1:
+    xm, ym = x.mean(), y.mean()
+    slope = float(((x - xm) * (y - ym)).sum() / ((x - xm) ** 2).sum())
+    intercept = float(ym - slope * xm)
+  else:
+    slope, intercept = 1.0, 0.0
+  return dict(x=x.cpu().numpy(), y=y.cpu().numpy(), slope=slope,
+              intercept=intercept)
+
+
+def _float64(a, device=None) -> torch.Tensor:
+  t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+  return t.to(device=device if device is not None else t.device,
+              dtype=torch.float64)
+
+
+def plot_imputation_series(original, imputed, title: str = "Imputation"):
+  """Pairwise original/imputed series: joint scatter with a regression
+  line + identity, and marginal histograms (a 2×2 grid)."""
+  from ..utils.visualization import _pyplot
+  d = _imputation_series_data(original, imputed)
+  x, y, slope, intercept = d["x"], d["y"], d["slope"], d["intercept"]
+  plt = _pyplot()
+  max_val = float(max(x.max(), y.max())) if x.size else 1.0
+  fig, axes = plt.subplots(2, 2, figsize=(8, 8))
+  axes[0][0].hist(x, bins=180, color="g", alpha=0.8)
+  axes[0][0].set_xlabel("Original Value")
+  axes[1][1].hist(y, bins=180, color="g", alpha=0.8)
+  axes[1][1].set_xlabel("Imputed Value")
+  grid = np.linspace(0, max_val, 50)
+  for ax, (a, b) in ((axes[0][1], (x, y)), (axes[1][0], (y, x))):
+    ax.scatter(a, b, s=2, alpha=0.6, color="g", linewidths=0)
+    if ax is axes[0][1]:
+      fit = slope * grid + intercept
+    elif abs(slope) > 1e-8:
+      fit = (grid - intercept) / slope  # an anti-correlated imputation
+      # keeps its negative slope
+    else:
+      fit = np.full_like(grid, np.nan)  # vertical line: nothing to draw
+    ax.plot(grid, fit, color="red", alpha=0.8, lw=1.2)
+    ax.plot(grid, grid, linestyle="--", linewidth=1, color="black")
+    ax.set_xlim((0, max_val))
+    ax.set_ylim((0, max_val))
+  axes[0][1].set_xlabel("Original Value")
+  axes[0][1].set_ylabel("Imputed Value")
+  axes[1][0].set_xlabel("Imputed Value")
+  axes[1][0].set_ylabel("Original Value")
+  fig.suptitle(title)
+  fig.tight_layout()
+  return fig
+
+
+def _imputation_data(original, imputed, device=None) -> dict:
+  """log1p of both matrices, flattened (their dtype), a ``default_rng(0)``
+  sample of 200,000 entries when there are more."""
+  o = original if isinstance(original, torch.Tensor) else torch.as_tensor(
+      np.asarray(original))
+  o = o.to(device) if device is not None else o
+  i = imputed if isinstance(imputed, torch.Tensor) else torch.as_tensor(
+      np.asarray(imputed))
+  x, y = torch.log1p(o.reshape(-1)), torch.log1p(i.to(o.device).reshape(-1))
+  if len(x) > 200000:
+    idx = np.random.default_rng(0).choice(len(x), 200000, replace=False)
+    idx = torch.as_tensor(idx, device=x.device)
+    x, y = x[idx], y[idx]
+  return dict(x=x.cpu().numpy(), y=y.cpu().numpy())
+
+
+def plot_imputation(original, imputed, corrupted=None,
+                    title: str = "Imputation"):
+  """Density (hexbin) scatter of the original against the imputed
+  values, log1p."""
+  d = _imputation_data(original, imputed)
+  return _render_imputation(title=title, **d)
+
+
+def _render_imputation(x, y, title):
+  from ..utils.visualization import _pyplot
+  plt = _pyplot()
+  fig, ax = plt.subplots(figsize=(6, 6))
+  hb = ax.hexbin(x, y, gridsize=60, bins="log", cmap="viridis")
+  lim = max(x.max(), y.max())
+  ax.plot([0, lim], [0, lim], "r--", lw=1)
+  ax.set_xlabel("log1p original")
+  ax.set_ylabel("log1p imputed")
+  ax.set_title(title)
+  fig.colorbar(hb, ax=ax)
+  return fig

@@ -33,8 +33,16 @@ failing alone (its name and error kept in ``failures``).
 
 The distributions stay on the host as ``predict`` returns them. The
 log-likelihoods, the estimators of the criticizers and the protein
-classification run on the model's device. The plots wait for the port's
-plotting layer, ``mesh=`` for ROADMAP A21.
+classification run on the model's device.
+
+The hub is a ``Visualizer``: its 20 ``plot_*`` methods and ``plot_all``
+give the JAX hub's figures under the JAX names, in its order. Their data
+steps run on the model's device; the figures of the container (scatter,
+violins, heatmaps, dendrogram, dot plot, marker matrices and scatters)
+come from ``sco_analysis``, the port's ``SingleCellOMIC`` of the original
+omics, the imputed ``i<omic>`` and ``latent``, built at the first figure
+that needs it. ``figure_data()`` runs the data steps alone (no
+matplotlib). ``mesh=`` waits for ROADMAP A21.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from .. import dist as D
 from ..data.const import MARKER_ADT_GENE
 from ..data.utils import apply_artificial_corruption
 from ..models.objective import mc_row_log_prob
+from ..utils.visualization import Visualizer, _pyplot, _seaborn
 from .criticizer import Criticizer
 from .imputation import (correlation_scores, imputation_mean_score,
                          imputation_score, imputation_std_score)
@@ -116,7 +125,7 @@ def _rows(dist, lo: int, hi: int, device):
   return D.tree_map(take, dist)
 
 
-class Posterior:
+class Posterior(Visualizer):
   """Posterior analysis of a fitted SingleCellModel on test matrices."""
 
   def __init__(self,
@@ -568,3 +577,480 @@ class Posterior:
       with open(path, "w") as f:
         json.dump(scores, f, indent=2)
     return scores
+
+  # --------------------------------------------------------------- figures
+  @property
+  def sco_analysis(self):
+    """The analysis dataset as the port's ``SingleCellOMIC``: the original
+    omics, the imputed mirrors and ``latent``, under their var names
+    (made once, at the first figure that needs it)."""
+    if getattr(self, "_sco_analysis", None) is None:
+      from ..data.dataset import SingleCellOMIC
+      omics = list(self.data) + [o for o in self.analysis
+                                 if o not in self.data]
+      first = omics[0]
+      ana = SingleCellOMIC(self.analysis[first],
+                           gene_id=self.analysis_var_names[first],
+                           omic=first, name=self.name)
+      for o in omics[1:]:
+        ana.add_omic(o, self.analysis[o], self.analysis_var_names[o])
+      self._sco_analysis = ana
+    return self._sco_analysis
+
+  @property
+  def _dev(self):
+    return self.scm.device
+
+  def _tag(self, omic) -> str:
+    o = _omic(omic)
+    return o if (o in self.data or o in self.analysis) else str(omic)
+
+  def plot_scatter(self, color_by: Optional[str] = None, algo: str = "tsne"):
+    """Latent embedding scatter colored by a factor omic (or an imputed
+    one, ``i<omic>``), named ``<name>_latent_<factor>_<algo>``."""
+    color_by = color_by or (self.factor_omics[0] if self.factor_omics
+                            else None)
+    tag = "none" if color_by is None else self._tag(color_by)
+    ana = self.sco_analysis
+    return self._take(ana, lambda: ana.plot_scatter(
+        X="latent", color_by=color_by, algo=algo,
+        title=f"{self.name}_latent_{tag}_{algo}", device=self._dev))
+
+  def plot_imputation_scatter(self):
+    from .imputation import _imputation_data, _render_imputation
+    org = self.original(self.main_omic)
+    imp = self.analysis[f"i{self.main_omic}"]
+    data = dict(title=self.name, **_imputation_data(
+        torch.as_tensor(org, device=self._dev), imp))
+    return self._draw(f"{self.name}_imputation", data, _render_imputation)
+
+  def plot_distance_heatmap(self, factor_omic: Optional[str] = None,
+                            omic: Optional[str] = None):
+    """Group-centroid distance heatmap: in the latent space
+    (``omic=None``), or in an omic's expression space (the container's
+    figure, ``<name>_distheatmap_<omic>_<factor>``)."""
+    from ..data.visualizer import _render_distance_heatmap
+    from .latent import _distance_heatmap_data
+    factor_omic = factor_omic or (self.factor_omics[0]
+                                  if self.factor_omics else None)
+    if factor_omic is None:
+      return self
+    if omic is not None:
+      if _omic(omic) not in self.analysis:
+        return self
+      return self._delegate(
+          "plot_distance_heatmap",
+          rename=f"{self.name}_distheatmap_{_omic(omic)}_"
+                 f"{_omic(factor_omic)}",
+          X=omic, group_by=factor_omic)
+    labels = np.argmax(self.original(factor_omic), 1)
+    names = np.asarray(self.var_names[factor_omic])
+    data = dict(title=self.name, **_distance_heatmap_data(
+        self.latents, names[labels], device=self._dev))
+    return self._draw(f"{self.name}_distance_{factor_omic}", data,
+                      _render_distance_heatmap)
+
+  def plot_correlation_matrix(self, method: str = "spearman",
+                              factor_omic: str = "proteomic",
+                              omic1: Optional[str] = None):
+    """Correlation heatmap: latent × factor (``omic1=None``; spearman,
+    pearson, mi or importance), or the container's marker-pair matrix of
+    an omic's genes and the factor omic."""
+    if omic1 is not None:
+      o1, f = _omic(omic1), _omic(factor_omic)
+      if o1 not in self.analysis or f not in self.analysis:
+        return self
+      delegate = {"spearman": "plot_spearman_matrix",
+                  "pearson": "plot_pearson_matrix",
+                  "mi": "plot_mutual_information",
+                  "mutual_information": "plot_mutual_information"}[method]
+      return self._delegate(delegate,
+                            rename=f"{self.name}_{method}_{o1}_{f}",
+                            omic1=o1, omic2=f)
+    if factor_omic not in self.criticizers:
+      return self
+    data = dict(m=np.asarray(self.get_correlation_matrix(method,
+                                                         factor_omic)),
+                method=method, factor_omic=factor_omic,
+                names=list(self.var_names[factor_omic]))
+    return self._draw(f"{self.name}_{method}_{factor_omic}", data,
+                      _render_correlation_matrix)
+
+  def plot_latents_protein_pairs(self):
+    from .latent import _protein_pairs_data, _render_protein_pairs
+    if "proteomic" not in self.data:
+      return self
+    d = _protein_pairs_data(self.latents, self.original("proteomic"),
+                            self.var_names["proteomic"], device=self._dev)
+    if d is not None:
+      self._draw(f"{self.name}_protein_pairs", dict(title=self.name, **d),
+                 _render_protein_pairs)
+    return self
+
+  def plot_latents_binary(self):
+    from .latent import _latents_binary_data, _render_latents_binary
+    if "proteomic" not in self.data:
+      return self
+    ybin = self._protein_embedding().predict(self.original("proteomic"))
+    data = dict(title=self.name, **_latents_binary_data(
+        self.latents, ybin, self.var_names["proteomic"], device=self._dev))
+    return self._draw(f"{self.name}_latent_binary", data,
+                      _render_latents_binary)
+
+  def plot_learning_curves(self, summary_steps: int = 1):
+    hist = self.scm.history
+    if not hist:
+      return self
+    data = dict(curves={k: np.asarray(hist[k], np.float64)
+                        for k in ("loss", "val_loss") if k in hist},
+                title=f"{self.name} learning curves")
+    return self._draw(f"{self.name}_learning_curves", data,
+                      _render_learning_curves)
+
+  def plot_confusion_matrix(self, factor_omic: Optional[str] = None):
+    factor_omic = factor_omic or ("celltype" if "celltype" in self.data
+                                  else None)
+    if factor_omic is None:
+      return self
+    true = np.argmax(self.original(factor_omic), 1)
+    pred = self.sco_analysis.clustering(
+        "latent", n_clusters=int(true.max() + 1), algo="kmeans",
+        matching_labels=factor_omic, device=self._dev)
+    k = int(max(true.max(), pred.max()) + 1)
+    cm = np.zeros((k, k))
+    np.add.at(cm, (true, pred), 1)
+    return self._draw(f"{self.name}_confusion_{factor_omic}",
+                      dict(cm=cm, factor_omic=factor_omic),
+                      _render_confusion)
+
+  def plot_disentanglement(self, factor_omic: Optional[str] = None):
+    """Per criticizer: the |spearman| latent × factor heatmap and the
+    disentanglement suite's bars."""
+    factors = ([factor_omic] if factor_omic is not None
+               else list(self.criticizers))
+    for f in factors:
+      try:
+        crt = self.get_criticizer(f)  # makes imputed-factor criticizers
+      except ValueError:
+        continue
+      m = np.abs(crt.create_correlation_matrix("spearman"))
+      scores = crt.cal_all_scores()
+      data = dict(m=m, factor=f, names=list(scores),
+                  values=[scores[k] for k in scores])
+      self._draw(f"{self.name}_disentanglement_{f}", data,
+                 _render_disentanglement)
+    return self
+
+  def _delegate(self, method: str, rename: Optional[str] = None, **kwargs):
+    """Run a figure method of ``sco_analysis`` and take its figures (or
+    their data), named ``rename`` or ``<name>_<figure>``."""
+    ana = self.sco_analysis
+    return self._take(
+        ana, lambda: getattr(ana, method)(device=self._dev, **kwargs),
+        lambda k: rename or f"{self.name}_{k}")
+
+  def plot_violins(self, omic: Optional[str] = None,
+                   group_by: Optional[str] = None):
+    """Marker-variable violins on the analysis dataset (imputed omic)."""
+    omic = omic or f"i{self.main_omic}"
+    group = group_by or (self.factor_omics[0] if self.factor_omics else None)
+    if group is None or omic not in self.analysis:
+      return self
+    return self._delegate("plot_stacked_violins", X=omic, group_by=group)
+
+  def plot_heatmap(self, omic: Optional[str] = None,
+                   group_by: Optional[str] = None):
+    """Grouped marker heatmap (original or imputed omic)."""
+    omic = omic or f"i{self.main_omic}"
+    group = group_by or (self.factor_omics[0] if self.factor_omics else None)
+    if group is None or omic not in self.analysis:
+      return self
+    return self._delegate("plot_heatmap", X=omic, group_by=group)
+
+  def plot_dendrogram(self, omic: Optional[str] = None,
+                      group_by: Optional[str] = None):
+    """Ward-linkage dendrogram heatmap of group centroids."""
+    omic = omic or f"i{self.main_omic}"
+    group = group_by or (self.factor_omics[0] if self.factor_omics else None)
+    if group is None or omic not in self.analysis:
+      return self
+    return self._delegate(
+        "plot_dendrogram_heatmap",
+        rename=f"{self.name}_dendrogram_{omic}_{_omic(group)}",
+        X=omic, group_by=group)
+
+  def plot_dotplot(self, omic: Optional[str] = None,
+                   group_by: Optional[str] = None):
+    omic = omic or f"i{self.main_omic}"
+    group = group_by or (self.factor_omics[0] if self.factor_omics else None)
+    if group is None or omic not in self.analysis:
+      return self
+    return self._delegate("plot_dotplot", X=omic, group_by=group)
+
+  def plot_correlation_scatter(self, imputed: bool = True):
+    """Top marker gene↔protein scatter pairs, on the original or the
+    imputed transcriptome."""
+    if "proteomic" not in self.data:
+      return self
+    omic1 = f"i{self.main_omic}" if imputed else self.main_omic
+    if omic1 not in self.analysis:
+      return self
+    return self._delegate("plot_correlation_scatter", omic1=omic1,
+                          omic2="proteomic")
+
+  def plot_divergence(self, algo: str = "pca"):
+    """Latent embedding colored by each protein's level."""
+    if "proteomic" not in self.data:
+      return self
+    return self._delegate("plot_divergence", X="latent", omic="proteomic",
+                          algo=algo)
+
+  def plot_disentanglement_scatter(self, factor_omic: str = "proteomic",
+                                   pairs=None, n_pairs: int = 6):
+    """Latent 2-D PCA colored by the log-contrast of opposing factor
+    pairs (``PROTEIN_PAIR_NEGATIVE``)."""
+    from ..data.const import PROTEIN_PAIR_NEGATIVE
+    from ..data.utils import standardize_protein_name
+    if factor_omic in self.data:
+      values = self.original(factor_omic)
+    elif factor_omic in self.analysis:  # imputed factors
+      values = self.analysis[factor_omic]
+    else:
+      return self
+    raw_names = list(map(str, self.analysis_var_names[factor_omic]))
+    # knowledge-base pairs match the standardized names, explicit pairs
+    # the raw names too
+    name_idx = {}
+    for i, n in enumerate(raw_names):
+      name_idx.setdefault(standardize_protein_name(n), i)
+    for i, n in enumerate(raw_names):
+      name_idx.setdefault(n, i)
+    if pairs is None:
+      pairs = [(a, b) for a, b in PROTEIN_PAIR_NEGATIVE
+               if a in name_idx and b in name_idx]
+    pairs = [p for p in pairs
+             if p[0] in name_idx and p[1] in name_idx][:n_pairs]
+    if not pairs:
+      return self
+    emb = self.sco_analysis.dimension_reduce("latent", n_components=2,
+                                             algo="pca", device=self._dev)
+    y = torch.log1p(torch.as_tensor(values, device=self._dev))
+    contrast = torch.stack([y[:, name_idx[a]] - y[:, name_idx[b]]
+                            for a, b in pairs], 1)
+    data = dict(emb=np.asarray(emb), contrast=contrast.cpu().numpy(),
+                pairs=[(str(a), str(b)) for a, b in pairs])
+    return self._draw(f"{self.name}_disentanglement_scatter_{factor_omic}",
+                      data, _render_disentanglement_scatter)
+
+  def plot_llk_bars(self):
+    """4-way imputed/reconstructed × original/corrupted LLK bars (the
+    cached ``cal_llk``)."""
+    llk = self.cal_llk()
+    if not llk:
+      return self
+    return self._draw(f"{self.name}_llk",
+                      dict(llk=dict(llk), title=f"{self.name} 4-way LLK"),
+                      _render_llk)
+
+  def plot_protein_prediction(self, n_proteins: int = 9):
+    """Predicted vs true ADT scatter grid (models with a protein head)."""
+    if "proteomic" not in self.data or "iproteomic" not in self.analysis:
+      return self
+    names = self.var_names["proteomic"]
+    n = min(n_proteins, len(names))
+    y = torch.log1p(torch.as_tensor(self.original("proteomic")[:, :n],
+                                    device=self._dev))
+    yhat = torch.log1p(torch.as_tensor(self.analysis["iproteomic"][:, :n],
+                                       device=self._dev))
+    data = dict(y=y.cpu().numpy(), yhat=yhat.cpu().numpy(),
+                names=[str(v) for v in names[:n]])
+    return self._draw(f"{self.name}_protein_prediction", data,
+                      _render_protein_prediction)
+
+  def plot_series(self, omic: Optional[str] = None):
+    """Original vs imputed sorted column sums: of the main omic, or of a
+    factor omic (``<name>_series_<omic>``)."""
+    from ..utils.plot_utils import _series_statistics_data
+    name = self.main_omic if omic is None else _omic(omic)
+    if name not in self.data or f"i{name}" not in self.analysis:
+      return self
+    org = torch.as_tensor(self.original(name), device=self._dev)
+    imp = torch.as_tensor(self.analysis[f"i{name}"], device=self._dev)
+    data = dict(title=f"{self.name} {name}", **_series_statistics_data(
+        {"original": org.sum(0), "imputed": imp.sum(0)}))
+    key = (f"{self.name}_series" if omic is None
+           else f"{self.name}_series_{name}")
+    return self._draw(key, data, _render_series)
+
+  def plot_all(self, full: bool = False):
+    """The figure battery: ``full=False`` the 10-figure summary;
+    ``full=True`` also the per-factor-omic grid (scatters, violins,
+    heatmaps, dendrogram, dot plot, distances, confusion, the latent ×
+    factor matrices, disentanglement, the marker matrices and scatters)
+    and the LLK, protein prediction and divergence figures. Outside
+    ``figure_data()`` it needs matplotlib (and seaborn for the full
+    grid's violins) and raises at once without them."""
+    if not self._data_only:
+      (_seaborn if full else _pyplot)()
+    (self.plot_learning_curves().plot_imputation_scatter()
+     .plot_scatter(algo="pca").plot_distance_heatmap()
+     .plot_correlation_matrix().plot_latents_protein_pairs()
+     .plot_latents_binary().plot_confusion_matrix()
+     .plot_disentanglement().plot_series())
+    if not full:
+      return self
+    self.plot_llk_bars().plot_protein_prediction()
+    self.plot_divergence()
+    if not self.factor_omics:
+      self.plot_scatter(algo="tsne")
+    binary = ("disease", "progenitor", "celltype")
+    for f in self.factor_omics:
+      fi = f"i{f}"
+      has_imputed = fi in self.analysis
+      for algo in ("tsne", "umap"):
+        self.plot_scatter(color_by=f, algo=algo)
+        if has_imputed:
+          self.plot_scatter(color_by=fi, algo=algo)
+      if has_imputed:
+        self.plot_series(omic=f)
+      groups = [f] + ([fi] if has_imputed else [])
+      for om in (self.main_omic, f"i{self.main_omic}"):
+        for g in groups:
+          self.plot_violins(omic=om, group_by=g)
+          self.plot_heatmap(omic=om, group_by=g)
+      self.plot_dendrogram(group_by=f)
+      self.plot_dotplot(group_by=f)
+      self.plot_distance_heatmap(factor_omic=f)
+      self.plot_confusion_matrix(factor_omic=f)
+      for method in ("spearman", "pearson", "mi", "importance"):
+        self.plot_correlation_matrix(method=method, factor_omic=f)
+      self.plot_disentanglement(factor_omic=f)
+      if has_imputed:
+        self.plot_disentanglement(factor_omic=fi)
+      if f in binary:
+        for om in (self.main_omic, f"i{self.main_omic}"):
+          self.plot_distance_heatmap(factor_omic=f, omic=om)
+      else:
+        for om in (self.main_omic, f"i{self.main_omic}"):
+          for method in ("spearman", "pearson"):
+            self.plot_correlation_matrix(method=method, factor_omic=f,
+                                         omic1=om)
+        self.plot_disentanglement_scatter(factor_omic=f)
+        if has_imputed:
+          self.plot_disentanglement_scatter(factor_omic=fi)
+        for imputed in (False, True):
+          self.plot_correlation_scatter(imputed=imputed)
+    return self
+
+
+# ------------------------------------------------------------- render steps
+def _render_correlation_matrix(m, method, factor_omic, names):
+  plt = _pyplot()
+  fig, ax = plt.subplots(figsize=(8, 5))
+  vmax = np.abs(m).max() or 1.0
+  im = ax.imshow(m, aspect="auto", cmap="coolwarm", vmin=-vmax, vmax=vmax)
+  ax.set_xlabel(factor_omic)
+  ax.set_ylabel("latent dim")
+  ax.set_xticks(range(m.shape[1]))
+  ax.set_xticklabels(names, rotation=90, fontsize=6)
+  ax.set_title(f"{method} latent×{factor_omic}")
+  fig.colorbar(im, ax=ax)
+  return fig
+
+
+def _render_learning_curves(curves, title):
+  plt = _pyplot()
+  fig, ax = plt.subplots(figsize=(7, 4))
+  for k, v in curves.items():
+    ax.plot(v, label=k)
+  ax.set_xlabel("epoch")
+  ax.legend()
+  ax.set_title(title)
+  return fig
+
+
+def _render_confusion(cm, factor_omic):
+  plt = _pyplot()
+  fig, ax = plt.subplots(figsize=(5, 5))
+  im = ax.imshow(cm, cmap="Blues")
+  ax.set_xlabel("cluster")
+  ax.set_ylabel(factor_omic)
+  fig.colorbar(im, ax=ax)
+  return fig
+
+
+def _render_disentanglement(m, factor, names, values):
+  plt = _pyplot()
+  fig, axes = plt.subplots(1, 2, figsize=(12, 4),
+                           gridspec_kw={"width_ratios": [1, 1.4]})
+  im = axes[0].imshow(m, aspect="auto", cmap="viridis", vmin=0, vmax=1)
+  axes[0].set_xlabel(factor)
+  axes[0].set_ylabel("latent dim")
+  axes[0].set_title("|spearman| latent × factor")
+  fig.colorbar(im, ax=axes[0])
+  axes[1].bar(range(len(names)), values)
+  axes[1].set_xticks(range(len(names)))
+  axes[1].set_xticklabels(names, rotation=45, fontsize=7, ha="right")
+  axes[1].set_title("disentanglement suite")
+  fig.tight_layout()
+  return fig
+
+
+def _render_disentanglement_scatter(emb, contrast, pairs):
+  plt = _pyplot()
+  ncol = 3
+  nrow = int(np.ceil(len(pairs) / ncol))
+  fig, axes = plt.subplots(nrow, ncol, figsize=(3.6 * ncol, 3 * nrow),
+                           squeeze=False)
+  for k, (a, b) in enumerate(pairs):
+    ax = axes[k // ncol][k % ncol]
+    sc = ax.scatter(emb[:, 0], emb[:, 1], c=contrast[:, k], s=4,
+                    cmap="coolwarm", linewidths=0)
+    ax.set_title(f"{a} − {b}", fontsize=8)
+    fig.colorbar(sc, ax=ax)
+  for k in range(len(pairs), nrow * ncol):
+    axes[k // ncol][k % ncol].axis("off")
+  fig.tight_layout()
+  return fig
+
+
+def _render_llk(llk, title):
+  plt = _pyplot()
+  fig, ax = plt.subplots(figsize=(6, 4))
+  names = list(llk)
+  ax.bar(range(len(names)), [llk[k] for k in names])
+  ax.set_xticks(range(len(names)))
+  ax.set_xticklabels(names, rotation=30, fontsize=7, ha="right")
+  ax.set_ylabel("log-likelihood")
+  ax.set_title(title)
+  fig.tight_layout()
+  return fig
+
+
+def _render_protein_prediction(y, yhat, names):
+  plt = _pyplot()
+  n = len(names)
+  ncol = 3
+  nrow = int(np.ceil(n / ncol))
+  fig, axes = plt.subplots(nrow, ncol, figsize=(3.2 * ncol, 3 * nrow),
+                           squeeze=False)
+  for k in range(n):
+    ax = axes[k // ncol][k % ncol]
+    ax.scatter(y[:, k], yhat[:, k], s=4, alpha=0.3, linewidths=0)
+    lim = max(y[:, k].max(), yhat[:, k].max())
+    ax.plot([0, lim], [0, lim], "r--", lw=0.8)
+    ax.set_title(str(names[k]), fontsize=8)
+    ax.set_xlabel("true (log1p)", fontsize=7)
+    ax.set_ylabel("predicted", fontsize=7)
+  for k in range(n, nrow * ncol):
+    axes[k // ncol][k % ncol].axis("off")
+  fig.tight_layout()
+  return fig
+
+
+def _render_series(series, log_scale, title):
+  from ..utils.plot_utils import _render_series_statistics
+  plt = _pyplot()
+  fig, ax = plt.subplots(figsize=(8, 4))
+  _render_series_statistics(series, log_scale, title, ax)
+  return fig

@@ -5,12 +5,13 @@ Finds the experiment directories that match ``-model`` and ``-ds``,
 rebuilds each model on ``--device`` (default 'cuda'), builds its
 posterior on the test split of its dataset (or of ``-ds2``), writes each
 model's scores to the scoreboard's ``eval_<dataset>`` table and the
-``ResultsSheet`` table to ``<path>/scores.csv`` and ``.html``. A step that
-fails is recorded on the scoreboard and the sweep goes on; the command
-then exits non-zero.
-
-The figures are not ported (ROADMAP A12c): without ``--no-plots`` the
-command exits at once, before any work. ``--mesh`` raises (ROADMAP A21).
+``ResultsSheet`` table to ``<path>/scores.csv`` and ``.html``, then the
+figures into ``<path>``: each posterior's battery (``plot_all(full=True)``,
+the 10-figure summary with ``--summary-plots``) and the sheet's
+comparison grid, unless ``--no-plots``. A step that fails is recorded on
+the scoreboard and the sweep goes on; the command then exits non-zero.
+The figures need matplotlib and seaborn: without them the command stops
+before any model is scored. ``--mesh`` raises (ROADMAP A21).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 import sys
 import traceback
 
-__all__ = ["robust_run", "scoring", "main"]
+__all__ = ["robust_run", "scoring", "plotting", "main"]
 
 
 def robust_run(method_name, log_text, fn, *args, scoreboard=None, **kwargs):
@@ -51,6 +52,15 @@ def scoring(post, scoreboard=None, table: str = "scores",
   return scores
 
 
+def plotting(post, path: str, full: bool = True) -> int:
+  """Render one posterior's figure battery into ``path``; returns the
+  number of figures."""
+  post.plot_all(full=full)
+  n = len(post.figures)
+  post.save_figures(path)
+  return n
+
+
 def main(argv=None):
   p = argparse.ArgumentParser("sisua-evaluate")
   p.add_argument("-model", default="", help="model name filter (e.g. vae)")
@@ -58,18 +68,19 @@ def main(argv=None):
   p.add_argument("-ds2", default="",
                  help="cross-dataset: evaluate on this dataset instead")
   p.add_argument("-path", default="/tmp/sisua_evaluate",
-                 help="output folder of the score table")
-  p.add_argument("--no-plots", action="store_true",
-                 help="required: the figures are not ported (ROADMAP A12c)")
+                 help="output folder for figures")
+  p.add_argument("--no-plots", action="store_true")
+  p.add_argument("--summary-plots", action="store_true",
+                 help="render only the 10-figure summary instead of the "
+                      "full per-factor grid")
   p.add_argument("--mesh", default=None,
                  help="not ported (ROADMAP A21): raises")
   p.add_argument("--device", default="cuda",
                  help="where the models score: 'cuda' (default) or 'cpu'")
   args = p.parse_args(argv)
   if not args.no_plots:
-    raise SystemExit(
-        "sisua-evaluate: the figures are not ported yet (ROADMAP A12c); "
-        "pass --no-plots to compute and save the scores only")
+    from ..utils.visualization import _seaborn
+    _seaborn()  # no matplotlib or seaborn: stop before any model is scored
   if args.mesh is not None:
     raise NotImplementedError("--mesh: posteriors over a device mesh are "
                               "not ported yet (ROADMAP A21)")
@@ -129,6 +140,20 @@ def main(argv=None):
   if posteriors:
     rs = ResultsSheet(*posteriors)
     print("scores →", rs.save_scores(os.path.join(args.path, "scores")))
+    if not args.no_plots:
+      n_figs = 0
+      for post in posteriors:
+        n = robust_run("plotting", post.name, plotting, post, args.path,
+                       full=not args.summary_plots,
+                       scoreboard=exp.scoreboard)
+        failures += n is None
+        n_figs += n or 0
+      n = robust_run("comparison-plots", "results_sheet", rs.plot_all,
+                     scoreboard=exp.scoreboard)
+      failures += n is None
+      n_figs += len(rs.figures)
+      rs.save_figures(args.path)
+      print(f"{n_figs} figures →", args.path)
   if failures:
     raise SystemExit(f"sisua-evaluate: {failures} step(s) failed (see the "
                      f"errors of {exp.scoreboard.path})")

@@ -1,6 +1,7 @@
 """SingleCellOMIC: the port's multi-omic container, in numpy and scipy
 (port of ``sisua_tpu/data/{core,dataset}.py``; the analysis methods come
-from ``data/analysis.py``'s ``_OMICanalyzer``).
+from ``data/analysis.py``'s ``_OMICanalyzer``, the figures from
+``data/visualizer.py``'s ``_OMICvisualizer``).
 
 One matrix per omic (dense float32, or scipy CSR float32), each with its
 var table; one *current* omic (the first added, or the one ``set_omic``
@@ -37,8 +38,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 from scipy import sparse
 
-from .analysis import _OMICanalyzer
 from .const import MARKER_GENES, UNIVERSAL_RANDOM_SEED
+from .visualizer import _OMICvisualizer
 from .feeder import DataFeeder
 from .utils import apply_artificial_corruption, get_library_size
 
@@ -106,7 +107,7 @@ def _five(v) -> str:
           f"max:{v.max():.2f} mean:{v.mean():.2f}")
 
 
-class SingleCellOMIC(_OMICanalyzer):
+class SingleCellOMIC(_OMICvisualizer):
   """Multi-omic single-cell dataset (see the module docstring)."""
 
   def __init__(self,

@@ -12,10 +12,13 @@ the positive (higher-mean) component (``scipy.stats.norm.interval``),
 ``predict_proba`` averages the positive components' responsibilities.
 Outputs are numpy arrays, as in the JAX package.
 
+``plot_distribution`` (alias ``plot_diagnosis``) and ``boxplot`` draw
+the fitting diagnostics with matplotlib (``utils.visualization``); their
+data (the normalized columns, the binary labels) is computed as above.
+
 ``main`` is the ``sisua-embed`` CLI: a registry dataset's proteins or a
-CSV → ``y_bin``, ``y_prob`` and ``model.pkl`` pickles. Its figures wait
-for the port's plotting layer (ROADMAP A12c): it refuses to start without
-``--no-figures``.
+CSV → ``y_bin``, ``y_prob`` and ``model.pkl`` pickles, and
+``distribution.png`` unless ``--no-figures``.
 """
 
 from __future__ import annotations
@@ -229,6 +232,77 @@ class ProbabilisticEmbedding:
   def score(self, X, y=None) -> float:
     return float(self.score_samples(X).mean())
 
+  # ----------------------------------------------------------------- figures
+  def _distribution_data(self, X, labels=None) -> dict:
+    X = _host(X)
+    n = X.shape[1]
+    ybin = self.predict(X)
+    cols = [self.normalize(X[:, i], test_mode=True) for i in range(n)]
+    return dict(cols=cols, positive=[c[ybin[:, i] > 0.5]
+                                     for i, c in enumerate(cols)],
+                labels=list(labels) if labels is not None
+                else [f"#{i}" for i in range(n)])
+
+  def plot_distribution(self, X, labels=None, path=None):
+    """Each column's normalized histogram with its positive cells'
+    histogram over it; saved to ``path`` when given."""
+    from .utils.visualization import _pyplot
+    d = self._distribution_data(X, labels)
+    plt = _pyplot()
+    n = len(d["cols"])
+    labels = d["labels"]
+    ncol = min(4, n)
+    nrow = int(np.ceil(n / ncol))
+    fig, axes = plt.subplots(nrow, ncol, figsize=(4 * ncol, 3 * nrow),
+                             squeeze=False)
+    for i in range(n):
+      ax = axes[i // ncol][i % ncol]
+      ax.hist(d["cols"][i], bins=80, density=True, alpha=0.6)
+      ax.hist(d["positive"][i], bins=80, density=True, alpha=0.4)
+      ax.set_title(str(labels[i]), fontsize=8)
+    fig.tight_layout()
+    if path:
+      fig.savefig(path, dpi=120)
+      plt.close(fig)
+    return fig
+
+  plot_diagnosis = plot_distribution  # diagnostic alias
+
+  def _boxplot_data(self, X, labels=None) -> dict:
+    X = np.atleast_2d(np.asarray(_host(X), np.float64))
+    if X.shape[0] == 1:
+      X = X.T
+    n = X.shape[1]
+    panels = []
+    for x in X.T:
+      nz = x[x > 0]
+      panels.append((x, nz if nz.size else x,
+                     self.normalize(x, test_mode=False)))
+    return dict(panels=panels, labels=list(labels) if labels is not None
+                else [f"#{i}" for i in range(n)])
+
+  def boxplot(self, X, labels=None, path=None):
+    """Per-feature three-panel boxplots: original, nonzeros, normalized;
+    saved to ``path`` when given."""
+    from .utils.visualization import _pyplot
+    d = self._boxplot_data(X, labels)
+    plt = _pyplot()
+    n = len(d["panels"])
+    style = dict(whis=1.5, flierprops={"marker": ".", "markersize": 8},
+                 showmeans=True, meanline=True)
+    fig, axes = plt.subplots(n, 3, figsize=(4.5, 3 * n), squeeze=False)
+    for i, ((x, nz, norm), name) in enumerate(zip(d["panels"],
+                                                  d["labels"])):
+      axes[i][0].boxplot(x, tick_labels=["Original"], **style)
+      axes[i][0].set_ylabel(str(name))
+      axes[i][1].boxplot(nz, tick_labels=["NonZeros"], **style)
+      axes[i][2].boxplot(norm, tick_labels=["Normalized"], **style)
+    fig.tight_layout()
+    if path:
+      fig.savefig(path, dpi=120)
+      plt.close(fig)
+    return fig
+
   # -------------------------------------------------------------------- io
   def save(self, path: str):
     with open(path, "wb") as f:
@@ -248,29 +322,33 @@ def main(argv=None):
   import argparse
   p = argparse.ArgumentParser(
       "sisua-embed", description="GMM probabilistic embedding of protein "
-      "labels: dataset name or CSV → y_bin / y_prob pickles")
+      "labels: dataset name or CSV → y_bin / y_prob pickles + figures")
   p.add_argument("input", help="dataset name (registry) or CSV path")
   p.add_argument("-o", "--outpath", default="/tmp/sisua_embed")
   p.add_argument("--ci", type=float, default=-0.68)
   p.add_argument("--components", type=int, default=2)
-  p.add_argument("--no-figures", action="store_true",
-                 help="required: the figures are not ported (ROADMAP A12c)")
+  p.add_argument("--no-figures", action="store_true")
   p.add_argument("--device", default="cuda",
                  help="where the mixtures fit: 'cuda' (default) or 'cpu'")
   args = p.parse_args(argv)
   if not args.no_figures:
-    raise SystemExit(
-        "sisua-embed: the figures are not ported yet (ROADMAP A12c); pass "
-        "--no-figures to save the labels and the embedding only")
+    from .utils.visualization import _pyplot
+    _pyplot()  # no matplotlib: stop before any work
   if os.path.isfile(args.input):
+    import csv
+    import gzip
     from .data.utils import read_csv_matrix
     X = read_csv_matrix(args.input)
+    opener = gzip.open if args.input.endswith(".gz") else open
+    with opener(args.input, "rt", newline="") as f:
+      names = next(csv.reader(f))[1:]
   else:
     from .data import get_dataset
     sco = get_dataset(args.input)
     if "proteomic" not in sco.omics:
       raise ValueError(f"{args.input} has no proteomic omic")
     X = sco.numpy("proteomic")
+    names = list(sco.get_var_names("proteomic"))
   pe = ProbabilisticEmbedding(n_components_per_class=args.components,
                               ci_threshold=args.ci, device=args.device)
   pe.fit(X)
@@ -280,6 +358,9 @@ def main(argv=None):
   with open(os.path.join(args.outpath, "y_prob"), "wb") as f:
     pickle.dump(pe.predict_proba(X), f)
   pe.save(os.path.join(args.outpath, "model.pkl"))
+  if not args.no_figures:
+    pe.plot_distribution(X, labels=names,
+                         path=os.path.join(args.outpath, "distribution.png"))
   print(f"Saved y_bin, y_prob, model.pkl to {args.outpath}")
 
 

@@ -39,25 +39,9 @@ import torch
 
 import sisua_tpu.data.analysis as JA
 import sisua_tpu_torch.data.analysis as TA
+from torch_port_threads import _one_thread_tsne  # noqa: F401
 
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-  """One torch, BLAS and OpenMP thread: the tier runs several test
-  processes on the machine's cores, and these tests' many small
-  operations would otherwise wait on each other's thread pools. The
-  t-SNE library is loaded first, so that its OpenMP team is limited
-  too."""
-  from threadpoolctl import threadpool_limits
-  from sisua_tpu_torch import native
-  native.load("tsne")
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  with threadpool_limits(1):
-    yield
-  torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,8 @@ from sisua_tpu_torch import models as T
 from sisua_tpu_torch.nn import BatchNorm
 from sisua_tpu_torch.ops import zinb as tz
 from sisua_tpu_torch.rv import RVmeta as TRV
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, P, B, NB = 40, 5, 32, 3
 NETS = dict(encoder={"units": [32, 32], "batchnorm": True},

@@ -29,6 +29,7 @@ import sisua_tpu_torch.dist as TD
 from sisua_tpu_torch import convert
 
 from test_torch_port_multiome import _data, _jax_batch, _pair
+from torch_port_threads import _one_thread  # noqa: F401
 
 RNG = np.random.default_rng(16)
 LOC = RNG.normal(size=(5, 4)).astype(np.float32)
@@ -36,19 +37,6 @@ SCALE = RNG.uniform(0.5, 2.0, (5, 4)).astype(np.float32)
 LOGITS = RNG.normal(size=(5, 3)).astype(np.float32)
 X = RNG.normal(size=(5, 4)).astype(np.float32)
 CLOSE = dict(rtol=1e-6, atol=1e-6)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-  """One torch and one BLAS thread: the tier runs several test processes
-  on the machine's cores, and these tests' many small operations would
-  otherwise wait on each other's thread pools."""
-  from threadpoolctl import threadpool_limits
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  with threadpool_limits(1):
-    yield
-  torch.set_num_threads(n)
 
 
 def _pairs():

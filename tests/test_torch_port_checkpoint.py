@@ -44,6 +44,8 @@ from sisua_tpu_torch.nn import NetConf as TNetConf
 from sisua_tpu_torch.rv import RVmeta as TRV
 from sisua_tpu_torch.train import checkpoint as tckpt
 from sisua_tpu_torch.train import msgpack as tmp
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, P, N = 60, 6, 40
 NB, C = 3, 4  # batch levels of the n_batch models, SCANVI's cell types

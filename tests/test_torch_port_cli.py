@@ -2,8 +2,9 @@
 (``--device cpu``): ``sisua_tpu_torch.cli.train`` end to end beside the
 JAX experimenter's ``run_config`` on the same config, ``get_models`` on
 both packages' experiment directories, ``cli.predict``, ``cli.evaluate``,
-``cli.embed`` and ``ResultsSheet``; and that the port imports none of the
-packages the card lacks."""
+``cli.embed`` and ``ResultsSheet`` (their figures: ``test_torch_port_
+posterior_figures.py`` and ``test_torch_port_monitor_embed.py``); and
+that the port imports none of the packages the card lacks."""
 
 import json
 import os
@@ -18,6 +19,7 @@ import yaml
 
 import sisua_tpu.train.experimenter as JX
 import sisua_tpu_torch.train.experimenter as TX
+from torch_port_threads import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a 4-dim latent: the boosted trees of the DCI score, which grow on the
@@ -34,7 +36,9 @@ def stores(tmp_path_factory):
   jexp = JX.SisuaExperimenter(save_path=str(root / "j"))
   jscores = jexp.run_config(jexp.load_config(
       JX.parse_overrides(OVERRIDES)[0]))
-  env = dict(os.environ, SISUA_EXP=str(root / "t"))
+  # the port's CLI in one thread too (see _one_thread)
+  env = dict(os.environ, SISUA_EXP=str(root / "t"), OMP_NUM_THREADS="1",
+             OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
   proc = subprocess.run(
       [sys.executable, "-m", "sisua_tpu_torch.cli.train", *OVERRIDES,
        "--device", "cpu"], cwd=REPO, env=env, capture_output=True,
@@ -140,15 +144,17 @@ def test_predict_cli_writes_what_jax_writes(stores, tmp_path):
 
 def test_evaluate_cli_refuses_plots_and_writes_rows(stores, tmp_path,
                                                     monkeypatch):
+  """Without matplotlib the figures-on command stops before any model is
+  scored, with an ImportError that names matplotlib; with ``--no-plots``
+  it writes the score rows and table."""
   from sisua_tpu_torch.cli.evaluate import main as evaluate
   monkeypatch.setattr(TX.SisuaExperimenter, "get_models",
                       lambda *a, **k: pytest.fail("worked before refusing"))
-  with pytest.raises(SystemExit, match="A12c.*--no-plots"):
-    evaluate(["-model", "vae", "-ds", "synthetic500", "--device", "cpu"])
-  # the summary figures are not ported either: the option does not exist
-  with pytest.raises(SystemExit) as e:
-    evaluate(["--no-plots", "--summary-plots", "--device", "cpu"])
-  assert e.value.code == 2
+  monkeypatch.setitem(sys.modules, "matplotlib", None)
+  for extra in ([], ["--summary-plots"]):
+    with pytest.raises(ImportError, match="matplotlib"):
+      evaluate(["-model", "vae", "-ds", "synthetic500", "--device", "cpu",
+                *extra])
   monkeypatch.undo()
   orig = TX.SisuaExperimenter.__init__
   monkeypatch.setattr(
@@ -206,15 +212,23 @@ def test_results_sheet_table_parses_as_jax(tmp_path):
   assert sheet.get_scores()["vae_x_1"]["llk"] == -2.0
 
 
-def test_embed_cli_refuses_figures_and_writes_three_files(tmp_path):
+def test_embed_cli_refuses_figures_and_writes_three_files(tmp_path,
+                                                           monkeypatch):
+  """Without matplotlib the figures-on command stops before any work,
+  naming matplotlib; with ``--no-figures`` it writes the three files the
+  JAX command writes (with figures: ``test_torch_port_monitor_embed``)."""
   from sisua_tpu.label_threshold import main as jembed
   from sisua_tpu_torch.cli.embed import main as tembed
-  with pytest.raises(SystemExit, match="A12c.*--no-figures"):
-    tembed(["synthetic200", "-o", str(tmp_path / "t"), "--device", "cpu"])
+  with monkeypatch.context() as m:
+    m.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
+      tembed(["synthetic200", "-o", str(tmp_path / "t"), "--device", "cpu"])
   assert not (tmp_path / "t").exists()
   tembed(["synthetic200", "-o", str(tmp_path / "t"), "--no-figures",
           "--device", "cpu"])
   jembed(["synthetic200", "-o", str(tmp_path / "j"), "--no-figures"])
+  assert sorted(os.listdir(tmp_path / "t")) == sorted(
+      os.listdir(tmp_path / "j")) == ["model.pkl", "y_bin", "y_prob"]
   for f in ("y_bin", "y_prob"):
     with open(tmp_path / "t" / f, "rb") as a, open(tmp_path / "j" / f,
                                                   "rb") as b:

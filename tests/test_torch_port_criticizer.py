@@ -25,6 +25,7 @@ import torch
 import sisua_tpu.analysis as JA
 import sisua_tpu_torch.analysis as TA
 from sisua_tpu_torch.analysis.criticizer import Criticizer
+from torch_port_threads import _one_thread  # noqa: F401
 
 
 def _latents_factors(kind, n=400, d=6, seed=0):

@@ -32,6 +32,8 @@ from sisua_tpu_torch import models as T
 from sisua_tpu_torch.data import utils as TU
 from sisua_tpu_torch.models import base as TB
 from sisua_tpu_torch.rv import RVmeta as TRV
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 CLOSE = dict(rtol=1e-12, atol=0)
 EXACT = ("proba_de", "proba_m1")

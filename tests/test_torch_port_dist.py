@@ -15,6 +15,8 @@ from sisua_tpu.data.utils import get_library_size as j_library_size
 from sisua_tpu_torch import interpolation as tinterp
 from sisua_tpu_torch import rv as trv
 from sisua_tpu_torch.data import get_library_size as t_library_size
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 # log-probs are compared elementwise with rtol 1e-5 on top of an atol of
 # 1e-5·max|ref|: XLA's lgamma and libm's lgammaf differ by a few float32

@@ -48,6 +48,8 @@ from sisua_tpu_torch.rv import RVmeta as TRV
 from sisua_tpu_torch.train import ClippedAdam, VmapEnsemble
 from test_torch_port_fit_surface import CLOSE, _flax_leaf, _noise
 from test_torch_port_precision import pallas_interpret  # noqa: F401
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 M, B, G = 3, 16, 40
 FWD_RTOL = 1e-4

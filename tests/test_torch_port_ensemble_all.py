@@ -21,6 +21,8 @@ from sisua_tpu_torch import models as T
 from sisua_tpu_torch.nn import NetConf
 from sisua_tpu_torch.rv import RVmeta as R
 from sisua_tpu_torch.train import VmapEnsemble
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, N, B = 30, 128, 32
 

@@ -23,6 +23,8 @@ from sisua_tpu_torch.train import VmapEnsemble
 from test_torch_port_ensemble_zoo import (build, fleet_against_jax,
                                           fleet_against_singles,
                                           numpy_batch)
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 DRAWS = ["autozi", "multivi"]
 

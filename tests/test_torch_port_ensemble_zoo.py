@@ -45,6 +45,8 @@ from sisua_tpu_torch.rv import RVmeta as TRV
 from sisua_tpu_torch.train import ClippedAdam, VmapEnsemble
 from test_torch_port_ensemble import _adam_state, _batchnormed_biases
 from test_torch_port_fit_surface import CLOSE
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 M, B = 3, 16
 G, P, C, R = 40, 5, 4, 50   # genes, proteins, cell types, peaks

@@ -36,6 +36,8 @@ from sklearn.multiclass import OneVsRestClassifier
 from sklearn.svm import LinearSVC as SKLinearSVC
 
 from sisua_tpu_torch.analysis import estimators as E
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 TOL = 1e-10
 

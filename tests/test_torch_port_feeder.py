@@ -25,6 +25,8 @@ from sisua_tpu.ops import sparse as jsparse
 from sisua_tpu_torch import native
 from sisua_tpu_torch.data.feeder import DataFeeder
 from sisua_tpu_torch.ops import sparse as tsparse
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 N, D, P = 203, 37, 5
 

@@ -40,6 +40,8 @@ from sisua_tpu_torch import convert
 from sisua_tpu_torch import models as T
 from sisua_tpu_torch.rv import RVmeta as TRV
 from sisua_tpu_torch.train import ClippedOptimizer, Trainer, TrainingCallback
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, P, B = 30, 4, 32
 OPTIMIZERS = ["adam", "adamw", "sgd", "rmsprop", "adamax", "adafactor",

@@ -14,6 +14,8 @@ import torch
 from sisua_tpu.ops.knn_mi import knn_mutual_information as jax_mi
 from sisua_tpu_torch.ops import knn_mi as port
 from sisua_tpu_torch.ops.knn_mi import knn_mutual_information as port_mi
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 ATOL = 1e-5
 

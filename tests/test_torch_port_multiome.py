@@ -45,6 +45,8 @@ from sisua_tpu_torch.models.module import VAEOutput as TOut
 from sisua_tpu_torch.models.peakvi import _compose_logits as t_compose
 from sisua_tpu_torch.ops import zinb as tz
 from sisua_tpu_torch.rv import RVmeta as TRV
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, R, B, NB = 40, 60, 32, 3
 CLOSE = dict(rtol=1e-4, atol=1e-5)

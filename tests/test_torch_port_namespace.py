@@ -23,34 +23,18 @@ _DATA_LAYER = {
     "get_dataset_summary", "AVAILABILITY", "read_h5ad", "write_h5ad",
     "read_10x_mtx", "read_10x_h5",
 }
-# what waits for a plotting layer (the card has no matplotlib; ROADMAP
-# A12c): the plots and the monitor callbacks, which only plot.
-# ResultsSheet is ported without its figures (the score table only)
-_A12C = {
-    "plot_imputation", "plot_distance_heatmap",
-    "plot_latents_protein_pairs", "plot_latents_binary",
-    "SingleCellMonitor", "LearningCurves", "ScatterPlot", "HeatmapPlot"}
-
 NOT_PORTED = {
     # flax's TrainState: the port keeps a module, an optimizer and a step
     "sisua_tpu.train": {"TrainState"},
     # Pallas on a TPU; the port's counterpart is ops.zinb.kernels_available
     "sisua_tpu.ops": {"pallas_available"},
     "sisua_tpu.data": _DATA_LAYER,
-    "sisua_tpu.analysis": _A12C,
     "sisua_tpu": {"OMIC", "get_dataset_availability"} | {
-        # submodules of host-only layers: parallel (ROADMAP A21),
-        # cross_analyze (it always plots; ROADMAP A12c)
-        "parallel", "cross_analyze"},
+        # the submodule of a host-only layer: parallel (ROADMAP A21)
+        "parallel"},
     # the JAX profiler and XLA's compilation cache (the port profiles with
-    # torch.profiler, ``profile_dir``), and the plots (ROADMAP A12c)
-    "sisua_tpu.utils": {
-        "profile_trace", "enable_compilation_cache",
-        "plot_series_statistics", "plot_monitoring_epoch",
-        "plot_countsum_series", "plot_countsum_comparison", "Visualizer",
-        "fast_scatter", "plot_evaluate_classifier",
-        "plot_evaluate_regressor", "plot_evaluate_reconstruction",
-        "save_figures", "downsample_data", "show_image"},
+    # torch.profiler, ``profile_dir``)
+    "sisua_tpu.utils": {"profile_trace", "enable_compilation_cache"},
 }
 
 MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
@@ -59,7 +43,10 @@ MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
            "sisua_tpu.models.hyper_params", "sisua_tpu.analysis",
            "sisua_tpu.train.experimenter", "sisua_tpu.train.scoreboard",
            "sisua_tpu.data.synthetic", "sisua_tpu.label_threshold",
-           "sisua_tpu.utils", "sisua_tpu.baselines"]
+           "sisua_tpu.utils", "sisua_tpu.baselines",
+           "sisua_tpu.analysis.imputation", "sisua_tpu.analysis.latent",
+           "sisua_tpu.analysis.sc_monitor", "sisua_tpu.cross_analyze",
+           "sisua_tpu.utils.visualization", "sisua_tpu.utils.plot_utils"]
 
 # argument names of the JAX signatures that the port's do not take, each
 # with its reason, and where (None: anywhere; else the callables whose
@@ -94,21 +81,13 @@ JAX_ONLY_ARGS = {
     # LDVAE's loadings as a pandas DataFrame indexed by ``var_names``: the
     # port returns the array in the recorded var order
     "var_names": "get_loadings",
-    # the figure of streamline_classifier (ROADMAP A12c)
-    "return_figure": "streamline_classifier",
-    "title": "streamline_classifier",
 }
 
 # JAX methods the port's classes do not have: flax's ``setup`` and the
 # jitted JAX step builders (the port's steps are the model's own
-# ``_train_step``), and the figures (ROADMAP A12c)
+# ``_train_step``)
 _JAX_ONLY_METHODS = {"setup", "make_train_step", "make_eval_step",
                      "make_train_step_core"}
-
-
-def _is_plot(method: str) -> bool:
-  return (method.startswith(("plot_", "boxplot", "barplot_"))
-          or method in ("save_plots", "save_figures", "add_figure"))
 
 
 def _port_name(module):
@@ -170,8 +149,8 @@ def _jax_methods(cls):
 @pytest.mark.parametrize("module", MODULES)
 def test_port_takes_the_jax_methods_and_arguments(module):
   """Every public class has the JAX class's methods, and every function
-  and method takes the JAX argument names (``JAX_ONLY_ARGS`` and the
-  figures apart); a torch module's ``forward`` answers flax's
+  and method takes the JAX argument names (``JAX_ONLY_ARGS`` apart), the
+  figures' included; a torch module's ``forward`` answers flax's
   ``__call__``."""
   import torch
   jm = importlib.import_module(module)
@@ -187,7 +166,7 @@ def test_port_takes_the_jax_methods_and_arguments(module):
         faults += _missing_args(n, jo, po)
       continue
     for m, jf in _jax_methods(jo):
-      if m in _JAX_ONLY_METHODS or _is_plot(m):
+      if m in _JAX_ONLY_METHODS:
         continue
       pf = getattr(po, m, None)
       if m == "__call__" and isinstance(po, type) and issubclass(

@@ -47,6 +47,8 @@ from sisua_tpu_torch.train.trainer import Trainer, _prefetch_iter
 from test_torch_port_fit_surface import (CLOSE, G, _feed, _flax_leaf,
                                          _jax_model, _JaxRecorder, _noise,
                                          _port_model, _PortRecorder)
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 N, D, B = 1024, 32, 64
 BUDGET = 65536

@@ -30,6 +30,7 @@ import sisua_tpu_torch.dist as TD
 from sisua_tpu_torch import models as T
 from sisua_tpu_torch.models import base as tbase
 from sisua_tpu_torch.rv import RVmeta as TRV
+from torch_port_threads import _one_thread  # noqa: F401
 
 S, N, G, P, L = 3, 128, 40, 6, 5
 RTOL = 1e-5

@@ -40,6 +40,8 @@ from sisua_tpu_torch import nn as TN
 from sisua_tpu_torch.models import objective as tobj
 from sisua_tpu_torch.ops import zinb as tz
 from sisua_tpu_torch.rv import RVmeta as TRV
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, P, R = 40, 5, 48
 BF16 = torch.bfloat16

@@ -23,6 +23,8 @@ import torch
 from scipy.special import gammaln
 
 from sisua_tpu_torch.ops import probe as P
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 B, D = 16, 300
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

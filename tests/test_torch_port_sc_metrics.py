@@ -32,6 +32,8 @@ from sisua_tpu_torch.models.objective import mc_row_log_prob
 from sisua_tpu_torch.ops import zinb as tz
 from sisua_tpu_torch.rv import RVmeta as TRV
 from sisua_tpu_torch.train import TrainingCallback as TCallback
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 S, N, G, P = 2, 40, 24, 6

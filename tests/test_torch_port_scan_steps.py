@@ -24,6 +24,8 @@ from sisua_tpu.train.trainer import Trainer as JTrainer
 from sisua_tpu_torch.models import SCVI, SISUA, VAE, RVmeta
 from sisua_tpu_torch.nn import NetConf
 from sisua_tpu_torch.train.trainer import Trainer
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 D, K = 24, 3
 

@@ -44,6 +44,8 @@ from sisua_tpu_torch.models import autozi as tautozi
 from sisua_tpu_torch.nn import BatchNorm
 from sisua_tpu_torch.rv import RVmeta as TRV
 from sisua_tpu_torch.train import msgpack as tmp
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, B, NB = 24, 16, 3
 CLOSE = dict(rtol=1e-4, atol=1e-5)

@@ -28,6 +28,8 @@ from sisua_tpu_torch.nn import BatchNorm
 from sisua_tpu_torch.ops import zinb as tz
 from sisua_tpu_torch.rv import RVmeta as TRV
 from sisua_tpu_torch.train import ClippedAdam
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, B = 60, 32
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -28,6 +28,8 @@ from sisua_tpu.rv import RVmeta as JRV
 from sisua_tpu_torch import convert
 from sisua_tpu_torch import models as T
 from sisua_tpu_torch.rv import RVmeta as TRV
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, P, N, B = 60, 6, 70, 32   # 3 batches, the last one ragged (6 rows)
 NB = 3                       # batch-covariate levels of 'scvi_nb'

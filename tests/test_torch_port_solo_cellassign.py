@@ -34,6 +34,8 @@ from sisua_tpu_torch import convert
 from sisua_tpu_torch import models as T
 from sisua_tpu_torch.models import solo as tsolo
 from sisua_tpu_torch.rv import RVmeta as TRV
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, N = 20, 48
 SCVI_KW = dict(latents=dict(dim=4, posterior="diag", name="latents"),

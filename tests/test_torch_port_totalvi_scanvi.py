@@ -36,6 +36,8 @@ from sisua_tpu_torch import models as T
 from sisua_tpu_torch.nn import BatchNorm
 from sisua_tpu_torch.ops import zinb as tz
 from sisua_tpu_torch.rv import RVmeta as TRV
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, P, C, B, NB = 40, 5, 4, 32, 3
 CLOSE = dict(rtol=1e-4, atol=1e-5)

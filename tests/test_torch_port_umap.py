@@ -33,21 +33,9 @@ from sklearn.neighbors import NearestNeighbors
 import sisua_tpu.data.umap_impl as JU
 import sisua_tpu_torch.data.umap_impl as TU
 from sisua_tpu_torch.analysis import cluster as C
+from torch_port_threads import _one_thread  # noqa: F401
 
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-  """One torch and one BLAS thread: the tier runs several test processes
-  on the machine's cores, and these tests' many small operations would
-  otherwise wait on each other's thread pools."""
-  from threadpoolctl import threadpool_limits
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  with threadpool_limits(1):
-    yield
-  torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,8 @@ from sisua_tpu.ops import zinb_pallas as jz
 from sisua_tpu_torch.models import objective as tobj
 from sisua_tpu_torch.ops import _build
 from sisua_tpu_torch.ops import zinb as tz
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 FWD = dict(rtol=1e-4)
 GRAD = dict(rtol=2e-4, atol=1e-5)

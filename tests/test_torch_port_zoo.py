@@ -40,6 +40,8 @@ from sisua_tpu_torch.models import fvae as tfvae
 from sisua_tpu_torch.nn import BatchNorm, NetConf
 from sisua_tpu_torch.ops import zinb as tz
 from sisua_tpu_torch.rv import RVmeta as TRV
+from torch_port_threads import _one_thread  # noqa: F401
+
 
 G, P, B = 50, 5, 32
 NETS = dict(encoder={"units": [32, 32], "batchnorm": True},
