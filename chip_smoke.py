@@ -31,15 +31,15 @@ before the final line:
      with SISUA_TPU_BWD_WRITES=bf16 at 'main_full'; a bf16-written
      gradient within 1 bf16 ulp of the plain version's (rtol 7.9e-3);
   4. SCVI fit on 8,192 × 33,000 device-resident synthetic counts, batch
-     512, 16 epochs in two windows of 8; every loss finite, the last
+     512, 8 epochs in two windows of 4; every loss finite, the last
      window's mean loss below the first's, both launch counters equal to
      the step count; then evaluate on 1,024 held-out cells;
   5. the kernel route against the plain route (distribution math under
      autograd) on one 512 × 33,000 batch at the same converted weights and
      noise, for 'full' and 'single' dispersion;
   6. SISUA fit on the same counts plus 10 protein columns, the JAX
-     package's default nets, α = 10, labels_percent 0.1, batch 512, 16
-     epochs in two windows of 8, validated on the 1,024 held-out cells;
+     package's default nets, α = 10, labels_percent 0.1, batch 512, 8
+     epochs in two windows of 4, validated on the 1,024 held-out cells;
      every loss finite and falling, ``llk_x1`` and ``val_loss`` in the
      history, each kernel launched twice per step (RNA and protein heads)
      and the forward twice per validation and evaluate batch;
@@ -60,7 +60,7 @@ before the final line:
      the fused forward once per ZINB/NB head and batch, the draws as its
      member axis.
   9. the rest of the zoo at the same width, each fit from launch counts
-     set to 0, batch 512, 16 epochs in two windows of 8, the JAX
+     set to 0, batch 512, 8 epochs in two windows of 4, the JAX
      package's default nets: FVAE ('zinb', γ = 6, its TC discriminator
      trained in the same step), SCALAR ('zinb' + the 10 proteins 'nb',
      α = 10, labels_percent 0.1, a 10-component mixture latent), SCALE
@@ -74,8 +74,8 @@ before the final line:
      the same converted weights and noise, with phase 7's bounds.
  10. batch-covariate conditioning and the scvi-tools models on the same
      data plus a seeded one-hot over 4 batches, the 10 proteins and 10
-     cell types, each fit from launch counts set to 0, batch 512, 16
-     epochs in two windows of 8, validated on the 1,024 held-out cells:
+     cell types, each fit from launch counts set to 0, batch 512, 8
+     epochs in two windows of 4, validated on the 1,024 held-out cells:
      SCVI 'zinbd' at n_batch = 4 with an 'nb' label head over the
      proteins (phase 4's nets; two heads), TotalVI ('zinbd' RNA + the
      proteins' background/foreground NB mixture, n_batch = 4,
@@ -94,7 +94,7 @@ before the final line:
      1–4), 10% of the cells made ATAC-only and another 10% RNA-only, in
      training and held-out data alike. PEAKVI on the peaks and MULTIVI
      ('zinbd' RNA + peaks, n_batch = 4), at the JAX package's default
-     nets, batch 512, 16 epochs in two windows of 8, validated on the
+     nets, batch 512, 8 epochs in two windows of 4, validated on the
      held-out cells, each from launch counts set to 0. Each: every loss
      finite and falling, MULTIVI's ``modality_penalty``, ``klqp_z1`` and
      ``llk_x1`` in the history, MULTIVI launching each kernel once per
@@ -108,8 +108,8 @@ before the final line:
      (phase 7's bounds). Phase 11 works on a copy of the counts, which it
      makes mosaic.
  12. the last of the zoo on phase 4's counts, at the JAX package's
-     default nets, each fit from launch counts set to 0, batch 512, 16
-     epochs in two windows of 8, validated on the 1,024 held-out cells:
+     default nets, each fit from launch counts set to 0, batch 512, 8
+     epochs in two windows of 4, validated on the 1,024 held-out cells:
      AUTOZI ('zinbd', 'full' dispersion, its gate composed per gene by δ:
      each kernel once a step, the forward once per validation and
      evaluate batch; ``klqp_delta`` in the history; ``n_total_cells``
@@ -130,7 +130,7 @@ before the final line:
  13. this slice's path and the rest of ``fit``, on phase 4's counts:
      (a) SCVI at ``compute_dtype='bfloat16'`` with
      SISUA_TPU_FWD_OPERANDS=bf16 (both kernels in their bf16 modes),
-     batch 512, 16 epochs in two windows of 8, validated on the 1,024
+     batch 512, 8 epochs in two windows of 4, validated on the 1,024
      held-out cells, from launch counts set to 0: every loss finite and
      falling, float32 parameters, both kernels launched once a step and
      the forward once per validation and evaluate batch; the kernel route
@@ -268,7 +268,7 @@ before the final line:
      and spectral matched to the groups, ``rank_vars_groups`` (Welch,
      Mann-Whitney), ``get_correlation``, ``get_mutual_information`` with
      both backends on 2,048 cells (cut) and ``get_importance_matrix`` on
-     the 500 most variable genes at the largest tree count the phase's
+     the 250 most variable genes at the largest tree count the phase's
      90 s budget leaves (cut, printed): seconds on the card and peak
      memory above the resident of each; each method held against the
      port's CPU path on every 4th cell, each later step on one input,
@@ -280,15 +280,37 @@ before the final line:
      as ``celltype``: seconds, peak memory and score keys of each, every
      score finite; each estimator's latents on every 4th cell (2,048)
      held to the port's CPU path. (b) ``dimension_reduce(algo='tsne')``
-     on all 8,192 cells (3 components on 50 of phase 20's 100 cached
-     PCs, the octree): seconds, the KL divergence of the embedding (the
-     Barnes-Hut error under its P) and its trustworthiness (k = 12)
+     on every 2nd cell, 4,096 (3 components on 50 of phase 20's 100
+     cached PCs, the octree): seconds, the KL divergence of the embedding
+     (the Barnes-Hut error under its P) and its trustworthiness (k = 12)
      against the 50 PCs, on the card. (c) ``utils.dimension_reduction(z,
-     'tsne', 2)`` of 16b's 8,192 SCVI latent means (the quadtree, the
-     kd-tree's exact neighbours). (d) on 2,048 of (b)'s cells, card
+     'tsne', 2)`` of every 2nd of 16b's 8,192 SCVI latent means (the
+     quadtree, the kd-tree's exact neighbours). (d) on every 4th of the
+     8,192 cells, 2,048, card
      against CPU: the neighbours and P (1e-7 of the largest), the first
      forces from one start at one OpenMP thread (1e-6 of the largest),
      and the final KL of two default runs within 2%. No kernel launches.
+ 23. the device mesh (``sisua_tpu_torch.parallel``), last, within 90 s;
+     (a)'s rank and (b)'s four start at once while this process makes
+     their one-device references. (a) one NCCL rank on the card
+     (``parallel.spawn``): phase 4's SCVI on phase 4's counts (made again
+     from their seed), batch 512, 2 epochs with ``fit(mesh=create_mesh(),
+     device_cache=True)`` against the same fit on one device: per-epoch
+     losses within 1e-6 relative (the collectives of a one-rank group are
+     skipped), both kernels once a step, ``predict_mean(mesh=)`` against
+     ``predict_mean()`` within SERVE_RTOL; the mesh step's ms beside
+     phase 4's. (b) a 2 × 2 world of 4 gloo ranks sharing the card (NCCL
+     refuses two ranks on one device): SCVI at 33,000 genes, its three
+     gene heads split over 'model', 4 steps of ``fit(mesh=create_mesh(2,
+     2))`` on 2,048 seeded cells (each data rank 256 of a batch's 512
+     rows) from the seeded weights and the generator's global draws,
+     against the same fit on one device: each step's loss within 1e-5
+     relative, step 1's gradients within phase 5's ROUTE_GRAD_BOUND
+     measure, the parameters after step 4 (every entry within 2·lr a
+     step, each leaf's update within 5% of its norm: P23_UPDATE_RTOL),
+     both kernels launched in every rank once a step. Gloo takes every
+     collective on CUDA tensors there (none is staged through the host);
+     its step time is no speed figure.
 Earlier phases train through ``fit(device_cache=True)``, the loop they
 were written for. Before the last line it prints the kernels' JSON summary
 (launches of the phase 4 and phase 6 fits, of phase 8 and of phases 9 to
@@ -323,8 +345,12 @@ PROTEINS = 10
 CELLS = 8192
 HELD_OUT = 1024
 BATCH = 512
-EPOCHS = 16
-WINDOW = 8            # metrics_interval, in epochs
+# phases 4-13's fits: 8 epochs in two windows of 4 (cut from 16 in
+# windows of 8 so that phases 1-23 fit the run's 1,200 s on a slow host)
+EPOCHS = 8
+WINDOW = 4            # metrics_interval, in epochs
+LONG_EPOCHS = 16      # 16b's DE fit and MULTIVI's fleet (19b) keep 16
+LONG_WINDOW = 8
 ALPHA = 10.0          # configs/base.yaml:10
 LABELS_PERCENT = 0.1  # configs/base.yaml:26
 FWD_RTOL = 1e-4       # row-sum order bound (tests/test_ops.py:79)
@@ -3064,7 +3090,7 @@ FLEET_ZOO = {"FVAE": 1, "SemiFVAE": 2, "SCALE": 1, "SCALAR": 2, "TotalVI": 1,
 # epochs and metrics window of each fleet: MULTIVI's loss spikes in its
 # first epochs at this width (its single fits too) and falls from the
 # first window of 8 to the second, as phase 11 checks it
-FLEET_ZOO_EPOCHS = {"MULTIVI": (EPOCHS, WINDOW)}
+FLEET_ZOO_EPOCHS = {"MULTIVI": (LONG_EPOCHS, LONG_WINDOW)}
 FLEET_ZOO_SHORT = (2, 2)
 # a gradient that vanishes but for rounding (a bias ahead of a BatchNorm),
 # on the fleet and on the single step: max|g| below 2^-14 of the largest
@@ -3544,8 +3570,8 @@ def phase_de(torch, x):
   idx = torch.as_tensor(cols, device=DEVICE)
   model = _scvi(torch, "full")
   tz.reset_launches()
-  model.fit(xd, epochs=EPOCHS, batch_size=BATCH, learning_rate=1e-3,
-            clipnorm=100.0, metrics_interval=WINDOW, device_cache=True)
+  model.fit(xd, epochs=LONG_EPOCHS, batch_size=BATCH, learning_rate=1e-3,
+            clipnorm=100.0, metrics_interval=LONG_WINDOW, device_cache=True)
   launches = dict(tz.launches)
   losses = np.asarray(model.history["loss"])
   check(np.isfinite(losses).all(), f"planted SCVI losses {losses}")
@@ -4076,7 +4102,7 @@ P20_MI_CPU_GENES = 64    # genes of the MI's card-vs-CPU check
 # (4,096 took 29 s in sklearn's O(N²) backend, 13 s in 'jax')
 P20_MI_CELLS = 2048
 P20_TREES_MAX = 80       # get_importance_matrix's default n_estimators
-P20_IMP_GENES = 500      # its genes: the trees' host time grows with them
+P20_IMP_GENES = 250      # its genes: the trees' host time grows with them
 P20_TOL = {              # card vs CPU on the subset
     "float32": 1e-6,     # relative: QC, normalize, rank scores/p-values
     "pca_sv": 1e-4,      # relative: singular values (float32 SVDs)
@@ -4702,6 +4728,9 @@ def phase_data_analysis(torch, x, y):
 # phase 21: the classical baselines and t-SNE
 P21_COMPONENTS = 10      # run_baseline's n_components (the JAX default)
 P21_BUDGET = 180.0       # seconds of the phase, its CPU checks included
+# (b)'s and (c)'s t-SNEs on every 2nd cell: the host's forces set their
+# time (74.7 and 14.8 s on all 8,192 cells on a slow host)
+P21_TSNE_STEP = 2
 P21_TRUST_K = 12         # trustworthiness's n_neighbors
 P21_TOL = {              # card vs CPU on every 4th cell
     # float32 SVDs: cuSOLVER's and LAPACK's power iterations turn close
@@ -4794,24 +4823,28 @@ def phase_baselines_tsne(torch, full, counts, z):
   log(f"[21 baselines] the five in {time.perf_counter() - t_phase:.1f} s, "
       f"{t_cpu:.1f} s of it the CPU's fits on {len(x_sub)} cells")
 
-  # (b) t-SNE through the container, on phase 20's cached PCs
+  # (b) t-SNE through the container, on phase 20's cached PCs (of every
+  # P21_TSNE_STEP-th cell)
   pcs = full.obsm["transcriptomic_pca"][:, :50]
+  part = full[np.arange(0, full.n_obs, P21_TSNE_STEP)]
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   t0 = time.perf_counter()
-  emb = full.dimension_reduce(algo="tsne")
+  emb = part.dimension_reduce(algo="tsne")
   torch.cuda.synchronize()
   sec = time.perf_counter() - t0
   peak = torch.cuda.max_memory_allocated() / 2 ** 30
-  check(emb.shape == (full.n_obs, 3) and np.isfinite(emb).all()
-        and "transcriptomic_tsne" in full.obsm, f"t-SNE {emb.shape}")
-  X = torch.as_tensor(pcs, device=DEVICE)
+  check(emb.shape == (part.n_obs, 3) and np.isfinite(emb).all()
+        and "transcriptomic_tsne" in part.obsm, f"t-SNE {emb.shape}")
+  X = torch.as_tensor(pcs[::P21_TSNE_STEP], device=DEVICE)
   kl = _p21_kl(torch, X, emb, 2)
   tw = M.trustworthiness(X, emb, n_neighbors=P21_TRUST_K)
   # the planted groups are faint in 50 PCs: t-SNE must keep more of each
   # cell's neighbourhood than the linear 3-D projection does
-  tw_pca = M.trustworthiness(X, pcs[:, :3], n_neighbors=P21_TRUST_K)
-  log(f"[21 tsne] dimension_reduce(algo='tsne'): {full.n_obs} cells × 3 "
+  tw_pca = M.trustworthiness(X, pcs[::P21_TSNE_STEP, :3],
+                             n_neighbors=P21_TRUST_K)
+  log(f"[21 tsne] dimension_reduce(algo='tsne'): {part.n_obs} cells (cut: "
+      f"every {P21_TSNE_STEP}nd of {full.n_obs}) × 3 "
       f"components on 50 PCs: {sec:.3f} s (neighbours, P and the descent "
       f"on the card, the octree's forces on {os.cpu_count()} host CPUs), "
       f"peak {peak:.3f} GiB; KL {kl:.4f}; trustworthiness (k = "
@@ -4819,7 +4852,9 @@ def phase_baselines_tsne(torch, full, counts, z):
   check(np.isfinite(kl) and tw > tw_pca, f"t-SNE KL {kl}, trustworthiness "
         f"{tw} (the first 3 PCs' {tw_pca})")
 
-  # (c) t-SNE through utils, on 16b's SCVI latent means
+  # (c) t-SNE through utils, on 16b's SCVI latent means (every
+  # P21_TSNE_STEP-th cell's)
+  z = np.asarray(z)[::P21_TSNE_STEP]
   t0 = time.perf_counter()
   e2 = utils.dimension_reduction(z, "tsne", 2)
   torch.cuda.synchronize()
@@ -5162,6 +5197,252 @@ def phase_experiment(torch):
   return launches
 
 
+P23_EPOCHS = 2
+P23_STEPS = 4            # 23b: 4 global batches of BATCH rows
+P23_LOSS_RTOL = 1e-6     # 23a: a one-rank mesh against one device
+P23_STEP_RTOL = 1e-5     # 23b: each step's loss, 2 × 2 against one device
+# 23b: parameters after 4 Adam steps. Where a gradient is small beside its
+# rounding error (an entry of a sparse gene, a BatchNorm-fed bias) Adam's
+# normalized step turns that error into up to ±lr, so every entry is held
+# to 2·lr·steps and each leaf's update, ‖p − p_single‖ / ‖p_single − p₀‖,
+# to P23_UPDATE_RTOL (a BatchNorm-fed bias and its running mean to the
+# first alone)
+P23_UPDATE_RTOL = 0.05
+P23_SAMPLE_ROWS = 8      # 23a: predict_mean rows compared whole
+P23_BUDGET = 90.0
+P23_TIMEOUT = 300
+
+
+def _p23_record(torch, model):
+  """Wraps ``model._train_step`` and ``ClippedOptimizer.step`` to keep
+  each step's (global) loss and step 1's pre-clip gradients, the model
+  axis's slices gathered; returns (losses, grads, undo)."""
+  from sisua_tpu_torch.parallel import functional as PF
+  from sisua_tpu_torch.train.trainer import ClippedOptimizer
+  losses, grads = [], {}
+  step = model._train_step
+
+  def recorded_step(batch, noise=None):
+    m = step(batch, noise)
+    losses.append(m["loss"].detach())
+    return m
+  model._train_step = recorded_step
+  clipped = ClippedOptimizer.step
+
+  def recorded_clip(opt):
+    if not grads:
+      split = model._split
+      dims = {} if split is None else {id(p): d for _, _, _, p, d
+                                       in split.entries}
+      for k, p in model.module.named_parameters():
+        g = p.grad.detach()
+        if id(p) in dims:
+          g = PF.all_gather_cat(g, split.view.model_group, dims[id(p)])
+        grads[k] = g.clone()
+    clipped(opt)
+  ClippedOptimizer.step = recorded_clip
+
+  def undo():
+    ClippedOptimizer.step = clipped
+  return losses, grads, undo
+
+
+def _p23a_fit(torch, mesh):
+  """23a's fit of phase 4's SCVI on phase 4's counts (made again from
+  their seed), on ``mesh`` or on one device, and its ``predict_mean``:
+  the losses, launches, step ms and the means' row sums and first rows."""
+  from sisua_tpu_torch.ops import zinb as tz
+  t0 = time.perf_counter()
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+  x = torch.cat([_counts(torch, gen, 1024, GENES)
+                 for _ in range(CELLS // 1024)])
+  model = _scvi(torch, "full")
+  tz.reset_launches()
+  model.fit(x, epochs=P23_EPOCHS, batch_size=BATCH, learning_rate=1e-3,
+            clipnorm=100.0, device_cache=True, mesh=mesh)
+  launches = dict(tz.launches)
+  means, _ = model.predict_mean(x, sample_shape=(2,), batch_size=BATCH,
+                                mesh=mesh)
+  return {"loss": list(model.history["loss"]), "launches": launches,
+          "step_ms": model.history["epoch_time"][-1]
+          / (CELLS // BATCH) * 1e3,
+          "row_sums": means[0].sum(1, dtype="float64"),
+          "rows": means[0][:P23_SAMPLE_ROWS].copy(),
+          "seconds": time.perf_counter() - t0}
+
+
+def _p23a_rank():
+  """23a in its NCCL rank: phase 4's fit over a 1 × 1 mesh."""
+  import torch
+  from sisua_tpu_torch.parallel import create_mesh
+  return _p23a_fit(torch, create_mesh())
+
+
+def _p23_counts(torch, rows):
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+  return _counts(torch, gen, rows, GENES)
+
+
+def _p23b_fit(torch, mesh):
+  """23b's fit on one rank's card: the seeded SCVI, 4 global steps."""
+  from sisua_tpu_torch.ops import zinb as tz
+  from sisua_tpu_torch.parallel import param_plan
+  x = _p23_counts(torch, P23_STEPS * BATCH)
+  model = _scvi(torch, "full")
+  losses, grads, undo = _p23_record(torch, model)
+  tz.reset_launches()
+  t0 = time.perf_counter()
+  try:
+    model.fit(x, epochs=1, batch_size=BATCH, learning_rate=1e-3,
+              clipnorm=100.0, device_cache=True, mesh=mesh, patience=0)
+    torch.cuda.synchronize()
+  finally:
+    undo()
+  seconds = time.perf_counter() - t0
+  return {"losses": [float(v) for v in losses], "grads": grads,
+          "state": {k: v.detach() for k, v in
+                    model.module.state_dict().items()},
+          "launches": dict(tz.launches), "seconds": seconds,
+          "split": sorted(param_plan(dict(model.module.named_parameters()),
+                                     2))}
+
+
+def _p23b_rank():
+  """23b in one of the 4 gloo ranks (all on card 0)."""
+  import torch
+  import torch.distributed as dist
+  from sisua_tpu_torch.parallel import create_mesh
+  out = _p23b_fit(torch, create_mesh(2, 2))
+  keep = dist.get_rank() == 0
+  return {"losses": out["losses"], "launches": out["launches"],
+          "seconds": out["seconds"], "split": out["split"],
+          "grads": {k: v.cpu().numpy() for k, v in out["grads"].items()}
+          if keep else None,
+          "state": {k: v.cpu().numpy() for k, v in out["state"].items()}
+          if keep else None,
+          "digest": float(sum(v.double().abs().sum()
+                              for v in out["state"].values()))}
+
+
+def _check_p23a(torch, single, mesh, a_s):
+  import numpy as np
+  steps = P23_EPOCHS * (CELLS // BATCH)
+  rel = max(abs(m - s) / abs(s) for m, s in zip(mesh["loss"],
+                                                 single["loss"]))
+  check(np.isfinite(mesh["loss"]).all() and rel <= P23_LOSS_RTOL,
+        f"23a losses mesh {mesh['loss']} single {single['loss']}")
+  check(mesh["launches"] == {"zinb_rowsum_fwd": steps,
+                             "zinb_rowsum_bwd": steps},
+        f"23a launches {mesh['launches']} != {steps} steps")
+  scale = float(np.abs(single["rows"]).max())
+  serve = max(float(np.abs(mesh["rows"] - single["rows"]).max()) / scale,
+              float(np.abs(mesh["row_sums"] - single["row_sums"]).max()
+                    / np.abs(single["row_sums"]).max()))
+  check(serve <= SERVE_RTOL, f"23a predict_mean(mesh=) off by {serve:.2e}")
+  log(f"[23a mesh] one NCCL rank (``parallel.spawn``), fit(mesh="
+      f"create_mesh(), device_cache=True) {P23_EPOCHS} epochs ({steps} "
+      f"steps) on {CELLS} × {GENES}: per-epoch losses {mesh['loss']} "
+      f"against {single['loss']} on one device in this process (max rel "
+      f"{rel:.2e}); a one-rank group's collectives are skipped, so the "
+      "gradients' all-reduce, BatchNorm's statistics, the means and the "
+      f"model axis's gathers are identities; launches {mesh['launches']};"
+      f" predict_mean(mesh=) against predict_mean(): {serve:.2e} of the "
+      f"largest (the first {P23_SAMPLE_ROWS} rows whole, every row's sum); "
+      f"steady step {mesh['step_ms']:.3f} ms on the mesh, "
+      f"{single['step_ms']:.3f} ms without, phase 4's "
+      f"{PHASE4.get('step_ms', float('nan')):.3f} ms; the rank's fit and "
+      f"serving {mesh['seconds']:.1f} s, {a_s:.1f} s with its start")
+
+
+def _check_p23b(torch, ranks, want, b_s):
+  import numpy as np
+  for r, out in enumerate(ranks):
+    check(out["launches"] == {"zinb_rowsum_fwd": P23_STEPS,
+                              "zinb_rowsum_bwd": P23_STEPS},
+          f"23b rank {r} launches {out['launches']}")
+    check(abs(out["digest"] - ranks[0]["digest"])
+          <= 1e-6 * ranks[0]["digest"], f"23b rank {r}'s model differs")
+    for i, (g, w) in enumerate(zip(out["losses"], want["losses"])):
+      check(abs(g - w) <= P23_STEP_RTOL * abs(w),
+            f"23b rank {r} step {i + 1} loss {g} against {w}")
+  got = ranks[0]
+  check(len(got["split"]) == 3, f"23b split leaves {got['split']}")
+  scale = max(float(g.abs().max()) for g in want["grads"].values())
+  worst, worst_key = 0.0, None
+  for k, w in want["grads"].items():
+    w = w.cpu().numpy()
+    ratio = float(np.abs(got["grads"][k] - w).max()) / (
+        float(np.abs(w).max()) + 1e-3 * scale)
+    if ratio > worst:
+      worst, worst_key = ratio, k
+  check(worst <= ROUTE_GRAD_BOUND,
+        f"23b step 1 gradient {worst_key} off by {worst:.2e}")
+  model = _scvi(torch, "full")
+  state0 = {k: v.cpu().numpy() for k, v in model.module.state_dict().items()}
+  loose = _batchnormed_biases(model.module)
+  loose |= {k.replace(".dense", ".bn")[:-len("bias")] + "running_mean"
+            for k in loose}
+  del model
+  u_worst, u_key, d_worst = 0.0, None, 0.0
+  for k, w in want["state"].items():
+    w = w.cpu().numpy()
+    d = np.abs(got["state"][k] - w)
+    d_worst = max(d_worst, float(d.max()))
+    check(float(d.max()) <= 2 * 1e-3 * P23_STEPS + 1e-6,
+          f"23b {k} off by {float(d.max()):.2e} after {P23_STEPS} steps")
+    moved = float(np.linalg.norm(w - state0[k]))
+    if k in loose or moved == 0.0:
+      continue
+    ratio = float(np.linalg.norm(got["state"][k] - w)) / moved
+    if ratio > u_worst:
+      u_worst, u_key = ratio, k
+  check(u_worst <= P23_UPDATE_RTOL,
+        f"23b {u_key}'s update off by {u_worst:.2e} of its norm")
+  log(f"[23b mesh] a 2 × 2 world of 4 gloo ranks on one card (the gene "
+      f"heads {got['split']} split over 'model', 256 rows a data rank): "
+      f"{P23_STEPS} steps, losses {[round(v, 3) for v in got['losses']]} "
+      f"against one device's {[round(v, 3) for v in want['losses']]} "
+      f"(rtol {P23_STEP_RTOL}); step 1 gradients max|Δ|/(max|g|+1e-3·G) "
+      f"{worst:.2e} at {worst_key} (bound {ROUTE_GRAD_BOUND}); after step "
+      f"{P23_STEPS} every entry within {d_worst:.2e} (bound 2·lr·"
+      f"{P23_STEPS}), the worst update ‖Δp‖/‖p − p₀‖ {u_worst:.2e} at "
+      f"{u_key} (bound {P23_UPDATE_RTOL}; the {len(loose)} BatchNorm-fed "
+      "biases and running means to the entry bound alone); every rank "
+      f"launched each kernel {P23_STEPS} times; gloo took every collective"
+      " on CUDA tensors (none staged through the host); the gloo fit "
+      f"{got['seconds']:.2f} s is no speed figure ({b_s:.1f} s with the "
+      "ranks' start)")
+
+
+def phase_mesh(torch):
+  """Phase 23 (module docstring): 23a's rank and 23b's four start at once,
+  while this process makes their one-device references. Returns the
+  launches of the mesh fits, summed over the ranks."""
+  from sisua_tpu_torch.parallel import spawn
+  t0 = time.perf_counter()
+
+  def timed(fn, *args, **kw):
+    t = time.perf_counter()
+    return fn(*args, **kw), time.perf_counter() - t
+  with ThreadPoolExecutor(2) as pool:
+    fa = pool.submit(timed, spawn, _p23a_rank, 1, timeout=P23_TIMEOUT)
+    fb = pool.submit(timed, spawn, _p23b_rank, 4, backend="gloo",
+                     timeout=P23_TIMEOUT)
+    single = _p23a_fit(torch, None)
+    want = _p23b_fit(torch, None)
+    (a, a_s), (ranks, b_s) = fa.result(), fb.result()
+  mesh = a[0]
+  _check_p23a(torch, single, mesh, a_s)
+  _check_p23b(torch, ranks, want, b_s)
+  total = time.perf_counter() - t0
+  check(total <= P23_BUDGET, f"phase 23 took {total:.1f} s > {P23_BUDGET}")
+  log(f"[23 mesh] phase 23 in {total:.1f} s (budget {P23_BUDGET:.0f} s; "
+      f"the one-device references {single['seconds']:.1f} + "
+      f"{want['seconds']:.1f} s in this process meanwhile)")
+  return {k: mesh["launches"][k] + sum(o["launches"][k] for o in ranks)
+          for k in mesh["launches"]}
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -5235,6 +5516,9 @@ def main():
     mark("21")
     experiment_launches = phase_experiment(torch)
     mark("18")
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(torch)
+    mark("23")
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
   launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]
@@ -5243,7 +5527,7 @@ def main():
               + ooc_launches[k] + stream_launches[k] + scan_launches[k]
               + fleet_launches[k] + fleet_zoo_launches[k]
               + analysis_launches[k]
-              + experiment_launches[k]
+              + experiment_launches[k] + mesh_launches[k]
               for k, v in launches.items()}
 
   def numbers(case, key, err, kind, results=kern):

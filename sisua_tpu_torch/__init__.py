@@ -33,9 +33,12 @@ the ``plot_*`` methods of ``SingleCellOMIC``, ``Posterior`` and
 ``ResultsSheet``, the monitor callbacks); the data analyzer of
 ``data.SingleCellOMIC`` (QC, filters, PCA/UMAP, neighbours, clusterings,
 rank tests, correlations, mutual information, importances, PCA, t-SNE
-and UMAP) on the card, ``utils``, and the classical baselines
+and UMAP) on the card, ``utils``, the classical baselines
 (``baselines.run_baseline``: PCA, probabilistic PCA, sparse PCA, NMF
-and factor analysis, scored like the deep models). Top-level names resolve
+and factor analysis, scored like the deep models), and the device mesh
+(``parallel``: ``fit``, serving, the fleet, the experimenter, the
+posterior and the CLIs over a (data × model) mesh of
+``torch.distributed`` ranks). Top-level names resolve
 lazily, as in the JAX package: ``sisua_tpu_torch.SCVI``, ``.get_model``,
 ``.load_model``, ``.Trainer``, ``.DataFeeder``, ``.VmapEnsemble``,
 ``.Posterior``, ``.SisuaExperimenter``, ``.get_dataset``.
@@ -46,7 +49,7 @@ __version__ = "0.1.0"
 _SUBMODULES = ("data", "models", "train", "dist", "nn", "rv", "ops",
                "interpolation", "convert", "native", "analysis",
                "label_threshold", "baselines", "cli", "utils",
-               "cross_analyze")
+               "cross_analyze", "parallel")
 
 
 def __getattr__(name):

@@ -42,7 +42,9 @@ violins, heatmaps, dendrogram, dot plot, marker matrices and scatters)
 come from ``sco_analysis``, the port's ``SingleCellOMIC`` of the original
 omics, the imputed ``i<omic>`` and ``latent``, built at the first figure
 that needs it. ``figure_data()`` runs the data steps alone (no
-matplotlib). ``mesh=`` waits for ROADMAP A21.
+matplotlib). ``mesh=``: the model's predictions, log-likelihoods and
+marginal log-likelihoods run over the mesh's data axis (every rank gets
+the whole arrays, so the scores after them are the single-device ones).
 """
 
 from __future__ import annotations
@@ -141,9 +143,6 @@ class Posterior(Visualizer):
                device_cache: bool = False,
                mesh=None,
                verbose: bool = False):
-    if mesh is not None:
-      raise NotImplementedError("mesh serving is not ported yet "
-                                "(ROADMAP A21)")
     if not isinstance(data, dict) or not data:
       raise ValueError("data must be a non-empty {omic_name: matrix} dict")
     self.scm = scm
@@ -156,6 +155,7 @@ class Posterior(Visualizer):
     self.sample_shape = int(sample_shape)
     self.batch_size = int(batch_size)
     self.device_cache = bool(device_cache)
+    self.mesh = mesh
     self.verbose = bool(verbose)
     self.seed = int(seed)
     self.dropout_rate = float(dropout_rate)
@@ -182,7 +182,7 @@ class Posterior(Visualizer):
       omics = list(self.data)[:scm.n_outputs]
     self.output_omics = omics
     kw = dict(sample_shape=(self.sample_shape,), batch_size=self.batch_size,
-              device_cache=self.device_cache)
+              device_cache=self.device_cache, mesh=self.mesh)
     self.pX_cor, self.qZ_cor = scm.predict(
         [self.corrupted[o] for o in omics], **kw)
     self.pX_org, self.qZ_org = scm.predict(
@@ -379,7 +379,7 @@ class Posterior(Visualizer):
     for tag, source in (("cor", self.corrupted), ("org", self.data)):
       vals = self.scm.compute_llk([source[o] for o in self.output_omics],
                                   targets, sample_shape=(self.sample_shape,),
-                                  batch_size=self.batch_size)
+                                  batch_size=self.batch_size, mesh=self.mesh)
       for key, v in vals.items():
         data_tag, output_i = key.split("_output")
         out[f"llk_{self.output_omics[int(output_i)]}_pred{tag}_"
@@ -392,7 +392,7 @@ class Posterior(Visualizer):
     if key not in self._cache:
       mllk = self.scm.marginal_log_prob(
           [self.data[o] for o in self.output_omics],
-          sample_shape=sample_shape, batch_size=8)
+          sample_shape=sample_shape, batch_size=8, mesh=self.mesh)
       self._cache[key] = {f"marginal_llk_{self.main_omic}":
                           float(np.mean(mllk))}
     return self._cache[key]

@@ -11,7 +11,10 @@ the 10-figure summary with ``--summary-plots``) and the sheet's
 comparison grid, unless ``--no-plots``. A step that fails is recorded on
 the scoreboard and the sweep goes on; the command then exits non-zero.
 The figures need matplotlib and seaborn: without them the command stops
-before any model is scored. ``--mesh`` raises (ROADMAP A21).
+before any model is scored. ``--mesh all|N``: the posteriors' predictions
+run over a data mesh of that many ranks (``cli/_world.py``); rank 0
+writes the scoreboard, the tables, the figures and the output, and the
+command then returns the posteriors' names.
 """
 
 from __future__ import annotations
@@ -74,23 +77,34 @@ def main(argv=None):
                  help="render only the 10-figure summary instead of the "
                       "full per-factor grid")
   p.add_argument("--mesh", default=None,
-                 help="not ported (ROADMAP A21): raises")
+                 help="run the posteriors' predictions over a data mesh: "
+                      "'all' (a rank per card) or N ranks (gloo ranks "
+                      "with --device cpu)")
   p.add_argument("--device", default="cuda",
                  help="where the models score: 'cuda' (default) or 'cpu'")
+  argv = list(sys.argv[1:] if argv is None else argv)
   args = p.parse_args(argv)
   if not args.no_plots:
     from ..utils.visualization import _seaborn
     _seaborn()  # no matplotlib or seaborn: stop before any model is scored
+  mesh = None
   if args.mesh is not None:
-    raise NotImplementedError("--mesh: posteriors over a device mesh are "
-                              "not ported yet (ROADMAP A21)")
+    from . import _world
+    if not _world.joined():
+      return _world.start(main, argv, _world.world_size(
+          args.mesh, args.device), args.device)
+    from ..parallel import create_mesh
+    mesh = create_mesh()
 
   from ..analysis import ResultsSheet
   from ..data import get_dataset
   from ..data.adapters import sco_posterior
+  from ..parallel import is_main_rank
   from ..train.experimenter import SisuaExperimenter
 
   exp = SisuaExperimenter(device=args.device)
+  main_rank = is_main_rank()
+  board = exp.scoreboard if main_rank else None
   query = []
   if args.model:
     query.append(f"model.name={args.model}")
@@ -116,27 +130,29 @@ def main(argv=None):
       return sco_posterior(
           model, test,
           dropout_rate=float(cfg["dataset"].get("dropout_rate", 0.2)),
-          retain_rate=float(cfg["dataset"].get("retain_rate", 0.2)))
+          retain_rate=float(cfg["dataset"].get("retain_rate", 0.2)),
+          mesh=mesh)
 
-    post = robust_run("posterior", uid, _make_posterior,
-                      scoreboard=exp.scoreboard)
+    post = robust_run("posterior", uid, _make_posterior, scoreboard=board)
     if post is None:
       failures += 1
       continue
-    scores = robust_run("scoring", uid, scoring, post, exp.scoreboard,
-                        table=f"eval_{ds_name}", uid=uid,
-                        scoreboard=exp.scoreboard)
+    scores = robust_run("scoring", uid, scoring, post, board,
+                        table=f"eval_{ds_name}", uid=uid, scoreboard=board)
     if scores is None:
       failures += 1
-    else:
+    elif main_rank:
       print(f"[{uid}] " + " ".join(
           f"{k}={v:.4f}" for k, v in list(scores.items())[:5]))
     for family, err in post.failures.items():
-      exp.scoreboard.write_error(f"scoring:{uid}",
-                                 f"posterior.{family} failed: {err}")
+      if main_rank:
+        exp.scoreboard.write_error(f"scoring:{uid}",
+                                   f"posterior.{family} failed: {err}")
       failures += 1
     posteriors.append(post)
 
+  if not main_rank:
+    return [post.name for post in posteriors]
   if posteriors:
     rs = ResultsSheet(*posteriors)
     print("scores →", rs.save_scores(os.path.join(args.path, "scores")))
@@ -157,7 +173,7 @@ def main(argv=None):
   if failures:
     raise SystemExit(f"sisua-evaluate: {failures} step(s) failed (see the "
                      f"errors of {exp.scoreboard.path})")
-  return posteriors
+  return posteriors if mesh is None else [post.name for post in posteriors]
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ file) or a ``.csv`` (cells × genes, a header row and an index column),
 writing the posterior means of the outputs (``imputed.npz``), of the
 latents (``latents.npz``), TotalVI's denoised proteins for a registry
 dataset, and ``manifest.json``, with the JAX command's keys. ``.h5ad``
-needs h5py and ``--mesh`` the port's mesh (ROADMAP A21): both raise.
+needs h5py, which the port does not use: it raises. ``--mesh all|N``
+scores over a data mesh of that many ranks (``cli/_world.py``); rank 0
+writes the files.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 
 def _load_counts(path: str):
@@ -55,19 +58,27 @@ def main(argv=None):
                  help="bfloat16 halves the device→host fetch (~0.4%% "
                       "relative error)")
   p.add_argument("--mesh", default=None,
-                 help="not ported (ROADMAP A21): raises")
+                 help="score data-parallel over a mesh: 'all' (a rank per "
+                      "card) or N ranks (gloo ranks with --device cpu)")
   p.add_argument("--device", default="cuda",
                  help="where the model scores: 'cuda' (default) or 'cpu'")
+  argv = list(sys.argv[1:] if argv is None else argv)
   args = p.parse_args(argv)
+  mesh = None
   if args.mesh is not None:
-    raise NotImplementedError("--mesh: scoring over a device mesh is not "
-                              "ported yet (ROADMAP A21)")
+    from . import _world
+    if not _world.joined():
+      return _world.start(main, argv, _world.world_size(
+          args.mesh, args.device), args.device)
+    from ..parallel import create_mesh
+    mesh = create_mesh()
 
   import numpy as np
 
   from ..data import get_dataset, get_dataset_meta
   from ..models import load_model
   from ..data.adapters import sco_matrices
+  from ..parallel import is_main_rank
 
   model = load_model(args.model, device=args.device)
   sco = None
@@ -79,7 +90,9 @@ def main(argv=None):
     n = data.shape[0]
   x_means, z_means = model.predict_mean(
       data, sample_shape=(args.sample_shape,), batch_size=args.batch,
-      fetch_dtype=args.fetch_dtype)
+      fetch_dtype=args.fetch_dtype, mesh=mesh)
+  if not is_main_rank():
+    return None
 
   os.makedirs(args.outpath, exist_ok=True)
   np.savez_compressed(os.path.join(args.outpath, "imputed.npz"),

@@ -5,8 +5,12 @@
   python -m sisua_tpu_torch.cli.train --config configs/presets/cortex_vae.yaml
 
 ``--device`` (default 'cuda'; 'cpu' on request) is where every model is
-built, multirun children included. Exits non-zero when a config failed or
-anything was written to the scoreboard's errors during the run.
+built, multirun children included. A config with ``train.n_data_devices ×
+train.n_model_devices`` > 1 trains over that mesh: under torchrun the
+process joins its world; otherwise the command starts a world of that
+many ranks here (``cli/_world.py``), and rank 0 writes and prints. Exits
+non-zero when a config failed or anything was written to the
+scoreboard's errors during the run.
 """
 
 from __future__ import annotations
@@ -28,20 +32,32 @@ def _take(argv, flag: str):
 
 def main(argv=None):
   from ..models.base import resolve_device
-  from ..train.experimenter import SisuaExperimenter
+  from ..parallel import is_main_rank
+  from ..train.experimenter import SisuaExperimenter, _mesh_shape
+  from . import _world
   argv = list(sys.argv[1:] if argv is None else argv)
+  given = list(argv)
   kwargs = {}
   config = _take(argv, "--config")  # e.g. configs/presets/cortex_vae.yaml
   if config is not None:
     kwargs["config_path"] = config
   kwargs["device"] = str(resolve_device(_take(argv, "--device") or "cuda"))
   exp = SisuaExperimenter(**kwargs)
-  print("SisuaExperimenter:")
-  print(" - save   :", exp.save_path)
-  print(" - config :", exp.config_path)
-  print(" - device :", exp.device)
+  if not _world.joined():
+    ranks = max(a * b for a, b in map(_mesh_shape,
+                                      exp.parse_args(list(argv))[0]))
+    if ranks > 1:
+      return _world.start(main, given, ranks, kwargs["device"])
+  main_rank = is_main_rank()
+  if main_rank:
+    print("SisuaExperimenter:")
+    print(" - save   :", exp.save_path)
+    print(" - config :", exp.config_path)
+    print(" - device :", exp.device)
   n_errors = len(exp.scoreboard.read_errors())
   results = exp.run(argv)
+  if not main_rank:
+    return results
   for r in results:
     keys = [k for k in r if k.startswith(("llk", "imputation", "pearson",
                                           "spearman"))][:6]

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from ..parallel import functional as PF
 from .base import Distribution, Tensor, register_kl
 
 __all__ = ["Normal", "MultivariateNormalDiag", "MultivariateNormalTriL",
@@ -29,13 +30,16 @@ __all__ = ["Normal", "MultivariateNormalDiag", "MultivariateNormalTriL",
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
-def _standard_noise(shape, like: Tensor, generator, eps):
+def _standard_noise(shape, like: Tensor, generator, eps, cell_axis: int):
+  """Given noise, or standard normal noise from ``generator`` (the global
+  batch's on a data mesh; ``cell_axis``, after the sample dims)."""
   if eps is not None:
     if tuple(eps.shape) != tuple(shape):
       raise ValueError(f"noise shape {tuple(eps.shape)} != {tuple(shape)}")
     return eps.to(device=like.device, dtype=like.dtype)
-  return torch.randn(shape, generator=generator, device=like.device,
-                     dtype=like.dtype)
+  return PF.draw_rows(lambda s: torch.randn(
+      s, generator=generator, device=like.device, dtype=like.dtype),
+      shape, cell_axis)
 
 
 class Normal(Distribution):
@@ -66,8 +70,8 @@ class Normal(Distribution):
 
   def rsample(self, sample_shape=(), generator=None, eps=None):
     shape = tuple(sample_shape) + self.batch_shape
-    return self.loc + self.scale * _standard_noise(shape, self.loc,
-                                                   generator, eps)
+    return self.loc + self.scale * _standard_noise(
+        shape, self.loc, generator, eps, len(tuple(sample_shape)))
 
 
 @register_kl(Normal, Normal)
@@ -118,8 +122,8 @@ class MultivariateNormalDiag(Distribution):
 
   def rsample(self, sample_shape=(), generator=None, eps=None):
     shape = tuple(sample_shape) + self.batch_shape + self.event_shape
-    return self.loc + self.scale_diag * _standard_noise(shape, self.loc,
-                                                        generator, eps)
+    return self.loc + self.scale_diag * _standard_noise(
+        shape, self.loc, generator, eps, len(tuple(sample_shape)))
 
 
 @register_kl(MultivariateNormalDiag, MultivariateNormalDiag)
@@ -170,7 +174,8 @@ class MultivariateNormalTriL(Distribution):
   def rsample(self, sample_shape=(), generator=None, eps=None):
     """loc + L @ eps."""
     shape = tuple(sample_shape) + self.batch_shape + self.event_shape
-    eps = _standard_noise(shape, self.loc, generator, eps)
+    eps = _standard_noise(shape, self.loc, generator, eps,
+                          len(tuple(sample_shape)))
     return self.loc + torch.matmul(self.scale_tril,
                                    eps.unsqueeze(-1))[..., 0]
 
@@ -295,4 +300,4 @@ class LogNormal(Distribution):
   def rsample(self, sample_shape=(), generator=None, eps=None):
     shape = tuple(sample_shape) + self.batch_shape
     return torch.exp(self.loc + self.scale * _standard_noise(
-        shape, self.loc, generator, eps))
+        shape, self.loc, generator, eps, len(tuple(sample_shape))))

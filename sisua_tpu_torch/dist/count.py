@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import functional as PF
 from .base import Distribution, Tensor
 
 __all__ = ["Poisson", "Bernoulli", "NegativeBinomial", "NegativeBinomialDisp",
@@ -135,16 +136,20 @@ class NegativeBinomialDisp(Distribution):
                        torch.zeros(()))
 
   def sample(self, sample_shape=(), generator=None):
-    return self.draw(tuple(sample_shape) + self.batch_shape, generator)
+    return self.draw(tuple(sample_shape) + self.batch_shape, generator,
+                     len(tuple(sample_shape)))
 
-  def draw(self, shape, generator=None):
+  def draw(self, shape, generator=None, cell_axis: int = 0):
     """A draw at ``shape``, to which the parameters broadcast:
-    λ ~ Gamma(θ)·μ/θ, x ~ Poisson(λ)."""
+    λ ~ Gamma(θ)·μ/θ, x ~ Poisson(λ); on a data mesh the global batch's
+    (its cells on ``cell_axis``)."""
+    def gamma_poisson(s, disp, loc):
+      lam = torch._standard_gamma(disp.contiguous(),
+                                  generator=generator) * (loc / disp)
+      return torch.poisson(lam.expand(s).contiguous(), generator=generator)
     with torch.no_grad():
-      lam = torch._standard_gamma(self.disp.expand(shape).contiguous(),
-                                  generator=generator) * (self.loc / self.disp)
-      return torch.poisson(lam.expand(shape).contiguous(),
-                           generator=generator)
+      return PF.draw_rows(gamma_poisson, shape, cell_axis,
+                          self.disp.expand(shape), self.loc.expand(shape))
 
 
 class NegativeBinomialDispLog(Distribution):
@@ -266,12 +271,14 @@ class NegativeBinomialMixture(Distribution):
     # both components are drawn at the MIXTURE's batch shape, so per-protein
     # parameters under per-cell mixing get one draw per cell
     shape = tuple(sample_shape) + self.batch_shape
+    axis = len(tuple(sample_shape))
     back, fore = self._components()
     with torch.no_grad():
-      b = back.draw(shape, generator)
-      f = fore.draw(shape, generator)
-      u = torch.rand(shape, generator=generator, device=b.device,
-                     dtype=b.dtype)
+      b = back.draw(shape, generator, axis)
+      f = fore.draw(shape, generator, axis)
+      u = PF.draw_rows(lambda s: torch.rand(
+          s, generator=generator, device=b.device, dtype=b.dtype),
+          shape, axis)
       return torch.where(u < self.mixing_probs, b, f)
 
 
@@ -311,9 +318,11 @@ class ZeroInflated(Distribution):
     # counts are drawn at the wrapper's batch shape, so a per-cell gate over
     # per-gene counts still gets one count draw per cell
     shape = tuple(sample_shape) + self.batch_shape
+    axis = len(tuple(sample_shape))
     with torch.no_grad():
-      counts = self.count_distribution.draw(shape, generator)
-      u = torch.rand(shape, generator=generator, device=counts.device,
-                     dtype=counts.dtype)
+      counts = self.count_distribution.draw(shape, generator, axis)
+      u = PF.draw_rows(lambda s: torch.rand(
+          s, generator=generator, device=counts.device, dtype=counts.dtype),
+          shape, axis)
       return torch.where(u < torch.sigmoid(self.gate_logits),
                          torch.zeros_like(counts), counts)

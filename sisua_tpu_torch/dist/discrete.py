@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import functional as PF
 from .base import Distribution, Tensor
 
 __all__ = ["Categorical", "OneHotCategorical"]
@@ -48,12 +49,17 @@ class Categorical(Distribution):
     return _entropy(self.logits)
 
   def sample(self, sample_shape=(), generator=None):
+    """Class indices from ``generator``; on a data mesh the global batch's
+    (its probabilities gathered), cells after the sample dims."""
     shape = tuple(sample_shape) + self.batch_shape
     k = self.logits.shape[-1]
+
+    def draw(s, probs):
+      idx = torch.multinomial(probs.reshape(-1, k), 1, generator=generator)
+      return idx.reshape(s)
     with torch.no_grad():
-      p = self.probs().expand(shape + (k,)).reshape(-1, k)
-      idx = torch.multinomial(p, 1, generator=generator)
-      return idx.reshape(shape)
+      return PF.draw_rows(draw, shape, len(tuple(sample_shape)),
+                          self.probs().expand(shape + (k,)))
 
 
 class OneHotCategorical(Distribution):

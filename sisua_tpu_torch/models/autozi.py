@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import dist as D
+from ..parallel import functional as PF
 from ..rv import parse_rv
 from .base import _flatten
 from .module import NoiseRecorder, SCVIModule, VAEOutput
@@ -251,7 +252,8 @@ class AUTOZI(SCVI):
     a, b = self.module.delta_posterior()
     kl = torch.sum(beta_kl(a, b, PRIOR_ALPHA, PRIOR_BETA))
     term = kl / float(self._n_total_cells or 10_000)
-    return term, {"klqp_delta": term}
+    # per gene: every data rank holds it whole
+    return PF.replicated(term), {"klqp_delta": term}
 
   def get_alphas_betas(self, as_numpy: bool = True):
     """Per-gene Beta posterior parameters of δ: ``{'alpha_posterior',

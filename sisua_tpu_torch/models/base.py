@@ -40,8 +40,15 @@ device-resident, out of core: ``train/trainer.py``); with
 uploads a CSR matrix as triplets where they are clearly smaller than its
 dense block. ``differential_expression`` draws its scales on the device
 and computes its statistics there in float64. ``create_posterior``
-builds the analysis hub (``analysis.Posterior``) on arrays. Not ported
-yet: the mesh (``fit`` raises on its argument).
+builds the analysis hub (``analysis.Posterior``) on arrays.
+
+``mesh=`` (a ``parallel.create_mesh`` of the calling world; every rank
+makes the same call): ``fit`` trains one global step per batch over the
+'data' axis, with wide leaves split over 'model' (``parallel/
+functional.py``), and returns with the whole model on every rank; the
+serving calls round the batch up to a multiple of n_data, serve each
+rank's rows and all-gather the outputs in cell order, so every rank
+returns the single-device arrays. Checkpoints are written by rank 0.
 """
 
 from __future__ import annotations
@@ -69,6 +76,8 @@ from ..data.utils import get_library_size, int16_exact
 from ..interpolation import Interpolation, get_interpolation
 from ..nn import DropoutMasks, NetConf, parse_netconf, resolve_dtype
 from ..ops.sparse import col_dtype_for, csr_row_triplets, densify, worthwhile
+from ..parallel import functional as PF
+from ..parallel.mesh import device_memory_limit
 from ..rv import RVmeta, parse_rv
 from ..train import checkpoint as ckpt
 from ..train.trainer import Trainer, TrainingCallback
@@ -158,6 +167,31 @@ def _merge_dists(dists_per_batch, axis: int, **kw) -> Tuple:
   """Merge every batch's tuple of distributions, position by position."""
   return tuple(D.tree_map(_merge_batch_leaves(axis, **kw), *ds)
                for ds in zip(*dists_per_batch))
+
+
+def _gathered_dists(dists, axis: int, k: int, b: int, n: int) -> Tuple:
+  """A mesh rank's merged distributions of k batches (b of its rows each
+  along ``axis``) → every rank's, in cell order, trimmed to ``n``; a
+  per-gene (1, D) row stays as it is."""
+  def gather(t):
+    const = t.ndim == 2 and t.shape[0] == 1  # _merge_batch_leaves' rule
+    if not const and t.ndim > axis and t.shape[axis] == k * b:
+      t = PF.gather_batches(t, k, axis)
+      t = t.narrow(axis, 0, n)
+    return t
+  return tuple(D.tree_map(gather, d) for d in dists)
+
+
+def _gathered_rows(dists, axis: int, rows: int) -> Tuple:
+  """A mesh rank's distributions of its ``rows`` rows of one batch (cells
+  on ``axis``) → the batch's, every rank's rows in order; a per-gene
+  (1, D) row stays as it is. Without a split batch, as they are."""
+  def gather(t):
+    const = t.ndim == 2 and t.shape[0] == 1 and rows != 1
+    if not const and t.ndim > axis and t.shape[axis] == rows:
+      return PF.gather_rows(t, axis)
+    return t
+  return tuple(D.tree_map(gather, d) for d in dists)
 
 
 def _to_host(dists) -> Tuple:
@@ -338,6 +372,8 @@ class SingleCellModel:
     self._track_grad_norms = False
     self.trainer: Optional[Trainer] = None
     self._loaded_history: Dict[str, List[float]] = {}
+    #: a mesh fit's model axis (``parallel.functional.ModelSplit``)
+    self._split = None
     # a constant β round-trips as its value, a warm-up schedule whole
     beta_spec = (self.beta.vmax if self.beta.kind == "const"
                  and not self.beta.cyclical else
@@ -557,26 +593,39 @@ class SingleCellModel:
     raise NotImplementedError(f"{type(self).__name__}'s aux step has no "
                               "form VmapEnsemble can batch")
 
-  def _train_step(self, batch) -> Dict[str, torch.Tensor]:
+  def _gathered(self):
+    """The model axis's full leaves for a step (a mesh fit), else
+    nothing to do."""
+    split = self._split
+    return split.gathered() if split is not None else contextlib.nullcontext()
+
+  def _train_step(self, batch, noise=None) -> Dict[str, torch.Tensor]:
     """One optimizer step; β is the schedule at the current step. Then the
     aux step, on the updated parameters. Every parameter gets its gradient,
     frozen ones too (the optimizer holds the trainable ones only); with
     ``track_gradient_norms`` the pre-clip global norm over all of them is
-    the step's ``grad_norm``, as ``optax.global_norm(grads)``."""
-    loss, metrics, _ = self._loss(batch, True, self.beta(self.step))
-    self.module.zero_grad(set_to_none=True)
-    loss.backward()
+    the step's ``grad_norm``, as ``optax.global_norm(grads)``. ``noise``
+    feeds the forward's draws (tests). In a mesh fit the gradients are
+    summed over 'data' before the clip (each rank's loss is its share of
+    the global batch's) and the norm counts split leaves once."""
+    with self._gathered():
+      loss, metrics, _ = self._loss(batch, True, self.beta(self.step),
+                                    **({} if noise is None
+                                       else {"noise": noise}))
+      self.module.zero_grad(set_to_none=True)
+      loss.backward()
+    params = list(self.module.parameters())
+    PF.all_reduce_grads(params)
     if self._track_grad_norms:
-      grads = [p.grad for p in self.module.parameters()
-               if p.grad is not None]
-      metrics["grad_norm"] = torch.sqrt(
-          torch.stack([torch.sum(g * g) for g in grads]).sum())
+      metrics["grad_norm"] = PF.global_grad_norm(
+          params, None if self._split is None else self._split.ids)
     self.optimizer.step()
     self.step += 1
-    return self._aux_step(batch, metrics)
+    with self._gathered():
+      return self._aux_step(batch, metrics)
 
   def _eval_step(self, batch) -> Dict[str, torch.Tensor]:
-    with torch.no_grad():
+    with torch.no_grad(), self._gathered():
       _, metrics, _ = self._loss(batch, False, self.beta(self.step))
     return metrics
 
@@ -830,11 +879,16 @@ class SingleCellModel:
     ``scan_steps=k``: the streaming loop uploads k batches as one chunk
     and runs their k steps from it (``Trainer``).
 
-    Not ported yet, and raising ``NotImplementedError``: ``mesh`` (ROADMAP
-    A21)."""
-    if mesh is not None:
-      raise NotImplementedError("mesh training is not ported yet "
-                                "(ROADMAP A21)")
+    ``mesh``: a ``parallel.create_mesh(n_data, n_model)`` of the calling
+    world, every rank making this call with the same data and seed. Each
+    step is the single-device step on the same global batch (each data
+    rank takes its rows; the draws, BatchNorm statistics and means are
+    the global batch's; the gradients are summed over 'data'); leaves the
+    model axis splits are held and optimized as slices and gathered for
+    each forward. The whole model, its optimizer state and the history
+    are on every rank when it returns; ``checkpoint_path`` is written by
+    rank 0."""
+    view = None if mesh is None else PF.MeshView(mesh)
     if not self.is_semi_supervised:
       labels_percent = 0.0
     train_feeder = self._to_feeder(train, batch_size, labels_percent)
@@ -856,9 +910,11 @@ class SingleCellModel:
                       device_cache=device_cache, device_dtype=device_dtype,
                       metrics_interval=metrics_interval,
                       hbm_budget_bytes=hbm_budget_bytes, device=self.device,
-                      scan_steps=scan_steps, verbose=verbose)
+                      scan_steps=scan_steps, mesh=mesh, verbose=verbose)
     freeze = (freeze,) if isinstance(freeze, str) else tuple(freeze)
     self._fit_optimizer(trainer, freeze)
+    split = (PF.ModelSplit(self.module, view, self.optimizer)
+             if view is not None and view.n_model > 1 else None)
     if self.aux is not None and self.aux_optimizer is None:
       self.aux_optimizer = self._make_aux_optimizer()
     self._train_mc_samples = max(1, int(mc_samples))
@@ -869,9 +925,17 @@ class SingleCellModel:
           checkpoint_path)
     trace = (self._profile(profile_dir) if profile_dir is not None
              else contextlib.nullcontext())
-    with trace:
-      trainer.fit(self, train_feeder, valid_feeder, epochs=epochs,
-                  callbacks=tuple(callbacks), checkpoint_fn=ckpt_fn)
+    self._split = split
+    self.optimizer.split_ids = None if split is None else split.ids
+    try:
+      with trace, PF.active(view):
+        trainer.fit(self, train_feeder, valid_feeder, epochs=epochs,
+                    callbacks=tuple(callbacks), checkpoint_fn=ckpt_fn)
+        if split is not None:  # every rank's slices → the whole model
+          split.close()
+    finally:
+      self._split = None
+      self.optimizer.split_ids = None
     # one history across successive fit calls
     if self.trainer is None:
       self.trainer = trainer
@@ -901,11 +965,14 @@ class SingleCellModel:
                                backend: str = "msgpack") -> None:
     """The current weights in the JAX layout (``params.msgpack``, +
     ``batch_stats.msgpack``, + ``aux_params.msgpack``), without the
-    metamodel: what the JAX ``fit`` writes to ``checkpoint_path``."""
-    params, batch_stats = convert.torch_to_jax(self.module)
+    metamodel: what the JAX ``fit`` writes to ``checkpoint_path``. In a
+    world every rank calls it: the full leaves are gathered and rank 0
+    writes (``ckpt.on_main_rank``)."""
+    state = None if self._split is None else self._split.full_state()
+    params, batch_stats = convert.torch_to_jax(self.module, state=state)
     aux = None if self.aux is None else convert.torch_to_jax(self.aux)[0]
-    ckpt.save_weights(path, params, batch_stats or None, aux_params=aux,
-                      backend=backend)
+    ckpt.on_main_rank(lambda: ckpt.save_weights(
+        path, params, batch_stats or None, aux_params=aux, backend=backend))
 
   @contextlib.contextmanager
   def _profile(self, profile_dir: str):
@@ -928,22 +995,37 @@ class SingleCellModel:
     return self._evaluate(xs, lib, batch_size)
 
   # ------------------------------------------------------- serving batches
-  def _serving_inputs(self, inputs, mesh=None):
+  def _serving_inputs(self, inputs):
     """(encoder matrices, library stats) of a serving call: only the
     sources ``_module_input`` consumes are kept."""
-    if mesh is not None:
-      raise NotImplementedError("mesh serving is not ported yet")
     mats, library = self._sources(inputs)
     return [mats[i] for i in self._serving_source_indices(len(mats))], \
         library
 
   def _serve(self, x: torch.Tensor, library: Optional[torch.Tensor],
-             sample_shape: Tuple[int, ...]) -> VAEOutput:
-    """Eval-mode forward of one device batch (callers hold ``no_grad``)."""
+             sample_shape: Tuple[int, ...],
+             rows: Optional[int] = None) -> VAEOutput:
+    """Eval-mode forward of one device batch (callers hold ``no_grad``).
+    ``rows``: the global batch's rows on a mesh, of which ``x`` is this
+    rank's part (its draws are the global batch's)."""
     self.module.eval()
-    return self.module(x.to(torch.float32),
-                       library=library if self.uses_library else None,
-                       sample_shape=sample_shape, generator=self.generator)
+    ctx = (contextlib.nullcontext() if rows is None
+           else PF.batch_rows(rows, *PF.local_rows(rows)))
+    with ctx:
+      return self.module(x.to(torch.float32),
+                         library=library if self.uses_library else None,
+                         sample_shape=sample_shape, generator=self.generator)
+
+  @staticmethod
+  def _serving_batch(batch_size: int) -> int:
+    """The global serving batch: on a data mesh rounded up to a multiple
+    of n_data (at least two rows a rank, so a per-gene row is told from a
+    cell's)."""
+    view = PF.current()
+    if view is None or view.n_data == 1:
+      return int(batch_size)
+    nd = view.n_data
+    return max(2 * nd, -(-int(batch_size) // nd) * nd)
 
   def _serving_budget(self) -> Optional[int]:
     """Bytes a serving call may upload at once: 0.35 of the card's memory,
@@ -953,8 +1035,8 @@ class SingleCellModel:
     if env:
       return int(env)
     if self.device.type == "cuda":
-      total = torch.cuda.mem_get_info(self.device)[1]
-      return int(SERVING_BUDGET_FRACTION * total)
+      return int(SERVING_BUDGET_FRACTION * device_memory_limit(
+          device=self.device))
     return None
 
   def _serving_chunks(self, mats, batch_size: int,
@@ -969,6 +1051,10 @@ class SingleCellModel:
     bytes_per_row = 4 * sum(int(m.shape[1]) for m in mats) \
         + int(extra_bytes_per_row)
     budget = self._serving_budget()
+    view = PF.current()
+    if (budget is not None and view is not None
+        and not os.environ.get("SISUA_TPU_SERVING_BUDGET")):
+      budget *= view.n_data  # each data rank holds its share of a chunk
     if budget is None or n * bytes_per_row <= budget:
       return None
     rows_per = max(B, (budget // 2 // bytes_per_row) // B * B)
@@ -1082,15 +1168,42 @@ class SingleCellModel:
              if library is not None else None)
     return xb.reshape(k, B, -1), lib_b, k, B, n
 
+  @staticmethod
+  def _mesh_take(k: int, B: int, n: int, rows: Optional[np.ndarray]
+                 ) -> Optional[np.ndarray]:
+    """On a data mesh, the source rows of this rank's part [lo, hi) of
+    each of k batches of B (a chunk's ``rows``, or the first n): a
+    padding position wraps onto a real row, whose output is dropped after
+    the gather. None without a mesh."""
+    view = PF.current()
+    if view is None or view.n_data == 1:
+      return None
+    lo, hi = view.rows(B)
+    pos = (np.arange(k)[:, None] * B + np.arange(lo, hi)[None, :]).ravel()
+    base = np.arange(n, dtype=np.int64) if rows is None else \
+        np.asarray(rows[:n], np.int64)
+    return base[pos % n]
+
   def _chunk_batches(self, mats, library, batch_size: int,
                      input_dtype: Optional[str] = None,
                      extra_bytes_per_row: int = 0) -> Iterator:
-    """Per serving chunk: ``(xb, lib_b, k, B, n, rows)``."""
+    """Per serving chunk: ``(xb, lib_b, k, B, n, rows)`` (B the global
+    batch: ``_serving_batch``). On a data mesh ``xb`` is (k, b, d), this
+    rank's rows of each batch (``_mesh_take``)."""
     dtype = self._upload_dtype(mats, input_dtype)
-    for rows, nv in self._iter_serving_chunks(mats, batch_size,
+    B = self._serving_batch(batch_size)
+    for rows, nv in self._iter_serving_chunks(mats, B,
                                               extra_bytes_per_row):
-      yield self._device_batches(mats, library, batch_size, dtype, rows,
-                                 nv) + (rows,)
+      n = int(mats[0].shape[0]) if nv is None else nv
+      k = -(-n // B) if rows is None else len(rows) // B
+      take = self._mesh_take(k, B, n, rows)
+      if take is None:
+        yield self._device_batches(mats, library, B, dtype, rows,
+                                   nv) + (rows,)
+      else:
+        xb, lib_b = self._device_batches(mats, library, len(take) // k,
+                                         dtype, take, len(take))[:2]
+        yield xb, lib_b, k, B, n, rows
 
   # ----------------------------------------------------------------- predict
   def predict(self,
@@ -1107,23 +1220,39 @@ class SingleCellModel:
 
     Streaming fetches each batch's distributions to the host;
     ``device_cache=True`` uploads each serving chunk once, runs its padded
-    batches on the device and fetches the chunk's merged result once."""
-    mats, library = self._serving_inputs(inputs, mesh)
+    batches on the device and fetches the chunk's merged result once.
+    ``mesh``: either path over the mesh's data axis (module docstring):
+    each rank serves its rows of every batch, with the draws of the
+    single-device call."""
+    mats, library = self._serving_inputs(inputs)
     sample_shape = _as_shape(sample_shape)
     if device_cache:
-      return self._predict_device_cached(mats, library, batch_size,
-                                         sample_shape)
+      with PF.active(mesh):
+        return self._predict_device_cached(mats, library, batch_size,
+                                           sample_shape)
     n, ax = int(mats[0].shape[0]), len(sample_shape)
     outs, lats = [], []
-    with torch.no_grad():
+    with torch.no_grad(), PF.active(mesh):
+      view = PF.current()
+      n_data = 1 if view is None else view.n_data
       for s in range(0, n, batch_size):
-        x = self._module_input([_as_device_matrix(m[s:s + batch_size],
+        # on a mesh this rank's rows of the batch (all of a batch too
+        # short for two rows a rank: a per-gene row must stay told from a
+        # cell's), every rank's gathered after the forward
+        b = min(batch_size, n - s)
+        split = n_data > 1 and b >= 2 * n_data
+        lo, hi = PF.local_rows(b) if split else (0, b)
+        x = self._module_input([_as_device_matrix(m[s + lo:s + hi],
                                                   self.device) for m in mats])
         lib = (None if library is None else
-               _as_device_matrix(library[s:s + batch_size], self.device))
-        out = self._serve(x, lib, sample_shape)
-        outs.append(_to_host(out.outputs))
-        lats.append(_to_host(out.latents[:self.n_latents]))
+               _as_device_matrix(library[s + lo:s + hi], self.device))
+        with (PF.batch_rows(b, lo, hi) if split
+              else contextlib.nullcontext()):
+          out = self._serve(x, lib, sample_shape)
+          pX = _gathered_rows(out.outputs, ax, hi - lo)
+          qZ = _gathered_rows(out.latents[:self.n_latents], 0, hi - lo)
+        outs.append(_to_host(pX))
+        lats.append(_to_host(qZ))
       pX = _merge_dists(outs, ax)
       qZ = _merge_dists(lats, 0)
     return _one_or_tuple(pX), _one_or_tuple(qZ)
@@ -1136,12 +1265,20 @@ class SingleCellModel:
       for xb, lib_b, k, B, n, _ in self._chunk_batches(mats, library,
                                                        batch_size):
         outs = [self._serve(xb[i], None if lib_b is None else lib_b[i],
-                            sample_shape) for i in range(k)]
-        keep = dict(n=n, batch=B)
-        parts.append((
-            _to_host(_merge_dists([o.outputs for o in outs], ax, **keep)),
-            _to_host(_merge_dists([o.latents[:self.n_latents]
-                                   for o in outs], 0, **keep))))
+                            sample_shape, rows=B) for i in range(k)]
+        if PF.current() is None:
+          keep = dict(n=n, batch=B)
+          px = _merge_dists([o.outputs for o in outs], ax, **keep)
+          qz = _merge_dists([o.latents[:self.n_latents] for o in outs], 0,
+                            **keep)
+        else:  # this rank's rows of every batch, then everyone's
+          b = int(xb.shape[1])
+          px = _gathered_dists(_merge_dists(
+              [o.outputs for o in outs], ax, batch=b), ax, k, b, n)
+          qz = _gathered_dists(_merge_dists(
+              [o.latents[:self.n_latents] for o in outs], 0, batch=b), 0,
+              k, b, n)
+        parts.append((_to_host(px), _to_host(qz)))
         del outs
       if len(parts) == 1:
         pX, qZ = parts[0]
@@ -1159,28 +1296,29 @@ class SingleCellModel:
     float32 numpy arrays: ``(output_means, latent_means)``, MC sample dims
     averaged on the device. ``input_dtype='auto'`` uploads integral counts
     as int16; ``fetch_dtype='bfloat16'`` halves the fetched bytes at ~0.4%
-    relative error."""
-    mats, library = self._serving_inputs(inputs, mesh)
+    relative error. ``mesh``: over the mesh's data axis (module
+    docstring)."""
+    mats, library = self._serving_inputs(inputs)
     sample_shape = _as_shape(sample_shape)
     mc_axes = tuple(range(len(sample_shape)))
     out_dt = {"float32": torch.float32,
               "bfloat16": torch.bfloat16}[str(fetch_dtype)]
     parts_x, parts_z = [], []
-    with torch.no_grad():
-      for xb, lib_b, k, _, n, _ in self._chunk_batches(
+    with torch.no_grad(), PF.active(mesh):
+      for xb, lib_b, k, B, n, _ in self._chunk_batches(
           mats, library, batch_size, input_dtype=input_dtype):
         xm, zm = [], []
         for i in range(k):
           out = self._serve(xb[i], None if lib_b is None else lib_b[i],
-                            sample_shape)
+                            sample_shape, rows=B)
           xm.append([(p.mean().mean(dim=mc_axes) if mc_axes
                       else p.mean()).to(out_dt) for p in out.outputs])
           zm.append([q.mean().to(out_dt)
                      for q in out.latents[:self.n_latents]])
 
         def fetch(per_batch):
-          return [torch.cat(leaves)[:n].cpu().float().numpy()
-                  for leaves in zip(*per_batch)]
+          return [PF.gather_batches(torch.cat(leaves), k)[:n].cpu()
+                  .float().numpy() for leaves in zip(*per_batch)]
         parts_x.append(fetch(xm))
         parts_z.append(fetch(zm))
         del xm, zm
@@ -1194,34 +1332,50 @@ class SingleCellModel:
                       batch_size: int = 256) -> Iterator:
     """Eval-mode forwards of every serving batch, on the device, in row
     order: ``(out, lo, n_valid)``, the batch's first row and its rows
-    that are data (the rest is padding). Callers hold ``no_grad``."""
+    that are data (the rest is padding). Callers hold ``no_grad``. On one
+    device, also inside a mesh fit (a callback's)."""
     mats, library = self._serving_inputs(inputs)
     sample_shape = _as_shape(sample_shape)
-    for xb, lib_b, k, B, n, rows in self._chunk_batches(mats, library,
-                                                        batch_size):
-      start = 0 if rows is None else int(rows[0])
-      for i in range(k):
-        out = self._serve(xb[i], None if lib_b is None else lib_b[i],
-                          sample_shape)
-        yield out, start + i * B, min(B, n - i * B)
+    with PF.active(None):
+      for xb, lib_b, k, B, n, rows in self._chunk_batches(mats, library,
+                                                          batch_size):
+        start = 0 if rows is None else int(rows[0])
+        for i in range(k):
+          out = self._serve(xb[i], None if lib_b is None else lib_b[i],
+                            sample_shape)
+          yield out, start + i * B, min(B, n - i * B)
 
   def _normalized_draws(self, inputs, sample_shape: Tuple[int, ...],
                         batch_size: int, output_index: int,
                         reduce_mc: bool) -> Iterator[torch.Tensor]:
     """``get_normalized_expression`` per serving batch, left on the
-    device: (b, d), or (S, b, d) with ``reduce_mc=False``. Callers hold
+    device: (b, d), or (S, b, d) with ``reduce_mc=False``; on the active
+    mesh per serving chunk, every rank's rows gathered. Callers hold
     ``no_grad``."""
     sample_shape = _as_shape(sample_shape)
     mc_axes = tuple(range(len(sample_shape)))
     reduce_mc = bool(reduce_mc) or not mc_axes
     S = math.prod(sample_shape)
-    for out, _, nv in self._served_batches(inputs, sample_shape, batch_size):
+
+    def scales(out):
       m = out.outputs[int(output_index)].mean()
       scale = m / torch.sum(m, dim=-1, keepdim=True)
       if reduce_mc:
-        yield (scale.mean(dim=mc_axes) if mc_axes else scale)[:nv]
-      else:  # MC dims flattened → (S, B, d)
-        yield scale.reshape((S,) + scale.shape[len(mc_axes):])[:, :nv]
+        return scale.mean(dim=mc_axes) if mc_axes else scale
+      return scale.reshape((S,) + scale.shape[len(mc_axes):])  # (S, B, d)
+    ax = 0 if reduce_mc else 1
+    if PF.current() is None:
+      for out, _, nv in self._served_batches(inputs, sample_shape,
+                                             batch_size):
+        yield scales(out).narrow(ax, 0, nv)
+      return
+    mats, library = self._serving_inputs(inputs)
+    for xb, lib_b, k, B, n, _ in self._chunk_batches(mats, library,
+                                                     batch_size):
+      mine = torch.cat([scales(self._serve(
+          xb[i], None if lib_b is None else lib_b[i], sample_shape,
+          rows=B)) for i in range(k)], ax)
+      yield PF.gather_batches(mine, k, ax).narrow(ax, 0, n)
 
   def get_normalized_expression(self, inputs,
                                 sample_shape: Tuple[int, ...] = (),
@@ -1232,11 +1386,10 @@ class SingleCellModel:
     """Library-size-free denoised expression: each posterior draw's output
     mean as row proportions, MC-averaged on the device → (n, d). For SCVI
     this is ``px_scale``. ``reduce_mc=False`` returns the per-draw scales
-    (S, n, d), S = prod(sample_shape)."""
-    if mesh is not None:
-      raise NotImplementedError("mesh serving is not ported yet")
+    (S, n, d), S = prod(sample_shape). ``mesh``: over the mesh's data axis
+    (module docstring)."""
     axis = 0 if reduce_mc or not _as_shape(sample_shape) else 1
-    with torch.no_grad():
+    with torch.no_grad(), PF.active(mesh):
       return np.concatenate(
           [t.cpu().numpy() for t in self._normalized_draws(
               inputs, sample_shape, batch_size, output_index, reduce_mc)],
@@ -1249,8 +1402,8 @@ class SingleCellModel:
                               n_pairs: int = 5000, max_cells: int = 256,
                               batch_size: int = 256, output_index: int = 0,
                               seed: int = 0,
-                              var_names: Optional[Sequence[str]] = None
-                              ) -> Dict[str, np.ndarray]:
+                              var_names: Optional[Sequence[str]] = None,
+                              mesh=None) -> Dict[str, np.ndarray]:
     """Bayesian differential expression between cell groups (the JAX
     package's ``differential_expression``; scvi-tools' surface).
 
@@ -1272,7 +1425,9 @@ class SingleCellModel:
     1's, then group 2's) and then the pairs, as in the JAX package.
     Returns ``{column: array}`` in the JAX DataFrame's column order, with
     ``gene`` from ``var_names`` when given. The statistics are float64 on
-    the device; on the CPU they are the JAX package's numpy statements."""
+    the device; on the CPU they are the JAX package's numpy statements.
+    ``mesh``: the scales are drawn over the mesh's data axis, and every
+    rank computes the same statistics from them."""
     labels = np.asarray([str(v) for v in np.asarray(labels)])
     n = int(_flatten(inputs)[0].shape[0])
     if len(labels) != n:
@@ -1280,7 +1435,8 @@ class SingleCellModel:
     kw = dict(group2=group2, mode=mode, delta=delta,
               sample_shape=sample_shape, n_pairs=n_pairs,
               max_cells=max_cells, batch_size=batch_size,
-              output_index=output_index, seed=seed, var_names=var_names)
+              output_index=output_index, seed=seed, var_names=var_names,
+              mesh=mesh)
     if group1 is None:
       levels = list(dict.fromkeys(labels))  # first appearance (pd.unique)
       parts = [self.differential_expression(inputs, labels, group1=lvl,
@@ -1303,7 +1459,7 @@ class SingleCellModel:
       idx = np.flatnonzero(mask)
       if len(idx) > int(max_cells):
         idx = rng.choice(idx, int(max_cells), replace=False)
-      with torch.no_grad():
+      with torch.no_grad(), PF.active(mesh):
         s = torch.cat(list(self._normalized_draws(
             _take_rows(inputs, np.sort(idx)), sample_shape, batch_size,
             output_index, reduce_mc=False)), 1)
@@ -1333,24 +1489,35 @@ class SingleCellModel:
     count in the chunk budget. A ZINB/NB head's log-probs take the fused
     forward with the draws as its member axis
     (``objective.mc_row_log_prob``: one launch per head, target set and
-    batch on the card); every other head the distribution math."""
-    mats, library = self._serving_inputs(inputs, mesh)
+    batch on the card); every other head the distribution math.
+    ``mesh``: each rank sums its rows, and the sums are added over
+    'data'."""
+    mats, library = self._serving_inputs(inputs)
     sample_shape = _as_shape(sample_shape)
     log_s = math.log(float(math.prod(sample_shape)))
     tgt_bytes = 4 * sum(int(m.shape[1]) for ms in targets.values()
                         for m in ms)
     totals: Dict[str, float] = {}
-    with torch.no_grad():
+    with torch.no_grad(), PF.active(mesh):
       for xb, lib_b, k, B, n, rows in self._chunk_batches(
           mats, library, batch_size, extra_bytes_per_row=tgt_bytes):
-        tgt_b = {t: [self._pad_to_batches(m, k, B, n, rows=rows)
-                     for m in ms] for t, ms in targets.items()}
-        mask = (torch.arange(k * B, device=self.device) < n).to(
-            torch.float32).view(k, B)
+        take = self._mesh_take(k, B, n, rows)
+        b = int(xb.shape[1])
+        if take is None:
+          tgt_b = {t: [self._pad_to_batches(m, k, B, n, rows=rows)
+                       for m in ms] for t, ms in targets.items()}
+          pos = torch.arange(k * B, device=self.device).view(k, B)
+        else:  # this rank's rows of each batch, and their positions
+          tgt_b = {t: [self._pad_to_batches(m, k, b, k * b, rows=take)
+                       for m in ms] for t, ms in targets.items()}
+          lo = PF.local_rows(B)[0]
+          pos = (torch.arange(k, device=self.device)[:, None] * B + lo
+                 + torch.arange(b, device=self.device)[None, :])
+        mask = (pos < n).to(torch.float32)
         sums: Dict[str, torch.Tensor] = {}
         for i in range(k):
           out = self._serve(xb[i], None if lib_b is None else lib_b[i],
-                            sample_shape)
+                            sample_shape, rows=B)
           for t, ms in tgt_b.items():
             for j, (pX, m) in enumerate(zip(out.outputs, ms)):
               lp = mc_row_log_prob(pX, m[i])               # (S…, B)
@@ -1360,36 +1527,45 @@ class SingleCellModel:
               key = f"{t}_output{j}"
               sums[key] = sums.get(key, 0.0) + torch.sum(lp * mask[i])
         for key, v in sums.items():
-          totals[key] = totals.get(key, 0.0) + float(v)
+          totals[key] = totals.get(key, 0.0) + float(PF.data_sum(v))
     n_obs = int(mats[0].shape[0])
     return {key: v / n_obs for key, v in totals.items()}
 
   def marginal_log_prob(self, inputs, sample_shape: int = 100,
-                        batch_size: int = 32) -> np.ndarray:
+                        batch_size: int = 32, mesh=None) -> np.ndarray:
     """Importance-weighted marginal log-likelihood per cell,
     log p(x) ≈ logsumexp_s[log p(x|z_s) + log p(z_s) − log q(z_s|x)]
     − log S, over every latent of the forward (a nuisance one such as
     TotalVI's q(log β) included); a latent without a prior contributes
-    zeros. The likelihood target is the first matrix."""
+    zeros. The likelihood target is the first matrix. ``mesh``: each
+    batch's rows split over 'data' (a batch of fewer rows than ranks: all
+    of it on every rank), gathered in order."""
     mats, library = self._serving_inputs(inputs)
     S = int(sample_shape)
     n = int(mats[0].shape[0])
     chunks = []
-    with torch.no_grad():
+    with torch.no_grad(), PF.active(mesh):
+      view = PF.current()
+      n_data = 1 if view is None else view.n_data
       for s in range(0, n, batch_size):
-        xs = [_as_device_matrix(m[s:s + batch_size], self.device)
+        b = min(batch_size, n - s)
+        lo, hi = PF.local_rows(b) if b >= n_data else (0, b)
+        xs = [_as_device_matrix(m[s + lo:s + hi], self.device)
               for m in mats]
         lib = (None if library is None else
-               _as_device_matrix(library[s:s + batch_size], self.device))
-        out = self._serve(self._module_input(xs), lib, (S,))
-        llk = out.outputs[0].log_prob(xs[0])                 # (S, B)
-        lq = sum(q.log_prob(z) for q, z in zip(out.latents,
-                                               out.latent_samples))
-        lp = sum(prior.log_prob(z) if prior is not None
-                 else torch.zeros(z.shape[:-1], device=z.device)
-                 for prior, z in zip(out.priors, out.latent_samples))
-        lw = llk + lp - lq
-        chunks.append((torch.logsumexp(lw, 0) - math.log(S)).cpu().numpy())
+               _as_device_matrix(library[s + lo:s + hi], self.device))
+        with (PF.batch_rows(b, lo, hi) if b >= n_data
+              else contextlib.nullcontext()):
+          out = self._serve(self._module_input(xs), lib, (S,))
+          llk = out.outputs[0].log_prob(xs[0])                 # (S, B)
+          lq = sum(q.log_prob(z) for q, z in zip(out.latents,
+                                                 out.latent_samples))
+          lp = sum(prior.log_prob(z) if prior is not None
+                   else torch.zeros(z.shape[:-1], device=z.device)
+                   for prior, z in zip(out.priors, out.latent_samples))
+          lw = llk + lp - lq
+          mll = PF.gather_rows(torch.logsumexp(lw, 0) - math.log(S))
+        chunks.append(mll.cpu().numpy())
     return np.concatenate(chunks, 0)
 
   # ---------------------------------------------------------------- analysis
@@ -1416,14 +1592,17 @@ class SingleCellModel:
     ``batch_stats.msgpack``, + ``aux_params.msgpack``) in the flax layout,
     ``metamodel.json``, and ``history.json`` when there is a history. The
     optimizer states and the step are not saved (nor are they by the JAX
-    package)."""
+    package). In a world every rank calls it and rank 0 writes."""
     self._save_checkpoint_weights(path, backend)
-    ckpt.save_metamodel(path, type(self).__name__, self.dataset,
-                        self.metadata, self._init_kwargs_for_save)
-    hist = self.history
-    if hist:
-      with open(os.path.join(path, "history.json"), "w") as f:
-        json.dump({k: [float(x) for x in v] for k, v in hist.items()}, f)
+
+    def write_meta():
+      ckpt.save_metamodel(path, type(self).__name__, self.dataset,
+                          self.metadata, self._init_kwargs_for_save)
+      hist = self.history
+      if hist:
+        with open(os.path.join(path, "history.json"), "w") as f:
+          json.dump({k: [float(x) for x in v] for k, v in hist.items()}, f)
+    ckpt.on_main_rank(write_meta)
     return path
 
   def load_weights(self, path: str, raise_notfound: bool = False

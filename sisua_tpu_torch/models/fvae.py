@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn import dense
+from ..parallel import functional as PF
 from .base import SingleCellModel, _flatten
 from .module import VAEOutput
 
@@ -109,7 +110,7 @@ class FVAE(SingleCellModel):
     z = self._reduced_z(out.latent_samples)
     frozen = {k: v.detach() for k, v in self.aux.named_parameters()}
     logits = torch.func.functional_call(self.aux, frozen, (z,))
-    tc = torch.mean(logits[:, 0] - logits[:, 1])
+    tc = PF.batch_mean(logits[:, 0] - logits[:, 1])
     return self.gamma * tc, {"tc": tc}
 
   def _draw_latents(self, batch, noise=None) -> torch.Tensor:
@@ -141,8 +142,10 @@ class FVAE(SingleCellModel):
   def _aux_step(self, batch, metrics: Dict[str, torch.Tensor],
                 noise=None, perms=None) -> Dict[str, torch.Tensor]:
     """The discriminator's update after the main step; ``noise`` and
-    ``perms`` feed the draw and the permutations (tests)."""
-    z = self._draw_latents(batch, noise)
+    ``perms`` feed the draw and the permutations (tests). On a data mesh
+    z is the global batch's (gathered, detached), so the permutations
+    shuffle each column across it, and every rank takes the same step."""
+    z = PF.gather_rows(self._draw_latents(batch, noise))
     metrics = dict(metrics)
     metrics["disc_loss"] = self._disc_update(z, perms)
     return metrics

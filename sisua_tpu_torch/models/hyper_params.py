@@ -20,6 +20,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..parallel.mesh import is_main_rank
+
 __all__ = ["fit_hyper", "fit_hyper_vmap", "DEFAULT_SPACE"]
 
 DEFAULT_SPACE = {
@@ -60,9 +62,11 @@ def _tpe_sample(space, trials: List[Tuple[Dict, float]],
   return best_cfg
 
 
-def _trial_worker(payload):
+def _trial_worker(payload, mesh=None):
   """One trial: the dataset split 0.9, a model of the trial's sizes on
-  ``device``, fitted; (config, final validation loss, error or None)."""
+  ``device``, fitted (over ``mesh``); (config, final validation loss,
+  error or None). On a mesh a trial's failure is raised: a rank that
+  goes on would wait for the failed one in a collective."""
   (model_name, dataset_name, cfg, epochs, batch_size, seed, device) = payload
   from .. import models as M
   from ..data import get_dataset
@@ -88,10 +92,12 @@ def _trial_worker(payload):
                 seed=seed, device=device, **nets)
     fit_sco(model, train, valid=valid, epochs=epochs, batch_size=batch_size,
             learning_rate=float(cfg.get("learning_rate", 1e-3)),
-            labels_percent=0.8, patience=5)
+            labels_percent=0.8, patience=5, mesh=mesh)
     loss = float(model.history.get("val_loss", model.history["loss"])[-1])
     return cfg, loss, None
   except Exception as e:  # noqa: BLE001 — trial failures are data
+    if mesh is not None:
+      raise
     return cfg, float("inf"), repr(e)
 
 
@@ -106,14 +112,19 @@ def fit_hyper(model: str,
               n_processes: int = 1,
               save_path: Optional[str] = None,
               verbose: bool = False,
-              device: str = "cuda") -> Dict[str, Any]:
+              device: str = "cuda",
+              mesh=None) -> Dict[str, Any]:
   """Search the space; returns {'best': cfg, 'loss', 'trials', 'errors'}.
   ``algorithm``: 'rand' or 'tpe'. With ``n_processes > 1`` the trials run
   in waves of spawned processes (so 'tpe' sees every finished wave), all
   on ``device``. A trial that raises scores ``inf`` and its error is
-  kept in 'errors'."""
+  kept in 'errors'. ``mesh``: every rank calls it, and each trial trains
+  over the mesh (``fit(mesh=)``) in this process; a trial's failure is
+  raised (``_trial_worker``)."""
   if algorithm not in ("rand", "tpe"):
     raise ValueError(f"algorithm must be 'rand' or 'tpe', got {algorithm!r}")
+  if mesh is not None and n_processes > 1:
+    raise ValueError("a mesh's trials run in its ranks: n_processes=1")
   space = dict(space or DEFAULT_SPACE)
   rng = np.random.RandomState(seed)
   trials: List[Tuple[Dict, float]] = []
@@ -144,8 +155,10 @@ def fit_hyper(model: str,
         done += wave
   else:
     for i in range(max_evals):
+      payload = (model, dataset, propose(), epochs, batch_size, seed + i,
+                 device)
       cfg, loss, err = _trial_worker(
-          (model, dataset, propose(), epochs, batch_size, seed + i, device))
+          *((payload,) if mesh is None else (payload, mesh)))
       record(cfg, loss, err, f"{i:02d} ")
 
   finite = [(c, l) for c, l in trials if np.isfinite(l)]
@@ -154,7 +167,7 @@ def fit_hyper(model: str,
   result = {"best": best_cfg, "loss": best_loss,
             "trials": [{"config": c, "loss": l} for c, l in trials],
             "errors": errors}
-  if save_path:
+  if save_path and is_main_rank():  # one writer in a world
     os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
     with open(save_path, "w") as f:
       json.dump(result, f, indent=2, default=float)
@@ -177,7 +190,8 @@ def fit_hyper_vmap(model_fn: Callable[[int], Any],
   'trials', 'ensemble'}: the best config by final-epoch loss, its loss,
   every trial's config and loss, and the ``VmapEnsemble`` (``extract(i)``
   yields trial i as a standalone model). ``save_path``: everything but
-  the ensemble as JSON. ``mesh=`` raises (ROADMAP A21)."""
+  the ensemble as JSON. ``mesh``: the trials split over the mesh's ranks
+  (``VmapEnsemble.fit``); every rank gets every trial."""
   from ..train.ensemble import VmapEnsemble
   configs = [{"learning_rate": float(lr), "seed": base_seed + s}
              for lr in learning_rates for s in range(seeds_per_rate)]
@@ -198,7 +212,7 @@ def fit_hyper_vmap(model_fn: Callable[[int], Any],
   if verbose:
     for t in trials:
       print(f"[hyper-vmap] {t['config']} → {t['loss']:.4f}")
-  if save_path:
+  if save_path and is_main_rank():  # one writer in a world
     os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
     with open(save_path, "w") as f:
       json.dump({k: v for k, v in result.items() if k != "ensemble"},

@@ -41,6 +41,7 @@ from torch import nn
 
 from .. import dist as D
 from ..nn import DistributionDense, NetConf, dense, parse_netconf
+from ..parallel import functional as PF
 from ..rv import RVmeta, parse_rv
 from .base import SingleCellModel, _flatten
 from .module import (_LOG_SCALE_FLOOR, VAEModule, VAEOutput,
@@ -284,8 +285,8 @@ class MULTIVI(SingleCellModel):
     jeff = 0.5 * (D.kl_divergence(q_r, q_a) + D.kl_divergence(q_a, q_r))
     m_r, m_a = self._output_masks(batch)
     m = m_r * m_a
-    pen = self.modality_penalty * (
-        torch.sum(jeff * m) / torch.clamp_min(torch.sum(m), 1.0))
+    pen = self.modality_penalty * PF.batch_total(
+        torch.sum(jeff * m) / torch.clamp_min(PF.batch_sum(m), 1.0))
     return pen, {"modality_penalty": pen}
 
   def get_accessibility_estimates(self, data, batch_size: int = 256,

@@ -36,6 +36,7 @@ import torch
 
 from .. import dist as D
 from ..ops import zinb as zk
+from ..parallel import functional as PF
 from .module import VAEOutput
 
 __all__ = ["elbo_terms", "compute_loss", "route_fused_likelihood",
@@ -203,8 +204,9 @@ def elbo_terms(out: VAEOutput,
       if mask_outputs and mask is not None:
         m = mask.to(lp.dtype).reshape(lp.shape[0])
         lp = lp * m
-        if mask_renorm:
-          lp = lp * (m.shape[0] / torch.clamp_min(m.sum(), 1.0))
+        if mask_renorm:  # the global batch's rows over its labelled count
+          lp = lp * (PF.global_rows(m.shape[0])
+                     / torch.clamp_min(PF.batch_sum(m), 1.0))
     if output_masks is not None and output_masks[i] is not None:
       lp = lp * output_masks[i].to(lp.dtype).reshape(lp.shape[0])
     llk[f"llk_{name}"] = lp
@@ -233,16 +235,20 @@ def compute_loss(out: VAEOutput,
                  = None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """Scalar −ELBO plus scalar metrics (means over the batch), all tensors
-  on the device — nothing here synchronizes with the host."""
+  on the device — nothing here synchronizes with the host. On a data mesh
+  the means are the global batch's, in one all-reduce (a rank's gradient
+  is its share: ``parallel.functional.batch_means``)."""
   llk, kl = elbo_terms(out, targets, mask=mask, analytic=analytic,
                        mask_outputs=mask_outputs, alpha=alpha,
                        mask_renorm=mask_renorm, output_masks=output_masks,
                        latent_masks=latent_masks)
   elbo = sum(llk.values()) - beta * sum(kl.values())
-  loss = -elbo.mean()
-  metrics = {k: v.mean() for k, v in {**llk, **kl}.items()}
+  terms = {**llk, **kl}
+  means = PF.batch_means([elbo, *terms.values()])
+  loss = -means[0]
+  metrics = dict(zip(terms, means[1:]))
   metrics["loss"] = loss
-  metrics["elbo"] = elbo.mean()
+  metrics["elbo"] = means[0]
   metrics["beta"] = (beta.to(loss.dtype) if isinstance(beta, torch.Tensor)
                      else torch.full((), float(beta), device=loss.device))
   return loss, metrics

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from .. import dist as D
 from ..nn import DistributionDense, NetConf, parse_netconf
+from ..parallel import functional as PF
 from ..rv import RVmeta, parse_rv
 from .base import _flatten
 from .module import SCVIModule, VAEOutput
@@ -87,7 +88,8 @@ class SCANVIModule(SCVIModule):
 
   def hierarchy_terms(self, z1, generator=None, noise=None) -> torch.Tensor:
     """[C, *batch] penalty of every candidate label, one z₂ draw and the
-    analytic z₂ KL, batched over the class axis."""
+    analytic z₂ KL, batched over the class axis (the draw's cells follow
+    the class axis: a data mesh draws the global batch's there)."""
     C = self.n_labels
     lead = tuple(z1.shape[:-1])
     eye = torch.eye(C, dtype=z1.dtype, device=z1.device)
@@ -96,6 +98,11 @@ class SCANVIModule(SCVIModule):
         (C,) + lead + (C,))
     qu = self.latent_head_z2(self.encoder_z2(torch.cat([z1b, yb], -1),
                                              generator))
+    if noise is None:
+      shape = tuple(qu.batch_shape) + tuple(qu.event_shape)
+      noise = [PF.draw_rows(lambda s: torch.randn(
+          s, generator=generator, device=z1.device, dtype=z1.dtype),
+          shape, len(lead))]
     (u,) = self._sample((qu,), (), generator, noise)
     kl_u = D.kl_divergence(qu, self.latents[0].create_prior(
         device=z1.device, dtype=z1.dtype))
@@ -201,8 +208,8 @@ class SCANVI(SCVI):
     term = lq + m * pen_lab + (1.0 - m) * pen_unlab
     if term.ndim > 1:
       term = term.mean(dim=tuple(range(term.ndim - 1)))
-    loss = term.mean()
-    return loss, {"klqp_hierarchy": loss, "kl_y": kl_y.mean()}
+    loss = PF.batch_mean(term)
+    return loss, {"klqp_hierarchy": loss, "kl_y": PF.batch_mean(kl_y)}
 
   def predict_labels(self, data, batch_size: int = 256,
                      hard: bool = False) -> np.ndarray:

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn import dense
+from ..parallel import functional as PF
 from ..rv import RVmeta, parse_rv
 from .base import SingleCellModel, _flatten
 from .module import NoiseRecorder, VAEModule, VAEOutput
@@ -114,5 +115,5 @@ class SCScope(SingleCellModel):
     x = batch["inputs"][0].to(torch.float32)
     extra = 0.0
     for pX in out.aux_outputs:
-      extra = extra - torch.mean(pX.log_prob(x))
+      extra = extra - PF.batch_mean(pX.log_prob(x))
     return extra, {"llk_cycles": -extra}

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .parallel import functional as PF
 from .rv import RVmeta
 
 __all__ = ["NetConf", "MLP", "BatchNorm", "Conv1d", "Dense",
@@ -220,7 +221,9 @@ class BatchNorm(nn.Module):
       ``nn.BatchNorm1d`` stores the unbiased one;
     * batch variance is flax's fast form E[x²] − E[x]², floored at 0;
     * the buffers are only ``running_mean``/``running_var`` (no
-      ``num_batches_tracked``), one-to-one with flax's ``mean``/``var``.
+      ``num_batches_tracked``), one-to-one with flax's ``mean``/``var``;
+    * on a data mesh the statistics are the global batch's: Σx, Σx² and
+      the count summed over 'data' (``parallel.functional.batch_stats``).
   """
 
   momentum = 0.9
@@ -240,8 +243,8 @@ class BatchNorm(nn.Module):
     x = x.to(torch.float32)
     if self.training:
       axes = tuple(range(x.ndim - 1))
-      mean = x.mean(dim=axes)
-      var = torch.clamp_min((x * x).mean(dim=axes) - mean * mean, 0.0)
+      mean, mean_sq = PF.batch_stats(x, axes)
+      var = torch.clamp_min(mean_sq - mean * mean, 0.0)
       with torch.no_grad():
         m = self.momentum
         self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
@@ -273,16 +276,19 @@ class DropoutMasks:
     return self.masks[i]
 
 
-def _dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, generator,
+             cell_axis: int = -2) -> torch.Tensor:
   """flax ``nn.Dropout``: keep with prob 1−rate, scale kept by 1/(1−rate)
   in x's dtype; the mask is drawn in float32 from ``generator`` (the same
-  masks at every compute dtype), or is the next of ``DropoutMasks``."""
+  masks at every compute dtype; the global batch's on a data mesh, its
+  cells on ``cell_axis``), or is the next of ``DropoutMasks``."""
   keep_prob = 1.0 - rate
   if isinstance(generator, DropoutMasks):
     keep = generator.keep(x, keep_prob)
   else:
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.float32) < keep_prob
+    keep = PF.draw_rows(lambda s: torch.rand(
+        s, generator=generator, device=x.device, dtype=torch.float32),
+        x.shape, cell_axis) < keep_prob
   return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -326,15 +332,17 @@ class MLP(nn.Module):
     if self.training and c.input_dropout > 0:
       x = _dropout(x, c.input_dropout, generator)
     layer = "conv" if c.use_conv else "dense"
+    cell_axis = -2
     if c.use_conv:
       x = x[..., None]  # NWC, one channel
+      cell_axis = -3
     for i in range(len(c.units)):
       x = getattr(self, f"{layer}{i}")(x)
       if c.batchnorm:
         x = getattr(self, f"bn{i}")(x)
       x = self.act(x)
       if self.training and c.dropout > 0:
-        x = _dropout(x, c.dropout, generator)
+        x = _dropout(x, c.dropout, generator, cell_axis)
     if c.use_conv:
       x = x.reshape(*x.shape[:-2], -1)
     return x

@@ -8,7 +8,8 @@ group: FactorVAE's discriminator) hold the flax pytrees
 (``train/msgpack.py``), and
 ``metamodel.json`` the class name, dataset, metadata and constructor
 kwargs (``format_version`` 1). A checkpoint written by either package
-loads in the other.
+loads in the other. In a world of ranks (a mesh fit) the files are
+written by rank 0, and every rank waits until they are (``on_main_rank``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,17 @@ from ..rv import RVmeta
 from . import msgpack
 
 __all__ = ["save_weights", "load_weights", "save_metamodel", "load_metamodel",
-           "encode_spec", "decode_spec"]
+           "encode_spec", "decode_spec", "on_main_rank"]
+
+
+def on_main_rank(write) -> None:
+  """``write()`` here without a world; in a world (every rank calls this)
+  in rank 0, and the other ranks wait at a barrier until it has written."""
+  from ..parallel.functional import barrier
+  from ..parallel.mesh import is_main_rank
+  if is_main_rank():
+    write()
+  barrier()
 
 
 def encode_spec(obj):

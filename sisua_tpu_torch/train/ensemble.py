@@ -41,10 +41,17 @@ Use:
     losses = ens.history["loss"]          # (epochs, n_models)
     best = ens.best()                     # a standalone trained model
 
-Every class of ``get_all_models()`` trains as a fleet. ``mesh=`` raises
-(ROADMAP A21). AUTOZI's Beta KL is scaled by ``n_total_cells`` as the
-template has it (10,000 when unset), as the JAX ensemble, which never
-calls AUTOZI's ``fit``.
+Every class of ``get_all_models()`` trains as a fleet. ``mesh=`` splits the
+members over the world's ranks, as the JAX ensemble shards its member axis
+over every device: rank r trains members [r·M/W, (r+1)·M/W) with no
+collective in the step. Every rank makes the whole fleet's draws from the
+same generator and keeps its members' (AUTOZI's δ reads every member's α,
+β: gathered for it), so member i trains as in the unsharded fleet; the
+states and histories are all-gathered at the end.
+
+AUTOZI's Beta KL is scaled by ``n_total_cells`` as the template has it
+(10,000 when unset), as the JAX ensemble, which never calls AUTOZI's
+``fit``.
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ from torch import nn
 
 from ..models.module import NoiseRecorder
 from ..nn import DropoutMasks
+from ..parallel import functional as PF
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
 from .optim import clipped_adam_step_
 from .trainer import ClippedAdam, Trainer
 
@@ -103,6 +112,41 @@ class _Plan(NamedTuple):
   aux: Optional[List]  # the aux step's draws, or None without one
 
 
+def _gathered_members(tree):
+  """A stacked state (dicts of (m, …) tensors, the members' step list)
+  with every rank's members, in rank order."""
+  if isinstance(tree, dict):
+    return {k: _gathered_members(v) for k, v in tree.items()}
+  if isinstance(tree, list):
+    parts = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(parts, tree)
+    return [s for part in parts for s in part]
+  return PF.all_gather_cat(tree, None, 0)
+
+
+def _member_rows(tree, lo: int, hi: int):
+  """Members [lo, hi) of a stacked state."""
+  if isinstance(tree, dict):
+    return {k: _member_rows(v, lo, hi) for k, v in tree.items()}
+  if isinstance(tree, list):
+    return tree[lo:hi]
+  return tree[lo:hi].clone()
+
+
+class _FleetParams(dict):
+  """The stacked parameters a draw reads (AUTOZI's δ), every member's:
+  each is gathered over the world when a draw asks for it."""
+
+  def __init__(self, local):
+    super().__init__()
+    self._local = local
+
+  def __getitem__(self, key):
+    if key not in self:
+      self[key] = PF.all_gather_cat(self._local[key], None, 0)
+    return super().__getitem__(key)
+
+
 class VmapEnsemble:
 
   def __init__(self, model_fn: Callable[[int], "SingleCellModel"],
@@ -117,6 +161,8 @@ class VmapEnsemble:
     self.history: Dict[str, np.ndarray] = {}
     self._stacked: Optional[Dict] = None
     self.generator = torch.Generator(device=m0.device).manual_seed(_SEED)
+    #: this rank's members [lo, hi) in a mesh fit, else all of them
+    self._rows = (0, self.n_models)
 
   # ------------------------------------------------------------------ state
   def _stack_states(self) -> Dict:
@@ -180,11 +226,19 @@ class VmapEnsemble:
           self._adam_state(m.aux_optimizer, named, aux, i, aux_counts[i])
 
   # -------------------------------------------------------------- the step
-  @staticmethod
-  def _check_supported(mesh) -> None:
-    if mesh is not None:
-      raise NotImplementedError("mesh training of an ensemble is not "
-                                "ported yet (ROADMAP A21)")
+  def _member_split(self, mesh):
+    """This rank's members [lo, hi) over the mesh's ranks (the JAX
+    assertion when they do not divide), or all of them."""
+    if mesh is None:
+      return 0, self.n_models
+    n_dev = axis_size(mesh, DATA_AXIS) * axis_size(mesh, MODEL_AXIS)
+    assert self.n_models % n_dev == 0, (
+        f"n_models {self.n_models} must divide evenly over the "
+        f"{n_dev}-device mesh (each chip trains n_models/n_devices "
+        "members)")
+    per = self.n_models // n_dev
+    r = torch.distributed.get_rank()
+    return r * per, (r + 1) * per
 
   def _draw_plan(self, batch) -> _Plan:
     """The draws of one member's step on a batch like ``batch``, learnt
@@ -213,12 +267,23 @@ class VmapEnsemble:
         aux = aux.entries
     return _Plan(noise.entries, masks.specs, aux)
 
+  def _mine(self, t):
+    """This rank's members of a whole fleet's draw (a tensor or a pair)."""
+    lo, hi = self._rows
+    if (lo, hi) == (0, self.n_models):
+      return t
+    if isinstance(t, tuple):
+      return tuple(x[lo:hi] for x in t)
+    return t[lo:hi]
+
   def _draws(self, plan: _Plan):
-    """One fleet step's noise and dropout masks, (M, …) each."""
+    """One fleet step's noise and dropout masks, (M, …) each (this rank's
+    members of them)."""
     gen, m = self.generator, self.n_models
     noise = self._made(plan.noise)
-    masks = [torch.rand((m, *s), generator=gen, device=self.model.device)
-             < keep for s, keep in plan.masks]
+    masks = [self._mine(torch.rand((m, *s), generator=gen,
+                                   device=self.model.device)) < keep
+             for s, keep in plan.masks]
     return noise, masks
 
   def _aux_draws(self, plan: _Plan):
@@ -227,7 +292,10 @@ class VmapEnsemble:
 
   def _made(self, entries):
     params = self._stacked["params"]
-    return [None if e is None else e(self.n_models, self.generator, params)
+    if self._rows != (0, self.n_models):
+      params = _FleetParams(params)
+    return [None if e is None else
+            self._mine(e(self.n_models, self.generator, params))
             for e in entries]
 
   def _make_step(self, shared: bool, has_library: bool, plan: _Plan):
@@ -371,8 +439,10 @@ class VmapEnsemble:
     one float, or one rate per member. ``metrics_interval=K``: the (M,)
     epoch losses stay on the card and are fetched once per window of K
     epochs. ``history['loss']`` is (epochs, M). The stacked state is kept
-    between calls; each member's state is written back into its model."""
-    self._check_supported(mesh)
+    between calls; each member's state is written back into its model.
+    ``mesh``: the members split over the mesh's ranks (module
+    docstring); every rank ends with the whole fleet."""
+    lo, hi = self._member_split(mesh)
     model = self.model
     if not model.is_semi_supervised:
       labels_percent = 0.0
@@ -399,6 +469,12 @@ class VmapEnsemble:
                if feeder.library is not None else None)
     if self._stacked is None:
       self._stacked = self._stack_states()
+    sharded = (lo, hi) != (0, m_count)
+    if sharded:  # this rank's members of the fleet's state and rates
+      self._stacked, self._rows = _member_rows(self._stacked, lo, hi), (lo,
+                                                                      hi)
+      if isinstance(lr, torch.Tensor):
+        lr = lr[lo:hi]
     st = self._stacked
     lp, gen = float(labels_percent), self.generator
     steps = n // B
@@ -429,11 +505,12 @@ class VmapEnsemble:
           mask_all = (torch.rand((n,), generator=gen, device=dev)
                       < lp).to(torch.float32)
         else:
-          perm = torch.argsort(torch.rand((m_count, n), generator=gen,
-                                          device=dev), dim=1)
-          mask_all = (torch.rand((m_count, n), generator=gen, device=dev)
-                      < lp).to(torch.float32)
-        loss_sum = torch.zeros((m_count,), device=dev)
+          perm = self._mine(torch.argsort(torch.rand(
+              (m_count, n), generator=gen, device=dev), dim=1))
+          mask_all = self._mine((torch.rand((m_count, n), generator=gen,
+                                            device=dev) < lp)
+                                .to(torch.float32))
+        loss_sum = torch.zeros((hi - lo,), device=dev)
         for i in range(steps):
           rows = perm[..., i * B:(i + 1) * B]
           batch = batch_at(rows, mask_all)
@@ -452,7 +529,10 @@ class VmapEnsemble:
               None if aux_fn is None else (aux_fn, self._aux_draws(plan)))[0]
           loss_sum += loss
         win.append(loss_sum / steps)
-      win_losses = torch.stack(win, 1).cpu().numpy()  # (M, E): one fetch
+      win_losses = torch.stack(win, 1)
+      if sharded:
+        win_losses = PF.all_gather_cat(win_losses, None, 0)
+      win_losses = win_losses.cpu().numpy()  # (M, E): one fetch
       dt = (time.perf_counter() - t0) / window
       for e in range(window):
         losses.append(win_losses[:, e])
@@ -463,6 +543,9 @@ class VmapEnsemble:
       done += window
     self.history["loss"] = np.stack(losses)       # (epochs, n_models)
     self.history["epoch_time"] = np.asarray(times)
+    if sharded:  # every rank's members: the whole fleet on every rank
+      self._stacked, self._rows = _gathered_members(self._stacked), (
+          0, m_count)
     self._write_back(lrs, float(clipnorm or 0.0))
     return self
 

@@ -14,8 +14,12 @@
   parent's device and under its ``save_path``.
 
 Every model is built on ``device`` ('cuda' unless the caller asks for the
-CPU). A mesh (``train.n_data_devices × train.n_model_devices > 1``) raises
-``NotImplementedError`` before any data is loaded (ROADMAP A21).
+CPU). A mesh (``train.n_data_devices × train.n_model_devices > 1``) trains
+and scores over ``parallel.create_mesh(n_data, n_model)``: every rank of a
+world of that size runs the experiment (``torchrun``, or ``parallel.spawn``
+as ``sisua-train`` does for such a config); outside one the config raises
+before any data is loaded. Only rank 0 writes the experiment's files, the
+scoreboard's rows and its messages.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from ..data.adapters import fit_sco, sco_posterior
 from ..data.path import CONFIG_PATH, EXP_DIR
+from ..parallel.mesh import is_main_rank
 from . import _yaml as yaml
 from .scoreboard import ScoreBoard
 
@@ -160,9 +165,10 @@ class Experimenter:
     # a dataset "name" may be a file path: keep a filesystem-safe tag
     ds_tag = re.sub(r"[^A-Za-z0-9_.-]+", "_", os.path.basename(ds))
     path = os.path.join(self.save_path, f"{name}_{ds_tag}_{h}")
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, "config.yaml"), "w") as f:
-      yaml.safe_dump(cfg, f)
+    if is_main_rank():
+      os.makedirs(path, exist_ok=True)
+      with open(os.path.join(path, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
     return path
 
   # ----------------------------------------------------------------- hooks
@@ -191,17 +197,26 @@ class Experimenter:
       model = self.on_create_model(cfg, exp_dir, data)
       self.on_train(cfg, exp_dir, model, data)
       scores = self.on_eval(cfg, exp_dir, model, data) or {}
-      if scores:
+      if scores and is_main_rank():
         self.scoreboard.write_scores(
             table=f"scores_{cfg['dataset']['name']}", unique=uid,
             scores=scores)
       return scores
     except Exception:
-      self.scoreboard.write_error(uid, traceback.format_exc())
+      if is_main_rank():
+        self.scoreboard.write_error(uid, traceback.format_exc())
       raise
 
   def run(self, argv: Optional[Sequence[str]] = None) -> List[Dict]:
     """Parse CLI overrides; '-m' fans the override grid into processes."""
+    configs, multirun, ncpu = self.parse_args(argv)
+    if multirun and len(configs) > 1 and ncpu > 1:
+      return self._run_parallel(configs, ncpu)
+    return [self.run_config(c) for c in configs]
+
+  def parse_args(self, argv: Optional[Sequence[str]] = None):
+    """(configs, multirun, ncpu) of a command line (``--config`` is
+    taken into ``config_path``)."""
     import sys
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--config" in argv:  # e.g. configs/presets/cortex_vae.yaml
@@ -220,10 +235,7 @@ class Experimenter:
     if len(grids) > 1 and not multirun:
       raise ValueError(
           f"{len(grids)} config combinations given; pass -m for multirun")
-    configs = [self.load_config(g) for g in grids]
-    if multirun and len(configs) > 1 and ncpu > 1:
-      return self._run_parallel(configs, ncpu)
-    return [self.run_config(c) for c in configs]
+    return [self.load_config(g) for g in grids], multirun, ncpu
 
   def _run_parallel(self, configs: List[dict], ncpu: int) -> List[Dict]:
     """One spawned process per config; results land in the scoreboard."""
@@ -280,6 +292,12 @@ def _run_config_in_subprocess(payload):
     return {"error": str(e)}
 
 
+def _mesh_shape(cfg: dict):
+  tr_cfg = cfg.get("train", {})
+  return (int(tr_cfg.get("n_data_devices", 1)),
+          int(tr_cfg.get("n_model_devices", 1)))
+
+
 # ---------------------------------------------------------------------------
 # SisuaExperimenter
 # ---------------------------------------------------------------------------
@@ -293,13 +311,26 @@ class SisuaExperimenter(Experimenter):
                      device=device)
 
   def check_config(self, cfg: dict) -> None:
-    tr_cfg = cfg.get("train", {})
-    n_data = int(tr_cfg.get("n_data_devices", 1))
-    n_model = int(tr_cfg.get("n_model_devices", 1))
-    if n_data * n_model > 1:
-      raise NotImplementedError(
+    import torch.distributed as dist
+    n_data, n_model = _mesh_shape(cfg)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_data * n_model > 1 and world != n_data * n_model:
+      raise RuntimeError(
           f"train.n_data_devices × train.n_model_devices = {n_data} × "
-          f"{n_model}: mesh training is not ported yet (ROADMAP A21)")
+          f"{n_model} needs a world of {n_data * n_model} ranks, this "
+          f"process is in one of {world}: run under torchrun, or through "
+          "sisua-train, which starts the world itself")
+
+  def _mesh(self, cfg: dict):
+    """The config's mesh (one per shape for the experimenter), or None."""
+    shape = _mesh_shape(cfg)
+    if shape[0] * shape[1] == 1:
+      return None
+    meshes = self.__dict__.setdefault("_meshes", {})
+    if shape not in meshes:
+      from ..parallel import create_mesh
+      meshes[shape] = create_mesh(*shape)
+    return meshes[shape]
 
   # ------------------------------------------------------------------ data
   def on_load_data(self, cfg: dict):
@@ -379,7 +410,7 @@ class SisuaExperimenter(Experimenter):
         allow_rollback=bool(tr_cfg.get("allow_rollback", True)),
         max_iter=None if max_iter <= 0 else max_iter,
         checkpoint_path=os.path.join(exp_dir, "model"),
-        mesh=None,
+        mesh=self._mesh(cfg),
         mc_samples=_mc_from_sample_shape(tr_cfg.get("sample_shape", [])),
         scan_steps=int(tr_cfg.get("scan_steps", 1)),
         device_cache=bool(tr_cfg.get("device_cache", False)),
@@ -394,24 +425,30 @@ class SisuaExperimenter(Experimenter):
     post = sco_posterior(
         model, data["test"],
         dropout_rate=float(ds_cfg.get("dropout_rate", 0.2)),
-        retain_rate=float(ds_cfg.get("retain_rate", 0.2)))
-    scores = post.save_scores(os.path.join(exp_dir, "scores.json"))
+        retain_rate=float(ds_cfg.get("retain_rate", 0.2)),
+        mesh=self._mesh(cfg))
+    main = is_main_rank()
+    scores = post.save_scores(os.path.join(exp_dir, "scores.json")
+                              if main else None)
     uid = os.path.basename(exp_dir)
     # a score family or a criticizer that fails must not sink the rest,
     # but it must land on the scoreboard (the JAX experimenter records the
     # criticizers' failures only)
     for family, err in post.failures.items():
-      print(f"[experimenter] posterior.{family} failed (see scoreboard "
-            "errors)")
-      self.scoreboard.write_error(uid, f"posterior.{family} failed: {err}")
+      if main:
+        print(f"[experimenter] posterior.{family} failed (see scoreboard "
+              "errors)")
+        self.scoreboard.write_error(uid, f"posterior.{family} failed: {err}")
     for f, crt in post.criticizers.items():
       try:
         for k, v in crt.cal_all_scores().items():
           scores[f"{k}_{f}"] = v
       except Exception:
         msg = f"criticizer[{f}] failed:\n{traceback.format_exc()}"
-        print(f"[experimenter] {msg.splitlines()[0]} (see scoreboard errors)")
-        self.scoreboard.write_error(uid, msg)
+        if main:
+          print(f"[experimenter] {msg.splitlines()[0]} (see scoreboard "
+                "errors)")
+          self.scoreboard.write_error(uid, msg)
     return scores
 
   # ------------------------------------------------------------- retrieval

@@ -48,6 +48,17 @@ a window before it runs, with one logs dict per window),
 callback adds lands in ``history``), ``on_train_end`` once;
 ``checkpoint_fn(model)`` runs at each new best.
 
+On a mesh (``Trainer(mesh=)``; ``parallel/functional.py``) every loop runs
+one global step per batch: every rank makes the same permutation, mask
+and batch order, keeps its data row's part of each batch and runs the
+step under ``batch_rows``. Each rank holds the whole resident data (the
+batches' rows are anywhere in it), so the memory budget is each rank's,
+the least of them over the world, the same on every rank; so are the
+loss sums of the epoch (global means), and with them every decision:
+the NaN stop, early stopping, ``max_iter``. The resident loop needs a
+batch that divides over 'data' (the JAX assertion); validation streams
+(never the device-cached path) and takes global means.
+
 Host→device copies run on a side stream of the card, from pinned host
 memory; the training stream waits for them through an event, and each
 tensor is recorded on the training stream, so the caching allocator
@@ -69,6 +80,8 @@ import torch
 from ..data.feeder import _TensorSource
 from ..data.utils import int16_exact
 from ..ops.sparse import col_dtype_for, csr_row_triplets, densify, worthwhile
+from ..parallel import functional as PF
+from ..parallel.mesh import DATA_AXIS, axis_size, device_memory_limit
 from .optim import OPTIMIZERS, make_inner_optimizer
 
 __all__ = ["Trainer", "TrainingCallback", "ClippedOptimizer", "ClippedAdam",
@@ -100,15 +113,18 @@ class TrainingCallback:
     pass
 
 
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float,
+                         split: Optional[set] = None) -> torch.Tensor:
   """optax ``clip_by_global_norm``, in place on ``p.grad``: gradients are
   left alone when the global norm is below ``max_norm`` and otherwise
   become g / norm · max_norm. Unlike ``torch.nn.utils.clip_grad_norm_`` no
-  1e-6 is added to the norm. Returns the norm; never syncs the host."""
+  1e-6 is added to the norm. ``split``: the ids of parameters the model
+  axis holds as slices (their squares are summed over 'model'). Returns
+  the norm; never syncs the host."""
   grads = [p.grad for p in params if p.grad is not None]
   if not grads:
     return torch.zeros(())
-  norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+  norm = PF.global_grad_norm(params, split)
   keep = norm < max_norm
   for g in grads:
     g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -128,10 +144,12 @@ class ClippedOptimizer:
     self.params = [p for p in params if p.requires_grad]
     self.clipnorm = float(clipnorm)
     self.inner = make_inner_optimizer(name, self.params, learning_rate)
+    #: a mesh fit's split leaves (``clip_by_global_norm_``'s ``split``)
+    self.split_ids: Optional[set] = None
 
   def step(self):
     if self.clipnorm > 0:
-      clip_by_global_norm_(self.params, self.clipnorm)
+      clip_by_global_norm_(self.params, self.clipnorm, self.split_ids)
     self.inner.step()
 
   def state_dict(self):
@@ -313,10 +331,12 @@ class Trainer:
                hbm_budget_bytes: Optional[int] = None,
                device: Optional[torch.device] = None,
                scan_steps: int = 1,
+               mesh=None,
                verbose: bool = False):
     """``device``: the card whose memory sets ``_device_budget`` (None:
     no card). ``scan_steps``: steps per uploaded chunk of the streaming
-    loop (the resident and out-of-core loops ignore it, as JAX's do)."""
+    loop (the resident and out-of-core loops ignore it, as JAX's do).
+    ``mesh``: a ``parallel.create_mesh`` (module docstring)."""
     if optimizer != "adam" and optimizer not in OPTIMIZERS:
       raise ValueError(f"unknown optimizer {optimizer!r}; one of "
                        f"{sorted(['adam', *OPTIMIZERS])}")
@@ -339,8 +359,11 @@ class Trainer:
     self.device = None if device is None else torch.device(device)
     self.scan_steps = max(1, int(scan_steps))
     self.verbose = bool(verbose)
+    self.mesh = mesh
     self.history: Dict[str, List[float]] = {}
     self._eval_cache = None
+    #: the budget of a mesh fit: the least over the world's ranks
+    self._budget: Optional[int] = None
     self._oc_plan: Optional[Dict] = None
     #: out-of-core: seconds each epoch waited for a streamed chunk
     self._oc_wait_s: List[float] = []
@@ -374,16 +397,36 @@ class Trainer:
     args = (model, train_feeder, valid_feeder, epochs, callbacks,
             checkpoint_fn)
     try:
-      if self.device_cache:
-        if self._fits_device(train_feeder):
-          return self._fit_device_cached(*args)
-        if self._plan_out_of_core(train_feeder) is not None:
-          return self._fit_out_of_core(*args)
-        print("[trainer] device_cache requested but even one data chunk "
-              "exceeds the device-memory budget — streaming instead")
-      return self._fit_streaming(*args)
+      with PF.active(self.mesh):
+        if self.mesh is not None:
+          self._budget = self._least_budget(model.device)
+        if self.device_cache:
+          if self._fits_device(train_feeder):
+            return self._fit_device_cached(*args)
+          if self._plan_out_of_core(train_feeder) is not None:
+            return self._fit_out_of_core(*args)
+          print("[trainer] device_cache requested but even one data chunk "
+                "exceeds the device-memory budget — streaming instead")
+        return self._fit_streaming(*args)
     finally:
       self._eval_cache = None  # the cached validation upload
+      self._budget = None
+
+  def _n_data(self) -> int:
+    return 1 if self.mesh is None else axis_size(self.mesh, DATA_AXIS)
+
+  def _least_budget(self, device) -> int:
+    """The device budget of the world's poorest rank, so every rank picks
+    the same loop and the same out-of-core plan."""
+    t = torch.tensor([self._device_budget()], dtype=torch.int64,
+                     device=device)
+    return int(PF.all_reduce(t, op=torch.distributed.ReduceOp.MIN)[0])
+
+  def _check_mesh_batch(self, batch_size: int) -> None:
+    n_data = self._n_data()
+    assert n_data == 1 or batch_size % n_data == 0, (
+        f"batch_size {batch_size} must divide evenly over the {n_data}-way "
+        "data mesh axis")
 
   def _fit_streaming(self, model, train_feeder, valid_feeder, epochs,
                      callbacks, checkpoint_fn):
@@ -391,14 +434,22 @@ class Trainer:
     transfer = _Transfer(model.device)
     chunk = self.scan_steps
     use_scan = chunk > 1 and train_feeder.n_chunks(chunk) >= 1
+    B = int(train_feeder.batch_size)
+    lo, hi = PF.local_rows(B)
+
+    def mine(a):
+      """This rank's rows of a host batch (a chunk's second axis)."""
+      if (lo, hi) == (0, B):
+        return a
+      return a[:, lo:hi] if use_scan else a[lo:hi]
 
     def upload(batch):
       def put():
-        out = {"inputs": [transfer.upload(x, torch.float32)
+        out = {"inputs": [transfer.upload(mine(x), torch.float32)
                           for x in batch["inputs"]],
-               "mask": transfer.upload(batch["mask"])}
+               "mask": transfer.upload(mine(batch["mask"]))}
         if "library" in batch:
-          out["library"] = transfer.upload(batch["library"])
+          out["library"] = transfer.upload(mine(batch["library"]))
         return out
       return transfer.put(put)
 
@@ -426,11 +477,12 @@ class Trainer:
         for item in batches:
           prev = model.step
           for batch in steps_of(transfer.take(item, _batch_tensors)):
-            metrics = model._train_step(batch)
+            with PF.batch_rows(B, lo, hi):
+              metrics = model._train_step(batch)
             if keys is None:
               keys = sorted(metrics)
             acc = _accumulate(acc, metrics, keys)
-            n_examples += batch["inputs"][0].shape[0]
+            n_examples += B
             n_steps += 1
           # periodic validation, valid_freq in steps, once per chunk
           if (valid_feeder is not None and self.valid_freq > 0
@@ -498,12 +550,12 @@ class Trainer:
     """Device bytes for resident training data: half of the card's memory
     (params, activations and the rest need the other half), JAX's 16 GB
     assumption when there is no card; ``hbm_budget_bytes`` overrides."""
+    if self._budget is not None:
+      return self._budget
     if self.hbm_budget_bytes is not None:
       return int(self.hbm_budget_bytes)
-    total = _DEFAULT_DEVICE_MEMORY
-    if self.device is not None and self.device.type == "cuda":
-      total = torch.cuda.mem_get_info(self.device)[1]
-    return int(budget_fraction * total)
+    return int(budget_fraction * device_memory_limit(
+        _DEFAULT_DEVICE_MEMORY, self.device or "cpu"))
 
   def _bytes_per_row(self, feeder) -> int:
     itemsize = 4 if self.device_dtype == "float32" else 2
@@ -541,18 +593,21 @@ class Trainer:
                    keys):
     """One epoch over device-resident matrices ``xs`` (all rows): a fresh
     permutation, ``n // batch_size`` full batches, every matrix of a batch
-    gathered with the same rows and widened to float32. Returns the
-    metric sums and their keys."""
+    gathered with the same rows and widened to float32 (on a mesh, this
+    rank's part of each batch's rows). Returns the metric sums and their
+    keys."""
     n = int(xs[0].shape[0])
     perm = torch.randperm(n, generator=model.generator, device=xs[0].device)
+    lo, hi = PF.local_rows(batch_size)
     for i in range(n // batch_size):
-      rows = perm[i * batch_size:(i + 1) * batch_size]
+      rows = perm[i * batch_size + lo:i * batch_size + hi]
       batch = {"inputs": [x.index_select(0, rows).to(torch.float32)
                           for x in xs],
                "mask": mask_all.index_select(0, rows)}
       if library is not None:
         batch["library"] = library.index_select(0, rows)
-      metrics = model._train_step(batch)
+      with PF.batch_rows(batch_size, lo, hi):
+        metrics = model._train_step(batch)
       if keys is None:
         keys = sorted(metrics)
       acc = _accumulate(acc, metrics, keys)
@@ -566,6 +621,7 @@ class Trainer:
                if train_feeder.library is not None else None)
     n = train_feeder.n_obs
     B = train_feeder.batch_size
+    self._check_mesh_batch(B)
     steps = n // B
     mask_all = (torch.rand((n,), generator=model.generator, device=dev)
                 < train_feeder.labels_percent).to(torch.float32)
@@ -693,6 +749,7 @@ class Trainer:
     last chunk wraps around the permutation to keep the chunk size."""
     plan = self._plan_out_of_core(train_feeder)
     n, B = int(train_feeder.n_obs), int(train_feeder.batch_size)
+    self._check_mesh_batch(B)
     R, S, K = plan["chunk_rows"], plan["n_chunks"], plan["n_resident"]
     dev = model.device
     gen = model.generator
@@ -825,8 +882,13 @@ class Trainer:
     """Mean metrics over ``feeder`` (eval mode, mask = 1). Under
     ``device_cache``, when the data costs at most an eighth of the budget,
     the feeder is uploaded once and evaluated on the device
-    (``model._evaluate``); else its batches stream, as the JAX rule."""
-    if (self.device_cache and feeder.n_obs >= feeder.batch_size
+    (``model._evaluate``); else its batches stream, as the JAX rule. On a
+    data mesh the batches stream, each rank evaluating its rows (a batch
+    of fewer rows than ranks: every rank all of it), and the means are
+    global."""
+    n_data = self._n_data()
+    if (self.device_cache and n_data == 1
+        and feeder.n_obs >= feeder.batch_size
         and self._bytes_per_row(feeder) * feeder.n_obs
         <= self._device_budget() // 8):
       if self._eval_cache is None or self._eval_cache[0] is not feeder:
@@ -846,12 +908,18 @@ class Trainer:
     acc, keys, n = None, None, 0
     for batch in feeder.full_batches():
       b = batch["inputs"][0].shape[0]
-      dev_batch = {"inputs": [torch.from_numpy(x).to(dev)
+      lo, hi = PF.local_rows(b) if b >= n_data else (0, b)
+      dev_batch = {"inputs": [torch.from_numpy(x[lo:hi]).to(dev)
                               for x in batch["inputs"]],
-                   "mask": torch.from_numpy(batch["mask"]).to(dev)}
+                   "mask": torch.from_numpy(batch["mask"][lo:hi]).to(dev)}
       if "library" in batch:
-        dev_batch["library"] = torch.from_numpy(batch["library"]).to(dev)
-      metrics = model._eval_step(dev_batch)
+        dev_batch["library"] = torch.from_numpy(
+            batch["library"][lo:hi]).to(dev)
+      if b >= n_data:
+        with PF.batch_rows(b, lo, hi):
+          metrics = model._eval_step(dev_batch)
+      else:
+        metrics = model._eval_step(dev_batch)
       if keys is None:
         keys = sorted(metrics)
       vec = torch.stack([metrics[k].float() for k in keys]) * b

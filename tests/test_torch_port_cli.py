@@ -137,9 +137,17 @@ def test_predict_cli_writes_what_jax_writes(stores, tmp_path):
     m = tpredict([ckpt, inp, "-o", str(tmp_path / "o"), "--sample-shape",
                   "1", "--device", "cpu"])
     assert m["outputs"] == [[m["n_cells"], 500]]
-  for bad in ([ckpt, "x.h5ad"], [ckpt, npz, "--mesh", "all"]):
-    with pytest.raises(NotImplementedError):
-      tpredict(bad + ["-o", str(tmp_path / "o"), "--device", "cpu"])
+  with pytest.raises(NotImplementedError):
+    tpredict([ckpt, "x.h5ad", "-o", str(tmp_path / "o"), "--device", "cpu"])
+  # --mesh 2 --device cpu: two gloo ranks started by the command; rank 0
+  # writes what the single-device call writes
+  mm = tpredict([ckpt, npz, "-o", str(tmp_path / "m"), "--sample-shape",
+                 "2", "--device", "cpu", "--mesh", "2"])
+  assert mm == tm
+  for f in ("imputed.npz", "latents.npz"):
+    a, b = np.load(tmp_path / "t" / f), np.load(tmp_path / "m" / f)
+    for k in a:
+      np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=1e-6)
 
 
 def test_evaluate_cli_refuses_plots_and_writes_rows(stores, tmp_path,
@@ -177,6 +185,66 @@ def test_evaluate_cli_refuses_plots_and_writes_rows(stores, tmp_path,
   table = pd.read_csv(tmp_path / "scores.csv", index_col=0)
   assert list(table.index) == [posts[0].name]
   assert (tmp_path / "scores.html").is_file()
+
+
+def test_evaluate_cli_over_a_mesh_writes_the_single_device_table(
+    stores, tmp_path, monkeypatch):
+  """``sisua-evaluate --mesh 2 --no-plots --device cpu`` starts two gloo
+  ranks (they find the store through ``SISUA_EXP``), scores the
+  posterior's predictions over the mesh, and rank 0 writes the table
+  the single-device command writes (rtol 1e-4)."""
+  from sisua_tpu_torch.cli.evaluate import main as evaluate
+  monkeypatch.setenv("SISUA_EXP", stores["tdir"])
+  orig = TX.SisuaExperimenter.__init__
+  monkeypatch.setattr(
+      TX.SisuaExperimenter, "__init__",
+      lambda self, save_path=None, config_path=TX.CONFIG_PATH, device="cuda":
+      orig(self, save_path=stores["tdir"], config_path=config_path,
+           device=device))
+  args = ["-model", "vae", "-ds", "synthetic500", "-ds2", "synthetic200",
+          "--no-plots", "--device", "cpu"]
+  single = evaluate(args + ["-path", str(tmp_path / "single")])
+  names = evaluate(args + ["-path", str(tmp_path / "mesh"), "--mesh", "2"])
+  assert names == [p.name for p in single]
+  a = pd.read_csv(tmp_path / "single" / "scores.csv", index_col=0)
+  b = pd.read_csv(tmp_path / "mesh" / "scores.csv", index_col=0)
+  assert list(a.columns) == list(b.columns) and list(a.index) == list(
+      b.index)
+  np.testing.assert_allclose(b.to_numpy(float), a.to_numpy(float),
+                             rtol=1e-4, atol=1e-6)
+
+
+def test_train_cli_over_a_two_rank_mesh_writes_the_single_device_scores(
+    stores, tmp_path):
+  """The fixture's config with ``train.n_data_devices=2``: the command
+  starts two gloo ranks, trains and scores over the 2 × 1 mesh, and rank 0
+  writes the scores of the single-device run: every key, finite, the
+  likelihoods and the imputation's mean and median within 1e-3. The
+  latent-space scores (clustering, DCI, MIG, correlations) are not held:
+  k-means, the boosted trees and rank statistics turn the rounding-level
+  differences of the training steps into different partitions (an Adam
+  step moves a BatchNorm-fed bias by ±lr on its rounding-noise gradient:
+  tests/test_torch_port_mesh.py)."""
+  env = dict(os.environ, SISUA_EXP=str(tmp_path), OMP_NUM_THREADS="1",
+             OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+  proc = subprocess.run(
+      [sys.executable, "-m", "sisua_tpu_torch.cli.train", *OVERRIDES,
+       "train.n_data_devices=2", "--device", "cpu"], cwd=REPO, env=env,
+      capture_output=True, text=True, timeout=600)
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  assert proc.stdout.count("SisuaExperimenter:") == 1  # rank 0 prints
+  (name,) = _exp_dirs(str(tmp_path))
+  (want_name,) = _exp_dirs(stores["tdir"])
+  assert name == want_name  # the train section is not in the hash
+  with open(os.path.join(str(tmp_path), name, "scores.json")) as f:
+    got = json.load(f)
+  with open(os.path.join(stores["tdir"], name, "scores.json")) as f:
+    want = json.load(f)
+  assert sorted(got) == sorted(want)
+  assert np.isfinite([got[k] for k in got]).all()
+  for k in want:
+    if k.startswith("llk") or k in ("imputation_mean", "imputation_med"):
+      np.testing.assert_allclose(got[k], want[k], rtol=1e-3, err_msg=k)
 
 
 def test_results_sheet_table_parses_as_jax(tmp_path):

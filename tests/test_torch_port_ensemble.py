@@ -478,14 +478,24 @@ def test_vmapped_hyper_search(tmp_path):
   assert saved["best"] == res["best"] and saved["loss"] == res["loss"]
 
 
+class _ThreeRanks:
+  """A mesh's shape as ``VmapEnsemble`` reads it: 3 × 1 ranks."""
+  mesh_dim_names = ("data", "model")
+
+  def size(self, dim):
+    return (3, 1)[dim]
+
+
 @pytest.mark.parametrize("case", ["mesh", "lr_count"])
 def test_what_the_ensemble_refuses(case):
-  """``mesh`` (A21) raises NotImplementedError naming the ROADMAP item
-  rather than train wrongly; a rate list of the wrong length raises
+  """Members that do not divide over the mesh's ranks raise JAX's
+  assertion before any draw (the mesh fleet itself:
+  tests/test_torch_port_mesh.py); a rate list of the wrong length raises
   ValueError."""
   x = _counts(128, 5)
   kw, error, match = {
-      "mesh": (dict(mesh=object()), NotImplementedError, "ROADMAP A21"),
+      "mesh": (dict(mesh=_ThreeRanks()), AssertionError,
+               "must divide evenly over the 3-device mesh"),
       "lr_count": (dict(learning_rate=[1e-3]), ValueError, "learning rates"),
   }[case]
   ens = VmapEnsemble(_vae, n_models=2)

@@ -235,14 +235,16 @@ def test_hooks_build_and_feed_as_jax(J, tmp_path, monkeypatch, model_name):
 
 
 def test_mesh_config_raises_before_loading(tmp_path, monkeypatch):
+  """A 2-device config outside a world of 2 ranks raises before any data
+  is loaded, with the error on the scoreboard."""
   te = TX.SisuaExperimenter(save_path=str(tmp_path), device="cpu")
   monkeypatch.setattr(te, "on_load_data", lambda cfg: pytest.fail(
       "data loaded before the mesh check"))
   cfg = te.load_config({"train.n_data_devices": 2})
-  with pytest.raises(NotImplementedError, match="A21"):
+  with pytest.raises(RuntimeError, match="needs a world of 2 ranks"):
     te.run_config(cfg)
   errors = te.scoreboard.read_errors()
-  assert len(errors) == 1 and "A21" in errors[0]["message"]
+  assert len(errors) == 1 and "world of 2" in errors[0]["message"]
 
 
 def test_failures_in_eval_reach_the_scoreboard(tmp_path, monkeypatch):

@@ -554,19 +554,25 @@ def test_profile_dir_writes_a_trace(tmp_path):
 @pytest.mark.parametrize("kw", [dict(scan_steps=4), dict(mesh=object())],
                          ids=["scan_steps", "mesh"])
 def test_later_items_raise(kw):
-  """Arguments of loops the port does not have name their ROADMAP item
-  instead of being ignored (``transfer_dtype`` and ``hbm_budget_bytes``
-  work since the streaming and out-of-core loops came:
-  ``tests/test_torch_port_out_of_core.py``). ``scan_steps`` (A5a) is
-  ported now: it trains, in whole chunks of 4 steps
-  (``tests/test_torch_port_scan_steps.py`` holds it to JAX)."""
+  """The arguments of loops that came later work (``transfer_dtype`` and
+  ``hbm_budget_bytes`` since the streaming and out-of-core loops came:
+  ``tests/test_torch_port_out_of_core.py``). ``scan_steps`` (A5a) trains,
+  in whole chunks of 4 steps (``tests/test_torch_port_scan_steps.py``
+  holds it to JAX); ``mesh`` (A21) trains over a world's mesh."""
   model = _port_model("vae_plain")
   if "scan_steps" in kw:
     model.fit(_counts(160), epochs=1, batch_size=32, **kw)
     assert model.step == 4 and np.isfinite(model.history["loss"]).all()
     return
-  with pytest.raises(NotImplementedError, match="ROADMAP A"):
-    model.fit(_counts(32), epochs=1, batch_size=32, **kw)
+  # the mesh (A21) is ported: a fit over a one-rank mesh is the
+  # single-device fit, bitwise (tests/test_torch_port_mesh.py holds the
+  # 2 × 2 mesh); without a world a mesh cannot be made
+  import torch_port_mesh_ranks as ranks
+  from sisua_tpu_torch.parallel import create_mesh, spawn
+  with pytest.raises(RuntimeError, match="torchrun"):
+    model.fit(_counts(32), epochs=1, batch_size=32, mesh=create_mesh())
+  out = spawn(ranks.one_rank, 1, timeout=120)[0]
+  assert out["mesh"]["loss"] == out["single"]["loss"]
 
 
 def test_a_second_fit_takes_its_own_learning_rate():

@@ -29,9 +29,7 @@ NOT_PORTED = {
     # Pallas on a TPU; the port's counterpart is ops.zinb.kernels_available
     "sisua_tpu.ops": {"pallas_available"},
     "sisua_tpu.data": _DATA_LAYER,
-    "sisua_tpu": {"OMIC", "get_dataset_availability"} | {
-        # the submodule of a host-only layer: parallel (ROADMAP A21)
-        "parallel"},
+    "sisua_tpu": {"OMIC", "get_dataset_availability"},
     # the JAX profiler and XLA's compilation cache (the port profiles with
     # torch.profiler, ``profile_dir``)
     "sisua_tpu.utils": {"profile_trace", "enable_compilation_cache"},
@@ -46,7 +44,8 @@ MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
            "sisua_tpu.utils", "sisua_tpu.baselines",
            "sisua_tpu.analysis.imputation", "sisua_tpu.analysis.latent",
            "sisua_tpu.analysis.sc_monitor", "sisua_tpu.cross_analyze",
-           "sisua_tpu.utils.visualization", "sisua_tpu.utils.plot_utils"]
+           "sisua_tpu.utils.visualization", "sisua_tpu.utils.plot_utils",
+           "sisua_tpu.parallel", "sisua_tpu.parallel.mesh"]
 
 # argument names of the JAX signatures that the port's do not take, each
 # with its reason, and where (None: anywhere; else the callables whose
@@ -68,8 +67,6 @@ JAX_ONLY_ARGS = {
     # the JAX Trainer's jitted step functions and flax TrainState: the
     # port's Trainer builds its steps from the model it trains
     "step_core": "Trainer", "eval_fn": "Trainer", "state": "Trainer",
-    # the device mesh (ROADMAP A21)
-    "mesh": None,
     # the JAX objects take a JAX SingleCellOMIC; the port's take matrices
     # (``data``) and var names, or a container through ``data/adapters``:
     # the posterior, the metric callbacks (``extras``: the protein matrix

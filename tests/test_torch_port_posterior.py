@@ -232,7 +232,8 @@ def test_compute_llk_through_the_fused_op_equals_distribution_math(
 
 def test_device_cache_llk_and_marginal_llk():
   """``device_cache=True`` scores the 4-way LLK through ``compute_llk``
-  with the host path's keys; ``mesh=`` raises until ROADMAP A21."""
+  with the host path's keys (``mesh=``: tests/test_torch_port_mesh.py;
+  a mesh needs a world)."""
   model, x, y = _sisua_with_data()
   data = {"transcriptomic": x, "proteomic": y}
   host = model.create_posterior(data, sample_shape=2).cal_llk()
@@ -245,8 +246,9 @@ def test_device_cache_llk_and_marginal_llk():
   m = dev.cal_marginal_llk(sample_shape=4)
   assert list(m) == ["marginal_llk_transcriptomic"]
   assert math.isfinite(m["marginal_llk_transcriptomic"])
-  with pytest.raises(NotImplementedError):
-    model.create_posterior(data, mesh=object())
+  with pytest.raises(RuntimeError, match="process group"):
+    from sisua_tpu_torch.parallel import create_mesh
+    model.create_posterior(data, mesh=create_mesh())
 
 
 def test_default_llk_takes_the_fused_op_on_the_predictions(monkeypatch):

@@ -426,9 +426,18 @@ def test_encode_decode_match_jax(name):
 
 
 def test_mesh_is_not_ported():
+  """Mesh serving is ported (``tests/test_torch_port_mesh.py``); over a
+  one-rank mesh ``predict`` is the single-device call, bitwise, and a
+  mesh needs a world."""
+  import torch_port_mesh_ranks as ranks
+  from sisua_tpu_torch.parallel import spawn
   _, tm = _pair("dca")
-  with pytest.raises(NotImplementedError, match="mesh"):
-    tm.predict(_data()[0], mesh=object())
+  with pytest.raises(RuntimeError, match="process group"):
+    from sisua_tpu_torch.parallel import create_mesh
+    tm.predict(_data()[0], mesh=create_mesh())
+  out = spawn(ranks.one_rank, 1, timeout=120)[0]
+  for a, b in zip(out["mesh"]["predict"], out["single"]["predict"]):
+    np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------- batch-covariate conditioning
