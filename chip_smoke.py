@@ -290,7 +290,7 @@ before the final line:
      against CPU: the neighbours and P (1e-7 of the largest), the first
      forces from one start at one OpenMP thread (1e-6 of the largest),
      and the final KL of two default runs within 2%. No kernel launches.
- 23. the device mesh (``sisua_tpu_torch.parallel``), last, within 90 s;
+ 23. the device mesh (``sisua_tpu_torch.parallel``), within 90 s;
      (a)'s rank and (b)'s four start at once while this process makes
      their one-device references. (a) one NCCL rank on the card
      (``parallel.spawn``): phase 4's SCVI on phase 4's counts (made again
@@ -311,10 +311,34 @@ before the final line:
      both kernels launched in every rank once a step. Gloo takes every
      collective on CUDA tensors there (none is staged through the host);
      its step time is no speed figure.
+ 24. the data-ingestion layer (``sisua_tpu_torch.data.loaders``), last:
+     (a) a CellRanger v3 ``filtered_feature_bc_matrix`` directory at the
+     published size of 10x's pbmc_10k_protein_v3 sample, 7,865 cells ×
+     33,538 "Gene Expression" features (every 1,500th symbol repeated)
+     and its 17 "Antibody Capture" features (``matrix.mtx.gz``,
+     ``barcodes.tsv.gz``, ``features.tsv.gz``): phase 1's generators on
+     the card from the seed, written with scipy. (b) $SISUA_DATA and
+     $SISUA_DOWNLOAD in a temporary folder, set before the port is
+     imported; ``get_dataset(<dir>)``; ``get_dataset('10k')`` with the
+     tree placed as the downloaded and extracted archive (it parses the
+     files and writes the npz cache); ``get_dataset('10k')`` again with
+     ``download_file`` refusing, a pure cache hit. The three containers:
+     transcriptomic + proteomic bitwise the written counts, the names
+     (repeats suffixed as the JAX container does) and barcodes in order,
+     one md5. (c) SISUA at phase 6's nets: the kernel route against the
+     plain route on the cached container's first 512 cells (rows of
+     33,538 f32, not 16-byte aligned; 17 proteins), as phase 7 holds
+     them; then ``data.adapters.fit_sco`` on the cached container, batch
+     512, 2 epochs (a fit's start, not a fit): every loss finite, the
+     second epoch's below the first, each kernel launched twice a step;
+     ``predict_mean`` of 512 cells. (d) the seconds of the write, the
+     three loads, the cache write, the route check, the fit and the
+     prediction, beside the phase's 60 s budget.
 Earlier phases train through ``fit(device_cache=True)``, the loop they
 were written for. Before the last line it prints the kernels' JSON summary
 (launches of the phase 4 and phase 6 fits, of phase 8 and of phases 9 to
-17's fits and 18b's run_config, round trips, served NLL and LLK batches and phase 14a's probe run;
+17's fits and 18b's run_config, round trips, served NLL and LLK batches,
+phase 23's mesh fits, phase 24's fit and phase 14a's probe run;
 time, plain time and bound at 512 × 33,000 'main_full', and under
 ``bf16_operands`` / ``bf16_writes`` the bf16 modes' at the same shape
 with phase 13a's launches, under ``members`` the 4-member launch's at 15a's
@@ -476,10 +500,10 @@ def _counts(torch, gen, rows, cols):
   return x * (torch.rand((rows, cols), generator=gen, device=DEVICE) > 0.5)
 
 
-def _proteins(torch, gen, rows):
+def _proteins(torch, gen, rows, cols=PROTEINS):
   """Poisson(exp(2 + N(0,1))) protein counts on the card."""
   return torch.poisson(torch.exp(2.0 + torch.randn(
-      (rows, PROTEINS), generator=gen, device=DEVICE)), generator=gen)
+      (rows, cols), generator=gen, device=DEVICE)), generator=gen)
 
 
 # phase-3 cases: name, rows, cols, constrained, per-gene (θ, logits, gate)
@@ -5443,6 +5467,251 @@ def phase_mesh(torch):
           for k in mesh["launches"]}
 
 
+# phase 24: 10x's pbmc_10k_protein_v3 filtered matrix at its published size
+P24_CELLS = 7_865
+P24_GENES = 33_538       # its "Gene Expression" features
+P24_ADTS = ("CD3", "CD4", "CD8a", "CD14", "CD15", "CD16", "CD56", "CD19",
+            "CD25", "CD45RA", "CD45RO", "PD-1", "TIGIT", "CD127", "IgG2a",
+            "IgG1", "IgG2b")  # its 17 "Antibody Capture" features
+P24_DUP_EVERY = 1_500    # every 1,500th gene repeats the symbol before it
+P24_EPOCHS = 2
+P24_PREDICT = 512
+P24_BUDGET = 60.0
+P24_SAMPLE = "pbmc_10k_protein_v3"
+
+
+def _p24_barcode(i):
+  return "".join("ACGT"[(i >> (2 * k)) & 3] for k in range(16)) + "-1"
+
+
+def _p24_write(torch, user_dir):
+  """The CellRanger v3 directory of phase 24's counts (made on the card
+  from the seed, written with scipy); returns the written cells × features
+  CSR, the feature names and the barcodes."""
+  import gzip
+  import numpy as np
+  from scipy import io as sp_io
+  from scipy import sparse
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+  x = torch.cat([_counts(torch, gen, P24_CELLS, P24_GENES),
+                 _proteins(torch, gen, P24_CELLS, len(P24_ADTS))], 1)
+  cell, feat = x.nonzero(as_tuple=True)
+  vals = x[cell, feat].to(torch.int32).cpu().numpy()
+  cell, feat = cell.cpu().numpy(), feat.cpu().numpy()
+  del x
+  n_feat = P24_GENES + len(P24_ADTS)
+  names = [f"GENE{j}" for j in range(P24_GENES)]
+  for j in range(P24_DUP_EVERY, P24_GENES, P24_DUP_EVERY):
+    names[j] = names[j - 1]
+  names += [f"{a}_TotalSeqB" for a in P24_ADTS]
+  barcodes = [_p24_barcode(i) for i in range(P24_CELLS)]
+  os.makedirs(user_dir)
+  with gzip.open(os.path.join(user_dir, "matrix.mtx.gz"), "wb",
+                 compresslevel=1) as f:
+    sp_io.mmwrite(f, sparse.coo_matrix((vals, (feat, cell)),
+                                       shape=(n_feat, P24_CELLS)))
+  with gzip.open(os.path.join(user_dir, "barcodes.tsv.gz"), "wt") as f:
+    f.write("".join(b + "\n" for b in barcodes))
+  with gzip.open(os.path.join(user_dir, "features.tsv.gz"), "wt") as f:
+    for j, n in enumerate(names):
+      kind = "Gene Expression" if j < P24_GENES else "Antibody Capture"
+      f.write(f"ENSG{j:011d}\t{n}\t{kind}\n")
+  written = sparse.csr_matrix((vals.astype(np.float32), (cell, feat)),
+                              shape=(P24_CELLS, n_feat))
+  return written, names, barcodes
+
+
+def _p24_check(label, sco, rna, adt, genes, barcodes):
+  """The container holds the written counts bit for bit, the names (made
+  unique as the JAX container makes them) and barcodes in order."""
+  import numpy as np
+  from sisua_tpu_torch.data.utils import dedup_names
+  check(sco.omics == ["transcriptomic", "proteomic"],
+        f"{label}: omics {sco.omics}")
+  check(list(sco.obs["cell_id"]) == barcodes, f"{label}: barcodes")
+  x = sco.get_omic("transcriptomic").tocsr(copy=True)
+  x.sort_indices()
+  check(x.dtype == np.float32 and x.shape == rna.shape
+        and np.array_equal(x.indptr, rna.indptr)
+        and np.array_equal(x.indices, rna.indices)
+        and np.array_equal(x.data.view(np.uint32), rna.data.view(np.uint32)),
+        f"{label}: transcriptomic differs from the written counts")
+  y = sco.get_omic("proteomic")
+  check(y.dtype == np.float32 and np.array_equal(
+      y.view(np.uint32), adt.view(np.uint32)),
+        f"{label}: proteomic differs from the written counts")
+  check(list(sco.get_var_names("transcriptomic")) == dedup_names(genes),
+        f"{label}: gene names")
+  check(list(sco.get_var_names("proteomic"))
+        == [f"{a}_TotalSeqB" for a in P24_ADTS], f"{label}: protein names")
+
+
+def ingest_data_root():
+  """Phase 24's data folder, named for this process: $SISUA_DATA and
+  $SISUA_DOWNLOAD point into it from here on, so call this before the port
+  is imported. Phase 24 makes it; the caller removes it."""
+  data_root = os.path.join(tempfile.gettempdir(),
+                           f"chip_smoke_data_{os.getpid()}")
+  os.environ["SISUA_DATA"] = os.path.join(data_root, "data")
+  os.environ["SISUA_DOWNLOAD"] = os.path.join(data_root, "downloads")
+  return data_root
+
+
+def phase_ingest(torch, data_root):
+  """Phase 24 (module docstring): a CellRanger directory at the published
+  size of 10x's pbmc_10k_protein_v3, read three ways, then SISUA trained
+  on it. ``data_root`` holds $SISUA_DATA and $SISUA_DOWNLOAD, set before
+  the port was imported. Returns the fit's launches."""
+  import numpy as np
+  from sisua_tpu_torch.data import get_dataset, path
+  from sisua_tpu_torch.data.adapters import fit_sco, sco_matrices
+  from sisua_tpu_torch.data.loaders import tenx
+  from sisua_tpu_torch.models import SISUA, RVmeta
+  from sisua_tpu_torch.ops import zinb as tz
+  import scipy
+  check(path.DATA_DIR == os.path.join(data_root, "data")
+        and tenx.DOWNLOAD_DIR == os.path.join(data_root, "downloads"),
+        f"SISUA_DATA / SISUA_DOWNLOAD not in effect: {path.DATA_DIR}")
+  t0 = time.perf_counter()
+  seconds = {}
+  user_dir = os.path.join(data_root, "user", "filtered_feature_bc_matrix")
+  written, names, barcodes = _p24_write(torch, user_dir)
+  rna = written[:, :P24_GENES].tocsr()
+  adt = written[:, P24_GENES:].toarray()
+  seconds["write"] = time.perf_counter() - t0
+  # the same tree placed as the 10x archive, downloaded and extracted
+  t = time.perf_counter()
+  url = tenx._matrix_url(*tenx.TENX_CATALOG[P24_SAMPLE], filtered=True)
+  os.makedirs(tenx.DOWNLOAD_DIR)
+  import tarfile
+  # gzip level 0: the members are gzipped already
+  with tarfile.open(os.path.join(tenx.DOWNLOAD_DIR, os.path.basename(url)),
+                    "w:gz", compresslevel=0) as tar:
+    tar.add(user_dir, arcname="filtered_feature_bc_matrix")
+  extracted = os.path.join(tenx.DOWNLOAD_DIR, f"10x_{P24_SAMPLE}_filtered",
+                           "filtered_feature_bc_matrix")
+  shutil.copytree(user_dir, extracted)
+  with open(os.path.join(os.path.dirname(extracted), ".extracted"), "w") as f:
+    f.write(os.path.basename(url))
+  seconds["place"] = time.perf_counter() - t
+  log(f"[24 ingest] scipy {scipy.__version__}; wrote {P24_CELLS:,} cells × "
+      f"{P24_GENES:,} genes + {len(P24_ADTS)} antibodies "
+      f"({written.nnz:,} nonzeros, matrix.mtx.gz "
+      f"{os.path.getsize(os.path.join(user_dir, 'matrix.mtx.gz')) / 1e6:.1f}"
+      f" MB) in {seconds['write']:.2f} s; placed as the downloaded and "
+      f"extracted archive in {seconds['place']:.2f} s")
+
+  tz.reset_launches()
+  t = time.perf_counter()
+  by_dir = get_dataset(user_dir)
+  seconds["load_dir"] = time.perf_counter() - t
+  _p24_check("get_dataset(<dir>)", by_dir, rna, adt, names[:P24_GENES],
+             barcodes)
+  cache_s = []
+  save = tenx.save_to_dataset
+
+  def timed_save(*args, **kw):
+    t = time.perf_counter()
+    try:
+      return save(*args, **kw)
+    finally:
+      cache_s.append(time.perf_counter() - t)
+  tenx.save_to_dataset = timed_save
+  try:
+    t = time.perf_counter()
+    parsed = get_dataset("10k")
+    seconds["load_parse"] = time.perf_counter() - t
+  finally:
+    tenx.save_to_dataset = save
+  check(len(cache_s) == 1, f"'10k' wrote {len(cache_s)} caches")
+  seconds["cache_write"] = cache_s[0]
+  _p24_check("get_dataset('10k')", parsed, rna, adt, names[:P24_GENES],
+             barcodes)
+
+  def refuse(url, *a, **k):
+    raise RuntimeError(f"cache miss: download of {url}")
+  download, tenx.download_file = tenx.download_file, refuse
+  try:
+    t = time.perf_counter()
+    cached = get_dataset("10k")
+    seconds["load_cache"] = time.perf_counter() - t
+  finally:
+    tenx.download_file = download
+  _p24_check("get_dataset('10k') from its cache", cached, rna, adt,
+             names[:P24_GENES], barcodes)
+  check(by_dir.md5 == parsed.md5 == cached.md5,
+        f"md5 {by_dir.md5} / {parsed.md5} / {cached.md5}")
+  log(f"[24 ingest] three containers bitwise the written counts, names "
+      f"and barcodes, one md5 {cached.md5}: get_dataset(<dir>) "
+      f"{seconds['load_dir']:.2f} s, get_dataset('10k') parsing "
+      f"{seconds['load_parse']:.2f} s (its cache written in "
+      f"{seconds['cache_write']:.2f} s), get_dataset('10k') from the cache "
+      f"{seconds['load_cache']:.2f} s (downloads refused)")
+  del by_dir, parsed
+
+  model = SISUA([RVmeta(P24_GENES, "zinb", name="transcriptomic"),
+                 RVmeta(len(P24_ADTS), "nb", name="proteomic")],
+                alpha=ALPHA, device=DEVICE, seed=SEED)
+  # the kernel route against the plain route on the cached container's
+  # first batch: rows of 33,538 f32 are not 16-byte aligned, and the
+  # proteins 17 wide
+  t = time.perf_counter()
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+  head = cached[np.arange(BATCH)]
+  batch = {"inputs": [torch.as_tensor(m.toarray() if hasattr(m, "toarray")
+                                      else m, device=DEVICE)
+                      for m in sco_matrices(model, head)],
+           "mask": (torch.rand((BATCH,), generator=gen, device=DEVICE)
+                    < 0.5).to(torch.float32)}
+  check([tuple(m.shape) for m in batch["inputs"]]
+        == [(BATCH, P24_GENES), (BATCH, len(P24_ADTS))],
+        f"route batch {[m.shape for m in batch['inputs']]}")
+  _compare_routes(torch, "24 ingest", "SISUA on the cached container's "
+                  f"first {BATCH} cells", model, _converted(model, model),
+                  batch, [torch.randn((BATCH, 10), generator=gen,
+                                      device=DEVICE)], 2)
+  del batch
+  seconds["routes"] = time.perf_counter() - t
+  tz.reset_launches()
+  t = time.perf_counter()
+  fit_sco(model, cached, batch_size=BATCH, labels_percent=LABELS_PERCENT,
+          epochs=P24_EPOCHS, learning_rate=1e-3)
+  torch.cuda.synchronize()
+  seconds["fit"] = time.perf_counter() - t
+  steps = P24_EPOCHS * (P24_CELLS // BATCH)
+  launches = dict(tz.launches)
+  losses = np.asarray(model.history["loss"])
+  check(len(losses) == P24_EPOCHS and model.step == steps,
+        f"ran {len(losses)} epochs / {model.step} steps")
+  check(np.isfinite(losses).all(), f"non-finite loss {losses}")
+  check(losses[-1] < losses[0], f"last epoch loss {losses[-1]} !< first "
+        f"{losses[0]}")
+  check(launches == {"zinb_rowsum_fwd": 2 * steps,
+                     "zinb_rowsum_bwd": 2 * steps},
+        f"launches {launches}: expected 2 × {steps} steps each")
+  t = time.perf_counter()
+  head = cached[np.arange(P24_PREDICT)]
+  x_means, z_means = model.predict_mean(sco_matrices(model, head),
+                                        batch_size=BATCH)
+  seconds["predict"] = time.perf_counter() - t
+  check([m.shape for m in x_means] == [(P24_PREDICT, P24_GENES),
+                                       (P24_PREDICT, len(P24_ADTS))]
+        and all(np.isfinite(m).all() for m in x_means + z_means),
+        f"predict_mean shapes {[m.shape for m in x_means]}")
+  check(dict(tz.launches) == launches, f"predict launched {tz.launches}")
+  total = time.perf_counter() - t0
+  epoch_s = ", ".join(f"{v:.2f}" for v in model.history["epoch_time"])
+  log(f"[24 ingest] SISUA (phase 6's nets) fit_sco on the cached container, "
+      f"batch {BATCH}, {P24_EPOCHS} epochs: {steps} steps in "
+      f"{seconds['fit']:.2f} s (epochs {epoch_s} s), loss {losses[0]:.2f} "
+      f"→ {losses[-1]:.2f}, launches {launches}; predict_mean of "
+      f"{P24_PREDICT} cells {seconds['predict']:.2f} s")
+  log(f"[24 ingest] phase 24 in {total:.1f} s (budget {P24_BUDGET:.0f} s"
+      f"{'' if total <= P24_BUDGET else ', OVER'}): " + ", ".join(
+          f"{k} {v:.2f} s" for k, v in seconds.items()))
+  return launches
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -5450,6 +5719,7 @@ def main():
           file=sys.stderr)
     return 2
   sys.path.insert(0, ROOT)
+  data_root = ingest_data_root()
   import sisua_tpu_torch  # noqa: F401  (fails outside a checkout)
   t_start = time.perf_counter()
 
@@ -5519,8 +5789,12 @@ def main():
     torch.cuda.empty_cache()
     mesh_launches = phase_mesh(torch)
     mark("23")
+    torch.cuda.empty_cache()
+    ingest_launches = phase_ingest(torch, data_root)
+    mark("24")
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
+    shutil.rmtree(data_root, ignore_errors=True)
   launches = {k: v + sisua_launches[k] + serve_launches[k] + zoo_launches[k]
               + batch_launches[k] + multiome_launches[k] + last_launches[k]
               + bf16_launches[k] + surface_launches[k] + probe_launches[k]
@@ -5528,6 +5802,7 @@ def main():
               + fleet_launches[k] + fleet_zoo_launches[k]
               + analysis_launches[k]
               + experiment_launches[k] + mesh_launches[k]
+              + ingest_launches[k]
               for k, v in launches.items()}
 
   def numbers(case, key, err, kind, results=kern):

@@ -27,7 +27,10 @@ information on the card), and the experiment entry points: the YAML
 experimenter and its sqlite scoreboard (``train.experimenter``,
 ``train.scoreboard``), ``fit_hyper``, the numpy synthetic datasets behind
 ``data.get_dataset``, ``analysis.ResultsSheet``, ``cross_analyze`` and the
-``cli`` package (train, predict, evaluate, embed, showdata); the figures
+``cli`` package (train, predict, evaluate, embed, showdata); the data
+ingestion layer (``data.loaders``: the registry's loaders on raw files or
+caches placed under ``$SISUA_DATA``, the 10x and AnnData readers, the
+``OMIC`` flag); the figures
 (each a data step in torch on the device and a matplotlib render step:
 the ``plot_*`` methods of ``SingleCellOMIC``, ``Posterior`` and
 ``ResultsSheet``, the monitor callbacks); the data analyzer of
@@ -41,7 +44,7 @@ posterior and the CLIs over a (data × model) mesh of
 ``torch.distributed`` ranks). Top-level names resolve
 lazily, as in the JAX package: ``sisua_tpu_torch.SCVI``, ``.get_model``,
 ``.load_model``, ``.Trainer``, ``.DataFeeder``, ``.VmapEnsemble``,
-``.Posterior``, ``.SisuaExperimenter``, ``.get_dataset``.
+``.Posterior``, ``.SisuaExperimenter``, ``.get_dataset``, ``.OMIC``.
 """
 
 __version__ = "0.1.0"
@@ -77,7 +80,8 @@ _TOP_LEVEL_NAMES = (
     "MARKER_ADT_GENE", "MARKER_ADTS", "MARKER_ATAC", "MARKER_GENES",
     "PROTEIN_PAIR_NEGATIVE", "PROTEIN_PAIR_POSITIVE",
     "standardize_protein_name",
-    "SingleCellOMIC", "get_dataset", "get_dataset_meta", "ResultsSheet",
+    "OMIC", "SingleCellOMIC", "get_dataset", "get_dataset_meta",
+    "get_dataset_availability", "ResultsSheet",
     "SisuaExperimenter",
 )
 

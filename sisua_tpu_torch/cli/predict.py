@@ -1,13 +1,14 @@
 """sisua-predict for the port: batch scoring with a trained checkpoint.
 
 Loads a ``save_weights`` directory of either package on ``--device``
-(default 'cuda') and scores a registry dataset (the synthetic family), an
-``.npz`` (a dense 'X', a single array, or a ``scipy.sparse.save_npz``
-file) or a ``.csv`` (cells × genes, a header row and an index column),
-writing the posterior means of the outputs (``imputed.npz``), of the
-latents (``latents.npz``), TotalVI's denoised proteins for a registry
-dataset, and ``manifest.json``, with the JAX command's keys. ``.h5ad``
-needs h5py, which the port does not use: it raises. ``--mesh all|N``
+(default 'cuda') and scores a registry dataset, an ``.h5ad`` (AnnData,
+read with h5py), an ``.npz`` (a dense 'X', a single array, or a
+``scipy.sparse.save_npz`` file) or a ``.csv`` (cells × genes, a header
+row and an index column), writing the posterior means of the outputs
+(``imputed.npz``), of the latents (``latents.npz``), TotalVI's denoised
+proteins for a registry dataset or an ``.h5ad``, and ``manifest.json``,
+with the JAX command's keys. A container (a registry dataset or an
+``.h5ad``) gives the model the omics it was trained on. ``--mesh all|N``
 scores over a data mesh of that many ranks (``cli/_world.py``); rank 0
 writes the files.
 """
@@ -23,9 +24,8 @@ import sys
 def _load_counts(path: str):
   import numpy as np
   if path.endswith(".h5ad"):
-    raise NotImplementedError(
-        f"{path}: reading AnnData needs h5py, which the port does not use; "
-        "write the counts as .npz or .csv")
+    from ..data import read_h5ad
+    return read_h5ad(path)
   if path.endswith(".npz"):
     f = np.load(path)
     keys = set(f.keys())
@@ -48,7 +48,8 @@ def _load_counts(path: str):
 def main(argv=None):
   p = argparse.ArgumentParser("sisua-predict")
   p.add_argument("model", help="checkpoint dir written by save_weights")
-  p.add_argument("input", help="dataset name, .npz, or .csv of counts")
+  p.add_argument("input",
+                 help="dataset name, .h5ad, .npz, or .csv of counts")
   p.add_argument("-o", "--outpath", default="/tmp/sisua_predict")
   p.add_argument("--batch", type=int, default=256)
   p.add_argument("--sample-shape", type=int, default=10,
@@ -87,7 +88,10 @@ def main(argv=None):
     data, n = sco_matrices(model, sco), sco.n_obs
   else:
     data = _load_counts(args.input)
-    n = data.shape[0]
+    if hasattr(data, "omics"):  # an .h5ad's container
+      sco = data
+      data = sco_matrices(model, sco)
+    n = data.shape[0] if sco is None else sco.n_obs
   x_means, z_means = model.predict_mean(
       data, sample_shape=(args.sample_shape,), batch_size=args.batch,
       fetch_dtype=args.fetch_dtype, mesh=mesh)

@@ -8,7 +8,9 @@ mean, std, min, quartiles, max: the layout of the JAX command's pandas
 ``describe``). With ``--figures`` it also writes the container's figures
 (histograms, series, and for a labelled dataset the PCA scatter, dot
 plot, heatmap and violins), which need matplotlib and seaborn: without
-them it stops before any work. ``--list`` lists the port's registry.
+them it stops before any work. ``--list`` lists the registry's names
+with their availability tags. ``-ds`` takes a registry name, a CellRanger
+matrix directory, a CellRanger ``.h5`` or an ``.h5ad``.
 """
 
 from __future__ import annotations
@@ -47,21 +49,28 @@ def _describe(obs, path: str):
 
 def main(argv=None):
   p = argparse.ArgumentParser("sisua-showdata")
-  p.add_argument("-ds", default=None, help="dataset registry name")
+  p.add_argument("-ds", default=None,
+                 help="dataset registry name, 10x directory or file")
   p.add_argument("-path", default="/tmp/sisua_showdata")
   p.add_argument("--figures", action="store_true",
                  help="also render the full figure battery")
   p.add_argument("--list", action="store_true", dest="list_datasets",
-                 help="list the registry's names")
+                 help="list all registry names with availability")
   p.add_argument("--device", default="cuda",
                  help="where the statistics and figures' data are "
                       "computed: 'cuda' (default) or 'cpu'")
   args = p.parse_args(argv)
 
   if args.list_datasets:
-    from ..data import get_dataset_meta
-    for name in sorted(get_dataset_meta()):
-      print(f"{name}  always")
+    from ..data import get_dataset_availability
+    avail = get_dataset_availability()
+    width = max(map(len, avail))
+    for name in sorted(avail):
+      print(f"{name:<{width}}  {avail[name]}")
+    print(f"\n{len(avail)} datasets | tags: always = in-memory synthetic; "
+          "public-download = native download+preprocess pipeline; "
+          "optional-dep = needs scvi-tools; R-required = convert upstream "
+          ".rds with tools/convert_rds.R")
     return None
   if args.ds is None:
     p.error("-ds is required (or use --list)")

@@ -1,15 +1,18 @@
-"""The constants of the data layer (copy of ``sisua_tpu/data/const.py``
-less the ``OMIC`` flag type, since the port names omics by strings): the
-seed of the data split, the t-SNE width, each surface protein (ADT) with
-the gene that codes it (the pairs ``analysis.correlation_scores`` scores
-and ``marker_pairs`` gives), the marker genes and ATAC promoter regions,
-and the co-expressed and opposed protein pairs mined across CITE-seq
-datasets."""
+"""The constants of the data layer (copy of ``sisua_tpu/data/const.py``):
+the seed of the data split, the t-SNE width, each surface protein (ADT)
+with the gene that codes it (the pairs ``analysis.correlation_scores``
+scores and ``marker_pairs`` gives), the marker genes and ATAC promoter
+regions, the co-expressed and opposed protein pairs mined across CITE-seq
+datasets, and ``OMIC``, the ordered flag of omic types. The container
+names its omics by strings, the ``OMIC`` names; it takes an ``OMIC``
+wherever it takes a name, and ``get_all_omics`` gives its omics as
+flags."""
 
+import functools
 from typing import List, Optional, Tuple
 
-__all__ = ["UNIVERSAL_RANDOM_SEED", "TSNE_DIM", "MARKER_ADT_GENE",
-           "MARKER_ADTS", "MARKER_GENES", "MARKER_ATAC",
+__all__ = ["UNIVERSAL_RANDOM_SEED", "TSNE_DIM", "OMIC", "get_all_omics",
+           "MARKER_ADT_GENE", "MARKER_ADTS", "MARKER_GENES", "MARKER_ATAC",
            "PROTEIN_PAIR_POSITIVE", "PROTEIN_PAIR_NEGATIVE", "marker_pairs",
            "omic_markers"]
 
@@ -131,3 +134,129 @@ def marker_pairs(omic1: str, omic2: str) -> Optional[List[Tuple[str, str]]]:
   if omic1 in _ADT and omic2 in _RNA:
     return [(p, g) for p, g in MARKER_ADT_GENE.items()]
   return None
+
+
+# ---------------------------------------------------------------------------
+# OMIC ordered flag
+# ---------------------------------------------------------------------------
+_BASE_OMICS = (
+    "genomic", "atac", "transcriptomic", "proteomic", "celltype", "tissue",
+    "disease", "progenitor", "pmhc", "rpkm", "ercc",
+    # reconstructed
+    "oatac", "otranscriptomic",
+    # imputed mirrors
+    "igenomic", "iatac", "itranscriptomic", "iproteomic", "icelltype",
+    "itissue", "idisease", "iprogenitor", "ipmhc", "irpkm", "iercc",
+    #
+    "epigenomic", "metabolomic", "microbiomic",
+    # others
+    "latent",
+)
+_ORDER = {n: i for i, n in enumerate(_BASE_OMICS)}
+_IMPUTED = {"igenomic", "iatac", "itranscriptomic", "iproteomic", "icelltype",
+            "idisease", "iprogenitor", "ipmhc"}
+
+
+@functools.total_ordering
+class OMIC:
+  """Ordered string flag of omic types (combinable with ``|``).
+
+  ``OMIC.transcriptomic | OMIC.proteomic`` has the name
+  ``'transcriptomic_proteomic'`` and iterates its members in declaration
+  order; a flag equals its name as a string.
+  """
+
+  __slots__ = ("_names",)
+
+  def __init__(self, names: Tuple[str, ...]):
+    object.__setattr__(self, "_names", tuple(sorted(set(names),
+                                                    key=_ORDER.__getitem__)))
+
+  # -- construction -----------------------------------------------------
+  @classmethod
+  def parse(cls, o) -> "OMIC":
+    if isinstance(o, OMIC):
+      return o
+    s = str(o).lower().strip()
+    names = [n for n in s.split("_") if n]
+    for n in names:
+      if n not in _ORDER:
+        raise ValueError(f"Unknown OMIC type '{n}' in {o!r}; "
+                         f"supported: {list(_BASE_OMICS)}")
+    return cls(tuple(names))
+
+  @classmethod
+  def is_omic_type(cls, o) -> bool:
+    try:
+      cls.parse(o)
+      return True
+    except ValueError:
+      return False
+
+  # -- flag protocol ------------------------------------------------------
+  @property
+  def name(self) -> str:
+    return "_".join(self._names)
+
+  def __or__(self, other) -> "OMIC":
+    other = OMIC.parse(other)
+    return OMIC(self._names + other._names)
+
+  def __and__(self, other) -> "OMIC":
+    other = OMIC.parse(other)
+    return OMIC(tuple(n for n in self._names if n in other._names))
+
+  def __contains__(self, other) -> bool:
+    other = OMIC.parse(other)
+    return all(n in self._names for n in other._names)
+
+  def __iter__(self):
+    for n in self._names:
+      yield OMIC((n,))
+
+  def __len__(self):
+    return len(self._names)
+
+  def __eq__(self, other):
+    if other is None:
+      return False
+    try:
+      return self._names == OMIC.parse(other)._names
+    except ValueError:
+      return False
+
+  def __lt__(self, other):
+    return tuple(_ORDER[n] for n in self._names) < tuple(
+        _ORDER[n] for n in OMIC.parse(other)._names)
+
+  def __hash__(self):
+    return hash(self._names)
+
+  def __repr__(self):
+    return f"<OMIC.{self.name}>"
+
+  def __str__(self):
+    return self.name
+
+  # -- domain properties ------------------------------------------------
+  @property
+  def is_imputed(self) -> bool:
+    return len(self._names) == 1 and self._names[0] in _IMPUTED
+
+  @property
+  def markers(self) -> Optional[List[str]]:
+    return omic_markers(self.name)
+
+  def marker_pairs(self, omic) -> Optional[List[Tuple[str, str]]]:
+    return marker_pairs(self.name, OMIC.parse(omic).name)
+
+
+# the base members as class attributes: OMIC.transcriptomic etc.
+for _n in _BASE_OMICS:
+  setattr(OMIC, _n, OMIC((_n,)))
+del _n
+
+
+def get_all_omics(sco) -> List[OMIC]:
+  """The omics of a container, as flags, in its order."""
+  return [OMIC.parse(n) for n in sco.omics]

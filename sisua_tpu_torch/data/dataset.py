@@ -24,8 +24,10 @@ The statistics are computed when an omic is added or its values change
 sliced with the rows otherwise: a split keeps the whole dataset's
 statistics, as in the JAX package. Every mutating call is recorded in
 ``history``; ``md5`` hashes the matrices and equality compares it.
-Omics are named by strings (the JAX ``OMIC`` flag's names); a name joined
-by '_' (``'transcriptomic_proteomic'``) or a list names several.
+Omics are named by strings, the names of the ``OMIC`` flag
+(``const.py``), which every method takes too; a name joined by '_'
+(``'transcriptomic_proteomic'``, or ``OMIC.transcriptomic |
+OMIC.proteomic``) or a list names several.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from scipy import sparse
 from .const import MARKER_GENES, UNIVERSAL_RANDOM_SEED
 from .visualizer import _OMICvisualizer
 from .feeder import DataFeeder
-from .utils import apply_artificial_corruption, get_library_size
+from .utils import (apply_artificial_corruption, dedup_names,
+                    get_library_size, is_binary_dtype, is_categorical_dtype)
 
 __all__ = ["SingleCellOMIC"]
 
@@ -64,38 +67,6 @@ def _as_matrix(X):
   if X.ndim == 1:
     X = X[:, None]
   return np.ascontiguousarray(X, dtype=np.float32)
-
-
-def _dedup(names: Sequence[str]) -> List[str]:
-  """Suffix repeated names '.1', '.2', … in order (pandas'
-  ``dedup_names``, which the JAX container applies)."""
-  names = list(names)
-  counts: Dict[str, int] = {}
-  for i, col in enumerate(names):
-    cur = counts.get(col, 0)
-    while cur > 0:
-      counts[col] = cur + 1
-      col = f"{col}.{cur}"
-      cur = counts.get(col, 0)
-    names[i] = col
-    counts[col] = cur + 1
-  return names
-
-
-def _is_binary(x) -> bool:
-  if sparse.issparse(x):
-    x = x.data
-  flat = np.asarray(x).reshape(-1)
-  for lo in range(0, flat.size, 16_777_216):
-    chunk = flat[lo:lo + 16_777_216]
-    if not np.all((chunk == 0) | (chunk == 1)):
-      return False
-  return True
-
-
-def _is_categorical(x) -> bool:
-  x = np.asarray(x.todense()) if sparse.issparse(x) else np.asarray(x)
-  return x.ndim == 2 and bool(np.allclose(x.sum(-1), 1.0, atol=1e-3))
 
 
 def _five(v) -> str:
@@ -248,7 +219,7 @@ class SingleCellOMIC(_OMICvisualizer):
                          f"columns of {omic}")
       if not self._duplicated_var and len(set(var_names.tolist())) != len(
           var_names):
-        var_names = np.asarray(_dedup(var_names.tolist()), str)
+        var_names = np.asarray(dedup_names(var_names.tolist()), str)
     else:
       var_names = np.asarray([f"{omic}{i}" for i in range(X.shape[1])], str)
     self._omics[omic] = X
@@ -394,10 +365,10 @@ class SingleCellOMIC(_OMICvisualizer):
     return self.X.dtype
 
   def is_binary(self, omic=None) -> bool:
-    return _is_binary(self.get_omic(omic))
+    return is_binary_dtype(self.get_omic(omic))
 
   def is_categorical(self, omic=None) -> bool:
-    return _is_categorical(self.get_omic(omic))
+    return is_categorical_dtype(self.get_omic(omic))
 
   # ------------------------------------------------------------- labels
   def get_labels_name(self, omic="proteomic") -> str:
@@ -449,9 +420,9 @@ class SingleCellOMIC(_OMICvisualizer):
     else:
       posterior = "diag"
     x = self._omics[name]
-    if posterior == "nb" and _is_categorical(x):
+    if posterior == "nb" and is_categorical_dtype(x):
       posterior = "onehot"
-    elif posterior in ("zinb", "nb") and _is_binary(x):
+    elif posterior in ("zinb", "nb") and is_binary_dtype(x):
       posterior = "bernoulli"
     return RVmeta(self.get_dim(name), posterior, True, name)
 

@@ -53,7 +53,7 @@ class _OMICvisualizer(_OMICanalyzer, Visualizer):
     """(name, per-cell labels) of an obs column, a clustering of an omic,
     or an omic: one-hot → the var name of the argmax, binary → the '+'
     join of its positive names ('none'), else the argmax's name."""
-    from .dataset import _is_binary, _is_categorical
+    from .utils import is_binary_dtype, is_categorical_dtype
     if isinstance(omic, str) and omic in self.obs:
       return omic, self.obs[omic]
     name = _omic(omic)
@@ -67,9 +67,9 @@ class _OMICvisualizer(_OMICanalyzer, Visualizer):
       return key, self.obs[key]
     x = self.numpy(name)
     var_names = self.get_var_names(name)
-    if _is_categorical(x):
+    if is_categorical_dtype(x):
       return name, np.asarray(var_names)[np.argmax(x, -1)]
-    if _is_binary(x):
+    if is_binary_dtype(x):
       lab = np.asarray(["+".join(np.asarray(var_names)[row > 0.5]) or "none"
                         for row in x])
       return name, lab

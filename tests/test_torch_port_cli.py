@@ -137,8 +137,26 @@ def test_predict_cli_writes_what_jax_writes(stores, tmp_path):
     m = tpredict([ckpt, inp, "-o", str(tmp_path / "o"), "--sample-shape",
                   "1", "--device", "cpu"])
     assert m["outputs"] == [[m["n_cells"], 500]]
-  with pytest.raises(NotImplementedError):
-    tpredict([ckpt, "x.h5ad", "-o", str(tmp_path / "o"), "--device", "cpu"])
+  # an .h5ad, as the JAX command reads it: the JAX command's manifest and
+  # array shapes, and the arrays the port writes for the same cells given
+  # as an npz (the same omic, rows in order)
+  from sisua_tpu_torch.data import write_h5ad
+  h5ad = str(tmp_path / "test.h5ad")
+  write_h5ad(test, h5ad)
+  jh = jpredict([ckpt, h5ad, "-o", str(tmp_path / "jh"), "--sample-shape",
+                 "1"])
+  th = tpredict([ckpt, h5ad, "-o", str(tmp_path / "th"), "--sample-shape",
+                 "1", "--device", "cpu"])
+  t1 = tpredict([ckpt, npz, "-o", str(tmp_path / "t1"), "--sample-shape",
+                 "1", "--device", "cpu"])
+  assert th == jh == t1 and th["n_cells"] == test.n_obs
+  for f in ("imputed.npz", "latents.npz"):
+    a, b = np.load(tmp_path / "jh" / f), np.load(tmp_path / "th" / f)
+    c = np.load(tmp_path / "t1" / f)
+    assert sorted(a) == sorted(b) == sorted(c)
+    for k in a:
+      assert a[k].shape == b[k].shape and np.isfinite(b[k]).all()
+      np.testing.assert_array_equal(b[k], c[k], err_msg=f"{f}:{k}")
   # --mesh 2 --device cpu: two gloo ranks started by the command; rank 0
   # writes what the single-device call writes
   mm = tpredict([ckpt, npz, "-o", str(tmp_path / "m"), "--sample-shape",
@@ -322,7 +340,8 @@ _BLOCKER = """
 import importlib.abc, os, sys
 os.environ["OMP_NUM_THREADS"] = "1"   # t-SNE's and LARS's OpenMP teams
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "pandas", "yaml", "sklearn",
-           "h5py", "matplotlib", "sisua_tpu"}
+           "h5py", "matplotlib", "cryptography", "scvi", "anndata", "rpy2",
+           "sisua_tpu"}
 class Block(importlib.abc.MetaPathFinder):
   def find_spec(self, name, path=None, target=None):
     if name.split(".")[0] in BLOCKED:
@@ -337,7 +356,8 @@ import sisua_tpu_torch.cli.train
 for m in ("data.analysis", "data.umap_impl", "analysis.decomposition",
           "analysis.cluster", "analysis.stats", "utils", "utils.others",
           "utils.io_utils", "baselines", "analysis.manifold",
-          "analysis.lars"):
+          "analysis.lars", "data.loaders.misc", "data.h5ad",
+          "data.sisua_to_scvi"):
   assert "sisua_tpu_torch." + m in mods, m
 # the analyzer's methods import lazily: run each once on the CPU (one
 # thread: the tier runs several test processes on the machine's cores)
@@ -370,16 +390,49 @@ utils.save_data_to_csv(s, tempfile.mkdtemp() + "/x.csv.gz")
 from sisua_tpu_torch.baselines import BASELINE_MODELS, run_baseline
 for m in BASELINE_MODELS:
   run_baseline(s, m, n_components=4, **kw)
+# the data-ingestion layer: a 10x directory, then a registry name from a
+# placed raw tree (parsed, cached, then read back as a cache hit)
+import gzip, tarfile
+from scipy import io as sp_io, sparse
+root = tempfile.mkdtemp()
+d = os.path.join(root, "filtered_feature_bc_matrix")
+os.makedirs(d)
+x = np.random.default_rng(0).poisson(1.0, (9, 30)).astype(np.float32)
+with gzip.open(os.path.join(d, "matrix.mtx.gz"), "wb") as f:
+  sp_io.mmwrite(f, sparse.coo_matrix(x))  # features × cells
+with gzip.open(os.path.join(d, "barcodes.tsv.gz"), "wt") as f:
+  f.write("".join(f"B{i}-1\\n" for i in range(30)))
+with gzip.open(os.path.join(d, "features.tsv.gz"), "wt") as f:
+  f.write("".join(f"E{j}\\tG{j}\\t"
+                  f"{'Antibody Capture' if j > 6 else 'Gene Expression'}\\n"
+                  for j in range(9)))
+from sisua_tpu_torch.data import get_dataset, OMIC
+from sisua_tpu_torch.data.loaders import tenx
+a = get_dataset(d)
+assert a.omics == ["transcriptomic", "proteomic"] and a.shape == (30, 7)
+tenx.DATA_DIR, tenx.DOWNLOAD_DIR = os.path.join(root, "data"), root
+with tarfile.open(os.path.join(
+    root, "pbmc_10k_protein_v3_filtered_feature_bc_matrix.tar.gz"),
+    "w:gz") as t:
+  t.add(d, arcname="filtered_feature_bc_matrix")
+b = get_dataset("10k")
+def refuse(*a, **k):
+  raise AssertionError("cache miss")
+tenx.download_file = refuse
+c = get_dataset("10k")
+assert a.md5 == b.md5 == c.md5 and c.get_dim(OMIC.proteomic) == 2
 assert not BLOCKED & {k.split(".")[0] for k in sys.modules}
 print(len(mods))
 """
 
 
 def test_port_imports_none_of_what_the_card_lacks():
-  """Every module of the port (``cli``, the data analyzer, ``utils`` and
-  the baselines too) imports with jax, pandas, yaml, sklearn, h5py,
-  matplotlib and the JAX package unimportable, and each analyzer method
-  (t-SNE too) and each baseline runs so."""
+  """Every module of the port (``cli``, the data analyzer, ``utils``, the
+  baselines and the loaders too) imports with jax, pandas, yaml, sklearn,
+  h5py, matplotlib, cryptography, scvi-tools, anndata, rpy2 and the JAX
+  package unimportable, and each analyzer method (t-SNE too), each
+  baseline and ``get_dataset`` on a 10x directory and on a registry name
+  from a placed raw tree run so."""
   proc = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr

@@ -14,22 +14,11 @@ import inspect
 
 import pytest
 
-# the JAX data layer's pandas half: the OMIC flag type and its helper (the
-# port names omics by strings), the availability table and the dataset
-# summary (pandas DataFrames over loaders that download), the AnnData and
-# 10x readers and writer (h5py, which the card lacks)
-_DATA_LAYER = {
-    "OMIC", "get_all_omics", "get_dataset_availability",
-    "get_dataset_summary", "AVAILABILITY", "read_h5ad", "write_h5ad",
-    "read_10x_mtx", "read_10x_h5",
-}
 NOT_PORTED = {
     # flax's TrainState: the port keeps a module, an optimizer and a step
     "sisua_tpu.train": {"TrainState"},
     # Pallas on a TPU; the port's counterpart is ops.zinb.kernels_available
     "sisua_tpu.ops": {"pallas_available"},
-    "sisua_tpu.data": _DATA_LAYER,
-    "sisua_tpu": {"OMIC", "get_dataset_availability"},
     # the JAX profiler and XLA's compilation cache (the port profiles with
     # torch.profiler, ``profile_dir``)
     "sisua_tpu.utils": {"profile_trace", "enable_compilation_cache"},
@@ -37,7 +26,10 @@ NOT_PORTED = {
 
 MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
            "sisua_tpu.train", "sisua_tpu.nn", "sisua_tpu.rv", "sisua_tpu.ops",
-           "sisua_tpu.data", "sisua_tpu.train.ensemble",
+           "sisua_tpu.data", "sisua_tpu.data.const", "sisua_tpu.data.utils",
+           "sisua_tpu.data.h5ad", "sisua_tpu.data.loaders",
+           "sisua_tpu.data.loaders.tenx", "sisua_tpu.data.sisua_to_scvi",
+           "sisua_tpu.train.ensemble",
            "sisua_tpu.models.hyper_params", "sisua_tpu.analysis",
            "sisua_tpu.train.experimenter", "sisua_tpu.train.scoreboard",
            "sisua_tpu.data.synthetic", "sisua_tpu.label_threshold",
@@ -181,7 +173,8 @@ def test_top_level_resolves_the_jax_names_lazily():
   ``__getattr__`` and are listed by ``dir()``, as in the JAX package."""
   import sisua_tpu
   import sisua_tpu_torch
-  want = set(dir(sisua_tpu)) - NOT_PORTED["sisua_tpu"] - {"__version__"}
+  want = set(dir(sisua_tpu)) - NOT_PORTED.get("sisua_tpu", set()) - {
+      "__version__"}
   missing = sorted(n for n in want if not hasattr(sisua_tpu_torch, n))
   assert not missing, f"sisua_tpu_torch lacks {missing}"
   assert want <= set(dir(sisua_tpu_torch))

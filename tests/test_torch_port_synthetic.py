@@ -73,35 +73,77 @@ def test_generators_bitwise_equal_jax(name, kwargs):
     np.testing.assert_array_equal(tsco.obs["batch"], jsco.obs["batch"].values)
 
 
-def test_registry_synthetic_names_and_the_rest():
-  """The port's registry is the JAX registry's synthetic family; every
-  other JAX name raises with the reason, and files that need h5py too."""
+def test_registry_synthetic_names_and_the_rest(tmp_path, monkeypatch):
+  """The port's registry is the JAX registry, every name with the JAX
+  tag; the synthetic family loads bitwise as in JAX, and a name whose
+  raw files are neither placed nor downloadable raises the JAX loader's
+  error."""
   jmeta = JD.get_dataset_meta()
-  avail = JD.get_dataset_availability()
-  always = {k for k, v in avail.items() if v == "always"}
-  assert set(TD.get_dataset_meta()) == always
-  from sisua_tpu_torch.data import _DOWNLOADED
-  assert _DOWNLOADED == set(jmeta) - always
+  assert list(TD.get_dataset_meta()) == list(jmeta)
+  assert TD.get_dataset_availability() == JD.get_dataset_availability()
   _same_container(JD.get_dataset("synthetic200"),
                   TD.get_dataset("Synthetic200"))
+  import importlib
+  for pkg in ("sisua_tpu", "sisua_tpu_torch"):
+    for m in ("scvi_datasets", "pbmc8k", "tenx", "citeseq"):
+      mod = importlib.import_module(f"{pkg}.data.loaders.{m}")
+      monkeypatch.setattr(mod, "DATA_DIR", str(tmp_path / pkg))
+      monkeypatch.setattr(mod, "DOWNLOAD_DIR", str(tmp_path / pkg / "dl"))
+
+  def offline(url, path):
+    raise OSError("offline")
+  monkeypatch.setattr("urllib.request.urlretrieve", offline)
   for name in ("cortex", "8kly", "pbmcciteseq", "pbmc4k"):
-    with pytest.raises(NotImplementedError, match="downloads"):
-      TD.get_dataset(name)
+    errors = []
+    for pkg, D in (("sisua_tpu", JD), ("sisua_tpu_torch", TD)):
+      with pytest.raises(RuntimeError, match="Cannot download") as e:
+        D.get_dataset(name)
+      errors.append(str(e.value).replace(pkg, "<pkg>"))
+    assert errors[0] == errors[1]
   with pytest.raises(KeyError, match="Unknown dataset"):
     TD.get_dataset("synthetc")
 
 
-def test_registry_files_that_need_h5py_raise(tmp_path):
-  for fname in ("x.h5ad", "x.h5"):
-    p = tmp_path / fname
-    p.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="h5py"):
-      TD.get_dataset(str(p))
+def test_registry_files_that_need_h5py_raise(tmp_path, monkeypatch):
+  """A local path dispatches as in JAX: a 10x matrix directory to
+  ``read_10x_mtx``, a CellRanger ``.h5`` to ``read_10x_h5``, an ``.h5ad``
+  to ``read_h5ad``, each the JAX container; without h5py the two HDF5
+  files raise an ImportError that names it."""
+  from scipy import io as sp_io
+  rng = np.random.default_rng(0)
+  x = rng.poisson(1.0, (12, 9)).astype(np.float32)
   d = tmp_path / "tenx"
   d.mkdir()
-  (d / "matrix.mtx").write_text("")
-  with pytest.raises(NotImplementedError, match="10x"):
-    TD.get_dataset(str(d))
+  sp_io.mmwrite(str(d / "matrix.mtx"), sparse.coo_matrix(x.T))
+  (d / "barcodes.tsv").write_text("".join(f"B{i}\n" for i in range(12)))
+  (d / "features.tsv").write_text("".join(
+      f"E{j}\tG{j % 7}\t{'Antibody Capture' if j > 6 else 'Gene Expression'}"
+      "\n" for j in range(9)))
+  h5ad = str(tmp_path / "x.h5ad")
+  JD.write_h5ad(JD.generate_synthetic(n_cells=40, n_genes=10,
+                                      n_proteins=3), h5ad)
+  h5 = str(tmp_path / "x.h5")
+  import h5py
+  c = sparse.csc_matrix(x.T)
+  with h5py.File(h5, "w") as f:
+    g = f.create_group("matrix")
+    for k in ("data", "indices", "indptr"):
+      g.create_dataset(k, data=getattr(c, k))
+    g.create_dataset("shape", data=np.asarray(c.shape, np.int64))
+    g.create_dataset("barcodes", data=np.asarray([b"B%d" % i
+                                                  for i in range(12)]))
+    g.create_dataset("features/name", data=np.asarray([b"G%d" % j
+                                                       for j in range(9)]))
+  for path in (str(d), h5, h5ad):
+    j, t = JD.get_dataset(path), TD.get_dataset(path)
+    assert t.name == j.name and t.omics == list(j.omics) and t.md5 == j.md5
+    for o in j.omics:
+      assert list(t.get_var_names(o)) == [str(v) for v in
+                                          j.get_var_names(o)]
+  monkeypatch.setitem(__import__("sys").modules, "h5py", None)
+  for path in (h5, h5ad):
+    with pytest.raises(ImportError, match="h5py"):
+      TD.get_dataset(path)
 
 
 @pytest.mark.parametrize("seed", [5218, 1])
