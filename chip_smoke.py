@@ -311,7 +311,7 @@ before the final line:
      both kernels launched in every rank once a step. Gloo takes every
      collective on CUDA tensors there (none is staged through the host);
      its step time is no speed figure.
- 24. the data-ingestion layer (``sisua_tpu_torch.data.loaders``), last:
+ 24. the data-ingestion layer (``sisua_tpu_torch.data.loaders``):
      (a) a CellRanger v3 ``filtered_feature_bc_matrix`` directory at the
      published size of 10x's pbmc_10k_protein_v3 sample, 7,865 cells ×
      33,538 "Gene Expression" features (every 1,500th symbol repeated)
@@ -334,11 +334,24 @@ before the final line:
      ``predict_mean`` of 512 cells. (d) the seconds of the write, the
      three loads, the cache write, the route check, the fit and the
      prediction, beside the phase's 60 s budget.
+ 25. the tutorials (``sisua_tpu_torch.tutorials``), last: every
+     tutorial's ``main()`` on the card at depth 1 (1 epoch, 2 TPE
+     evaluations, 2 MC draws, a 2-run grid; the JAX tutorials' widths),
+     then the notebook's code cells in order, in a fresh working
+     directory, each from launch counts set to 0: every number it returns
+     finite, both ZINB kernels launched by each but the embedding's (no
+     model), the drill's (its ``cli.train`` and ``cli.evaluate`` run in
+     a process of their own) and the uncertainty tutorial's
+     backward (its ``mc_samples=2`` steps take the distribution math, as
+     phase 13b's); the seconds of each beside the
+     phase's 90 s budget. What the tutorials print goes to a log, shown
+     when one raises.
 Earlier phases train through ``fit(device_cache=True)``, the loop they
 were written for. Before the last line it prints the kernels' JSON summary
 (launches of the phase 4 and phase 6 fits, of phase 8 and of phases 9 to
 17's fits and 18b's run_config, round trips, served NLL and LLK batches,
-phase 23's mesh fits, phase 24's fit and phase 14a's probe run;
+phase 23's mesh fits, phase 24's fit, phase 25's tutorials and phase
+14a's probe run;
 time, plain time and bound at 512 × 33,000 'main_full', and under
 ``bf16_operands`` / ``bf16_writes`` the bf16 modes' at the same shape
 with phase 13a's launches, under ``members`` the 4-member launch's at 15a's
@@ -5712,6 +5725,95 @@ def phase_ingest(torch, data_root):
   return launches
 
 
+P25_DEPTH = 1            # 1 epoch (2 for the notebook's fast fit), 2 TPE
+#                          evaluations, 2 MC draws, a 2-run grid
+P25_BUDGET = 90.0
+# tutorials whose main path has no ZINB/NB head in this process: the
+# embedding's GMMs, and the drill, whose two stages run in a process of
+# their own (their launches are its)
+P25_NO_KERNEL = ("probabilistic_embedding", "real_data_drill")
+# trains with mc_samples=2, whose parameters carry the draws' dims: its
+# steps take the distribution math, its validation and posterior the
+# forward kernel
+P25_FORWARD_ONLY = ("uncertainty_analysis",)
+
+
+def _p25_numbers(obj, path="result"):
+  """Every number in a tutorial's result, with where it lies."""
+  import numpy as np
+  if isinstance(obj, dict):
+    for k, v in obj.items():
+      yield from _p25_numbers(v, f"{path}[{k!r}]")
+  elif isinstance(obj, (list, tuple)):
+    for i, v in enumerate(obj):
+      yield from _p25_numbers(v, f"{path}[{i}]")
+  elif not (isinstance(obj, (bool, str)) or obj is None):
+    yield path, float(np.asarray(obj, np.float64))
+
+
+def phase_tutorials(torch, depth=P25_DEPTH, budget=P25_BUDGET):
+  """Phase 25 (module docstring): every tutorial's ``main()`` on the card
+  at ``depth`` (None: the JAX tutorials' own), then the notebook's code
+  cells in order, in a fresh working directory, each from launch counts
+  set to 0. What the tutorials print goes to a log, shown if one raises.
+  Returns (the ZINB launches, seconds by tutorial)."""
+  import importlib
+  import math
+  from sisua_tpu_torch.ops import zinb as tz
+  from sisua_tpu_torch.tutorials import TUTORIALS
+  work = tempfile.mkdtemp(prefix="chip_smoke_tutorials_")
+  cwd = os.getcwd()
+  launches = {"zinb_rowsum_fwd": 0, "zinb_rowsum_bwd": 0}
+  seconds = {}
+  log("[25 tutorials] host load averages (1, 5, 15 min): "
+      + ", ".join(f"{v:.2f}" for v in os.getloadavg())
+      + f" on {len(os.sched_getaffinity(0))} cores")
+  t0 = time.perf_counter()
+  try:
+    os.chdir(work)
+    for name in TUTORIALS + ("notebook",):
+      mod = importlib.import_module(f"sisua_tpu_torch.tutorials.{name}")
+      out = os.path.join(work, name)
+      os.makedirs(out)
+      tz.reset_launches()
+      t = time.perf_counter()
+      with open(os.path.join(work, f"{name}.log"), "w") as f:
+        try:
+          with contextlib.redirect_stdout(f):
+            result = mod.main(device=DEVICE, out_dir=out, depth=depth)
+          torch.cuda.synchronize()
+        except BaseException:
+          f.flush()
+          with open(f.name) as g:
+            print(g.read()[-6000:], file=sys.stderr)
+          raise
+      seconds[name] = time.perf_counter() - t
+      got = dict(tz.launches)
+      for k in launches:
+        launches[k] += got.get(k, 0)
+      bad = [p for p, v in _p25_numbers(result) if not math.isfinite(v)]
+      check(not bad, f"[25 tutorials] {name}: not finite {bad}")
+      if name in P25_NO_KERNEL:
+        check(not any(got.values()) or name == "real_data_drill",
+              f"[25 tutorials] {name} launched {got}")
+      else:
+        want = (("zinb_rowsum_fwd",) if name in P25_FORWARD_ONLY
+                else tuple(launches))
+        check(all(got.get(k, 0) > 0 for k in want),
+              f"[25 tutorials] {name} launched {got}: the card's "
+              f"ZINB/NB heads must reach {' and '.join(want)}")
+      log(f"[25 tutorials] {name}: {seconds[name]:.2f} s, launches {got}")
+  finally:
+    os.chdir(cwd)
+    shutil.rmtree(work, ignore_errors=True)
+  total = time.perf_counter() - t0
+  label = "their own depth" if depth is None else f"depth {depth}"
+  log(f"[25 tutorials] {len(seconds)} tutorials at {label} in {total:.1f} s"
+      f" (budget {budget:.0f} s{'' if total <= budget else ', OVER'}), "
+      f"launches {launches}")
+  return launches, seconds
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -5792,6 +5894,9 @@ def main():
     torch.cuda.empty_cache()
     ingest_launches = phase_ingest(torch, data_root)
     mark("24")
+    torch.cuda.empty_cache()
+    tutorial_launches, _ = phase_tutorials(torch)
+    mark("25")
   finally:
     shutil.rmtree(ckpt_root, ignore_errors=True)
     shutil.rmtree(data_root, ignore_errors=True)
@@ -5802,7 +5907,7 @@ def main():
               + fleet_launches[k] + fleet_zoo_launches[k]
               + analysis_launches[k]
               + experiment_launches[k] + mesh_launches[k]
-              + ingest_launches[k]
+              + ingest_launches[k] + tutorial_launches[k]
               for k, v in launches.items()}
 
   def numbers(case, key, err, kind, results=kern):

@@ -1030,6 +1030,46 @@ class _TreeBuilder:
     return tree, leaf_of
 
 
+def _build_tree(X32: np.ndarray, order: np.ndarray, max_depth: int,
+                seed: int, y: np.ndarray, weights: Optional[np.ndarray] = None
+                ) -> Tuple[_Tree, np.ndarray]:
+  """``_TreeBuilder(X32, order, max_depth, seed, weights).build(y)`` in
+  C++ (``native/gbtree.cpp``, the same steps and the same bits): the tree
+  and the leaf of every row."""
+  from .. import native
+  X32 = np.ascontiguousarray(X32, np.float32)
+  order = np.ascontiguousarray(order, np.int64)
+  n, d = X32.shape
+  w = (np.ones(n) if weights is None else
+       np.ascontiguousarray(weights, np.float64))
+  y = np.ascontiguousarray(y, np.float64)
+  # the library reads through raw pointers: check every shape it assumes
+  if order.shape != (d, n) or w.shape != (n,) or y.shape != (n,):
+    raise ValueError(f"order {order.shape}, weights {w.shape}, y {y.shape}"
+                     f" for X {X32.shape}: expected ({d}, {n}), ({n},)")
+  if n and (order.min() < 0 or order.max() >= n):
+    raise IndexError(f"order holds a row outside [0, {n})")
+  cap = max(1, 2 * int(np.count_nonzero(w)) - 1)
+  feature, left, right = (np.empty(cap, np.int64) for _ in range(3))
+  threshold, impurity, n_samples, value = (np.empty(cap) for _ in range(4))
+  leaf_of = np.empty(n, np.int64)
+  count = native.load("gbtree").gbtree_build(
+      X32.ctypes.data, n, d, order.ctypes.data, w.ctypes.data, y.ctypes.data,
+      min(int(max_depth), np.iinfo(np.int64).max), int(seed) & 0xFFFFFFFF,
+      cap, *(a.ctypes.data for a in (feature, threshold, left, right,
+                                     impurity, n_samples, value, leaf_of)))
+  if count < 0:
+    raise RuntimeError(f"tree of more than {cap} nodes")
+  tree = _Tree()
+  tree.feature, tree.threshold = feature[:count].tolist(), \
+      threshold[:count].tolist()
+  tree.left, tree.right = left[:count].tolist(), right[:count].tolist()
+  tree.impurity, tree.n_samples = impurity[:count].tolist(), \
+      n_samples[:count].tolist()
+  tree.value = value[:count].tolist()
+  return tree, leaf_of
+
+
 class GradientBoostingClassifier:
   """sklearn's ``GradientBoostingClassifier`` at its defaults (log-loss,
   learning rate 0.1, ``subsample`` 1, the class prior as the initial raw
@@ -1044,7 +1084,8 @@ class GradientBoostingClassifier:
   tree's split proxy is sklearn 1.9's squared-error one; its
   'friedman_mse' proxy orders the splits the same.
 
-  The trees are grown with numpy on the host (``_TreeBuilder``): a
+  The trees are grown on the host in C++ (``_build_tree``, whose plain
+  reference is ``_TreeBuilder`` in numpy): a
   node's split search is sequential and tiny (at most 7 nodes a tree at
   depth 3, a few thousand rows, a handful of features), and sklearn's
   choice between near-equal splits depends on the order of every sum it
@@ -1095,9 +1136,9 @@ class GradientBoostingClassifier:
       for k in range(T):
         yk = (codes == 1).astype(np.float64) if K == 2 else \
             (codes == k).astype(np.float64)
-        tree, leaf_of = _TreeBuilder(
-            X32, order, self.max_depth, rs.randint(0, _RAND_R_MAX)).build(
-                np.ascontiguousarray(neg[:, k]))
+        tree, leaf_of = _build_tree(
+            X32, order, self.max_depth, rs.randint(0, _RAND_R_MAX),
+            np.ascontiguousarray(neg[:, k]))
         for leaf in np.unique(leaf_of):
           rows = leaf_of == leaf
           g = neg[rows, k]
@@ -1179,8 +1220,8 @@ class RandomForestRegressor:
       counts = np.bincount(np.random.RandomState(seed).randint(0, n, n),
                            minlength=n).astype(np.float64)
       split_seed = np.random.RandomState(seed).randint(0, _RAND_R_MAX)
-      tree, _ = _TreeBuilder(X32, order, depth, split_seed,
-                             weights=counts).build(y)
+      tree, _ = _build_tree(X32, order, depth, split_seed, y,
+                            weights=counts)
       self.estimators_.append(tree)
     return self
 

@@ -186,7 +186,9 @@ def _embed2d(Z, algo: str, device="cuda") -> np.ndarray:
 
 
 def _protein_pairs_data(Z, y, labels_name, pairs=None, algo="tsne",
-                        device="cuda") -> Optional[dict]:
+                        device="cuda", emb=None) -> Optional[dict]:
+  """The figure's data; ``emb``, Z's 2-D embedding when the caller has
+  it already (``_embed2d(Z, algo, device)``)."""
   from ..data.const import PROTEIN_PAIR_NEGATIVE
   from ..data.utils import standardize_protein_name
   # knowledge-base pairs match the standardized protein names, explicit
@@ -201,7 +203,8 @@ def _protein_pairs_data(Z, y, labels_name, pairs=None, algo="tsne",
              if p[0] in name_idx and p[1] in name_idx][:6]
   if not pairs:
     return None
-  emb = _embed2d(Z, algo, device)
+  if emb is None:
+    emb = _embed2d(Z, algo, device)
   ly = torch.log1p(_on(y, device))
   contrast = torch.stack([ly[:, name_idx[a]] - ly[:, name_idx[b]]
                           for a, b in pairs], 1)
@@ -241,8 +244,10 @@ def _render_protein_pairs(emb, contrast, pairs, title):
 
 
 def _latents_binary_data(Z, y_bin, labels_name, algo="tsne",
-                         device="cuda") -> dict:
-  emb = _embed2d(Z, algo, device)
+                         device="cuda", emb=None) -> dict:
+  """The figure's data; ``emb`` as in ``_protein_pairs_data``."""
+  if emb is None:
+    emb = _embed2d(Z, algo, device)
   names = np.asarray([str(n) for n in labels_name])
   y_bin = y_bin.cpu().numpy() if isinstance(y_bin, torch.Tensor) \
       else np.asarray(y_bin)

@@ -676,12 +676,22 @@ class Posterior(Visualizer):
     return self._draw(f"{self.name}_{method}_{factor_omic}", data,
                       _render_correlation_matrix)
 
+  def _latents_tsne(self) -> np.ndarray:
+    """The latents' 2-D t-SNE, which both latent scatters draw: computed
+    once (it is deterministic, seed 8)."""
+    if "latents_tsne" not in self._cache:
+      from .latent import _embed2d
+      self._cache["latents_tsne"] = _embed2d(self.latents, "tsne",
+                                             self._dev)
+    return self._cache["latents_tsne"]
+
   def plot_latents_protein_pairs(self):
     from .latent import _protein_pairs_data, _render_protein_pairs
     if "proteomic" not in self.data:
       return self
     d = _protein_pairs_data(self.latents, self.original("proteomic"),
-                            self.var_names["proteomic"], device=self._dev)
+                            self.var_names["proteomic"], device=self._dev,
+                            emb=self._latents_tsne())
     if d is not None:
       self._draw(f"{self.name}_protein_pairs", dict(title=self.name, **d),
                  _render_protein_pairs)
@@ -693,7 +703,8 @@ class Posterior(Visualizer):
       return self
     ybin = self._protein_embedding().predict(self.original("proteomic"))
     data = dict(title=self.name, **_latents_binary_data(
-        self.latents, ybin, self.var_names["proteomic"], device=self._dev))
+        self.latents, ybin, self.var_names["proteomic"], device=self._dev,
+        emb=self._latents_tsne()))
     return self._draw(f"{self.name}_latent_binary", data,
                       _render_latents_binary)
 

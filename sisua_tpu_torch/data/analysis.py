@@ -31,6 +31,8 @@ import numpy as np
 import torch
 from scipy import sparse
 
+from .core import _OMICbase
+
 __all__ = ["_OMICanalyzer", "diagonal_linear_assignment", "BATCH_SIZE"]
 
 BATCH_SIZE = 4096  # rows above which PCA is incremental, and its batch
@@ -95,7 +97,7 @@ def _host(t: torch.Tensor) -> np.ndarray:
   return t.detach().cpu().numpy()
 
 
-class _OMICanalyzer:
+class _OMICanalyzer(_OMICbase):
   """The analysis methods of ``SingleCellOMIC`` (see the module
   docstring)."""
 

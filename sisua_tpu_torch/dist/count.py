@@ -40,7 +40,29 @@ def _shape(*ts):
                                          for t in ts)))
 
 
-class Poisson(Distribution):
+def _gamma_poisson(shape, generator, cell_axis, theta, scale):
+  """A gamma-Poisson draw at ``shape`` (to which ``theta`` and ``scale``
+  broadcast): λ ~ Gamma(θ)·scale, x ~ Poisson(λ), as the JAX samplers;
+  on a data mesh the global batch's (its cells on ``cell_axis``)."""
+  def gamma_poisson(s, theta, scale):
+    lam = torch._standard_gamma(theta.contiguous(),
+                                generator=generator) * scale
+    return torch.poisson(lam.expand(s).contiguous(), generator=generator)
+  with torch.no_grad():
+    return PF.draw_rows(gamma_poisson, shape, cell_axis,
+                        theta.expand(shape), scale.expand(shape))
+
+
+class _Draws:
+  """``sample`` through the family's ``draw(shape, generator,
+  cell_axis)``."""
+
+  def sample(self, sample_shape=(), generator=None):
+    return self.draw(tuple(sample_shape) + tuple(self.batch_shape),
+                     generator, len(tuple(sample_shape)))
+
+
+class Poisson(_Draws, Distribution):
 
   def __init__(self, rate: Tensor):
     self.rate = rate
@@ -61,8 +83,14 @@ class Poisson(Distribution):
   def mean(self):
     return self.rate
 
+  def draw(self, shape, generator=None, cell_axis: int = 0):
+    with torch.no_grad():
+      return PF.draw_rows(lambda s, rate: torch.poisson(
+          rate.expand(s).contiguous(), generator=generator), shape,
+          cell_axis, self.rate.expand(shape))
 
-class Bernoulli(Distribution):
+
+class Bernoulli(_Draws, Distribution):
 
   def __init__(self, logits: Tensor):
     self.logits = logits
@@ -81,8 +109,14 @@ class Bernoulli(Distribution):
   def mean(self):
     return self.probs()
 
+  def draw(self, shape, generator=None, cell_axis: int = 0):
+    with torch.no_grad():
+      return PF.draw_rows(lambda s, p: torch.bernoulli(
+          p.expand(s).contiguous(), generator=generator), shape, cell_axis,
+          self.probs().expand(shape))
 
-class NegativeBinomial(Distribution):
+
+class NegativeBinomial(_Draws, Distribution):
   """NB over counts of successes before ``total_count`` failures (TFP)."""
 
   def __init__(self, total_count: Tensor, logits: Tensor):
@@ -101,8 +135,13 @@ class NegativeBinomial(Distribution):
   def mean(self):
     return self.total_count * torch.exp(self.logits)
 
+  def draw(self, shape, generator=None, cell_axis: int = 0):
+    """λ ~ Gamma(r)·exp(logits), x ~ Poisson(λ)."""
+    return _gamma_poisson(shape, generator, cell_axis, self.total_count,
+                          torch.exp(self.logits))
 
-class NegativeBinomialDisp(Distribution):
+
+class NegativeBinomialDisp(_Draws, Distribution):
   """NB with mean/dispersion parameterization (scVI's ``log_nb_positive``)."""
 
   def __init__(self, loc: Tensor, disp: Tensor):
@@ -135,24 +174,13 @@ class NegativeBinomialDisp(Distribution):
                        torch.floor(self.loc * (self.disp - 1.0) / self.disp),
                        torch.zeros(()))
 
-  def sample(self, sample_shape=(), generator=None):
-    return self.draw(tuple(sample_shape) + self.batch_shape, generator,
-                     len(tuple(sample_shape)))
-
   def draw(self, shape, generator=None, cell_axis: int = 0):
-    """A draw at ``shape``, to which the parameters broadcast:
-    λ ~ Gamma(θ)·μ/θ, x ~ Poisson(λ); on a data mesh the global batch's
-    (its cells on ``cell_axis``)."""
-    def gamma_poisson(s, disp, loc):
-      lam = torch._standard_gamma(disp.contiguous(),
-                                  generator=generator) * (loc / disp)
-      return torch.poisson(lam.expand(s).contiguous(), generator=generator)
-    with torch.no_grad():
-      return PF.draw_rows(gamma_poisson, shape, cell_axis,
-                          self.disp.expand(shape), self.loc.expand(shape))
+    """λ ~ Gamma(θ)·μ/θ, x ~ Poisson(λ)."""
+    return _gamma_poisson(shape, generator, cell_axis, self.disp,
+                          self.loc / self.disp)
 
 
-class NegativeBinomialDispLog(Distribution):
+class NegativeBinomialDispLog(_Draws, Distribution):
   """``NegativeBinomialDisp`` with the mean carried in log space (SCVI's
   single-dispersion decode: log μ = log-library + log_softmax(scale))."""
 
@@ -178,8 +206,13 @@ class NegativeBinomialDispLog(Distribution):
   def mean(self):
     return self.loc.expand(self.batch_shape)
 
+  def draw(self, shape, generator=None, cell_axis: int = 0):
+    """λ ~ Gamma(θ)·exp(log μ − log θ), x ~ Poisson(λ)."""
+    return _gamma_poisson(shape, generator, cell_axis, self.disp,
+                          torch.exp(self.log_loc - torch.log(self.disp)))
 
-class NegativeBinomialLog(Distribution):
+
+class NegativeBinomialLog(_Draws, Distribution):
   """NB with both mean and inverse-dispersion in log space (SCVI's 'full'
   dispersion decode). θ = exp(clip(log θ, ±15)); the logits
   L = log μ − log θ use the SAME clipped log θ, so the pmf normalizes for
@@ -211,6 +244,12 @@ class NegativeBinomialLog(Distribution):
 
   def mean(self):
     return self.loc.expand(self.batch_shape)
+
+  def draw(self, shape, generator=None, cell_axis: int = 0):
+    """λ ~ Gamma(θ)·exp(log μ − clip(log θ)), x ~ Poisson(λ)."""
+    ld = torch.clamp(self.log_disp, -_EXP_CLIP, _EXP_CLIP)
+    return _gamma_poisson(shape, generator, cell_axis, torch.exp(ld),
+                          torch.exp(self.log_loc - ld))
 
 
 class NegativeBinomialMixture(Distribution):

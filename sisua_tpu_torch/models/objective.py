@@ -47,15 +47,24 @@ def _mode() -> str:
   return os.environ.get("SISUA_TPU_FUSED_LIKELIHOOD", "auto").lower()
 
 
-def route_fused_likelihood(x: torch.Tensor,
-                           mode: Optional[str] = None) -> bool:
-  """``True`` → the fused op (kernel on CUDA); ``False`` → dist math."""
+def route_fused_likelihood(elements, mode: Optional[str] = None) -> bool:
+  """``True`` → the fused op (kernel on CUDA); ``False`` → dist math.
+
+  ``elements`` is the element count of the (B, D) likelihood, the JAX
+  form, or the count tensor itself. 'on' and 'off' answer as in JAX. In
+  'auto' a tensor routes exactly when it is on CUDA
+  (``ops.zinb.kernels_available``), and a count exactly when CUDA is
+  available, since the port sends every shape on the card to the kernels.
+  The JAX 'auto' answers ``elements >= _PALLAS_MIN_ELEMENTS``, a gate
+  measured on a TPU; a threshold for the card is ROADMAP A6's."""
   mode = _mode() if mode is None else mode
   if mode == "on":
     return True
   if mode == "off":
     return False
-  return zk.kernels_available(x)
+  if isinstance(elements, torch.Tensor):
+    return zk.kernels_available(elements)
+  return torch.cuda.is_available()
 
 
 def _fused_operands(dist: D.Distribution):

@@ -31,7 +31,7 @@ import numpy as np
 
 __all__ = ["build", "load", "library_path", "csr_gather", "dense_gather",
            "csr_gather_ref", "dense_gather_ref", "tsne_gradient",
-           "lars_lasso_gram"]
+           "lars_lasso_gram", "get_lib", "native_available"]
 
 _DIR = Path(__file__).resolve().parent
 _FLAGS = ("-O3", "-shared", "-fPIC")
@@ -40,6 +40,9 @@ _LIBRARIES = {
     "gather": ("csr_gather.cpp", _FLAGS, "libsisua_gather"),
     "tsne": ("tsne.cpp", _FLAGS + ("-fopenmp",), "libsisua_tsne"),
     "lars": ("lars.cpp", _FLAGS + ("-fopenmp",), "libsisua_lars"),
+    # no fused multiply-add: the criterion's sums round as numpy's
+    "gbtree": ("gbtree.cpp", _FLAGS + ("-ffp-contract=off",),
+               "libsisua_gbtree"),
 }
 
 
@@ -82,6 +85,8 @@ _SIGNATURES = {
                                    _I32, _I32, _P], _F)},
     "lars": {"lars_lasso_gram_f32": (_LARS, None),
              "lars_lasso_gram_f64": (_LARS, None)},
+    "gbtree": {"gbtree_build": ([_P, _I64, _I64, _P, _P, _P, _I64,
+                                 ctypes.c_uint32, _I64] + [_P] * 8, _I64)},
 }
 
 
@@ -93,6 +98,21 @@ def load(name: str = "gather") -> ctypes.CDLL:
     getattr(lib, fn).argtypes = argtypes
     getattr(lib, fn).restype = restype
   return lib
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+  """The gathers' library, built and loaded, or None where it does not
+  build or load (the JAX package's ``get_lib``). The gathers themselves
+  raise then: nothing falls back to numpy."""
+  try:
+    return load("gather")
+  except (OSError, RuntimeError):
+    return None
+
+
+def native_available() -> bool:
+  """Whether the gathers' g++ library builds and loads."""
+  return get_lib() is not None
 
 
 def _out(out: Optional[np.ndarray], n_rows: int, n_cols: int) -> np.ndarray:

@@ -16,8 +16,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..data.utils import int16_exact
+
 __all__ = ["col_dtype_for", "worthwhile", "csr_row_triplets", "densify",
-           "column_ids"]
+           "column_ids", "make_densify", "int16_exact"]
 
 
 def col_dtype_for(n_cols: int):
@@ -106,3 +108,39 @@ def densify(vals: torch.Tensor, cols: torch.Tensor, rowlen: torch.Tensor,
     dense.index_put_((flat,), vals[lo:hi].to(dev, non_blocking=True)
                      .to(out_dtype), accumulate=True)
   return dense.view(n_rows, n_cols)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+  if isinstance(dtype, torch.dtype):
+    return dtype
+  if str(dtype) == "bfloat16":
+    return torch.bfloat16
+  return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+def _tensor(a) -> torch.Tensor:
+  if isinstance(a, torch.Tensor):
+    return a
+  a = np.ascontiguousarray(a)
+  # torch's uint16 supports few operations: columns travel as int16 bits
+  return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a)
+
+
+def make_densify(n_rows: int, n_cols: int, cap: int, out_dtype):
+  """The JAX package's CSR→dense for one (n_rows, n_cols) block of
+  ``out_dtype`` (a torch or numpy dtype, or 'bfloat16'): a callable
+  ``densify(vals, cols, rowlen)`` of padded triplets (``vals`` and
+  ``cols`` of length ``cap``; tensors, or numpy arrays as the JAX one
+  takes) over ``densify`` above, on the triplets' device."""
+  n_rows, n_cols, cap = int(n_rows), int(n_cols), int(cap)
+  dtype = _torch_dtype(out_dtype)
+
+  def block(vals, cols, rowlen) -> torch.Tensor:
+    vals, cols, rowlen = _tensor(vals), _tensor(cols), _tensor(rowlen)
+    if vals.shape != (cap,) or cols.shape != (cap,) \
+        or rowlen.shape != (n_rows,):
+      raise ValueError(f"triplets {tuple(vals.shape)}, {tuple(cols.shape)}, "
+                       f"{tuple(rowlen.shape)}: expected ({cap},), ({cap},),"
+                       f" ({n_rows},)")
+    return densify(vals, cols, rowlen, n_cols, dtype)
+  return block

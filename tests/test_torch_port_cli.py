@@ -346,6 +346,10 @@ class Block(importlib.abc.MetaPathFinder):
   def find_spec(self, name, path=None, target=None):
     if name.split(".")[0] in BLOCKED:
       raise ImportError(f"{name} is blocked")
+# torch's compiler front end probes for optional libraries by spec at its
+# import (the first optimizer imports it): made before the block, as the
+# card answers them (absent) and the block would raise instead
+import torch._dynamo
 sys.meta_path.insert(0, Block())
 import pkgutil, importlib, sisua_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(sisua_tpu_torch.__path__,
@@ -421,6 +425,12 @@ def refuse(*a, **k):
 tenx.download_file = refuse
 c = get_dataset("10k")
 assert a.md5 == b.md5 == c.md5 and c.get_dim(OMIC.proteomic) == 2
+# the tutorials: every module imported above; basics runs whole
+from sisua_tpu_torch.tutorials import TUTORIALS, basics
+for name in TUTORIALS + ("notebook",):
+  assert "sisua_tpu_torch.tutorials." + name in mods, name
+got = basics.main(device="cpu", out_dir=tempfile.mkdtemp(), depth=1)
+assert set(got) == {"vae", "sisua", "sheet", "sheet_figures"}, got
 assert not BLOCKED & {k.split(".")[0] for k in sys.modules}
 print(len(mods))
 """
@@ -428,11 +438,11 @@ print(len(mods))
 
 def test_port_imports_none_of_what_the_card_lacks():
   """Every module of the port (``cli``, the data analyzer, ``utils``, the
-  baselines and the loaders too) imports with jax, pandas, yaml, sklearn,
-  h5py, matplotlib, cryptography, scvi-tools, anndata, rpy2 and the JAX
-  package unimportable, and each analyzer method (t-SNE too), each
-  baseline and ``get_dataset`` on a 10x directory and on a registry name
-  from a placed raw tree run so."""
+  baselines, the loaders and the tutorials too) imports with jax, pandas,
+  yaml, sklearn, h5py, matplotlib, cryptography, scvi-tools, anndata,
+  rpy2 and the JAX package unimportable, and each analyzer method (t-SNE
+  too), each baseline, ``get_dataset`` on a 10x directory and on a
+  registry name from a placed raw tree, and the basics tutorial run so."""
   proc = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=REPO,
                         capture_output=True, text=True, timeout=300)
   assert proc.returncode == 0, proc.stderr

@@ -17,27 +17,42 @@ import pytest
 NOT_PORTED = {
     # flax's TrainState: the port keeps a module, an optimizer and a step
     "sisua_tpu.train": {"TrainState"},
+    "sisua_tpu.train.trainer": {"TrainState"},
     # Pallas on a TPU; the port's counterpart is ops.zinb.kernels_available
     "sisua_tpu.ops": {"pallas_available"},
+    "sisua_tpu.ops.zinb_pallas": {"pallas_available"},
     # the JAX profiler and XLA's compilation cache (the port profiles with
     # torch.profiler, ``profile_dir``)
     "sisua_tpu.utils": {"profile_trace", "enable_compilation_cache"},
+    "sisua_tpu.utils.others": {"profile_trace", "enable_compilation_cache"},
 }
 
-MODULES = ["sisua_tpu.models", "sisua_tpu.interpolation", "sisua_tpu.dist",
-           "sisua_tpu.train", "sisua_tpu.nn", "sisua_tpu.rv", "sisua_tpu.ops",
-           "sisua_tpu.data", "sisua_tpu.data.const", "sisua_tpu.data.utils",
-           "sisua_tpu.data.h5ad", "sisua_tpu.data.loaders",
-           "sisua_tpu.data.loaders.tenx", "sisua_tpu.data.sisua_to_scvi",
-           "sisua_tpu.train.ensemble",
-           "sisua_tpu.models.hyper_params", "sisua_tpu.analysis",
-           "sisua_tpu.train.experimenter", "sisua_tpu.train.scoreboard",
-           "sisua_tpu.data.synthetic", "sisua_tpu.label_threshold",
-           "sisua_tpu.utils", "sisua_tpu.baselines",
-           "sisua_tpu.analysis.imputation", "sisua_tpu.analysis.latent",
-           "sisua_tpu.analysis.sc_monitor", "sisua_tpu.cross_analyze",
-           "sisua_tpu.utils.visualization", "sisua_tpu.utils.plot_utils",
-           "sisua_tpu.parallel", "sisua_tpu.parallel.mesh"]
+# JAX modules whose port counterpart has another name, each with its reason
+RENAMED = {
+    # the Pallas kernels; the port's are CUDA behind ``ops/zinb.py``
+    "sisua_tpu.ops.zinb_pallas": "sisua_tpu_torch.ops.zinb",
+}
+
+# what the walk finds that is not a Python module, each with its reason
+NOT_MODULES = {
+    # the g++ library that ``sisua_tpu.native.get_lib`` builds beside its
+    # source (a ctypes library, found by the walk only once built; the
+    # port's builds into ``build/kernels/``)
+    "sisua_tpu.native._native",
+}
+
+
+def _walk():
+  """Every module of the JAX package, found by walking it."""
+  import pkgutil
+
+  import sisua_tpu
+  return sorted(m.name for m in pkgutil.walk_packages(
+      sisua_tpu.__path__, "sisua_tpu.") if m.name not in NOT_MODULES)
+
+
+MODULES = _walk()
+
 
 # argument names of the JAX signatures that the port's do not take, each
 # with its reason, and where (None: anywhere; else the callables whose
@@ -80,16 +95,29 @@ _JAX_ONLY_METHODS = {"setup", "make_train_step", "make_eval_step",
 
 
 def _port_name(module):
-  return module.replace("sisua_tpu", "sisua_tpu_torch", 1)
+  return RENAMED.get(module, module.replace("sisua_tpu", "sisua_tpu_torch",
+                                            1))
+
+
+def _public(module):
+  """The module's ``__all__``; without one (the CLIs), the public
+  functions and classes it defines itself."""
+  if hasattr(module, "__all__"):
+    return list(module.__all__)
+  return [n for n, v in vars(module).items()
+          if not n.startswith("_") and callable(v)
+          and getattr(v, "__module__", None) == module.__name__]
 
 
 @pytest.mark.parametrize("module", MODULES)
 def test_port_exports_the_jax_names(module):
-  want = set(importlib.import_module(module).__all__)
-  want -= NOT_PORTED.get(module, set())
+  jm = importlib.import_module(module)
+  want = set(_public(jm)) - NOT_PORTED.get(module, set())
   port = importlib.import_module(_port_name(module))
   missing = sorted(n for n in want if not hasattr(port, n))
   assert not missing, f"{_port_name(module)} lacks {missing}"
+  if not hasattr(jm, "__all__"):
+    return
   unlisted = sorted(n for n in want if n not in port.__all__)
   assert not unlisted, f"{_port_name(module)}.__all__ lacks {unlisted}"
 
@@ -146,7 +174,7 @@ def test_port_takes_the_jax_methods_and_arguments(module):
   pm = importlib.import_module(_port_name(module))
   skip = NOT_PORTED.get(module, set())
   faults = []
-  for n in jm.__all__:
+  for n in _public(jm):
     jo, po = getattr(jm, n, None), getattr(pm, n, None)
     if n in skip or jo is None or po is None:
       continue
